@@ -19,7 +19,18 @@ then:
      backward must invert;
   3. chain kernel vs its plain version on the same Philox bits;
   4. throughput of the chain kernel at 8192 chains x 500 MH steps;
-  5. kernel times, plain times and bounds.
+  5. training: (a) the backward-trajectory kernel vs its plain version
+     (SCG at 2048 and 200 chains, the 50-d ill-conditioned Gaussian with
+     eps_dim and input_scale, HMC mode; both directions; per leaf within
+     1e-4 of the leaf's largest entry); (b) 20 training steps at 1024
+     chains with fused_train=True vs False on one seed, loss histories
+     within rtol 2e-3, atol 1e-2; (c) the training path: ``train`` with
+     fused_train=True, 1024 chains, TRAIN_STEPS steps, then the 2000-step
+     traced eval of the trained sampler and of HMC at eps 0.15 through the
+     chain kernel; the ESS ratio must exceed 1.2, the final loss be finite
+     and the final acceptance lie in (0.1, 1). Launch counts are reset
+     before (c) and read after it;
+  6. kernel times, plain times and bounds.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -40,6 +51,9 @@ PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 TRAJ_TOL = 5e-4  # bench.py's compiled-parity gate
 ESS_GAP = 0.30  # bench.py's fused-trace vs non-kernel ESS tolerance
+BWD_TOL = 1e-4  # per leaf, of the leaf's largest entry: sums over chains in another order
+TRAIN_STEPS = 5000  # the notebook's training length (SCGExperiment.ipynb cell 12)
+MIN_ESS_RATIO = 1.2  # the JAX package's short-run bar (tests/test_train_scg.py)
 
 
 def _nvidia_smi() -> str:
@@ -91,6 +105,15 @@ def traj_bound(D, H, H2, T, N, hmc, block_floats):
     return _bound(ops, nbytes)
 
 
+def traj_bwd_bound(D, H, H2, T, N, hmc, block_floats, n_grads):
+    """The VJP of a trajectory: about three forward trajectories of
+    operations (forward, and backward through each matrix product twice),
+    plus the sum of n_grads cotangents over the N chains."""
+    ops = 3 * N * T * _substep_ops(D, H, H2, hmc) + n_grads * N
+    nbytes = 4 * (4 * D * N + N + block_floats + 2 * D * N + n_grads)
+    return _bound(ops, nbytes)
+
+
 def chain_bound(D, H, H2, T, N, K, hmc, block_floats, trace: bool):
     philox = (1 + (D + 1) // 2) * 10 * 8  # calls x rounds x integer ops
     per_step = (T * _substep_ops(D, H, H2, hmc) + 2 * _energy_ops(D) + 4 * D
@@ -108,6 +131,7 @@ def _bound(ops, nbytes):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -118,8 +142,9 @@ def main() -> int:
         from l2hmc_tpu_torch.ops import _cuda
         from l2hmc_tpu_torch.ops import fused_dynamics as fd
         from l2hmc_tpu_torch.train import (
-            ScgConfig, build_dynamics, evaluate_ess, sample_chain,
+            ScgConfig, build_dynamics, evaluate_ess, sample_chain, train,
         )
+        from l2hmc_tpu_torch.train.optim import tree_leaves
         from l2hmc_tpu_torch.utils import Throughput
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
@@ -225,6 +250,7 @@ def main() -> int:
         _require(launches[name] > 0, f"kernel {name} not launched on the main path")
 
     # -- 2. trajectory kernel vs plain ----------------------------------------------
+    t_phase = time.perf_counter()
     icg = targets.ill_conditioned_gaussian(50)
     icg_cfg = ScgConfig(dim=50, eps_dim=True, net_input_whiten=True)
     icg_dyn, _ = build_dynamics(icg_cfg, icg)
@@ -256,7 +282,8 @@ def main() -> int:
         _require(max(errs.values()) < TRAJ_TOL, f"trajectory {name}: {errs}")
         _require(inv < 1e-3 and inv_ld < 1e-3, f"trajectory {name} does not invert: {inv}, {inv_ld}")
     report["trajectory_vs_plain"] = traj
-    print("# trajectory kernel vs plain: " + json.dumps(traj), flush=True)
+    print(f"# trajectory kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(traj), flush=True)
 
     inp_scg = fd.prepare(dyn, fd.energy_spec_for_target(target), scg_params, dev)
     xs = target.sample(gen(31), 2048, device=dev).T.contiguous()
@@ -273,6 +300,7 @@ def main() -> int:
     # 20480 decisions: at most 5 flips are allowed. On chains with no flip the
     # states may differ by the per-trajectory tolerance compounded over 20
     # trajectories: 20 x 5e-4 = 1e-2.
+    t_phase = time.perf_counter()
     chain_cmp = {}
     for name, d_, p_ in (("l2hmc", dyn, scg_params), ("hmc", hmc_dyn, hmc_params)):
         inp = fd.prepare(d_, fd.energy_spec_for_target(target), p_, dev)
@@ -291,19 +319,25 @@ def main() -> int:
                            "accept": float(dec_k.float().mean())}
         _require(int(flipped.sum()) <= 5 and dx < 1e-2, f"chain {name}: {chain_cmp[name]}")
     report["chain_vs_plain"] = chain_cmp
-    print("# chain kernel vs plain: " + json.dumps(chain_cmp), flush=True)
 
+    # The plain chain is a yardstick of correctness, not of speed, and takes
+    # tens of ms per MH step: it is timed over 100 MH steps, not 2000.
     inp_eval = fd.prepare(dyn, fd.energy_spec_for_target(target), params, dev)
     x0t = x0.T.contiguous()
     chain_ms = cuda_time(lambda: fd.chain(inp_eval, x0t, 2, eval_steps, True), 3)
+    plain_steps = 100
+    chain_k100_ms = cuda_time(lambda: fd.chain(inp_eval, x0t, 2, plain_steps, True), 3)
     t = time.perf_counter()
-    fd.chain_plain(inp_eval, x0t, 2, eval_steps, collect_trace=True)
+    fd.chain_plain(inp_eval, x0t, 2, plain_steps, collect_trace=True)
     torch.cuda.synchronize()
     chain_plain_ms = 1e3 * (time.perf_counter() - t)
     chain_bound_ms, chain_bound_by = chain_bound(
         D, H, H2, T, cfg.n_chains, eval_steps, False, inp_eval.block().numel(), True)
+    print(f"# chain kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(chain_cmp), flush=True)
 
     # -- 4. throughput at 8192 chains ----------------------------------------------
+    t_phase = time.perf_counter()
     n_tp, k_tp = 8192, 500
     xt = target.sample(gen(51), n_tp, device=dev)
     sampler.run(params, xt, seed=1, n_mh_steps=10)  # warm-up
@@ -316,9 +350,106 @@ def main() -> int:
         "mh_steps_per_s": tp.steps_per_sec,
         "chain_leapfrog_steps_per_s": tp.leapfrogs_per_sec,
     }
-    print("# throughput: " + json.dumps(report["throughput"]), flush=True)
+    print(f"# throughput ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(report["throughput"]), flush=True)
 
-    # -- 5. the kernels line -------------------------------------------------------
+    # -- 5. training -----------------------------------------------------------------
+    # (a) backward-trajectory kernel vs its plain version, on phase 2's cases
+    t_phase = time.perf_counter()
+    bwd = {}
+    for name, d_, tg, p_, n in cases:
+        inp = fd.prepare(d_, fd.energy_spec_for_target(tg), p_, dev)
+        g = gen(61)
+        x = tg.sample(gen(21), n, device=dev).T.contiguous()
+        v, dX, dV = (torch.randn(x.shape, generator=g).to(dev) for _ in range(3))
+        dld = torch.randn((1, n), generator=g).to(dev)
+        case = {}
+        for reverse in (False, True):
+            got = tree_leaves(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse))
+            ref = tree_leaves(fd.trajectory_vjp_plain(inp, x, v, dX, dV, dld, reverse))
+            abs_err = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+            scale = [float(b.abs().max()) for b in ref]
+            rel = max(e / s if s > 0 else (0.0 if e == 0 else float("inf"))
+                      for e, s in zip(abs_err, scale))
+            case["backward" if reverse else "forward"] = {"max_abs_err": max(abs_err),
+                                                          "max_rel_err": rel}
+            _require(rel <= BWD_TOL, f"trajectory_bwd {name} reverse={reverse}: rel err {rel}")
+        bwd[name] = case
+    report["trajectory_bwd_vs_plain"] = bwd
+    print(f"# backward kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(bwd), flush=True)
+
+    n_tr = 1024  # the training batch
+    xb = target.sample(gen(71), n_tr, device=dev).T.contiguous()
+    vb, dXb, dVb = (torch.randn(xb.shape, generator=gen(72 + i)).to(dev) for i in range(3))
+    dldb = torch.ones((1, n_tr), device=dev)
+    traj_1024_ms = cuda_time(lambda: fd.trajectory(inp_scg, xb, vb, False), 50)
+    bwd_ms = cuda_time(lambda: fd.trajectory_vjp(inp_scg, xb, vb, dXb, dVb, dldb, False), 20)
+    bwd_plain_ms = cuda_time(
+        lambda: fd.trajectory_vjp_plain(inp_scg, xb, vb, dXb, dVb, dldb, False), 3)
+    n_grads = sum(w.numel() for w in [*inp_scg.xnet_w, *inp_scg.vnet_w]) + D
+    bwd_bound_ms, bwd_bound_by = traj_bwd_bound(
+        D, H, H2, T, n_tr, False, inp_scg.block().numel(), n_grads)
+
+    # (b) fused vs plain training on one seed
+    t_phase = time.perf_counter()
+    hists, step_ms = {}, {}
+    for fused in (True, False):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, hists[fused] = train(ScgConfig(n_chains=n_tr, n_steps=20, seed=0, fused_train=fused))
+        torch.cuda.synchronize()
+        step_ms[fused] = 1e3 * (time.perf_counter() - t) / 20
+    loss_gap = float(np.max(np.abs(hists[True]["loss"] - hists[False]["loss"])
+                            / (1e-2 + 2e-3 * np.abs(hists[False]["loss"]))))
+    report["train_fused_vs_plain"] = {
+        "steps": 20, "n_chains": n_tr, "loss_fused": hists[True]["loss"].tolist(),
+        "loss_plain": hists[False]["loss"].tolist(),
+        "max_gap_over_tolerance": loss_gap,
+        "ms_per_step_fused": step_ms[True], "ms_per_step_plain": step_ms[False],
+    }
+    print(f"# fused vs plain training ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(report["train_fused_vs_plain"]), flush=True)
+    _require(loss_gap <= 1.0, f"fused and plain loss histories differ: {loss_gap} x tolerance")
+
+    # (c) the training path: train, then evaluate through the chain kernel
+    fd.reset_launch_counts()
+    t_phase = time.perf_counter()
+    state, hist = train(ScgConfig(n_chains=n_tr, n_steps=TRAIN_STEPS, seed=0, fused_train=True))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t_phase
+    _, acc_tr, trace_tr = sampler.run(state.params, x0, seed=cfg.seed + 2,
+                                      n_mh_steps=eval_steps, collect_trace=True)
+    _, _, trace_h = hmc_sampler.run(hmc_params, x0, seed=cfg.seed + 3,
+                                    n_mh_steps=eval_steps, collect_trace=True)
+    train_launches = dict(fd.LAUNCHES)
+    ess_tr = evaluate_ess(trace_tr, target.sigma)
+    ess_h = evaluate_ess(trace_h, target.sigma)
+    final_loss = float(hist["loss"][-1])
+    final_accept = float(np.mean(hist["p_accept"][-100:]))
+    report["training"] = {
+        "n_chains": n_tr, "steps": TRAIN_STEPS, "train_s": train_s,
+        "ms_per_step": 1e3 * train_s / TRAIN_STEPS,
+        "trajectory_ms": traj_1024_ms, "trajectory_bwd_ms": bwd_ms,
+        "kernel_ms_per_step": 4 * (traj_1024_ms + bwd_ms),
+        "final_loss": final_loss, "final_accept": final_accept,
+        "final_eps": float(hist["eps"][-1]),
+        "eval_steps": eval_steps, "ess_trained": ess_tr, "ess_hmc": ess_h,
+        "ess_ratio": ess_tr / max(ess_h, 1e-12),
+        "eval_accept": float(acc_tr.mean()), "launches": train_launches,
+        "wall_s": time.perf_counter() - t_phase,
+    }
+    print(f"# training path ({report['training']['wall_s']:.1f} s): "
+          + json.dumps(report["training"]), flush=True)
+    _require(bool(np.isfinite(hist["loss"]).all()), "non-finite training loss")
+    _require(0.1 < final_accept < 1.0, f"final acceptance {final_accept}")
+    _require(bool(torch.isfinite(trace_tr).all()), "non-finite trace of the trained sampler")
+    _require(report["training"]["ess_ratio"] > MIN_ESS_RATIO,
+             f"trained ESS ratio {report['training']['ess_ratio']} <= {MIN_ESS_RATIO}")
+    for name in ("trajectory", "trajectory_bwd", "chain"):
+        _require(train_launches[name] > 0, f"kernel {name} not launched on the training path")
+
+    # -- 6. the kernels line -------------------------------------------------------
     src = "l2hmc_tpu_torch/csrc/"
     kernels = [
         {"name": "trajectory", "route": "cuda", "source": src + "trajectory.cu",
@@ -334,7 +465,16 @@ def main() -> int:
          "max_abs_err": max(c["max_abs_dx_unflipped"] for c in chain_cmp.values()),
          "ms": chain_ms, "plain_ms": chain_plain_ms, "bound_ms": chain_bound_ms,
          "bound_by": chain_bound_by, "library_ms": None,
-         "shape": "SCG D=2 H=10 T=10, 1024 chains x 2000 MH steps, traced"},
+         "shape": (f"SCG D=2 H=10 T=10, 1024 chains x 2000 MH steps, traced; plain_ms "
+                   f"over {plain_steps} MH steps (kernel over {plain_steps}: "
+                   f"{chain_k100_ms:.4f} ms)")},
+        {"name": "trajectory_bwd", "route": "cuda", "source": src + "trajectory_bwd.cu",
+         "replaces": "l2hmc_tpu/ops/fused_dynamics.py:801",
+         "launches": train_launches["trajectory_bwd"],
+         "max_abs_err": max(d["max_abs_err"] for c in bwd.values() for d in c.values()),
+         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
+         "bound_by": bwd_bound_by, "library_ms": None,
+         "shape": f"SCG D=2 H=10 T=10, {n_tr} chains, one direction (the training batch)"},
     ]
     report["kernels"] = kernels
     print("# report: " + json.dumps(report))

@@ -1,5 +1,16 @@
-"""MH sampling (counterpart of ``l2hmc_tpu/mcmc``; the sampler only so far)."""
+"""MH sampling and the training losses (counterpart of ``l2hmc_tpu/mcmc``;
+``chain_operator`` and tempering are not ported yet)."""
 
+from l2hmc_tpu_torch.mcmc.losses import (
+    get_loss,
+    loss_inverse,
+    loss_logsumexp,
+    loss_mixed,
+    loss_mixed_per_dim,
+    loss_std,
+    loss_vec,
+    scg_joint_loss,
+)
 from l2hmc_tpu_torch.mcmc.sampler import (
     ProposeOut,
     metropolis,
@@ -7,4 +18,17 @@ from l2hmc_tpu_torch.mcmc.sampler import (
     propose,
 )
 
-__all__ = ["ProposeOut", "metropolis", "metropolis_mask", "propose"]
+__all__ = [
+    "ProposeOut",
+    "get_loss",
+    "loss_inverse",
+    "loss_logsumexp",
+    "loss_mixed",
+    "loss_mixed_per_dim",
+    "loss_std",
+    "loss_vec",
+    "metropolis",
+    "metropolis_mask",
+    "propose",
+    "scg_joint_loss",
+]

@@ -36,7 +36,9 @@ def _uniform(generator: torch.Generator, shape, like: torch.Tensor) -> torch.Ten
                       device=generator.device).to(like.device)
 
 
-def _normal(generator: torch.Generator, like: torch.Tensor) -> torch.Tensor:
+def normal_like(generator: torch.Generator, like: torch.Tensor) -> torch.Tensor:
+    """Standard normals of ``like``'s shape, dtype and device, drawn on the
+    generator's device."""
     return torch.randn(like.shape, generator=generator, dtype=like.dtype,
                        device=generator.device).to(like.device)
 
@@ -73,7 +75,7 @@ def propose(
     ``accept_u`` or a draw. The draws are made in the order momentum,
     direction, accept.
     """
-    v = _normal(generator, x) if init_v is None else init_v
+    v = normal_like(generator, x) if init_v is None else init_v
 
     if dynamics.hmc:
         xf, vf, ljf = dynamics.forward(params, x, v)

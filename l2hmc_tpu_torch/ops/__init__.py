@@ -2,9 +2,11 @@
 
 from l2hmc_tpu_torch.ops.fused_dynamics import (
     LAUNCHES,
+    DifferentiableFusedDynamics,
     FusedChainSampler,
     FusedDynamics,
     QuadraticGaussianEnergy,
+    differentiable_fused,
     energy_spec_for_target,
     fused_chain_sampler,
     fused_for_target,
@@ -13,9 +15,11 @@ from l2hmc_tpu_torch.ops.fused_dynamics import (
 
 __all__ = [
     "LAUNCHES",
+    "DifferentiableFusedDynamics",
     "FusedChainSampler",
     "FusedDynamics",
     "QuadraticGaussianEnergy",
+    "differentiable_fused",
     "energy_spec_for_target",
     "fused_chain_sampler",
     "fused_for_target",

@@ -31,6 +31,10 @@ SIGNATURES = {
     "trajectory": {
         "l2hmc_trajectory": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     },
+    "trajectory_bwd": {
+        "l2hmc_trajectory_bwd": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _I, _P],
+    },
     "chain": {
         "l2hmc_chain": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _U64, _P],
     },
@@ -90,7 +94,7 @@ def _build_all(out_dir: Path) -> None:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` ("trajectory" or "chain"), building all
+    """The loaded library ``name`` (a key of ``SIGNATURES``), building all
     sources first if this source hash has no build yet."""
     with _lock:
         lib = _libs.get(name)

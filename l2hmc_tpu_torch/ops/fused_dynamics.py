@@ -1,18 +1,25 @@
 """Fused L2HMC trajectory and whole-chain sampler: CUDA kernels for Hopper
 (counterpart of ``l2hmc_tpu/ops/fused_dynamics.py``).
 
-Two kernels, both in ``csrc/`` (see the notes at the top of each source):
+Three kernels, all in ``csrc/`` (see the notes at the top of each source):
   - ``trajectory`` (``csrc/trajectory.cu``) replaces the Pallas
     ``_make_kernel`` / ``FusedDynamics``: one T-step trajectory, forward or
     reverse. Public class ``FusedDynamics``.
+  - ``trajectory_bwd`` (``csrc/trajectory_bwd.cu``) replaces
+    ``_make_bwd_kernel``: the trajectory's vector-Jacobian product, with the
+    weight and eps cotangents summed over chains. Public class
+    ``DifferentiableFusedDynamics``, the training path, whose
+    ``torch.autograd.Function`` launches ``trajectory`` forward and
+    ``trajectory_bwd`` backward.
   - ``chain`` (``csrc/chain.cu``) replaces ``_make_chain_kernel`` /
     ``FusedChainSampler``: K whole MH steps per launch, optionally with the
     (K, N, D) trace. Public class ``FusedChainSampler``.
 
 Beside each kernel is its plain PyTorch version (``trajectory_plain``,
-``chain_plain``) on the same host-prepared arrays. A wrapper takes the plain
-version only for a CPU tensor; for a CUDA tensor it launches the kernel or
-raises. Each launch adds one to ``LAUNCHES[name]``.
+``trajectory_vjp_plain``, ``chain_plain``) on the same host-prepared arrays.
+A wrapper takes the plain version only for a CPU tensor; for a CUDA tensor
+it launches the kernel or raises. Each launch adds one to
+``LAUNCHES[name]``.
 
 Host prep mirrors the JAX package: ``_extract_net`` flattens a ``stq_net``
 params tree into 13 arrays and folds the time embedding into an (H, T)
@@ -40,7 +47,7 @@ from l2hmc_tpu_torch.ops.philox import chain_draws
 _NET_ARRAYS = 13
 
 # kernel launches per kernel since the last reset_launch_counts()
-LAUNCHES = {"trajectory": 0, "chain": 0}
+LAUNCHES = {"trajectory": 0, "trajectory_bwd": 0, "chain": 0}
 
 # compile-time caps of the kernels' instantiations (csrc/l2hmc_common.cuh)
 _MAX_DIM, _MAX_HIDDEN = 64, 64
@@ -155,6 +162,16 @@ class QuadraticGaussianEnergy:
 
         return energy, grad_energy
 
+    @staticmethod
+    def build_grad_vjp(vals):
+        """VJP of ``grad_energy``: (x, d) -> P^T d, the cotangent of x."""
+        prec, _ = vals
+
+        def grad_vjp(x, d):
+            return prec.T @ d
+
+        return grad_vjp
+
 
 def energy_spec_for_target(target):
     """Map a target to its in-kernel energy spec. Only the Gaussian family is
@@ -184,6 +201,7 @@ class KernelInputs:
     hmc: bool
     energy: Callable
     grad_energy: Callable
+    grad_vjp: Callable  # (x, d) -> the cotangent of x through grad_energy
 
     @property
     def dims(self) -> tuple[int, int, int, int]:
@@ -198,21 +216,30 @@ class KernelInputs:
         return torch.cat([p.reshape(-1) for p in parts]).contiguous()
 
 
-def prepare(dyn: Dynamics, spec, params, device) -> KernelInputs:
-    """Host prep shared by both kernels and their plain versions."""
+def prepare(dyn: Dynamics, spec, params, device, *, differentiable: bool = False) -> KernelInputs:
+    """Host prep shared by the kernels and their plain versions. The weights
+    and eps are detached unless ``differentiable``, where they keep their
+    autograd history back to ``params`` (through ``_extract_net``'s folds
+    and ``eps = exp(alpha)``) for the training path."""
     device = torch.device(device)
     xnet_w, vnet_w = _kernel_nets(dyn, params, device)
+    eps = _eps_col(dyn.eps(params), dyn.dim).to(device)
+    if not differentiable:
+        eps = eps.detach()
+        xnet_w = [w.detach() for w in xnet_w]
+        vnet_w = [w.detach() for w in vnet_w]
     consts = spec.consts(device)
     energy, grad_energy = spec.build(consts)
     return KernelInputs(
-        eps=_eps_col(dyn.eps(params).detach(), dyn.dim).to(device),
+        eps=eps,
         masks=torch.as_tensor(dyn.masks.T.copy(), dtype=torch.float32, device=device),
         consts=consts,
-        xnet_w=[w.detach() for w in xnet_w],
-        vnet_w=[w.detach() for w in vnet_w],
+        xnet_w=xnet_w,
+        vnet_w=vnet_w,
         hmc=dyn.hmc,
         energy=energy,
         grad_energy=grad_energy,
+        grad_vjp=spec.build_grad_vjp(consts),
     )
 
 
@@ -319,6 +346,190 @@ def trajectory_plain(inp: KernelInputs, x, v, reverse: bool):
     return x, v, ld
 
 
+def _stq_vjp(w: list, a, b, step: int, ds, dt, dq, gw: list):
+    """VJP of ``_apply_stq`` at inputs (a, b) for output cotangents
+    (ds, dt, dq): adds the 13 weight cotangents (summed over chains) into
+    ``gw`` and returns (da, db). Recomputes the net's activations;
+    relu'(0) = 0."""
+    w1, w2, wh, bh, ws, bs, ls, wt, bt, wq, bq, lq, te = w
+    z1 = w1.T @ a + w2.T @ b + te[:, step : step + 1]
+    h = torch.relu(z1)
+    z2 = wh.T @ h + bh
+    h2 = torch.relu(z2)
+    ts = torch.tanh(ws.T @ h2 + bs)
+    tq = torch.tanh(wq.T @ h2 + bq)
+    ds_ = ds * torch.exp(ls)
+    dq_ = dq * torch.exp(lq)
+    dus = ds_ * (1.0 - ts * ts)
+    duq = dq_ * (1.0 - tq * tq)
+    dz2 = (ws @ dus + wt @ dt + wq @ duq) * (z2 > 0)
+    dz1 = (wh @ dz2) * (z1 > 0)
+    for i, g in enumerate((
+        a @ dz1.T, b @ dz1.T,
+        h @ dz2.T, dz2.sum(1, keepdim=True),
+        h2 @ dus.T, dus.sum(1, keepdim=True), (ds_ * ts).sum(1, keepdim=True),
+        h2 @ dt.T, dt.sum(1, keepdim=True),
+        h2 @ duq.T, duq.sum(1, keepdim=True), (dq_ * tq).sum(1, keepdim=True),
+    )):
+        gw[i] += g
+    gw[12][:, step] += dz1.sum(1)
+    return w1 @ dz1, w2 @ dz1
+
+
+def _step_vjp(inp: KernelInputs, reverse: bool, step: int, x, v, dxo, dvo, dld, gx, gv):
+    """VJP of ``_trajectory_step`` at (x, v) for the cotangents (dxo, dvo,
+    dld) of (x', v', logdet increment), derived by hand: a recompute of the
+    substep, then its four S/T/Q applications and two energy gradients in
+    reverse order. Adds the nets' weight cotangents into ``gx`` (xnet) and
+    ``gv`` (vnet); returns (dx, dv, deps (D, N) per chain)."""
+    m = inp.masks[:, step : step + 1]
+    mb = 1.0 - m
+    e, ge, gvjp, hmc = inp.eps, inp.grad_energy, inp.grad_vjp, inp.hmc
+
+    def stq(w, a, b):
+        return _apply_stq(w, a, b, step, hmc)
+
+    def stq_vjp(w, a, b, ds, dt, dq, gw):
+        if hmc:
+            return 0.0, 0.0
+        return _stq_vjp(w, a, b, step, ds, dt, dq, gw)
+
+    half = 0.5 * e
+    if not reverse:
+        g1 = ge(x)
+        s1, t1, q1 = stq(inp.vnet_w, x, g1)
+        E1, Q1 = torch.exp(half * s1), torch.exp(e * q1)
+        vh = v * E1 + half * (-Q1 * g1 + t1)
+        in2 = m * x
+        s2, t2, q2 = stq(inp.xnet_w, vh, in2)
+        E2, Q2 = torch.exp(e * s2), torch.exp(e * q2)
+        y = m * x + mb * (x * E2 + e * (Q2 * vh + t2))
+        in3 = mb * y
+        s3, t3, q3 = stq(inp.xnet_w, vh, in3)
+        E3, Q3 = torch.exp(e * s3), torch.exp(e * q3)
+        xo = mb * y + m * (y * E3 + e * (Q3 * vh + t3))
+        g2 = ge(xo)
+        s4, t4, q4 = stq(inp.vnet_w, xo, g2)
+        E4, Q4 = torch.exp(half * s4), torch.exp(e * q4)
+
+        # v' = vh E4 + e/2 (-Q4 g2 + t4)
+        dvh = dvo * E4
+        dsv = dvo * vh * E4 + dld
+        dQ = -dvo * half * g2
+        de = 0.5 * dvo * (-Q4 * g2 + t4) + dQ * Q4 * q4 + 0.5 * dsv * s4
+        da, db = stq_vjp(inp.vnet_w, xo, g2, dsv * half, dvo * half, dQ * Q4 * e, gv)
+        dxo = dxo + da + gvjp(xo, -dvo * half * Q4 + db)
+        # x' = mb y + m (y E3 + e (Q3 vh + t3))
+        dy = dxo * (mb + m * E3)
+        dsx = dxo * m * y * E3 + dld * m
+        dt = dxo * m * e
+        dQ = dt * vh
+        dvh = dvh + dt * Q3
+        de = de + dxo * m * (Q3 * vh + t3) + dQ * Q3 * q3 + dsx * s3
+        da, db = stq_vjp(inp.xnet_w, vh, in3, dsx * e, dt, dQ * Q3 * e, gx)
+        dvh = dvh + da
+        dy = dy + db * mb
+        # y = m x + mb (x E2 + e (Q2 vh + t2))
+        dx = dy * (m + mb * E2)
+        dsx = dy * mb * x * E2 + dld * mb
+        dt = dy * mb * e
+        dQ = dt * vh
+        dvh = dvh + dt * Q2
+        de = de + dy * mb * (Q2 * vh + t2) + dQ * Q2 * q2 + dsx * s2
+        da, db = stq_vjp(inp.xnet_w, vh, in2, dsx * e, dt, dQ * Q2 * e, gx)
+        dvh = dvh + da
+        dx = dx + db * m
+        # vh = v E1 + e/2 (-Q1 g1 + t1)
+        dv = dvh * E1
+        dsv = dvh * v * E1 + dld
+        dQ = -dvh * half * g1
+        de = de + 0.5 * dvh * (-Q1 * g1 + t1) + dQ * Q1 * q1 + 0.5 * dsv * s1
+        da, db = stq_vjp(inp.vnet_w, x, g1, dsv * half, dvh * half, dQ * Q1 * e, gv)
+        dx = dx + da + gvjp(x, -dvh * half * Q1 + db)
+    else:
+        g1 = ge(x)
+        s1, t1, q1 = stq(inp.vnet_w, x, g1)
+        E1, Q1 = torch.exp(-half * s1), torch.exp(e * q1)
+        A1 = v - half * (-Q1 * g1 + t1)
+        vh = A1 * E1
+        in2 = mb * x
+        s2, t2, q2 = stq(inp.xnet_w, vh, in2)
+        E2, Q2 = torch.exp(-e * s2), torch.exp(e * q2)
+        B2 = x - e * (Q2 * vh + t2)
+        y = mb * x + m * E2 * B2
+        in3 = m * y
+        s3, t3, q3 = stq(inp.xnet_w, vh, in3)
+        E3, Q3 = torch.exp(-e * s3), torch.exp(e * q3)
+        B3 = y - e * (Q3 * vh + t3)
+        xo = m * y + mb * E3 * B3
+        g2 = ge(xo)
+        s4, t4, q4 = stq(inp.vnet_w, xo, g2)
+        E4, Q4 = torch.exp(-half * s4), torch.exp(e * q4)
+        A4 = vh - half * (-Q4 * g2 + t4)
+
+        # v' = E4 (vh - e/2 (-Q4 g2 + t4))
+        dvh = dvo * E4
+        dsv = dvo * A4 * E4 + dld
+        dQ = dvh * half * g2
+        de = 0.5 * dvh * (Q4 * g2 - t4) + dQ * Q4 * q4 - 0.5 * dsv * s4
+        da, db = stq_vjp(inp.vnet_w, xo, g2, -half * dsv, -dvh * half, dQ * Q4 * e, gv)
+        dxo = dxo + da + gvjp(xo, dvh * half * Q4 + db)
+        # x' = m y + mb E3 (y - e (Q3 vh + t3))
+        dB = dxo * mb * E3
+        dy = dxo * m + dB
+        dsx = dB * B3 + dld * mb
+        dt = -dB * e
+        dQ = dt * vh
+        dvh = dvh + dt * Q3
+        de = de - dB * (Q3 * vh + t3) + dQ * Q3 * q3 - dsx * s3
+        da, db = stq_vjp(inp.xnet_w, vh, in3, -e * dsx, dt, dQ * Q3 * e, gx)
+        dvh = dvh + da
+        dy = dy + db * m
+        # y = mb x + m E2 (x - e (Q2 vh + t2))
+        dB = dy * m * E2
+        dx = dy * mb + dB
+        dsx = dB * B2 + dld * m
+        dt = -dB * e
+        dQ = dt * vh
+        dvh = dvh + dt * Q2
+        de = de - dB * (Q2 * vh + t2) + dQ * Q2 * q2 - dsx * s2
+        da, db = stq_vjp(inp.xnet_w, vh, in2, -e * dsx, dt, dQ * Q2 * e, gx)
+        dvh = dvh + da
+        dx = dx + db * mb
+        # vh = (v - e/2 (-Q1 g1 + t1)) E1
+        dv = dvh * E1
+        dsv = dvh * A1 * E1 + dld
+        dQ = dv * half * g1
+        de = de + 0.5 * dv * (Q1 * g1 - t1) + dQ * Q1 * q1 - 0.5 * dsv * s1
+        da, db = stq_vjp(inp.vnet_w, x, g1, -half * dsv, -dv * half, dQ * Q1 * e, gv)
+        dx = dx + da + gvjp(x, dv * half * Q1 + db)
+    return dx, dv, de
+
+
+def trajectory_vjp_plain(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
+    """Plain version of the backward kernel: the VJP of ``trajectory_plain``
+    at (x, v) for the cotangents dX, dV (D, N) and dld (1, N). A recompute
+    forward stores the per-step boundary (x, v); a reverse sweep applies
+    ``_step_vjp`` step by step. Returns (xnet grads (13), vnet grads (13),
+    deps (D, 1), dx (D, N), dv (D, N)), the weight and eps cotangents summed
+    over chains (zeros for the nets in HMC mode)."""
+    T = inp.dims[3]
+    steps = list(range(T - 1, -1, -1) if reverse else range(T))
+    xs, vs = [x], [v]
+    for step in steps:
+        x, v, _ = _trajectory_step(inp, reverse, step, x, v)
+        xs.append(x)
+        vs.append(v)
+    gx = [torch.zeros_like(w) for w in inp.xnet_w]
+    gv = [torch.zeros_like(w) for w in inp.vnet_w]
+    de = torch.zeros_like(dX)
+    dx, dv = dX, dV
+    for i in range(T - 1, -1, -1):
+        dx, dv, de_i = _step_vjp(inp, reverse, steps[i], xs[i], vs[i], dx, dv, dld, gx, gv)
+        de = de + de_i
+    return gx, gv, de.sum(1, keepdim=True), dx, dv
+
+
 def chain_plain(
     inp: KernelInputs, x, seed: int, n_mh_steps: int,
     collect_trace: bool = False, draws: Optional[Callable] = None,
@@ -386,6 +597,42 @@ def trajectory(inp: KernelInputs, x, v, reverse: bool):
     _cuda.check(err, "trajectory")
     LAUNCHES["trajectory"] += 1
     return xo, vo, ld
+
+
+def trajectory_vjp(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
+    """VJP of the fused trajectory at (D, N) float32 (x, v) for the
+    cotangents dX, dV (D, N) and dld (1, N); returns what
+    ``trajectory_vjp_plain`` returns. CPU tensors take the plain version;
+    CUDA tensors launch ``csrc/trajectory_bwd.cu`` (a per-chain sweep into a
+    (P, N) scratch, then a fixed-order sum over chains)."""
+    _check_state(inp, x, v, dX, dV)
+    N = x.shape[1]
+    if dld.shape != (1, N) or dld.dtype != torch.float32 or not dld.is_contiguous() \
+            or dld.device != x.device:
+        raise ValueError(f"dld must be a contiguous float32 (1, {N}) tensor on {x.device}")
+    if x.device.type == "cpu":
+        return trajectory_vjp_plain(inp, x, v, dX, dV, dld, reverse)
+    block = _kernel_block(inp, x)
+    D, H, H2, T = inp.dims
+    weights = [*inp.xnet_w, *inp.vnet_w]
+    n_grads = sum(w.numel() for w in weights) + D
+    grads = torch.empty(n_grads, dtype=torch.float32, device=x.device)
+    scratch = torch.empty(n_grads * N + 2 * (T + 1) * D * N, dtype=torch.float32,
+                          device=x.device)
+    dx, dv = torch.empty_like(x), torch.empty_like(v)
+    lib = _cuda.library("trajectory_bwd")
+    with torch.cuda.device(x.device):
+        err = lib.l2hmc_trajectory_bwd(
+            block.data_ptr(), D, H, H2, T, int(reverse), int(inp.hmc),
+            x.data_ptr(), v.data_ptr(), dX.data_ptr(), dV.data_ptr(), dld.data_ptr(),
+            dx.data_ptr(), dv.data_ptr(), grads.data_ptr(), scratch.data_ptr(), N,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _cuda.check(err, "trajectory_bwd")
+    LAUNCHES["trajectory_bwd"] += 1
+    parts = torch.split(grads, [w.numel() for w in weights] + [D])
+    g = [p.view(w.shape) for p, w in zip(parts, weights)]
+    return g[:_NET_ARRAYS], g[_NET_ARRAYS:], parts[-1].view(D, 1), dx, dv
 
 
 def chain(inp: KernelInputs, x, seed: int, n_mh_steps: int, collect_trace: bool = False):
@@ -459,6 +706,85 @@ def fused_for_target(dynamics: Dynamics, target) -> FusedDynamics:
     as exact leapfrog with the nets skipped)."""
     _check_supported(dynamics)
     return FusedDynamics(dynamics, energy_spec_for_target(target))
+
+
+class _Trajectory(torch.autograd.Function):
+    """The fused trajectory as one autograd node whose boundary is the
+    kernels': eps (D, 1), x, v (D, N) and the 13 + 13 net weights. Forward
+    runs ``trajectory``, backward ``trajectory_vjp``."""
+
+    @staticmethod
+    def forward(ctx, inp: KernelInputs, reverse: bool, eps, x, v, *weights):
+        ctx.inp = dataclasses.replace(inp, eps=None, xnet_w=[], vnet_w=[])
+        ctx.reverse = reverse
+        ctx.save_for_backward(eps, x, v, *weights)
+        return trajectory(_with_tensors(inp, eps, weights), x, v, reverse)
+
+    @staticmethod
+    def backward(ctx, dX, dV, dld):
+        eps, x, v, *weights = ctx.saved_tensors
+        inp = _with_tensors(ctx.inp, eps, weights)
+        gx, gv, deps, dx, dv = trajectory_vjp(
+            inp, x, v, dX.contiguous(), dV.contiguous(), dld.contiguous(), ctx.reverse
+        )
+        gw = [None] * len(weights) if inp.hmc else [*gx, *gv]
+        return (None, None, deps, dx, dv, *gw)
+
+
+def _with_tensors(inp: KernelInputs, eps, weights) -> KernelInputs:
+    return dataclasses.replace(
+        inp, eps=eps, xnet_w=list(weights[:_NET_ARRAYS]), vnet_w=list(weights[_NET_ARRAYS:])
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class DifferentiableFusedDynamics:
+    """Training-path stand-in for ``Dynamics``: fused trajectories whose
+    backward is the fused recompute-and-reverse kernel. It has the surface
+    ``mcmc.propose`` reads (``forward``, ``backward``, ``p_accept``,
+    ``eps``, ``hmc``), on (N, D) state. The autograd boundary sits at the
+    kernels' inputs; gradients reach the params tree through
+    ``_extract_net``'s folds and ``eps = exp(alpha)`` by ordinary autograd.
+    HMC mode runs with zero nets, so only alpha, x and v get gradients."""
+
+    fused: FusedDynamics
+
+    def __post_init__(self):
+        if self.fused.dynamics.use_temperature:
+            raise ValueError("DifferentiableFusedDynamics does not support temperature")
+
+    @property
+    def dynamics(self) -> Dynamics:
+        return self.fused.dynamics
+
+    @property
+    def hmc(self) -> bool:
+        return self.fused.dynamics.hmc
+
+    def eps(self, params):
+        return self.dynamics.eps(params)
+
+    def p_accept(self, params, x0, v0, x1, v1, log_jac):
+        return self.dynamics.p_accept(params, x0, v0, x1, v1, log_jac)
+
+    def forward(self, params, x, v):
+        return self._run(params, x, v, reverse=False)
+
+    def backward(self, params, x, v):
+        return self._run(params, x, v, reverse=True)
+
+    def _run(self, params, x, v, reverse: bool):
+        inp = prepare(self.dynamics, self.fused.spec, params, x.device, differentiable=True)
+        X, V, ld = _Trajectory.apply(
+            inp, reverse, inp.eps, x.T.contiguous(), v.T.contiguous(),
+            *inp.xnet_w, *inp.vnet_w,
+        )
+        return X.T, V.T, ld[0]
+
+
+def differentiable_fused(dynamics: Dynamics, target) -> DifferentiableFusedDynamics:
+    """The training-path fused dynamics for a spec-supported target."""
+    return DifferentiableFusedDynamics(fused_for_target(dynamics, target))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -124,7 +124,7 @@ def test_chain_wrapper_plain_on_cpu_with_trace():
     x1, acc, trace = sampler.run(tp, torch.tensor(x), seed=3, n_mh_steps=6,
                                  collect_trace=True)
     x1b, accb = sampler.run(tp, torch.tensor(x), seed=3, n_mh_steps=6)
-    assert fd.LAUNCHES == {"trajectory": 0, "chain": 0}
+    assert fd.LAUNCHES == {"trajectory": 0, "trajectory_bwd": 0, "chain": 0}
     assert trace.shape == (6, N, 2)
     torch.testing.assert_close(trace[-1], x1, rtol=0, atol=0)
     torch.testing.assert_close(x1b, x1, rtol=0, atol=0)
