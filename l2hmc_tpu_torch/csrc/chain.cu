@@ -26,35 +26,9 @@
 //  - The trace goes straight to device memory; the TPU kernel's VMEM ring
 //    and DMA existed only for Mosaic.
 #include "l2hmc_common.cuh"
+#include "philox.cuh"
 
 namespace l2hmc {
-
-__device__ inline uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-// U[0, 1) from the top 24 bits, as unsigned (fused_dynamics.py:1066-1076).
-__device__ inline float uniform24(uint32_t w) {
-  return static_cast<float>(w >> 8) * (1.0f / 16777216.0f);
-}
-
-// Box-Muller with u1 clamped at 1e-7 (fused_dynamics.py:1079-1083).
-__device__ inline float box_muller(uint32_t w1, uint32_t w2) {
-  const float u1 = fmaxf(uniform24(w1), 1e-7f);
-  return sqrtf(-2.0f * logf(u1)) * cosf(6.28318530717958647f * uniform24(w2));
-}
 
 template <class C>
 __global__ void chain_kernel(const float* __restrict__ params, Dims d, int hmc,

@@ -8,7 +8,10 @@ steps run as a Python loop. The update equations are the paper's
 ``sum(sv1 + sv2 + mb*sx1 + m*sx2)``.
 
 Supported: HMC mode, scalar or per-dimension (``eps_dim``) step size,
-``input_scale``. Not ported yet (raise ``NotImplementedError``): ``eps_step``,
+``input_scale``, and the ``aux`` input: a per-batch side input (for the VAE
+sampler a dict of the raw batch, its embedding and the decoder params) that
+is handed to ``energy``/``grad_energy`` as ``aux=`` and to the nets as their
+fourth Zip input. Not ported yet (raise ``NotImplementedError``): ``eps_step``,
 ``eps_mat``, ``net_input_fn``, ``use_temperature``.
 """
 
@@ -53,7 +56,8 @@ class Dynamics:
 
     Attributes:
       dim: state dimensionality.
-      energy: batched energy ``x -> (n,)``.
+      energy: batched energy ``x -> (n,)``; called as ``energy(x, aux=aux)``
+        when the caller passes ``aux``.
       T: leapfrog steps per trajectory.
       xnet / vnet: S/T/Q modules (ignored when ``hmc=True``).
       hmc: plain-HMC mode — zero networks, exact leapfrog.
@@ -62,7 +66,8 @@ class Dynamics:
       mask_seed: seed for the per-step binary masks.
       input_scale: per-dimension sigma whitening the net inputs
         (x-like inputs / sigma, gradient inputs * sigma).
-      grad_energy: batched energy gradient; autograd of ``energy`` when None.
+      grad_energy: batched energy gradient (same ``aux`` convention);
+        autograd of ``energy`` when None.
     """
 
     dim: int
@@ -146,8 +151,14 @@ class Dynamics:
     def kinetic(self, v: torch.Tensor) -> torch.Tensor:
         return 0.5 * torch.sum(v * v, dim=1)
 
-    def hamiltonian(self, x, v) -> torch.Tensor:
-        return self.energy(x) + self.kinetic(v)
+    def _energy(self, x, aux=None) -> torch.Tensor:
+        return self.energy(x, aux=aux) if aux is not None else self.energy(x)
+
+    def _grad(self, x, aux=None) -> torch.Tensor:
+        return self.grad_energy(x, aux=aux) if aux is not None else self.grad_energy(x)
+
+    def hamiltonian(self, x, v, aux=None) -> torch.Tensor:
+        return self._energy(x, aux) + self.kinetic(v)
 
     def _apply_nets(self, params: Params, net: str, inputs, sig) -> tuple:
         """VNet/XNet apply; zeros in HMC mode. With ``input_scale`` vnet sees
@@ -166,7 +177,7 @@ class Dynamics:
 
     # -- single leapfrog substeps -----------------------------------------
 
-    def forward_step(self, params, x, v, step_idx: int):
+    def forward_step(self, params, x, v, step_idx: int, *, aux=None):
         """One augmented leapfrog step; returns (x_out, v_out, logdet)."""
         eps = self.eps(params)
         masks, times, sig = self._consts(x)
@@ -174,24 +185,24 @@ class Dynamics:
         m = masks[step_idx]
         mb = 1.0 - m
 
-        grad1 = self.grad_energy(x)
-        s, tt, q = self._apply_nets(params, "vnet", [x, grad1, t, None], sig)
+        grad1 = self._grad(x, aux)
+        s, tt, q = self._apply_nets(params, "vnet", [x, grad1, t, aux], sig)
         sv1 = 0.5 * eps * s
         fv1 = eps * q
         v_h = v * torch.exp(sv1) + 0.5 * eps * (-torch.exp(fv1) * grad1 + tt)
 
-        s, tt, q = self._apply_nets(params, "xnet", [v_h, m * x, t, None], sig)
+        s, tt, q = self._apply_nets(params, "xnet", [v_h, m * x, t, aux], sig)
         sx1 = eps * s
         fx1 = eps * q
         y = m * x + mb * (x * torch.exp(sx1) + eps * (torch.exp(fx1) * v_h + tt))
 
-        s, tt, q = self._apply_nets(params, "xnet", [v_h, mb * y, t, None], sig)
+        s, tt, q = self._apply_nets(params, "xnet", [v_h, mb * y, t, aux], sig)
         sx2 = eps * s
         fx2 = eps * q
         x_o = mb * y + m * (y * torch.exp(sx2) + eps * (torch.exp(fx2) * v_h + tt))
 
-        grad2 = self.grad_energy(x_o)
-        s, tt, q = self._apply_nets(params, "vnet", [x_o, grad2, t, None], sig)
+        grad2 = self._grad(x_o, aux)
+        s, tt, q = self._apply_nets(params, "vnet", [x_o, grad2, t, aux], sig)
         sv2 = 0.5 * eps * s
         fv2 = eps * q
         v_o = v_h * torch.exp(sv2) + 0.5 * eps * (-torch.exp(fv2) * grad2 + tt)
@@ -199,7 +210,7 @@ class Dynamics:
         logdet = torch.sum(sv1 + sv2 + mb * sx1 + m * sx2, dim=1)
         return x_o, v_o, logdet
 
-    def backward_step(self, params, x_o, v_o, step_idx: int):
+    def backward_step(self, params, x_o, v_o, step_idx: int, *, aux=None):
         """Exact inverse of :meth:`forward_step`."""
         eps = self.eps(params)
         masks, times, sig = self._consts(x_o)
@@ -207,24 +218,24 @@ class Dynamics:
         m = masks[step_idx]
         mb = 1.0 - m
 
-        grad1 = self.grad_energy(x_o)
-        s, tt, q = self._apply_nets(params, "vnet", [x_o, grad1, t, None], sig)
+        grad1 = self._grad(x_o, aux)
+        s, tt, q = self._apply_nets(params, "vnet", [x_o, grad1, t, aux], sig)
         sv2 = -0.5 * eps * s
         fv2 = eps * q
         v_h = (v_o - 0.5 * eps * (-torch.exp(fv2) * grad1 + tt)) * torch.exp(sv2)
 
-        s, tt, q = self._apply_nets(params, "xnet", [v_h, mb * x_o, t, None], sig)
+        s, tt, q = self._apply_nets(params, "xnet", [v_h, mb * x_o, t, aux], sig)
         sx2 = -eps * s
         fx2 = eps * q
         y = mb * x_o + m * torch.exp(sx2) * (x_o - eps * (torch.exp(fx2) * v_h + tt))
 
-        s, tt, q = self._apply_nets(params, "xnet", [v_h, m * y, t, None], sig)
+        s, tt, q = self._apply_nets(params, "xnet", [v_h, m * y, t, aux], sig)
         sx1 = -eps * s
         fx1 = eps * q
         x = m * y + mb * torch.exp(sx1) * (y - eps * (torch.exp(fx1) * v_h + tt))
 
-        grad2 = self.grad_energy(x)
-        s, tt, q = self._apply_nets(params, "vnet", [x, grad2, t, None], sig)
+        grad2 = self._grad(x, aux)
+        s, tt, q = self._apply_nets(params, "vnet", [x, grad2, t, aux], sig)
         sv1 = -0.5 * eps * s
         fv1 = eps * q
         v = torch.exp(sv1) * (v_h - 0.5 * eps * (-torch.exp(fv1) * grad2 + tt))
@@ -234,25 +245,25 @@ class Dynamics:
 
     # -- full trajectories -------------------------------------------------
 
-    def forward(self, params, x, v):
+    def forward(self, params, x, v, *, aux=None):
         """T forward steps; returns (X, V, logdet)."""
         logdet = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         for step in range(self.T):
-            x, v, ld = self.forward_step(params, x, v, step)
+            x, v, ld = self.forward_step(params, x, v, step, aux=aux)
             logdet = logdet + ld
         return x, v, logdet
 
-    def backward(self, params, x, v):
+    def backward(self, params, x, v, *, aux=None):
         """T inverse steps applied in reverse order."""
         logdet = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         for step in range(self.T - 1, -1, -1):
-            x, v, ld = self.backward_step(params, x, v, step)
+            x, v, ld = self.backward_step(params, x, v, step, aux=aux)
             logdet = logdet + ld
         return x, v, logdet
 
-    def p_accept(self, params, x0, v0, x1, v1, log_jac) -> torch.Tensor:
+    def p_accept(self, params, x0, v0, x1, v1, log_jac, *, aux=None) -> torch.Tensor:
         """MH acceptance prob exp(min(H0 - H1 + logJ, 0)), NaN-guarded to 0."""
-        e_old = self.hamiltonian(x0, v0)
-        e_new = self.hamiltonian(x1, v1)
+        e_old = self.hamiltonian(x0, v0, aux)
+        e_new = self.hamiltonian(x1, v1, aux)
         p = torch.exp(torch.clamp(e_old - e_new + log_jac, max=0.0))
         return torch.where(torch.isfinite(p), p, torch.zeros_like(p))

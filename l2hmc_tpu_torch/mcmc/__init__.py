@@ -1,5 +1,5 @@
 """MH sampling and the training losses (counterpart of ``l2hmc_tpu/mcmc``;
-``chain_operator`` and tempering are not ported yet)."""
+tempering is not ported yet)."""
 
 from l2hmc_tpu_torch.mcmc.losses import (
     get_loss,
@@ -13,6 +13,7 @@ from l2hmc_tpu_torch.mcmc.losses import (
 )
 from l2hmc_tpu_torch.mcmc.sampler import (
     ProposeOut,
+    chain_operator,
     metropolis,
     metropolis_mask,
     propose,
@@ -20,6 +21,7 @@ from l2hmc_tpu_torch.mcmc.sampler import (
 
 __all__ = [
     "ProposeOut",
+    "chain_operator",
     "get_loss",
     "loss_inverse",
     "loss_logsumexp",

@@ -1,5 +1,5 @@
-"""MH sampling machinery: propose / accept (counterpart of
-``l2hmc_tpu/mcmc/sampler.py``).
+"""MH sampling machinery: propose / accept / chain composition (counterpart
+of ``l2hmc_tpu/mcmc/sampler.py``).
 
 All randomness comes from an explicit ``torch.Generator``; draws are made on
 the generator's device and moved to the state's, so a seed gives the same
@@ -11,7 +11,7 @@ tests hold them against the JAX package on the same numbers.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import torch
 
@@ -64,6 +64,7 @@ def propose(
     init_v: Optional[torch.Tensor] = None,
     dir_u: Optional[torch.Tensor] = None,
     accept_u: Optional[torch.Tensor] = None,
+    aux=None,
     do_mh_step: bool = False,
 ) -> ProposeOut:
     """Direction-randomized proposal.
@@ -73,25 +74,25 @@ def propose(
     run for every chain and the results are mixed per chain. In HMC mode
     only the forward map runs. With ``do_mh_step`` the accept uniform is
     ``accept_u`` or a draw. The draws are made in the order momentum,
-    direction, accept.
+    direction, accept. ``aux`` goes to the dynamics' energy and nets.
     """
     v = normal_like(generator, x) if init_v is None else init_v
 
     if dynamics.hmc:
-        xf, vf, ljf = dynamics.forward(params, x, v)
-        px = dynamics.p_accept(params, x, v, xf, vf, ljf)
+        xf, vf, ljf = dynamics.forward(params, x, v, aux=aux)
+        px = dynamics.p_accept(params, x, v, xf, vf, ljf, aux=aux)
         out = ProposeOut(xf, vf, px, ljf)
     else:
         if dir_u is None:
             dir_u = _uniform(generator, (x.shape[0],), x)
         forward_mask = (dir_u < 0.5).to(x.dtype)
-        xf, vf, ljf = dynamics.forward(params, x, v)
-        xb, vb, ljb = dynamics.backward(params, x, v)
+        xf, vf, ljf = dynamics.forward(params, x, v, aux=aux)
+        xb, vb, ljb = dynamics.backward(params, x, v, aux=aux)
         m = forward_mask[:, None]
         x_prop = m * xf + (1.0 - m) * xb
         v_prop = m * vf + (1.0 - m) * vb
         log_jac = forward_mask * ljf + (1.0 - forward_mask) * ljb
-        px = dynamics.p_accept(params, x, v, x_prop, v_prop, log_jac)
+        px = dynamics.p_accept(params, x, v, x_prop, v_prop, log_jac, aux=aux)
         out = ProposeOut(x_prop, v_prop, px, log_jac)
 
     if do_mh_step:
@@ -99,3 +100,52 @@ def propose(
             out, x_next=metropolis(generator, x, out.x_prop, out.p_accept, accept_u)
         )
     return out
+
+
+def chain_operator(
+    generator: Optional[torch.Generator],
+    dynamics: Dynamics,
+    params: Params,
+    x: torch.Tensor,
+    nb_steps: int,
+    max_steps: int,
+    *,
+    init_v: Optional[torch.Tensor] = None,
+    op_v: Optional[Sequence[torch.Tensor]] = None,
+    op_dir_u: Optional[Sequence[torch.Tensor]] = None,
+    accept_u: Optional[torch.Tensor] = None,
+    aux=None,
+    do_mh_step: bool = False,
+    faithful_momentum: bool = False,
+) -> ProposeOut:
+    """Compose ``nb_steps`` proposals under a single terminal accept.
+
+    The JAX package scans a static ``max_steps`` bound and masks the ops at
+    ``i >= nb_steps``; here the loop simply stops after ``nb_steps`` (at
+    most ``max_steps``) ops, which gives the same result.
+
+    Momentum: by default one momentum is threaded through the composed ops,
+    so the terminal ``p_accept`` compares Hamiltonians of the composite
+    trajectory. With ``faithful_momentum`` every op draws fresh momentum
+    and the terminal accept pairs the never-integrated initial draw with
+    the last op's output momentum, as the reference implementation
+    executes. The draws can be given: ``init_v`` (the initial momentum),
+    ``op_v[i]`` (op i's fresh momentum, faithful reading only),
+    ``op_dir_u[i]`` (op i's direction uniforms) and ``accept_u``.
+    """
+    v0 = normal_like(generator, x) if init_v is None else init_v
+    cx, cv = x, v0
+    log_jac = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    for i in range(min(int(nb_steps), max_steps)):
+        if faithful_momentum:
+            v_i = None if op_v is None else op_v[i]
+        else:
+            v_i = cv
+        out = propose(
+            generator, dynamics, params, cx, init_v=v_i,
+            dir_u=None if op_dir_u is None else op_dir_u[i], aux=aux,
+        )
+        cx, cv, log_jac = out.x_prop, out.v_prop, log_jac + out.log_jac
+    px = dynamics.p_accept(params, x, v0, cx, cv, log_jac, aux=aux)
+    x_next = metropolis(generator, x, cx, px, accept_u) if do_mh_step else None
+    return ProposeOut(cx, cv, px, log_jac, x_next)

@@ -11,7 +11,7 @@ from l2hmc_tpu_torch.nets.core import (
     sequential,
     zip_modules,
 )
-from l2hmc_tpu_torch.nets.stq import scg_net_factory, stq_net
+from l2hmc_tpu_torch.nets.stq import scg_net_factory, stq_net, vae_net_factory
 
 __all__ = [
     "Module",
@@ -24,5 +24,6 @@ __all__ = [
     "scg_net_factory",
     "sequential",
     "stq_net",
+    "vae_net_factory",
     "zip_modules",
 ]

@@ -4,7 +4,8 @@
 The net maps (primary, secondary, time_trig2, aux) -> [S, T, Q]: primary and
 secondary are (n, dim) — (x, grad) for VNet, (v, masked x) for XNet —,
 time_trig2 is the (n, 2) [cos, sin] time encoding, aux an optional input
-(unused by the SCG nets: a constant zero).
+(unused by the SCG nets: a constant zero; the VAE sampler's nets add an
+embedding of the data batch there).
 """
 
 from __future__ import annotations
@@ -64,4 +65,21 @@ def scg_net_factory(
     return stq_net(
         dim, hidden, factor, out_factor=0.001, embed_factor=1.0 / 3,
         compute_dtype=compute_dtype,
+    )
+
+
+def vae_net_factory(
+    latent_dim: int,
+    factor: float,
+    *,
+    size1: int = 200,
+    size2: int = 200,
+    aux_encoder: core.Module,
+) -> core.Module:
+    """The VAE sampler net: aux-conditioned S/T/Q with a data encoder as the
+    fourth Zip input. Each net built this way owns a copy of the encoder's
+    params; the VAE app shares one embedding instead (``apps/vae.py``)."""
+    return stq_net(
+        latent_dim, size1, factor, out_factor=0.01, embed_factor=0.33,
+        hidden2=size2, aux_module=aux_encoder,
     )

@@ -12,12 +12,15 @@ from l2hmc_tpu_torch.ops.fused_dynamics import (
     fused_for_target,
     reset_launch_counts,
 )
+from l2hmc_tpu_torch.ops.fused_vae import FusedVaeAis, FusedVaeSampler
 
 __all__ = [
     "LAUNCHES",
     "DifferentiableFusedDynamics",
     "FusedChainSampler",
     "FusedDynamics",
+    "FusedVaeAis",
+    "FusedVaeSampler",
     "QuadraticGaussianEnergy",
     "differentiable_fused",
     "energy_spec_for_target",

@@ -26,7 +26,7 @@ _FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 ]
 # the entry points of each library: name -> ctypes argtypes
-_P, _I, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64
+_P, _I, _U64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
 SIGNATURES = {
     "trajectory": {
         "l2hmc_trajectory": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
@@ -37,6 +37,14 @@ SIGNATURES = {
     },
     "chain": {
         "l2hmc_chain": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _U64, _P],
+    },
+    "vae_chain": {
+        "l2hmc_vae_chain": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _U64, _P],
+    },
+    "vae_ais": {
+        "l2hmc_vae_ais": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I,
+                          _U64, _P],
     },
 }
 

@@ -1,5 +1,6 @@
 """Fused L2HMC trajectory and whole-chain sampler: CUDA kernels for Hopper
-(counterpart of ``l2hmc_tpu/ops/fused_dynamics.py``).
+(counterpart of ``l2hmc_tpu/ops/fused_dynamics.py``; its VAE half is in
+``ops/fused_vae.py``).
 
 Three kernels, all in ``csrc/`` (see the notes at the top of each source):
   - ``trajectory`` (``csrc/trajectory.cu``) replaces the Pallas
@@ -47,7 +48,7 @@ from l2hmc_tpu_torch.ops.philox import chain_draws
 _NET_ARRAYS = 13
 
 # kernel launches per kernel since the last reset_launch_counts()
-LAUNCHES = {"trajectory": 0, "trajectory_bwd": 0, "chain": 0}
+LAUNCHES = {"trajectory": 0, "trajectory_bwd": 0, "chain": 0, "vae_chain": 0, "vae_ais": 0}
 
 # compile-time caps of the kernels' instantiations (csrc/l2hmc_common.cuh)
 _MAX_DIM, _MAX_HIDDEN = 64, 64
@@ -201,7 +202,8 @@ class KernelInputs:
     hmc: bool
     energy: Callable
     grad_energy: Callable
-    grad_vjp: Callable  # (x, d) -> the cotangent of x through grad_energy
+    grad_vjp: Optional[Callable]  # (x, d) -> the cotangent of x through grad_energy
+    emb: Optional[torch.Tensor] = None  # (H, N) aux embedding added to the nets' hidden layer
 
     @property
     def dims(self) -> tuple[int, int, int, int]:
@@ -277,13 +279,18 @@ def _check_state(inp: KernelInputs, *states: torch.Tensor) -> None:
 # -- plain versions ------------------------------------------------------------
 
 
-def _apply_stq(w: list, a, b, step: int, hmc: bool):
-    """S/T/Q net on transposed activations: a, b are (D, N)."""
+def _apply_stq(w: list, a, b, step: int, hmc: bool, emb=None):
+    """S/T/Q net on transposed activations: a, b are (D, N). ``emb`` is the
+    optional per-chain aux embedding (H, N), the VAE sampler's fourth Zip
+    input, added to the hidden pre-activation."""
     if hmc:
         z = torch.zeros_like(a)
         return z, z, z
     w1, w2, wh, bh, ws, bs, ls, wt, bt, wq, bq, lq, te = w
-    h = torch.relu(w1.T @ a + w2.T @ b + te[:, step : step + 1])
+    h = w1.T @ a + w2.T @ b + te[:, step : step + 1]
+    if emb is not None:
+        h = h + emb
+    h = torch.relu(h)
     h2 = torch.relu(wh.T @ h + bh)
     s = torch.exp(ls) * torch.tanh(ws.T @ h2 + bs)
     t = wt.T @ h2 + bt
@@ -298,7 +305,7 @@ def _trajectory_step(inp: KernelInputs, reverse: bool, step: int, x, v):
     eps, grad_energy, hmc = inp.eps, inp.grad_energy, inp.hmc
 
     def stq(w, a, b):
-        return _apply_stq(w, a, b, step, hmc)
+        return _apply_stq(w, a, b, step, hmc, inp.emb)
 
     if not reverse:
         grad1 = grad_energy(x)
@@ -530,22 +537,39 @@ def trajectory_vjp_plain(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
     return gx, gv, de.sum(1, keepdim=True), dx, dv
 
 
+def mh_op(inp: KernelInputs, x, v, u_dir, u_acc):
+    """One direction-randomised MH op on (D, N) state with the draws given:
+    both directions run and the chosen one is selected, as on the TPU; the
+    accept is a select. Returns (x (D, N), accepted (1, N) bool)."""
+    def kinetic(v):
+        return 0.5 * torch.sum(v * v, dim=0, keepdim=True)
+
+    xf, vf, ldf = trajectory_plain(inp, x, v, reverse=False)
+    xb, vb, ldb = trajectory_plain(inp, x, v, reverse=True)
+    fwd = (u_dir < 0.5)[None, :]
+    xp = torch.where(fwd, xf, xb)
+    vp = torch.where(fwd, vf, vb)
+    lj = torch.where(fwd, ldf, ldb)
+    h0 = inp.energy(x) + kinetic(v)
+    h1 = inp.energy(xp) + kinetic(vp)
+    px = torch.exp(torch.clamp(h0 - h1 + lj, max=0.0))
+    px = torch.where(torch.isfinite(px), px, torch.zeros_like(px))
+    acc = px - u_acc[None, :] >= 0.0
+    return torch.where(acc, xp, x), acc
+
+
 def chain_plain(
     inp: KernelInputs, x, seed: int, n_mh_steps: int,
     collect_trace: bool = False, draws: Optional[Callable] = None,
 ):
     """Plain version of the chain kernel on (D, N) state. ``draws(step)``
     gives (v (D, N), direction uniforms (N,), accept uniforms (N,)); by
-    default the kernel's own Philox draws. Both directions run and the
-    chosen one is selected, as on the TPU; the accept is a select.
+    default the kernel's own Philox draws.
     Returns (x (D, N), acceptance (1, N), trace (K, D, N) or None)."""
     D, N = x.shape
     if draws is None:
         def draws(step):
             return chain_draws(seed, N, D, step, x.device)
-
-    def kinetic(v):
-        return 0.5 * torch.sum(v * v, dim=0, keepdim=True)
 
     accepted = torch.zeros_like(x[:1])
     trace = (
@@ -553,19 +577,7 @@ def chain_plain(
         if collect_trace else None
     )
     for k in range(n_mh_steps):
-        v, u_dir, u_acc = draws(k)
-        xf, vf, ldf = trajectory_plain(inp, x, v, reverse=False)
-        xb, vb, ldb = trajectory_plain(inp, x, v, reverse=True)
-        fwd = (u_dir < 0.5)[None, :]
-        xp = torch.where(fwd, xf, xb)
-        vp = torch.where(fwd, vf, vb)
-        lj = torch.where(fwd, ldf, ldb)
-        h0 = inp.energy(x) + kinetic(v)
-        h1 = inp.energy(xp) + kinetic(vp)
-        px = torch.exp(torch.clamp(h0 - h1 + lj, max=0.0))
-        px = torch.where(torch.isfinite(px), px, torch.zeros_like(px))
-        acc = px - u_acc[None, :] >= 0.0
-        x = torch.where(acc, xp, x)
+        x, acc = mh_op(inp, x, *draws(k))
         accepted = accepted + acc.to(x.dtype)
         if trace is not None:
             trace[k] = x
@@ -675,6 +687,13 @@ def _check_supported(dynamics: Dynamics) -> None:
         raise ValueError("fused kernels do not support eps_step, eps_mat or net_input_fn")
 
 
+def _no_aux(aux) -> None:
+    """The spec'd targets' energies take no ``aux``; ``mcmc.propose`` passes
+    its own (None for them) to whatever dynamics it is given."""
+    if aux is not None:
+        raise ValueError("the fused dynamics of a spec'd target take no aux")
+
+
 @dataclasses.dataclass(frozen=True)
 class FusedDynamics:
     """Fused-trajectory path for a Dynamics on a spec'd target:
@@ -691,13 +710,16 @@ class FusedDynamics:
         )
         return xo.T, vo.T, ld[0]
 
-    def forward(self, params, x, v):
+    def forward(self, params, x, v, aux=None):
+        _no_aux(aux)
         return self._run(params, x, v, reverse=False)
 
-    def backward(self, params, x, v):
+    def backward(self, params, x, v, aux=None):
+        _no_aux(aux)
         return self._run(params, x, v, reverse=True)
 
-    def p_accept(self, params, x0, v0, x1, v1, log_jac):
+    def p_accept(self, params, x0, v0, x1, v1, log_jac, aux=None):
+        _no_aux(aux)
         return self.dynamics.p_accept(params, x0, v0, x1, v1, log_jac)
 
 
@@ -764,13 +786,16 @@ class DifferentiableFusedDynamics:
     def eps(self, params):
         return self.dynamics.eps(params)
 
-    def p_accept(self, params, x0, v0, x1, v1, log_jac):
+    def p_accept(self, params, x0, v0, x1, v1, log_jac, aux=None):
+        _no_aux(aux)
         return self.dynamics.p_accept(params, x0, v0, x1, v1, log_jac)
 
-    def forward(self, params, x, v):
+    def forward(self, params, x, v, aux=None):
+        _no_aux(aux)
         return self._run(params, x, v, reverse=False)
 
-    def backward(self, params, x, v):
+    def backward(self, params, x, v, aux=None):
+        _no_aux(aux)
         return self._run(params, x, v, reverse=True)
 
     def _run(self, params, x, v, reverse: bool):

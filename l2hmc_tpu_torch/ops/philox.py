@@ -3,7 +3,8 @@
 The whole-chain CUDA kernel (``csrc/chain.cu``) draws its momenta, direction
 and accept uniforms from Philox4x32-10 (Salmon et al., SC'11; the Random123
 constants) keyed by the 64-bit seed, with counter
-(global chain index, MH step, slot, 0). This module computes the same words
+(global chain index, MH step, slot, inner op), the inner op being 0 except
+in the VAE sampler's composed steps (``csrc/vae_chain.cu``). This module computes the same words
 with integer tensor ops, so the kernel's plain version sees the same random
 bits as the kernel on any device.
 
@@ -63,15 +64,16 @@ def seed_key(seed: int) -> tuple[int, int]:
     return seed & _MASK, seed >> 32
 
 
-def chain_draws(seed: int, n: int, d: int, step: int, device):
-    """The chain kernel's draws for MH ``step``: momenta (d, n) and the
-    direction and accept uniforms (n,), on ``device``."""
+def chain_draws(seed: int, n: int, d: int, step: int, device, op: int = 0):
+    """The chain kernels' draws for MH ``step`` (and inner op ``op`` of a
+    composed step): momenta (d, n) and the direction and accept uniforms
+    (n,), on ``device``."""
     key = seed_key(seed)
     chains = torch.arange(n, dtype=torch.int64, device=device)
-    r0 = philox4x32_10((chains, step, 0, 0), key)
+    r0 = philox4x32_10((chains, step, 0, op), key)
     rows = []
     for j in range((d + 1) // 2):
-        r = philox4x32_10((chains, step, 1 + j, 0), key)
+        r = philox4x32_10((chains, step, 1 + j, op), key)
         rows.append(box_muller(r[0], r[1]))
         if 2 * j + 1 < d:
             rows.append(box_muller(r[2], r[3]))

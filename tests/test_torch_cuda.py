@@ -122,3 +122,114 @@ def test_kernel_rejects_bad_input(cuda):
         fd.chain(inp, x.T.contiguous().T, seed=0, n_mh_steps=1)
     with pytest.raises(ValueError, match="kernel inputs on"):
         fd.trajectory(inp, x.cpu(), x.cpu(), False)
+
+
+# -- the VAE kernels ------------------------------------------------------------
+
+
+def _scale_heads(net, c):
+    """The S, T and Q heads' weights of a ``stq_net`` params tree times c."""
+    (s_lin, s_st), t_lin, (q_lin, q_st) = net[5]
+
+    def scaled(lin):
+        return {"w": lin["w"] * c, "b": lin["b"]}
+
+    return (*net[:5], ((scaled(s_lin), s_st), scaled(t_lin), (scaled(q_lin), q_st)))
+
+
+def _vae_setup(cuda, full: bool, n: int):
+    """A seeded VAE at the full or the small width with a {0, 1} batch, its
+    embedding and a start state on the card. The decoder's last layer
+    (init factor 0.01) is scaled by 10 so that logits are O(1). At the full
+    width the embedding already drives S, T, Q to ~0.2 and the heads are
+    halved; at the small width every net weight is lifted by 0.02."""
+    from l2hmc_tpu_torch.apps import vae
+
+    cfg = vae.VaeConfig() if full else vae.VaeConfig(
+        latent_dim=8, leapfrogs=3, enc_hidden=32, sampler_size1=16, sampler_size2=16)
+    model = vae.VaeModel.build(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0), device=cuda)
+    smp = dict(params["smp"])
+    for net in ("xnet", "vnet"):
+        smp[net] = _scale_heads(smp[net], 0.5) if full else _add(smp[net], 0.02)
+    dec = list(params["dec"])
+    dec[4] = {"w": dec[4]["w"] * 10.0, "b": dec[4]["b"] + 0.1}
+    params = {**params, "smp": smp, "dec": tuple(dec)}
+    g = torch.Generator().manual_seed(1)
+    x_raw = (torch.rand((n, 784), generator=g) < 0.3).float().to(cuda)
+    z0 = torch.randn((n, cfg.latent_dim), generator=g).to(cuda)
+    emb = model.aux_encoder.apply(params["smp"]["aux_enc"], x_raw)
+    return model, params, x_raw, emb, z0
+
+
+@pytest.mark.parametrize("tile", [4, 8])
+@pytest.mark.parametrize("composed", [False, True], ids=["single", "composed"])
+@pytest.mark.parametrize("full,n", [(True, 203), (False, 77)], ids=["full", "small"])
+def test_vae_chain_kernel_matches_plain_on_same_bits(cuda, full, n, composed, tile):
+    """Same Philox bits, ragged chain count, 3 recorded steps. A flipped
+    accept needs |px - u| within the float32 gap of the two Hamiltonians
+    (~1e-4 of energies of a few hundred), so at most 2 of these decisions
+    may flip; chains with no flip agree to 2e-3 (sums of 1024 terms in
+    another order, through up to 9 trajectories)."""
+    from l2hmc_tpu_torch.ops import fused_vae as fv
+
+    model, params, x_raw, emb, z0 = _vae_setup(cuda, full, n)
+    xr = x_raw.T.contiguous()
+    inp = fv.prepare_vae(model.dynamics, params["smp"], params["dec"], xr, emb.T.contiguous())
+    nb = [2, 1, 3] if composed else None
+    zT = z0.T.contiguous()
+    before = fd.LAUNCHES["vae_chain"]
+    zk, acck, trk = fv.vae_chain(inp, xr, zT, seed=4, n_mh_steps=3, collect_trace=True,
+                                 nb=nb, tile=tile)
+    assert fd.LAUNCHES["vae_chain"] == before + 1
+    zp, accp, trp = fv.vae_chain_plain(inp, zT, seed=4, n_mh_steps=3, collect_trace=True, nb=nb)
+    torch.testing.assert_close(trk[-1], zk, rtol=0, atol=0)
+    assert torch.isfinite(trk).all()
+    ops = 6 if composed else 3
+    flipped = (acck - accp).abs()[0] * ops > 0.5
+    assert int(flipped.sum()) <= 2
+    torch.testing.assert_close(trk[:, :, ~flipped], trp[:, :, ~flipped], rtol=0, atol=2e-3)
+    assert 0.0 < float(acck.mean()) < 1.0 or not full
+    assert float((zk - zT).abs().max()) > 0.05  # the chains moved
+
+
+@pytest.mark.parametrize("tile", [4, 8])
+@pytest.mark.parametrize("anneal_steps", [1, 20])
+@pytest.mark.parametrize("full,n", [(True, 203), (False, 77)], ids=["full", "small"])
+def test_vae_ais_kernel_matches_plain_on_same_bits(cuda, full, n, anneal_steps, tile):
+    """Same Philox bits. A flipped accept sends a chain down another path
+    and moves its log w by O(1); chains within 0.05 count as unflipped, at
+    most 2 may flip, and on the others log w (values of 700-1300) agrees to
+    5e-3 and the mean acceptance probability to 5e-3 (a Hamiltonian
+    difference of energies near 1e3 carries ~1e-3 of float32 rounding)."""
+    from l2hmc_tpu_torch.ops import fused_vae as fv
+
+    model, params, x_raw, _, z0 = _vae_setup(cuda, full, n)
+    dec = fv.decoder_arrays(params["dec"])
+    xr, zT = x_raw.T.contiguous(), z0.T.contiguous()
+    before = fd.LAUNCHES["vae_ais"]
+    wk, acck = fv.vae_ais(dec, xr, zT, seed=6, anneal_steps=anneal_steps, step_size=0.05,
+                          leapfrogs=10, tile=tile)
+    assert fd.LAUNCHES["vae_ais"] == before + 1
+    wp, accp = fv.vae_ais_plain(dec, xr, zT, seed=6, anneal_steps=anneal_steps,
+                                step_size=0.05, leapfrogs=10)
+    assert torch.isfinite(wk).all()
+    clean = (wk - wp).abs()[0] < 0.05
+    assert int((~clean).sum()) <= 2
+    torch.testing.assert_close(wk[:, clean], wp[:, clean], rtol=0, atol=5e-3)
+    torch.testing.assert_close(acck[:, clean], accp[:, clean], rtol=0, atol=5e-3)
+    assert float(acck.min()) > 0.0 and float(acck.max()) <= 1.0
+
+
+def test_vae_wrappers_reject_bad_input(cuda):
+    from l2hmc_tpu_torch.ops import fused_vae as fv
+
+    model, params, x_raw, emb, z0 = _vae_setup(cuda, False, 16)
+    xr = x_raw.T.contiguous()
+    inp = fv.prepare_vae(model.dynamics, params["smp"], params["dec"], xr, emb.T.contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fv.vae_chain(inp, xr, z0.T, seed=0, n_mh_steps=1)
+    with pytest.raises(ValueError, match="expected"):
+        fv.vae_chain(inp, xr, z0.T.contiguous().cpu(), seed=0, n_mh_steps=1)
+    with pytest.raises(ValueError, match="tile"):
+        fv.vae_chain(inp, xr, z0.T.contiguous(), seed=0, n_mh_steps=1, tile=16)
