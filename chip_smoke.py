@@ -38,13 +38,28 @@ then:
      single and composed ops, with trace); (b) the AIS kernel vs its plain
      version (1000 chains, 20 anneal steps, 10 leapfrogs); (c) the sampling
      path: ``apps.eval_sampler.run`` with the default protocol (200 chains,
-     2000 recorded steps of 1-3 ops, the seven-eps HMC grid), its posterior
-     moments held against a plain ``vae_chain_plain`` run with its own
+     2000 recorded steps of 1-3 ops, the seven-eps plain HMC baseline
+     grid), its posterior moments held against a plain
+     ``vae_chain_plain`` run with its own
      stream; (d) the AIS path: ``apps.eval_vae.run`` with the default
      protocol on 100 datapoints, held against the same entry point with
      ``use_fused="never"`` (the ``ais_estimate`` loop). Launch counts are
      reset before (c) and before (d) and read after each;
-  7. kernel times, plain times and bounds.
+  7. VAE training at the same width (batch 512, 5 MH steps), weights
+     seeded: (a) the training-trajectory kernel vs its plain version, both
+     directions, 512 and 203 chains, on the lifted weights; (b) its VJP
+     kernel vs its plain version on the same inputs, per leaf within
+     VAE_BWD_TOL of the leaf's largest entry, with at most VAE_BWD_FLIPS
+     chains set aside whose plain trajectory has a ReLU pre-activation
+     within VAE_RELU_MARGIN of zero, and twice in a row bit for bit; (c) 20
+     training steps with fused_train=True vs False on one seed, and the
+     fused losses at each of the plain run's 20 states; (d) the
+     training path: ``apps.vae.train`` with fused_train=True and a logdir on
+     ``apps.data.get_data()`` for VAE_TRAIN_EPOCHS epochs, then
+     ``apps.vae.restore`` of its checkpoint and ``apps.eval_vae.run`` on the
+     restored state (100 datapoints). Launch counts are reset before (d)
+     and read after the training and after the evaluation;
+  8. kernel times, plain times and bounds.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -90,6 +105,33 @@ VAE_VAR_TOL = 0.15
 # stream: nats per datapoint on values near -700, whose spread over seeds is
 # 0.04 on either route (8 seeds each, H100).
 VAE_LL_TOL = 0.25
+# The training-trajectory kernel against its plain version: bench.py's gate.
+# Its VJP kernel: per leaf, of the leaf's largest entry, as BWD_TOL (sums over
+# 512 chains and 1024 terms in another order, through 5 leapfrog steps). The
+# nets are ReLU nets, so the VJP is discontinuous where a hidden
+# pre-activation crosses zero: of a batch's 4 million gate decisions a few lie
+# within float32 rounding of zero and come out differently in the kernel and
+# in its plain version, and such a chain's cotangents differ by whole terms.
+# Those chains are found by their own outputs (demb, dz, dv), may be at most
+# VAE_BWD_FLIPS in a comparison (fewer than any ragged last block holds), must
+# each have, in the plain trajectory, a pre-activation within VAE_RELU_MARGIN
+# of its layer's largest (``relu_margins``), and are set aside by a second
+# comparison with their cotangents zeroed, which must then hold VAE_BWD_TOL on
+# every leaf.
+VAE_BWD_TOL = 1e-4
+VAE_BWD_FLIPS = 1
+VAE_RELU_MARGIN = 1e-5
+# Fused against plain VAE training over 20 steps on one seed, at the JAX
+# package's bar for SCG training (rtol 2e-3, atol 1e-2), twice. From the same
+# parameters: at each state of the plain run the fused losses on the same
+# batch and draws, all three, all 20 steps. And as two free runs: ELBO and
+# log-probability over all 20 steps, the sampler loss over the first
+# VAE_SAMPLER_FREE_STEPS: it is a mean of jump distances over the encoder's
+# variances and of their reciprocals, near -1e4 and carried by a few of the
+# 512 chains, so the two runs' parameters, once apart by rounding, give
+# sampler losses apart by more; the later gap is reported and not held.
+VAE_SAMPLER_FREE_STEPS = 3
+VAE_TRAIN_EPOCHS = 38  # 8 batches of 512 each on the 4096 synthetic images
 
 
 def _nvidia_smi() -> str:
@@ -514,6 +556,284 @@ def vae_phases(dev, report, logdir):
     ]
 
 
+def vae_traj_bound(D, H, H2, T, E, P, N, weight_floats):
+    """The training trajectory's least work: T + 1 decoder sweeps (the
+    gradient at the end of a leapfrog step is the first of the next), 4 T
+    net applications and the updates."""
+    per_chain = ((T + 1) * _decoder_grad_ops(D, E, P)
+                 + T * (4 * (_stq_ops(D, H, H2) + H) + 4 * 12 * D))
+    nbytes = 4 * (2 * D * N + P * N + H * N + weight_floats + 2 * D * N + N)
+    return _bound(N * per_chain, nbytes)
+
+
+def vae_traj_bwd_bound(D, H, H2, T, E, P, N, weight_floats, n_grads, blocks):
+    """The VJP's least work per chain: the trajectory again (the recompute:
+    T + 1 decoder sweeps, 4 T net applications), one more sweep's worth per
+    decoder sweep for the tangent that rides on the recomputed primal (the
+    Hessian-vector product: six more products), and per net application
+    the transposed products, the outer products of the weight cotangents
+    (each as many multiply-adds as the net's own products) and the
+    substep's elementwise VJP; plus the sum of the blocks' partial
+    cotangents. The primal sweep and the nets' forward pass count once."""
+    net_products = 4 * D * H + 2 * H * H2 + 6 * H2 * D
+    recompute = ((T + 1) * _decoder_grad_ops(D, E, P)
+                 + T * (4 * (_stq_ops(D, H, H2) + H) + 4 * 12 * D))
+    back = ((T + 1) * _decoder_grad_ops(D, E, P)
+            + 4 * T * (2 * net_products + 40 * D))
+    ops = N * (recompute + back) + n_grads * blocks
+    nbytes = 4 * (4 * D * N + N + P * N + H * N + weight_floats
+                  + 2 * D * N + H * N + n_grads)
+    return _bound(ops, nbytes)
+
+
+def _vjp_compare(fv, inp, xr, z, v, dZ, dV, dld, reverse, tile=None):
+    """The VJP kernel against its plain version: (mask of the chains set
+    aside for a flipped ReLU gate, largest error of a leaf over the leaf's
+    largest entry without them, largest absolute error, bit-for-bit
+    repeat)."""
+    import torch
+
+    from l2hmc_tpu_torch.train.optim import tree_leaves
+
+    def both(dZ_, dV_, dld_):
+        got = fv.vae_trajectory_vjp(inp, xr, z, v, dZ_, dV_, dld_, reverse, tile=tile)
+        ref = fv.vae_trajectory_vjp_plain(inp, z, v, dZ_, dV_, dld_, reverse)
+        return got, ref
+
+    got, ref = both(dZ, dV, dld)
+    again = fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, reverse, tile=tile)
+    repeats = all(bool((a == b).all())
+                  for a, b in zip(tree_leaves(list(again)), tree_leaves(list(got))))
+    flipped = torch.zeros(z.shape[1], dtype=torch.bool, device=z.device)
+    for a, b in zip(got[3:], ref[3:]):  # demb, dz, dv: one column per chain
+        flipped |= (a - b).abs().amax(dim=0) > VAE_BWD_TOL * b.abs().max()
+    if bool(flipped.any()):
+        keep = (~flipped).to(z.dtype)[None, :]
+        got, ref = both(dZ * keep, dV * keep, dld * keep)
+    rel, abs_err = 0.0, 0.0
+    for a, b in zip(tree_leaves(list(got)), tree_leaves(list(ref))):
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        abs_err = max(abs_err, err)
+        rel = max(rel, err / scale if scale > 0 else (0.0 if err == 0 else float("inf")))
+    return flipped, rel, abs_err, repeats
+
+
+def vae_train_phases(dev, report, logdir):
+    """Phase 7: the VAE training kernels against their plain versions, fused
+    against plain training, and the training path through its entry points;
+    returns the two kernels' rows of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from l2hmc_tpu_torch.apps import data as data_lib
+    from l2hmc_tpu_torch.apps import eval_vae, vae
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+    from l2hmc_tpu_torch.ops import fused_vae as fv
+    from l2hmc_tpu_torch.train.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = vae.VaeConfig()
+    model = vae.VaeModel.build(cfg)
+    params = lift_vae_params(model.init_params(_gen(0), device=dev))
+    dataset = data_lib.get_data()
+    dyn = model.dynamics
+    D, T = dyn.dim, dyn.T
+    x_test = data_lib.binarize(np.random.default_rng(0), dataset.test)
+
+    def inputs(n):
+        x = torch.as_tensor(x_test[np.arange(n) % len(x_test)], device=dev)
+        with torch.no_grad():
+            emb = model.aux_encoder.apply(params["smp"]["aux_enc"], x)
+        g = _gen(1000 + n)
+        z, v, dZ, dV = (torch.randn((D, n), generator=g).to(dev) for _ in range(4))
+        dld = torch.randn((1, n), generator=g).to(dev)
+        xr = x.T.contiguous()
+        inp = fv.prepare_vae(dyn, params["smp"], params["dec"], xr, emb.T.contiguous())
+        return inp, xr, z, v, dZ, dV, dld
+
+    # (a), (b) the two kernels vs plain
+    traj_cmp, bwd_cmp = {}, {}
+    for n in (cfg.batch_size, 203):
+        inp, xr, z, v, dZ, dV, dld = inputs(n)
+        for reverse in (False, True):
+            name = f"n{n}_{'backward' if reverse else 'forward'}"
+            got = fv.vae_trajectory(inp, xr, z, v, reverse)
+            ref = fv.vae_trajectory_plain(inp, z, v, reverse)
+            _require(all(bool(torch.isfinite(a).all()) for a in got),
+                     f"vae_traj {name}: non-finite output")
+            traj_cmp[name] = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+            _require(traj_cmp[name] < TRAJ_TOL, f"vae_traj {name}: off by {traj_cmp[name]}")
+            flipped, rel, abs_err, repeats = _vjp_compare(
+                fv, inp, xr, z, v, dZ, dV, dld, reverse)
+            margins = fd.relu_margins(inp, z, v, reverse)
+            flips = int(flipped.sum())
+            margin = float(margins[flipped].max()) if flips else 0.0
+            bwd_cmp[name] = {"flipped_relu_chains": flips, "their_relu_margin": margin,
+                             "chains_within_margin": int((margins < VAE_RELU_MARGIN).sum()),
+                             "smallest_relu_margin": float(margins.min()),
+                             "max_rel_err": rel, "max_abs_err": abs_err,
+                             "repeats_bit_for_bit": repeats}
+            _require(repeats, f"vae_traj_bwd {name}: two launches differ")
+            _require(flips <= VAE_BWD_FLIPS and margin < VAE_RELU_MARGIN
+                     and rel <= VAE_BWD_TOL, f"vae_traj_bwd {name}: {bwd_cmp[name]}")
+    report["vae_traj_vs_plain"] = traj_cmp
+    report["vae_traj_bwd_vs_plain"] = bwd_cmp
+    print(f"# VAE trajectory kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(traj_cmp), flush=True)
+    print("# VAE backward kernel vs plain: " + json.dumps(bwd_cmp), flush=True)
+
+    # times at the training batch
+    n_tr = cfg.batch_size
+    inp, xr, z, v, dZ, dV, dld = inputs(n_tr)
+    H, H2 = inp.dims[1], inp.dims[2]
+    E, P = inp.consts[0].shape[0], inp.consts[4].shape[0]
+    traj_ms = _cuda_time(lambda: fv.vae_trajectory(inp, xr, z, v, False), 10)
+    bwd_ms = _cuda_time(lambda: fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, False), 10)
+    ms_by_tile = {
+        str(c): [_cuda_time(lambda: fv.vae_trajectory(inp, xr, z, v, False, tile=c), 10),
+                 _cuda_time(lambda: fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, False,
+                                                          tile=c), 10)]
+        for c in fv.TILES}
+    traj_plain_ms = _cuda_time(lambda: fv.vae_trajectory_plain(inp, z, v, False), 3)
+    bwd_plain_ms = _cuda_time(
+        lambda: fv.vae_trajectory_vjp_plain(inp, z, v, dZ, dV, dld, False), 3)
+    weight_floats = (sum(a.numel() for a in inp.consts)
+                     + sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D + D * T)
+    n_grads = sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D
+    tile = fv.chain_tile(n_tr, torch.cuda.get_device_properties(dev).multi_processor_count)
+    traj_bound_ms, traj_bound_by = vae_traj_bound(D, H, H2, T, E, P, n_tr, weight_floats)
+    bwd_bound_ms, bwd_bound_by = vae_traj_bwd_bound(
+        D, H, H2, T, E, P, n_tr, weight_floats, n_grads, -(-n_tr // tile))
+
+    # (c) fused vs plain training on one seed, the same batches; beside the
+    # plain run, the fused losses at each of its states with its draws
+    t_phase = time.perf_counter()
+    x_train = data_lib.binarize(np.random.default_rng(1), dataset.train)
+    batches = [torch.as_tensor(x_train[(i * n_tr) % (len(x_train) - n_tr):][:n_tr], device=dev)
+               for i in range(20)]
+    hists, at_plain_states = {}, []
+    fused_losses = vae.make_train_step(
+        vae.VaeModel.build(vae.VaeConfig(fused_train=True)), 8).losses
+    for fused in (True, False):
+        m = vae.VaeModel.build(vae.VaeConfig(fused_train=fused))
+        state = vae.init_state(m, 8, device=dev)
+        step_fn = vae.make_train_step(m, 8)
+        rows = []
+        for b in batches:
+            if not fused:
+                draws = torch.Generator()
+                draws.set_state(state.generator.get_state())
+                with torch.no_grad():
+                    at_plain_states.append(
+                        [float(t) for t in fused_losses(state.params, b, draws)[:3]])
+            state, metrics = step_fn(state, b)
+            rows.append([float(metrics[k]) for k in ("elbo", "sampler_loss", "log_prob")])
+        hists[fused] = np.asarray(rows)
+
+    def over_tolerance(got, ref):
+        return np.abs(got - ref) / (1e-2 + 2e-3 * np.abs(ref))
+
+    same_params = over_tolerance(np.asarray(at_plain_states), hists[False])
+    same_params_gap = float(same_params.max())
+    free = over_tolerance(hists[True], hists[False])
+    gap = float(max(free[:, [0, 2]].max(), free[:VAE_SAMPLER_FREE_STEPS, 1].max()))
+    report["vae_train_fused_vs_plain"] = {
+        "steps": len(batches), "batch": n_tr,
+        "elbo_sampler_loss_log_prob_fused": hists[True].tolist(),
+        "elbo_sampler_loss_log_prob_plain": hists[False].tolist(),
+        "elbo_sampler_loss_log_prob_fused_at_plain_states": at_plain_states,
+        "same_params_max_gap_over_tolerance": same_params_gap,
+        "same_params_sampler_loss_gap_over_tolerance": same_params[:, 1].tolist(),
+        "max_gap_over_tolerance": gap,
+        "sampler_loss_free_steps_held": VAE_SAMPLER_FREE_STEPS,
+        "sampler_loss_free_gap_over_tolerance": free[:, 1].tolist(),
+    }
+    print(f"# fused vs plain VAE training ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(report["vae_train_fused_vs_plain"]), flush=True)
+    _require(bool(np.isfinite(hists[True]).all()), "non-finite fused VAE training history")
+    _require(same_params_gap <= 1.0,
+             f"fused and plain VAE losses from the same parameters differ: "
+             f"{same_params_gap} x tolerance")
+    _require(gap <= 1.0, f"fused and plain VAE histories differ: {gap} x tolerance")
+
+    # (d) the training path: train -> checkpoint -> restore -> evaluate
+    fd.reset_launch_counts()
+    t_phase = time.perf_counter()
+    tcfg = vae.VaeConfig(fused_train=True, epochs=VAE_TRAIN_EPOCHS,
+                         eval_samples_every=VAE_TRAIN_EPOCHS - 1)
+    _, state, last = vae.train(tcfg, logdir=logdir, log_every=4, verbose=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t_phase
+    train_launches = dict(fd.LAUNCHES)
+    steps = state.step
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    elbos = [row["elbo"] for row in logged]
+
+    t_plain = time.perf_counter()
+    _, plain_state, _ = vae.train(vae.VaeConfig(epochs=2), verbose=False)
+    torch.cuda.synchronize()
+    plain_step_ms = 1e3 * (time.perf_counter() - t_plain) / plain_state.step
+
+    fd.reset_launch_counts()
+    t_eval = time.perf_counter()
+    ckpt = os.path.join(logdir, "ckpt")
+    r_model, r_state = vae.restore(ckpt)
+    same = all(bool((a == b).all()) for a, b in
+               zip(tree_leaves(r_state.params), tree_leaves(state.params)))
+    ll = eval_vae.run(r_model, r_state.params, eval_vae.EvalVaeConfig(), dataset, seed=0,
+                      max_datapoints=100)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t_eval
+    eval_launches = dict(fd.LAUNCHES)
+    kernel_ms_per_step = 2 * cfg.mh_steps * (traj_ms + bwd_ms)
+    report["vae_training_path"] = {
+        "batch": n_tr, "mh_steps": cfg.mh_steps, "steps": steps, "epochs": VAE_TRAIN_EPOCHS,
+        "data_source": dataset.source, "train_s": train_s,
+        "ms_per_step_fused": 1e3 * train_s / steps, "ms_per_step_plain": plain_step_ms,
+        "plain_steps": plain_state.step,
+        "vae_traj_ms": traj_ms, "vae_traj_bwd_ms": bwd_ms,
+        "vae_traj_and_bwd_ms_by_tile": ms_by_tile,
+        "kernel_ms_per_step": kernel_ms_per_step,
+        "kernel_share_of_step": kernel_ms_per_step / (1e3 * train_s / steps),
+        "elbo_first_last_logged": [elbos[0], elbos[-1]], "elbo_min_logged": min(elbos),
+        "final": last, "launches": train_launches,
+        "restored_step": r_state.step, "restored_params_equal": same,
+        "log_likelihood_restored": ll, "eval_s": eval_s, "eval_launches": eval_launches,
+    }
+    print(f"# VAE training path ({train_s:.1f} s, restore and AIS {eval_s:.1f} s): "
+          + json.dumps(report["vae_training_path"]), flush=True)
+    _require(all(np.isfinite(list(row.values())).all() for row in logged),
+             "non-finite VAE training metric")
+    _require(elbos[-1] < elbos[0], f"ELBO did not fall: {elbos[0]} -> {elbos[-1]}")
+    _require(0.0 < last["p_accept"] <= 1.0, f"sampler acceptance {last['p_accept']}")
+    for name in ("vae_traj", "vae_traj_bwd"):
+        _require(train_launches[name] == 2 * cfg.mh_steps * steps,
+                 f"kernel {name}: {train_launches[name]} launches in {steps} steps")
+    _require(os.path.exists(ckpt) and os.path.exists(ckpt + ".config.json"),
+             "no checkpoint written")
+    _require(r_state.step == steps and same, "restored state differs from the trained one")
+    _require(np.isfinite(ll), "non-finite AIS estimate of the restored VAE")
+    _require(eval_launches["vae_ais"] > 0, "kernel vae_ais not launched on the restored VAE")
+
+    src = "l2hmc_tpu_torch/csrc/"
+    shape = (f"VAE latent {D}, decoder {E}, nets {H}/{H2}, T={T}, {n_tr} chains, tiles of "
+             f"{tile}, one direction (the training batch)")
+    return [
+        {"name": "vae_traj", "route": "cuda", "source": src + "vae_traj.cu",
+         "replaces": "l2hmc_tpu/ops/fused_dynamics.py:1622",
+         "launches": train_launches["vae_traj"], "max_abs_err": max(traj_cmp.values()),
+         "ms": traj_ms, "plain_ms": traj_plain_ms, "bound_ms": traj_bound_ms,
+         "bound_by": traj_bound_by, "library_ms": None, "shape": shape},
+        {"name": "vae_traj_bwd", "route": "cuda", "source": src + "vae_traj_bwd.cu",
+         "replaces": "l2hmc_tpu/ops/fused_dynamics.py:1649",
+         "launches": train_launches["vae_traj_bwd"],
+         "max_abs_err": max(c["max_abs_err"] for c in bwd_cmp.values()),
+         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
+         "bound_by": bwd_bound_by, "library_ms": None, "shape": shape},
+    ]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -821,7 +1141,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as logdir:
         vae_rows = vae_phases(dev, report, logdir)
 
-    # -- 7. the kernels line -------------------------------------------------------
+    # -- 7. VAE training -------------------------------------------------------------
+    with tempfile.TemporaryDirectory() as logdir:
+        vae_rows += vae_train_phases(dev, report, logdir)
+
+    # -- 8. the kernels line -------------------------------------------------------
     src = "l2hmc_tpu_torch/csrc/"
     kernels = [
         {"name": "trajectory", "route": "cuda", "source": src + "trajectory.cu",

@@ -71,77 +71,36 @@ __global__ void __launch_bounds__(kThreads) vae_chain_kernel(ChainArgs a) {
   const Dims d = a.d;
   const int DC = d.D * C;
   const Work<C> work = carve_work<C>(p, d);
-  float* z = p; p += DC;     // state
-  float* v = p; p += DC;     // momentum
-  float* g = p; p += DC;     // gradient at z
+  Traj<C> t;
+  t.z = p; p += DC;          // state
+  t.v = p; p += DC;          // momentum
+  t.g = p; p += DC;          // gradient at z
   float* zs = p; p += DC;    // state at the start of the op
   float* gs = p; p += DC;    // gradient at zs
-  float* S = p; p += DC;
-  float* Tt = p; p += DC;
-  float* Q = p; p += DC;
-  float* bin = p; p += DC;   // the x-net's masked second input
-  float* ldp = p; p += DC;   // log-det contributions, summed at the accept
-  float* e_cur = p; p += C;  // decoder energy at z
+  t.S = p; p += DC;
+  t.Tt = p; p += DC;
+  t.Q = p; p += DC;
+  t.bin = p; p += DC;        // the x-net's masked second input
+  t.ldp = p; p += DC;        // log-det contributions, summed at the accept
+  t.energy = p; p += C;      // decoder energy at z
   float* e_start = p; p += C;
   float* u_dir = p; p += C;
   float* u_acc = p; p += C;
-  int* step = reinterpret_cast<int*>(p); p += C;
-  int* flag = reinterpret_cast<int*>(p); p += C;  // forward, then accepted
+  t.step = reinterpret_cast<int*>(p); p += C;
+  t.flag = reinterpret_cast<int*>(p); p += C;  // forward, then accepted
+  float* const z = t.z;
+  float* const v = t.v;
+  float* const g = t.g;
+  float* const ldp = t.ldp;
+  float* const e_cur = t.energy;
+  int* const flag = t.flag;
 
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * C;
 
-  for (int e = tid; e < DC; e += kThreads) {
-    const int i = e / C, n = n0 + e - i * C;
-    z[e] = n < a.N ? a.zin[static_cast<size_t>(i) * a.N + n] : 0.f;
-  }
+  load_tile<C>(a.zin, d.D, a.N, n0, z);
   __syncthreads();
   decoder_grad<C>(d, a.dec, a.xraw, a.N, n0, z, gs, e_start, work);
-
-  // v' = v exp(eps S / 2) + eps / 2 (-exp(eps Q) g + T), or its inverse;
-  // also stages the x-net's second input for the position update after it
-  auto momentum_update = [&]() {
-    for (int e = tid; e < DC; e += kThreads) {
-      const int i = e / C, c = e - i * C;
-      const float ep = a.eps[i];
-      const float drift = 0.5f * ep * (-expf(ep * Q[e]) * g[e] + Tt[e]);
-      const float sv = 0.5f * ep * S[e];
-      const float m = a.masks[i * d.T + step[c]];
-      if (flag[c]) {
-        v[e] = v[e] * expf(sv) + drift;
-        ldp[e] += sv;
-        bin[e] = m * z[e];
-      } else {
-        v[e] = (v[e] - drift) * expf(-sv);
-        ldp[e] -= sv;
-        bin[e] = (1.f - m) * z[e];
-      }
-    }
-  };
-  // the masked position update; the first of a step keeps the mask's
-  // entries (forward) or its complement (reverse), the second the others
-  auto position_update = [&](bool first) {
-    for (int e = tid; e < DC; e += kThreads) {
-      const int i = e / C, c = e - i * C;
-      const float ep = a.eps[i];
-      const float m = a.masks[i * d.T + step[c]];
-      const bool fwd = flag[c] != 0;
-      const float keep = (fwd == first) ? m : 1.f - m;
-      const float upd = 1.f - keep;
-      const float drift = ep * (expf(ep * Q[e]) * v[e] + Tt[e]);
-      const float sx = ep * S[e];
-      float zn;
-      if (fwd) {
-        zn = keep * z[e] + upd * (z[e] * expf(sx) + drift);
-        ldp[e] += upd * sx;
-      } else {
-        zn = keep * z[e] + upd * expf(-sx) * (z[e] - drift);
-        ldp[e] -= upd * sx;
-      }
-      z[e] = zn;
-      bin[e] = upd * zn;  // the second update keeps what this one changed
-    }
-  };
 
   float accepted = 0.f;  // of chain n0 + tid, for tid < C
   int ops = 0;
@@ -162,23 +121,9 @@ __global__ void __launch_bounds__(kThreads) vae_chain_kernel(ChainArgs a) {
         e_cur[tid] = e_start[tid];
         h0 = e_start[tid] + half_sq<C>(v, d.D);
       }
-      for (int it = 0; it < d.T; ++it) {
-        if (tid < C) step[tid] = flag[tid] ? it : d.T - 1 - it;
-        __syncthreads();
-        apply_net<C>(d, a.vnet, a.emb, a.N, n0, step, z, g, S, Tt, Q, work);
-        momentum_update();
-        __syncthreads();
-        apply_net<C>(d, a.xnet, a.emb, a.N, n0, step, v, bin, S, Tt, Q, work);
-        position_update(true);
-        __syncthreads();
-        apply_net<C>(d, a.xnet, a.emb, a.N, n0, step, v, bin, S, Tt, Q, work);
-        position_update(false);
-        __syncthreads();
-        decoder_grad<C>(d, a.dec, a.xraw, a.N, n0, z, g, e_cur, work);
-        apply_net<C>(d, a.vnet, a.emb, a.N, n0, step, z, g, S, Tt, Q, work);
-        momentum_update();
-        __syncthreads();
-      }
+      for (int it = 0; it < d.T; ++it)
+        leapfrog_step<C>(d, a.dec, a.xnet, a.vnet, a.eps, a.masks, a.xraw,
+                         a.emb, a.N, n0, it, t, work, [](int) {});
       if (tid < C) {
         float lj = 0.f;
         for (int i = 0; i < d.D; ++i) lj += ldp[i * C + tid];
@@ -210,10 +155,7 @@ __global__ void __launch_bounds__(kThreads) vae_chain_kernel(ChainArgs a) {
       }
     }
   }
-  for (int e = tid; e < DC; e += kThreads) {
-    const int i = e / C, n = n0 + e - i * C;
-    if (n < a.N) a.zo[static_cast<size_t>(i) * a.N + n] = z[e];
-  }
+  store_tile<C>(z, d.D, a.N, n0, a.zo);
   if (tid < C && n0 + tid < a.N)
     a.acc[n0 + tid] = accepted / static_cast<float>(ops);
 }

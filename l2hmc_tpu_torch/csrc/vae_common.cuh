@@ -1,6 +1,7 @@
-// Shared pieces of the two VAE kernels (vae_chain.cu, vae_ais.cu): the
-// block-wide matrix product, the decoder energy with its analytic
-// gradient, and the aux-conditioned S/T/Q net.
+// Shared pieces of the VAE kernels (vae_chain.cu, vae_ais.cu, vae_traj.cu,
+// vae_traj_bwd.cu): the block-wide matrix product, the decoder energy with
+// its analytic gradient, the aux-conditioned S/T/Q net, and one augmented
+// leapfrog step on the decoder posterior.
 //
 // Design. The SCG kernels give one thread one chain; here the latent is 50
 // wide, the nets 200 and the decoder 1024, so one block of kThreads threads
@@ -361,6 +362,132 @@ __device__ void apply_net(const Dims& d, const Net& w,
                   }
                 });
   __syncthreads();
+}
+
+// The leapfrog state of a tile: [D][C] arrays and [C] arrays in shared
+// memory.
+template <int C>
+struct Traj {
+  float *z, *v, *g;    // state, momentum, gradient at z
+  float *S, *Tt, *Q;   // the last net application's outputs
+  float* bin;          // the x-net's masked second input
+  float* ldp;          // log-det contributions, summed by the caller
+  float* energy;       // [C] decoder energy at z
+  int* step;           // [C] leapfrog step index (time embedding, mask)
+  int* flag;           // [C] 1: forward direction, 0: reverse
+};
+
+// v' = v exp(eps S / 2) + eps / 2 (-exp(eps Q) g + T), or its inverse; also
+// stages the x-net's second input for the position update after it. The
+// caller synchronises.
+template <int C>
+__device__ __forceinline__ void momentum_update(const Dims& d,
+                                                const float* __restrict__ eps,
+                                                const float* __restrict__ masks,
+                                                const Traj<C>& t) {
+  const int DC = d.D * C;
+  for (int e = threadIdx.x; e < DC; e += kThreads) {
+    const int i = e / C, c = e - i * C;
+    const float ep = eps[i];
+    const float drift = 0.5f * ep * (-expf(ep * t.Q[e]) * t.g[e] + t.Tt[e]);
+    const float sv = 0.5f * ep * t.S[e];
+    const float m = masks[i * d.T + t.step[c]];
+    if (t.flag[c]) {
+      t.v[e] = t.v[e] * expf(sv) + drift;
+      t.ldp[e] += sv;
+      t.bin[e] = m * t.z[e];
+    } else {
+      t.v[e] = (t.v[e] - drift) * expf(-sv);
+      t.ldp[e] -= sv;
+      t.bin[e] = (1.f - m) * t.z[e];
+    }
+  }
+}
+
+// The masked position update; the first of a step keeps the mask's entries
+// (forward) or its complement (reverse), the second the others. The caller
+// synchronises.
+template <int C>
+__device__ __forceinline__ void position_update(const Dims& d,
+                                                const float* __restrict__ eps,
+                                                const float* __restrict__ masks,
+                                                const Traj<C>& t, bool first) {
+  const int DC = d.D * C;
+  for (int e = threadIdx.x; e < DC; e += kThreads) {
+    const int i = e / C, c = e - i * C;
+    const float ep = eps[i];
+    const float m = masks[i * d.T + t.step[c]];
+    const bool fwd = t.flag[c] != 0;
+    const float keep = (fwd == first) ? m : 1.f - m;
+    const float upd = 1.f - keep;
+    const float drift = ep * (expf(ep * t.Q[e]) * t.v[e] + t.Tt[e]);
+    const float sx = ep * t.S[e];
+    float zn;
+    if (fwd) {
+      zn = keep * t.z[e] + upd * (t.z[e] * expf(sx) + drift);
+      t.ldp[e] += upd * sx;
+    } else {
+      zn = keep * t.z[e] + upd * expf(-sx) * (t.z[e] - drift);
+      t.ldp[e] -= upd * sx;
+    }
+    t.z[e] = zn;
+    t.bin[e] = upd * zn;  // the second update keeps what this one changed
+  }
+}
+
+// Leapfrog step `it` of a trajectory, each chain in its own direction
+// (t.flag): half momentum update, the two masked position updates, the
+// decoder gradient at the new position, half momentum update. t.g holds the
+// gradient at t.z on entry and on return, t.energy the energy on return.
+// tap(0) runs when t.v holds the half-updated momentum, tap(1) when t.z
+// holds the position between the two updates. Synchronised on return.
+template <int C, class Tap>
+__device__ __forceinline__ void leapfrog_step(
+    const Dims& d, const Decoder& dec, const Net& xnet, const Net& vnet,
+    const float* __restrict__ eps, const float* __restrict__ masks,
+    const float* __restrict__ xraw, const float* __restrict__ emb, int N,
+    int n0, int it, const Traj<C>& t, const Work<C>& work, Tap tap) {
+  if (threadIdx.x < C)
+    t.step[threadIdx.x] = t.flag[threadIdx.x] ? it : d.T - 1 - it;
+  __syncthreads();
+  apply_net<C>(d, vnet, emb, N, n0, t.step, t.z, t.g, t.S, t.Tt, t.Q, work);
+  momentum_update<C>(d, eps, masks, t);
+  __syncthreads();
+  tap(0);
+  apply_net<C>(d, xnet, emb, N, n0, t.step, t.v, t.bin, t.S, t.Tt, t.Q, work);
+  position_update<C>(d, eps, masks, t, true);
+  __syncthreads();
+  tap(1);
+  apply_net<C>(d, xnet, emb, N, n0, t.step, t.v, t.bin, t.S, t.Tt, t.Q, work);
+  position_update<C>(d, eps, masks, t, false);
+  __syncthreads();
+  decoder_grad<C>(d, dec, xraw, N, n0, t.z, t.g, t.energy, work);
+  apply_net<C>(d, vnet, emb, N, n0, t.step, t.z, t.g, t.S, t.Tt, t.Q, work);
+  momentum_update<C>(d, eps, masks, t);
+  __syncthreads();
+}
+
+// Loads rows [D] of a (D, N) array's chains n0 .. n0 + C - 1 into a [D][C]
+// array in shared memory (0 for chains >= N). The caller synchronises.
+template <int C>
+__device__ __forceinline__ void load_tile(const float* __restrict__ src,
+                                          int rows, int N, int n0,
+                                          float* dst) {
+  for (int e = threadIdx.x; e < rows * C; e += kThreads) {
+    const int i = e / C, n = n0 + e - i * C;
+    dst[e] = n < N ? src[static_cast<size_t>(i) * N + n] : 0.f;
+  }
+}
+
+// Stores a [rows][C] array of shared memory into the chains' columns of a
+// (rows, N) array.
+template <int C>
+__device__ __forceinline__ void store_tile(const float* src, int rows, int N,
+                                           int n0, float* __restrict__ dst) {
+  for (int e = threadIdx.x; e < rows * C; e += kThreads) {
+    const int i = e / C, n = n0 + e - i * C;
+    if (n < N) dst[static_cast<size_t>(i) * N + n] = src[e];
+  }
 }
 
 // Fills v [D][C] with standard normals and gives chain c's two uniforms:

@@ -12,11 +12,12 @@ from l2hmc_tpu_torch.ops.fused_dynamics import (
     fused_for_target,
     reset_launch_counts,
 )
-from l2hmc_tpu_torch.ops.fused_vae import FusedVaeAis, FusedVaeSampler
+from l2hmc_tpu_torch.ops.fused_vae import DifferentiableFusedVae, FusedVaeAis, FusedVaeSampler
 
 __all__ = [
     "LAUNCHES",
     "DifferentiableFusedDynamics",
+    "DifferentiableFusedVae",
     "FusedChainSampler",
     "FusedDynamics",
     "FusedVaeAis",

@@ -46,6 +46,13 @@ SIGNATURES = {
         "l2hmc_vae_ais": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I,
                           _U64, _P],
     },
+    "vae_traj": {
+        "l2hmc_vae_traj": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _P],
+    },
+    "vae_traj_bwd": {
+        "l2hmc_vae_traj_bwd": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 13), _I, _I, _I, _P],
+    },
 }
 
 _lock = threading.Lock()

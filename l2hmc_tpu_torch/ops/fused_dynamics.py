@@ -48,7 +48,8 @@ from l2hmc_tpu_torch.ops.philox import chain_draws
 _NET_ARRAYS = 13
 
 # kernel launches per kernel since the last reset_launch_counts()
-LAUNCHES = {"trajectory": 0, "trajectory_bwd": 0, "chain": 0, "vae_chain": 0, "vae_ais": 0}
+LAUNCHES = {"trajectory": 0, "trajectory_bwd": 0, "chain": 0, "vae_chain": 0, "vae_ais": 0,
+            "vae_traj": 0, "vae_traj_bwd": 0}
 
 # compile-time caps of the kernels' instantiations (csrc/l2hmc_common.cuh)
 _MAX_DIM, _MAX_HIDDEN = 64, 64
@@ -279,10 +280,11 @@ def _check_state(inp: KernelInputs, *states: torch.Tensor) -> None:
 # -- plain versions ------------------------------------------------------------
 
 
-def _apply_stq(w: list, a, b, step: int, hmc: bool, emb=None):
+def _apply_stq(w: list, a, b, step: int, hmc: bool, emb=None, seen=None):
     """S/T/Q net on transposed activations: a, b are (D, N). ``emb`` is the
     optional per-chain aux embedding (H, N), the VAE sampler's fourth Zip
-    input, added to the hidden pre-activation."""
+    input, added to the hidden pre-activation. ``seen``, a list, collects
+    the two hidden pre-activations."""
     if hmc:
         z = torch.zeros_like(a)
         return z, z, z
@@ -290,22 +292,24 @@ def _apply_stq(w: list, a, b, step: int, hmc: bool, emb=None):
     h = w1.T @ a + w2.T @ b + te[:, step : step + 1]
     if emb is not None:
         h = h + emb
-    h = torch.relu(h)
-    h2 = torch.relu(wh.T @ h + bh)
+    pre2 = wh.T @ torch.relu(h) + bh
+    if seen is not None:
+        seen += [h, pre2]
+    h2 = torch.relu(pre2)
     s = torch.exp(ls) * torch.tanh(ws.T @ h2 + bs)
     t = wt.T @ h2 + bt
     q = torch.exp(lq) * torch.tanh(wq.T @ h2 + bq)
     return s, t, q
 
 
-def _trajectory_step(inp: KernelInputs, reverse: bool, step: int, x, v):
+def _trajectory_step(inp: KernelInputs, reverse: bool, step: int, x, v, seen=None):
     """One substep on (D, N) state; returns (x, v, logdet increment (1, N))."""
     m = inp.masks[:, step : step + 1]
     mb = 1.0 - m
     eps, grad_energy, hmc = inp.eps, inp.grad_energy, inp.hmc
 
     def stq(w, a, b):
-        return _apply_stq(w, a, b, step, hmc, inp.emb)
+        return _apply_stq(w, a, b, step, hmc, inp.emb, seen)
 
     if not reverse:
         grad1 = grad_energy(x)
@@ -353,13 +357,35 @@ def trajectory_plain(inp: KernelInputs, x, v, reverse: bool):
     return x, v, ld
 
 
-def _stq_vjp(w: list, a, b, step: int, ds, dt, dq, gw: list):
+def relu_margins(inp: KernelInputs, x, v, reverse: bool) -> torch.Tensor:
+    """Per chain (N,), how close the plain trajectory comes to a ReLU's kink:
+    the smallest hidden pre-activation, in magnitude, of its 4 T net
+    applications, as a share of the largest of the same layer,
+    application and chain. The trajectory's VJP is discontinuous where
+    a pre-activation crosses zero, so a chain whose margin lies within
+    float32 rounding can gate differently in two correct implementations,
+    which then differ by whole terms in that chain's cotangents. HMC mode
+    runs no net: every margin is infinite."""
+    T = inp.dims[3]
+    margin = torch.full_like(x[0], float("inf"))
+    for step in (range(T - 1, -1, -1) if reverse else range(T)):
+        seen: list = []
+        x, v, _ = _trajectory_step(inp, reverse, step, x, v, seen)
+        for pre in seen:
+            margin = torch.minimum(margin, pre.abs().amin(dim=0) / pre.abs().amax(dim=0))
+    return margin
+
+
+def _stq_vjp(w: list, a, b, step: int, ds, dt, dq, gw: list, emb=None, demb=None):
     """VJP of ``_apply_stq`` at inputs (a, b) for output cotangents
     (ds, dt, dq): adds the 13 weight cotangents (summed over chains) into
-    ``gw`` and returns (da, db). Recomputes the net's activations;
-    relu'(0) = 0."""
+    ``gw`` and returns (da, db). With ``emb`` the cotangent of the hidden
+    pre-activation, which is also ``emb``'s, is added into ``demb``.
+    Recomputes the net's activations; relu'(0) = 0."""
     w1, w2, wh, bh, ws, bs, ls, wt, bt, wq, bq, lq, te = w
     z1 = w1.T @ a + w2.T @ b + te[:, step : step + 1]
+    if emb is not None:
+        z1 = z1 + emb
     h = torch.relu(z1)
     z2 = wh.T @ h + bh
     h2 = torch.relu(z2)
@@ -380,26 +406,30 @@ def _stq_vjp(w: list, a, b, step: int, ds, dt, dq, gw: list):
     )):
         gw[i] += g
     gw[12][:, step] += dz1.sum(1)
+    if demb is not None:
+        demb += dz1
     return w1 @ dz1, w2 @ dz1
 
 
-def _step_vjp(inp: KernelInputs, reverse: bool, step: int, x, v, dxo, dvo, dld, gx, gv):
+def _step_vjp(inp: KernelInputs, reverse: bool, step: int, x, v, dxo, dvo, dld, gx, gv,
+              demb=None):
     """VJP of ``_trajectory_step`` at (x, v) for the cotangents (dxo, dvo,
     dld) of (x', v', logdet increment), derived by hand: a recompute of the
     substep, then its four S/T/Q applications and two energy gradients in
     reverse order. Adds the nets' weight cotangents into ``gx`` (xnet) and
-    ``gv`` (vnet); returns (dx, dv, deps (D, N) per chain)."""
+    ``gv`` (vnet) and, with ``inp.emb``, the embedding's into ``demb``;
+    returns (dx, dv, deps (D, N) per chain)."""
     m = inp.masks[:, step : step + 1]
     mb = 1.0 - m
     e, ge, gvjp, hmc = inp.eps, inp.grad_energy, inp.grad_vjp, inp.hmc
 
     def stq(w, a, b):
-        return _apply_stq(w, a, b, step, hmc)
+        return _apply_stq(w, a, b, step, hmc, inp.emb)
 
     def stq_vjp(w, a, b, ds, dt, dq, gw):
         if hmc:
             return 0.0, 0.0
-        return _stq_vjp(w, a, b, step, ds, dt, dq, gw)
+        return _stq_vjp(w, a, b, step, ds, dt, dq, gw, inp.emb, demb)
 
     half = 0.5 * e
     if not reverse:
@@ -520,6 +550,12 @@ def trajectory_vjp_plain(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
     ``_step_vjp`` step by step. Returns (xnet grads (13), vnet grads (13),
     deps (D, 1), dx (D, N), dv (D, N)), the weight and eps cotangents summed
     over chains (zeros for the nets in HMC mode)."""
+    return _trajectory_vjp_plain(inp, x, v, dX, dV, dld, reverse)[:5]
+
+
+def _trajectory_vjp_plain(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
+    """``trajectory_vjp_plain`` with the cotangent of ``inp.emb`` (H, N) as
+    a sixth output (None without an embedding)."""
     T = inp.dims[3]
     steps = list(range(T - 1, -1, -1) if reverse else range(T))
     xs, vs = [x], [v]
@@ -530,11 +566,13 @@ def trajectory_vjp_plain(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
     gx = [torch.zeros_like(w) for w in inp.xnet_w]
     gv = [torch.zeros_like(w) for w in inp.vnet_w]
     de = torch.zeros_like(dX)
+    demb = None if inp.emb is None else torch.zeros_like(inp.emb)
     dx, dv = dX, dV
     for i in range(T - 1, -1, -1):
-        dx, dv, de_i = _step_vjp(inp, reverse, steps[i], xs[i], vs[i], dx, dv, dld, gx, gv)
+        dx, dv, de_i = _step_vjp(inp, reverse, steps[i], xs[i], vs[i], dx, dv, dld, gx, gv,
+                                 demb)
         de = de + de_i
-    return gx, gv, de.sum(1, keepdim=True), dx, dv
+    return gx, gv, de.sum(1, keepdim=True), dx, dv, demb
 
 
 def mh_op(inp: KernelInputs, x, v, u_dir, u_acc):

@@ -1,9 +1,11 @@
-"""The VAE half of the fused kernels: the whole-chain posterior sampler and
-the single-launch AIS (counterpart of the VAE section of
-``l2hmc_tpu/ops/fused_dynamics.py``: ``_make_vae_chain_kernel`` /
-``FusedVaeSampler`` and ``_make_vae_ais_kernel`` / ``FusedVaeAis``).
+"""The VAE half of the fused kernels: the whole-chain posterior sampler, the
+single-launch AIS, and the training trajectory with its VJP (counterpart of
+the VAE section of ``l2hmc_tpu/ops/fused_dynamics.py``:
+``_make_vae_chain_kernel`` / ``FusedVaeSampler``, ``_make_vae_ais_kernel`` /
+``FusedVaeAis``, ``_make_vae_traj_kernel`` and ``_make_vae_bwd_kernel`` /
+``DifferentiableFusedVae``).
 
-Two kernels, both in ``csrc/`` (see the notes at the top of each source):
+Four kernels, all in ``csrc/`` (see the notes at the top of each source):
   - ``vae_chain`` (``csrc/vae_chain.cu``): K MH steps of the L2HMC sampler on
     the decoder posterior U(z | x) = BCE(decoder(z), x) + |z|^2 / 2, with the
     decoder gradient and the aux-conditioned S/T/Q nets in the kernel,
@@ -11,14 +13,21 @@ Two kernels, both in ``csrc/`` (see the notes at the top of each source):
     step. Public class ``FusedVaeSampler``.
   - ``vae_ais`` (``csrc/vae_ais.cu``): a whole annealed-importance-sampling
     chain per launch. Public class ``FusedVaeAis``.
+  - ``vae_traj`` (``csrc/vae_traj.cu``): one T-step trajectory on the decoder
+    posterior, forward or reverse, and ``vae_traj_bwd``
+    (``csrc/vae_traj_bwd.cu``): its vector-Jacobian product with the
+    decoder's Hessian-vector products in the kernel and the weight and eps
+    cotangents summed over chains. Public class ``DifferentiableFusedVae``,
+    the training path, whose ``torch.autograd.Function`` launches the first
+    forward and the second backward.
 
 Beside each is its plain PyTorch version (``vae_chain_plain``,
-``vae_ais_plain``) on the same (D, N) layout with injectable draws. A
-wrapper takes the plain version only for a CPU tensor; for a CUDA tensor it
+``vae_ais_plain``, ``vae_trajectory_plain``, ``vae_trajectory_vjp_plain``)
+on the same (D, N) layout, with injectable draws where it draws. A wrapper
+takes the plain version only for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises. Each launch adds one to
 ``fused_dynamics.LAUNCHES[name]``. Only float32 operands are ported: a
-``compute_dtype`` other than float32 raises. The VAE training trajectory
-and its VJP (``DifferentiableFusedVae``) are not ported yet.
+``compute_dtype`` other than float32 raises.
 
 Host prep follows the JAX package: the decoder enters transposed
 (A = W.T, (out, in), biases as columns), the nets as ``_extract_net``'s 13
@@ -47,7 +56,10 @@ from l2hmc_tpu_torch.ops.fused_dynamics import (
     KernelInputs,
     _eps_col,
     _extract_net,
+    _trajectory_vjp_plain,
+    _with_tensors,
     mh_op,
+    trajectory_plain,
 )
 from l2hmc_tpu_torch.ops.philox import chain_draws
 
@@ -98,10 +110,39 @@ def _vae_decoder_closures(dec_vals, x_raw):
     return energy, grad_energy
 
 
-def prepare_vae(dyn: Dynamics, smp_params, dec_params, x_raw, emb) -> KernelInputs:
-    """Everything the sampler kernel and its plain version read besides the
+def build_grad_vjp(dec_vals, x_raw):
+    """VJP of the decoder posterior's ``grad_energy``: (z, u) -> H(z) u with
+    H the Hessian of the energy, which is symmetric. The forward sweep of
+    the decoder carries the tangent of u beside the primal, the transposed
+    sweep the tangent of the gradient (softplus'' = sigmoid (1 - sigmoid))."""
+    A1, B1, A2, B2, A3, B3 = dec_vals
+
+    def grad_vjp(z, u):
+        p1 = A1 @ z + B1
+        s1 = torch.sigmoid(p1)
+        t1 = s1 * (A1 @ u)  # tangent of softplus(p1)
+        p2 = A2 @ F.softplus(p1) + B2
+        s2 = torch.sigmoid(p2)
+        t2 = s2 * (A2 @ t1)
+        sl = torch.sigmoid(A3 @ F.softplus(p2) + B3)
+        a2 = A3.T @ (sl - x_raw)
+        a1 = A2.T @ (a2 * s2)
+        dd3 = sl * (1.0 - sl) * (A3 @ t2)
+        dd2 = (A3.T @ dd3) * s2 + a2 * (1.0 - s2) * t2
+        dd1 = (A2.T @ dd2) * s1 + a1 * (1.0 - s1) * t1
+        return A1.T @ dd1 + u
+
+    return grad_vjp
+
+
+def prepare_vae(dyn: Dynamics, smp_params, dec_params, x_raw, emb, *,
+                differentiable: bool = False) -> KernelInputs:
+    """Everything the VAE kernels and their plain versions read besides the
     chain state. ``x_raw`` is the (P, N) conditioning batch, ``emb`` its
-    (H, N) aux embedding, both already transposed."""
+    (H, N) aux embedding, both already transposed. The nets, eps and the
+    embedding are detached unless ``differentiable`` (the training path,
+    where they keep their autograd history back to the params tree); the
+    decoder and ``x_raw`` are always detached."""
     if dyn.hmc:
         raise ValueError("the fused VAE sampler needs the S/T/Q nets (hmc=False)")
     if dyn.eps_step or dyn.eps_mat or dyn.net_input_fn is not None or dyn.input_scale is not None:
@@ -109,18 +150,26 @@ def prepare_vae(dyn: Dynamics, smp_params, dec_params, x_raw, emb) -> KernelInpu
             "the fused VAE sampler does not support eps_step, eps_mat, net_input_fn "
             "or input_scale")
     device = x_raw.device
+    x_raw = x_raw.detach()
     dec = decoder_arrays(dec_params)
     energy, grad_energy = _vae_decoder_closures(dec, x_raw)
+    eps = _eps_col(dyn.eps(smp_params), dyn.dim).to(device)
+    xnet_w = _extract_net(smp_params["xnet"], dyn.times)
+    vnet_w = _extract_net(smp_params["vnet"], dyn.times)
+    if not differentiable:
+        eps, emb = eps.detach(), emb.detach()
+        xnet_w = [w.detach() for w in xnet_w]
+        vnet_w = [w.detach() for w in vnet_w]
     return KernelInputs(
-        eps=_eps_col(dyn.eps(smp_params), dyn.dim).to(device).detach(),
+        eps=eps,
         masks=torch.as_tensor(dyn.masks.T.copy(), dtype=torch.float32, device=device),
         consts=dec,
-        xnet_w=[w.detach() for w in _extract_net(smp_params["xnet"], dyn.times)],
-        vnet_w=[w.detach() for w in _extract_net(smp_params["vnet"], dyn.times)],
+        xnet_w=xnet_w,
+        vnet_w=vnet_w,
         hmc=False,
         energy=energy,
         grad_energy=grad_energy,
-        grad_vjp=None,
+        grad_vjp=build_grad_vjp(dec, x_raw),
         emb=emb,
     )
 
@@ -264,6 +313,22 @@ def vae_ais_plain(
     return w, acc_sum * (1.0 / anneal_steps)
 
 
+def vae_trajectory_plain(inp: KernelInputs, z, v, reverse: bool):
+    """Plain version of the trajectory kernel on the decoder posterior:
+    (D, N) z, v -> (Z, V, logdet (1, N)); ``inp`` from ``prepare_vae``."""
+    return trajectory_plain(inp, z, v, reverse)
+
+
+def vae_trajectory_vjp_plain(inp: KernelInputs, z, v, dZ, dV, dld, reverse: bool):
+    """Plain version of the backward kernel: the VJP of
+    ``vae_trajectory_plain`` at (z, v) for the cotangents dZ, dV (D, N) and
+    dld (1, N). Returns (xnet grads (13), vnet grads (13), deps (D, 1),
+    demb (H, N), dz (D, N), dv (D, N)); the weight and eps cotangents are
+    summed over chains. The decoder and x_raw get none."""
+    gx, gv, deps, dz, dv, demb = _trajectory_vjp_plain(inp, z, v, dZ, dV, dld, reverse)
+    return gx, gv, deps, demb, dz, dv
+
+
 # -- wrappers ----------------------------------------------------------------------
 
 
@@ -359,6 +424,131 @@ def vae_ais(
     return log_w, acc
 
 
+def _net_sizes(D, H, H2, T) -> list[int]:
+    """Sizes of one net's arrays in ``_pack_net`` order."""
+    return [D * H, D * H, H * H2, H2, H2 * 3 * D, D, D, D, D, D, H * T]
+
+
+def _unpack_net_grads(flat: torch.Tensor, D, H, H2, T) -> list[torch.Tensor]:
+    """One net's cotangents from the kernel's packed order back to
+    ``_extract_net``'s 13 arrays."""
+    w1, w2, wh, bh, wo, bs, ls, bt, bq, lq, te = torch.split(flat, _net_sizes(D, H, H2, T))
+    wo = wo.view(H2, 3 * D)
+
+    def col(a):
+        return a.view(-1, 1)
+
+    return [w1.view(D, H), w2.view(D, H), wh.view(H, H2), col(bh),
+            wo[:, :D], col(bs), col(ls), wo[:, D:2 * D], col(bt),
+            wo[:, 2 * D:], col(bq), col(lq), te.view(H, T)]
+
+
+def _traj_args(inp: KernelInputs, x_raw, z, v):
+    """Shapes checked for the two trajectory wrappers; returns
+    (D, H, H2, T, E, P, N)."""
+    D, H, H2, T = inp.dims
+    E, P = inp.consts[0].shape[0], inp.consts[4].shape[0]
+    N = z.shape[1] if z.dim() == 2 else -1
+    dev = inp.eps.device
+    _check("z", z, (D, N), dev)
+    _check("v", v, (D, N), dev)
+    _check("x_raw", x_raw, (P, N), dev)
+    _check("emb", inp.emb, (H, N), dev)
+    return D, H, H2, T, E, P, N
+
+
+def vae_trajectory(inp: KernelInputs, x_raw, z, v, reverse: bool,
+                   tile: Optional[int] = None):
+    """One T-step trajectory on the decoder posterior on (D, N) float32
+    state; returns what ``vae_trajectory_plain`` returns. CPU tensors take
+    the plain version; CUDA tensors launch ``csrc/vae_traj.cu`` with
+    ``tile`` chains per block (default: ``chain_tile``)."""
+    D, H, H2, T, E, P, N = _traj_args(inp, x_raw, z, v)
+    if z.device.type == "cpu":
+        return vae_trajectory_plain(inp, z, v, reverse)
+    if z.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {z.device}")
+    dev = z.device
+    C = _check_tile(tile, N, dev)
+    _check_smem(C * (2 * E + P + H + H2 + _THREADS // 32 + 8 * D + 3))
+    block = _flat([inp.eps, inp.masks, *_pack_decoder(inp.consts),
+                   *_pack_net(inp.xnet_w), *_pack_net(inp.vnet_w)])
+    zo, vo = torch.empty_like(z), torch.empty_like(v)
+    ld = torch.empty((1, N), dtype=torch.float32, device=dev)
+    lib = _cuda.library("vae_traj")
+    with torch.cuda.device(dev):
+        err = lib.l2hmc_vae_traj(
+            block.data_ptr(), D, H, H2, T, E, P, x_raw.data_ptr(), inp.emb.data_ptr(),
+            z.data_ptr(), v.data_ptr(), zo.data_ptr(), vo.data_ptr(), ld.data_ptr(),
+            N, int(reverse), C, torch.cuda.current_stream().cuda_stream,
+        )
+    _cuda.check(err, "vae_traj")
+    LAUNCHES["vae_traj"] += 1
+    return zo, vo, ld
+
+
+_BWD_D_ARRAYS = 26  # [D][C] arrays of the backward kernel (kDArrays)
+
+
+def bwd_smem_floats(C, D, H, H2, E, P) -> int:
+    """Shared-memory floats of one block of the backward kernel (as
+    ``bwd_floats`` in csrc/vae_traj_bwd.cu): the decoder's activations with
+    the tangent beside the primal, which the nets' activations share, the
+    [D][C] state and cotangent arrays, and the embedding's cotangent."""
+    region = max(2 * C * (2 * E + P),
+                 C * (2 * E + P + 2 * H + 2 * H2 + 3 * D + _THREADS // 32))
+    return region + _BWD_D_ARRAYS * D * C + H * C + 4 * C
+
+
+def vae_trajectory_vjp(inp: KernelInputs, x_raw, z, v, dZ, dV, dld, reverse: bool,
+                       tile: Optional[int] = None):
+    """VJP of the fused VAE trajectory at (D, N) float32 (z, v) for the
+    cotangents dZ, dV (D, N) and dld (1, N); returns what
+    ``vae_trajectory_vjp_plain`` returns. CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/vae_traj_bwd.cu``: each block adds
+    its tile's weight and eps cotangents into its own slice of a per-block
+    scratch, and a second kernel sums the slices in a fixed order."""
+    D, H, H2, T, E, P, N = _traj_args(inp, x_raw, z, v)
+    dev = inp.eps.device
+    _check("dZ", dZ, (D, N), dev)
+    _check("dV", dV, (D, N), dev)
+    _check("dld", dld, (1, N), dev)
+    if z.device.type == "cpu":
+        return vae_trajectory_vjp_plain(inp, z, v, dZ, dV, dld, reverse)
+    if z.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {z.device}")
+    C = _check_tile(tile, N, dev)
+    _check_smem(bwd_smem_floats(C, D, H, H2, E, P))
+    nets = []
+    for w in (inp.xnet_w, inp.vnet_w):
+        w1, w2, wh, _, wo = _pack_net(w)[:5]
+        nets += [w1.T, w2.T, wh.T, wo.T]
+    block = _flat([inp.eps, inp.masks, *_pack_decoder(inp.consts),
+                   *_pack_net(inp.xnet_w), *_pack_net(inp.vnet_w), *nets])
+    nf = sum(_net_sizes(D, H, H2, T))
+    n_grads = 2 * nf + D
+    blocks = (N + C - 1) // C
+    grads = torch.empty(n_grads, dtype=torch.float32, device=dev)
+    partial = torch.empty((blocks, n_grads), dtype=torch.float32, device=dev)
+    bnd = torch.empty((5 * T + 3) * D * N, dtype=torch.float32, device=dev)
+    dz, dv = torch.empty_like(z), torch.empty_like(v)
+    demb = torch.empty_like(inp.emb)
+    lib = _cuda.library("vae_traj_bwd")
+    with torch.cuda.device(dev):
+        err = lib.l2hmc_vae_traj_bwd(
+            block.data_ptr(), D, H, H2, T, E, P, x_raw.data_ptr(), inp.emb.data_ptr(),
+            z.data_ptr(), v.data_ptr(), dZ.data_ptr(), dV.data_ptr(), dld.data_ptr(),
+            dz.data_ptr(), dv.data_ptr(), demb.data_ptr(), grads.data_ptr(),
+            partial.data_ptr(), bnd.data_ptr(), N, int(reverse), C,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _cuda.check(err, "vae_traj_bwd")
+    LAUNCHES["vae_traj_bwd"] += 1
+    gx = _unpack_net_grads(grads[:nf], D, H, H2, T)
+    gv = _unpack_net_grads(grads[nf:2 * nf], D, H, H2, T)
+    return gx, gv, grads[2 * nf:].view(D, 1), demb, dz, dv
+
+
 # -- public classes ----------------------------------------------------------------
 
 
@@ -440,3 +630,79 @@ class FusedVaeAis:
             z0.detach().T.contiguous(), seed, anneal_steps, step_size, leapfrogs,
         )
         return w[0], acc[0]
+
+
+class _VaeTrajectory(torch.autograd.Function):
+    """The fused VAE trajectory as one autograd node whose boundary is the
+    kernels': eps (D, 1), emb (H, N), z, v (D, N) and the 13 + 13 net
+    weights. Forward runs ``vae_trajectory``, backward
+    ``vae_trajectory_vjp``; the decoder and x_raw ride along in ``inp`` and
+    get no cotangent."""
+
+    @staticmethod
+    def forward(ctx, inp: KernelInputs, x_raw, reverse: bool, eps, emb, z, v, *weights):
+        ctx.inp = dataclasses.replace(inp, eps=None, emb=None, xnet_w=[], vnet_w=[])
+        ctx.x_raw = x_raw
+        ctx.reverse = reverse
+        ctx.save_for_backward(eps, emb, z, v, *weights)
+        full = dataclasses.replace(_with_tensors(inp, eps, weights), emb=emb)
+        return vae_trajectory(full, x_raw, z, v, reverse)
+
+    @staticmethod
+    def backward(ctx, dZ, dV, dld):
+        eps, emb, z, v, *weights = ctx.saved_tensors
+        inp = dataclasses.replace(_with_tensors(ctx.inp, eps, weights), emb=emb)
+        gx, gv, deps, demb, dz, dv = vae_trajectory_vjp(
+            inp, ctx.x_raw, z, v, dZ.contiguous(), dV.contiguous(), dld.contiguous(),
+            ctx.reverse,
+        )
+        return (None, None, None, deps, demb, dz, dv, *gx, *gv)
+
+
+@dataclasses.dataclass(frozen=True)
+class DifferentiableFusedVae:
+    """Training-path fused trajectories for the VAE posterior sampler: the
+    surface ``mcmc.propose`` reads (``forward``, ``backward``, ``p_accept``,
+    ``energy``, ``eps``, ``hmc``) on (n, D) state with
+    ``aux = {"raw", "emb", "dec"}`` as ``apps/vae.py`` hands it. One
+    forward and one backward kernel launch per trajectory. Gradients reach
+    the S/T/Q nets and alpha (through ``_extract_net``'s folds and
+    ``eps = exp(alpha)``) and the aux encoder (through ``emb``) by ordinary
+    autograd outside the boundary; the decoder and the raw batch are
+    detached, as the sampler loss stops their gradient. ``p_accept`` and
+    ``energy`` stay on the plain ``Dynamics``."""
+
+    dynamics: Dynamics  # apps/vae.py build_dynamics
+    compute_dtype: str = ""
+    hmc: bool = dataclasses.field(default=False, init=False)
+
+    def __post_init__(self):
+        resolve_compute_dtype(self.compute_dtype or None)
+        if self.dynamics.hmc:
+            raise ValueError("the fused VAE trajectory needs the S/T/Q nets (hmc=False)")
+
+    @property
+    def energy(self):
+        return self.dynamics.energy
+
+    def eps(self, params):
+        return self.dynamics.eps(params)
+
+    def p_accept(self, params, x0, v0, x1, v1, log_jac, aux=None):
+        return self.dynamics.p_accept(params, x0, v0, x1, v1, log_jac, aux=aux)
+
+    def forward(self, params, z, v, aux=None):
+        return self._run(params, z, v, aux, reverse=False)
+
+    def backward(self, params, z, v, aux=None):
+        return self._run(params, z, v, aux, reverse=True)
+
+    def _run(self, params, z, v, aux, reverse: bool):
+        x_raw = aux["raw"].detach().T.contiguous()
+        inp = prepare_vae(self.dynamics, params, aux["dec"], x_raw,
+                          aux["emb"].T.contiguous(), differentiable=True)
+        Z, V, ld = _VaeTrajectory.apply(
+            inp, x_raw, reverse, inp.eps, inp.emb, z.T.contiguous(), v.T.contiguous(),
+            *inp.xnet_w, *inp.vnet_w,
+        )
+        return Z.T, V.T, ld[0]

@@ -45,9 +45,14 @@ class Target(abc.ABC):
 def batched_grad(energy: Callable[..., torch.Tensor]) -> Callable[..., torch.Tensor]:
     """Per-row gradient of a batched row-independent energy: the gradient of
     the sum equals the stacked per-row gradients, so one backward pass serves
-    the whole batch."""
+    the whole batch. Where autograd is on and ``x`` carries a gradient, the
+    result stays differentiable (a training loss differentiates through the
+    trajectory's gradient calls); otherwise it is detached."""
 
     def grad_fn(x: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+        if torch.is_grad_enabled() and x.requires_grad:
+            (g,) = torch.autograd.grad(energy(x, *args, **kwargs).sum(), x, create_graph=True)
+            return g
         with torch.enable_grad():
             y = x.detach().requires_grad_(True)
             (g,) = torch.autograd.grad(energy(y, *args, **kwargs).sum(), y)

@@ -1,7 +1,15 @@
 """The SCG experiment: training and evaluation (counterpart of
 ``l2hmc_tpu/train``)."""
 
-from l2hmc_tpu_torch.train.optim import Adam, AdamState, exponential_decay
+from l2hmc_tpu_torch.train.optim import (
+    OPTIMIZERS,
+    Adam,
+    AdamState,
+    RmsProp,
+    Sgd,
+    exponential_decay,
+    piecewise_constant_schedule,
+)
 from l2hmc_tpu_torch.train.scg import (
     ScgConfig,
     StepDraws,
@@ -20,9 +28,12 @@ from l2hmc_tpu_torch.train.scg import (
 )
 
 __all__ = [
+    "OPTIMIZERS",
     "Adam",
     "AdamState",
+    "RmsProp",
     "ScgConfig",
+    "Sgd",
     "StepDraws",
     "TrainState",
     "build_dynamics",
@@ -33,6 +44,7 @@ __all__ = [
     "init_state",
     "make_optimizer",
     "make_train_step",
+    "piecewise_constant_schedule",
     "run_experiment",
     "sample_chain",
     "temperature_at",

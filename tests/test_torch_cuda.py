@@ -233,3 +233,133 @@ def test_vae_wrappers_reject_bad_input(cuda):
         fv.vae_chain(inp, xr, z0.T.contiguous().cpu(), seed=0, n_mh_steps=1)
     with pytest.raises(ValueError, match="tile"):
         fv.vae_chain(inp, xr, z0.T.contiguous(), seed=0, n_mh_steps=1, tile=16)
+
+
+# -- the VAE training kernels -----------------------------------------------------
+
+
+def _vae_traj_inputs(cuda, full, n):
+    from l2hmc_tpu_torch.ops import fused_vae as fv
+
+    model, params, x_raw, emb, z0 = _vae_setup(cuda, full, n)
+    xr = x_raw.T.contiguous()
+    inp = fv.prepare_vae(model.dynamics, params["smp"], params["dec"], xr, emb.T.contiguous())
+    g = torch.Generator().manual_seed(2)
+    v, dZ, dV = (torch.randn(z0.T.shape, generator=g).to(cuda) for _ in range(3))
+    dld = torch.randn((1, n), generator=g).to(cuda)
+    return model, params, inp, xr, z0.T.contiguous(), v, dZ, dV, dld
+
+
+@pytest.mark.parametrize("tile", [4, 8])
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("full,n", [(True, 203), (False, 77)], ids=["full", "small"])
+def test_vae_traj_kernel_matches_plain(cuda, full, n, reverse, tile):
+    """The training trajectory on a ragged chain count against its plain
+    version, 5e-4 (bench.py's gate); forward then reverse inverts."""
+    from l2hmc_tpu_torch.ops import fused_vae as fv
+
+    _, _, inp, xr, z, v, _, _, _ = _vae_traj_inputs(cuda, full, n)
+    before = fd.LAUNCHES["vae_traj"]
+    got = fv.vae_trajectory(inp, xr, z, v, reverse, tile=tile)
+    assert fd.LAUNCHES["vae_traj"] == before + 1
+    want = fv.vae_trajectory_plain(inp, z, v, reverse)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=TOL)
+    z2, v2, ld2 = fv.vae_trajectory(inp, xr, got[0], got[1], not reverse, tile=tile)
+    torch.testing.assert_close(z2, z, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(ld2, -got[2], rtol=1e-3, atol=1e-3)
+    assert float((got[0] - z).abs().max()) > 0.05  # the chains moved
+
+
+@pytest.mark.parametrize("tile", [4, 8])
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("full,n", [(True, 203), (False, 78)], ids=["full", "small"])
+def test_vae_traj_bwd_kernel_matches_plain(cuda, full, n, reverse, tile):
+    """The VJP kernel against its plain version: every leaf within 1e-4 of
+    the leaf's largest entry (sums over chains and over up to 1024 terms in
+    another order), and twice in a row bit for bit (no atomics). The nets
+    are ReLU nets, so a hidden pre-activation within rounding of zero can
+    gate differently in the two and change that chain's cotangents by whole
+    terms: such chains show in their own outputs (demb, dz, dv), may be at
+    most 1 (every ragged last block here holds at least 2), must have a
+    pre-activation of the plain trajectory within 1e-5 of its layer's
+    largest (``relu_margins``), and are set aside by a second comparison
+    with their incoming cotangents zeroed."""
+    from l2hmc_tpu_torch.ops import fused_vae as fv
+
+    _, _, inp, xr, z, v, dZ, dV, dld = _vae_traj_inputs(cuda, full, n)
+    before = fd.LAUNCHES["vae_traj_bwd"]
+    got = fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, reverse, tile=tile)
+    assert fd.LAUNCHES["vae_traj_bwd"] == before + 1
+    again = fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, reverse, tile=tile)
+    for a, b in zip(tree_leaves(list(got)), tree_leaves(list(again))):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    want = fv.vae_trajectory_vjp_plain(inp, z, v, dZ, dV, dld, reverse)
+    flipped = torch.zeros(n, dtype=torch.bool, device=cuda)
+    for a, b in zip(got[3:], want[3:]):
+        flipped |= (a - b).abs().amax(dim=0) > 1e-4 * b.abs().max()
+    assert int(flipped.sum()) <= 1
+    if bool(flipped.any()):
+        assert float(fd.relu_margins(inp, z, v, reverse)[flipped].max()) < 1e-5
+        keep = (~flipped).float()[None, :]
+        got = fv.vae_trajectory_vjp(inp, xr, z, v, dZ * keep, dV * keep, dld * keep, reverse,
+                                    tile=tile)
+        want = fv.vae_trajectory_vjp_plain(inp, z, v, dZ * keep, dV * keep, dld * keep, reverse)
+    for a, b in zip(tree_leaves(list(got)), tree_leaves(list(want))):
+        assert float(b.abs().max()) > 0
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()))
+
+
+def test_vae_backward_through_function_launches_kernels(cuda):
+    """``DifferentiableFusedVae`` on CUDA tensors: forward launches the
+    trajectory kernel, ``backward()`` the VJP kernel, never the plain
+    versions; the gradients reach alpha, both nets and the aux encoder and
+    agree with the plain ``Dynamics`` under autograd to 2e-3 of each leaf's
+    largest entry (a ReLU gate may flip in one of 64 chains)."""
+    from l2hmc_tpu_torch.ops import DifferentiableFusedVae
+    from l2hmc_tpu_torch.ops import fused_vae as fv
+    from l2hmc_tpu_torch.train.optim import tree_unflatten
+
+    model, params, x_raw, _, z0 = _vae_setup(cuda, False, 64)
+    v0 = torch.randn(z0.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+
+    def grads(dyn):
+        leaves = [leaf.detach().requires_grad_(True) for leaf in tree_leaves(params["smp"])]
+        smp = tree_unflatten(params["smp"], leaves)
+        aux = {"raw": x_raw, "emb": model.aux_encoder.apply(smp["aux_enc"], x_raw),
+               "dec": params["dec"]}
+        Z, V, ld = dyn.forward(smp, z0, v0, aux=aux)
+        Zb, Vb, ldb = dyn.backward(smp, z0, v0, aux=aux)
+        loss = torch.mean(Z * Zb) + torch.mean(V + Vb) + torch.mean(ld - 2.0 * ldb)
+        return torch.autograd.grad(loss, leaves)
+
+    def forbidden(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    before = dict(fd.LAUNCHES)
+    plain, plain_vjp = fv.vae_trajectory_plain, fv.vae_trajectory_vjp_plain
+    fv.vae_trajectory_plain = fv.vae_trajectory_vjp_plain = forbidden
+    try:
+        fused = grads(DifferentiableFusedVae(model.dynamics))
+    finally:
+        fv.vae_trajectory_plain, fv.vae_trajectory_vjp_plain = plain, plain_vjp
+    assert fd.LAUNCHES["vae_traj"] == before["vae_traj"] + 2
+    assert fd.LAUNCHES["vae_traj_bwd"] == before["vae_traj_bwd"] + 2
+    for a, b in zip(fused, grads(model.dynamics)):
+        assert float(b.abs().max()) > 0
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-3 * float(b.abs().max()))
+
+
+def test_vae_traj_wrappers_reject_bad_input(cuda):
+    from l2hmc_tpu_torch.ops import fused_vae as fv
+
+    _, _, inp, xr, z, v, dZ, dV, dld = _vae_traj_inputs(cuda, False, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fv.vae_trajectory(inp, xr, z, v.T.contiguous().T, False)
+    with pytest.raises(ValueError, match="expected"):
+        fv.vae_trajectory(inp, xr, z.cpu(), v, False)
+    with pytest.raises(ValueError, match="tile"):
+        fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, False, tile=16)
+    with pytest.raises(ValueError, match="shape"):
+        fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld[0], False)

@@ -29,7 +29,7 @@ from l2hmc_tpu_torch.train import (
     temperature_at,
     train,
 )
-from l2hmc_tpu_torch.train.optim import tree_leaves
+from l2hmc_tpu_torch.train.optim import OPTIMIZERS, piecewise_constant_schedule, tree_leaves
 
 
 def _adam_state(state):
@@ -118,6 +118,70 @@ def test_schedule_matches_optax():
     ts = exponential_decay(1e-3, 1000, 0.96)
     got = [float(ts(torch.tensor(c, dtype=torch.int32))) for c in (0, 1, 999, 1000, 4999, 5000)]
     np.testing.assert_allclose(got, ref, rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["adam", "rmsprop", "sgd", "nesterov"])
+@pytest.mark.parametrize("grad_clip", [0.0, 0.7], ids=["noclip", "clip"])
+def test_vae_optimizers_match_optax(name, grad_clip):
+    """The VAE apps' optimizer map against optax's (``l2hmc_tpu.apps.vae``'s
+    ``OPTIMIZERS``, behind ``clip_by_global_norm`` where clipped) over seven
+    steps on one gradient sequence with the piecewise-constant schedule
+    dropping at step 4: params after every step to rtol 2e-6 and 2e-6 of the
+    largest entry (float32, XLA may fuse the moment updates into FMAs). A
+    NaN gradient reaches the params in both: none skips a step."""
+    from l2hmc_tpu.apps.vae import OPTIMIZERS as JAX_OPTIMIZERS
+
+    rng = np.random.default_rng(3)
+    p0 = {"alpha": np.float32(-2.3), "w": rng.standard_normal((3, 2)).astype(np.float32)}
+    grads = [{"alpha": np.float32(rng.standard_normal()),
+              "w": (rng.standard_normal((3, 2)) * (0.2 + k % 3)).astype(np.float32)}
+             for k in range(7)]
+    with jax.enable_x64(False):
+        jsched = optax.piecewise_constant_schedule(0.05, {4: 0.1})
+        jopt = JAX_OPTIMIZERS[name](jsched)
+        if grad_clip:
+            jopt = optax.chain(optax.clip_by_global_norm(grad_clip), jopt)
+        jp = jax.tree_util.tree_map(jnp.asarray, p0)
+        jstate = jopt.init(jp)
+        ref = []
+        for g in grads:
+            u, jstate = jopt.update(jax.tree_util.tree_map(jnp.asarray, g), jstate, jp)
+            jp = optax.apply_updates(jp, u)
+            ref.append(_flat(jp))
+
+    opt = OPTIMIZERS[name](piecewise_constant_schedule(0.05, {4: 0.1}), grad_clip)
+    tp = {k: torch.tensor(v) for k, v in p0.items()}
+    tstate = opt.init(tp)
+    for k, g in enumerate(grads):
+        u, tstate = opt.update({kk: torch.tensor(v) for kk, v in g.items()}, tstate)
+        tp = {kk: tp[kk] + u[kk] for kk in tp}
+        got = torch.cat([tp[kk].reshape(-1) for kk in sorted(tp)]).numpy()
+        np.testing.assert_allclose(got, ref[k], rtol=2e-6, atol=2e-6 * np.abs(ref[k]).max())
+        assert int(tstate.count) == k + 1
+    # the drop showed: the last step is about a tenth of the first ones' size
+    assert np.abs(ref[6] - ref[5]).max() < 0.3 * np.abs(ref[1] - ref[0]).max()
+    nan = {"alpha": torch.tensor(np.float32("nan")), "w": torch.zeros(3, 2)}
+    u, after = opt.update(nan, tstate)
+    assert int(after.count) == 8 and bool(torch.isnan(u["alpha"]))
+
+
+def test_piecewise_schedule_matches_optax():
+    """Values on both sides of two boundaries, and a constant learning rate
+    given as a number."""
+    counts = (0, 1, 9, 10, 11, 29, 30, 1000)
+    with jax.enable_x64(False):
+        js = optax.piecewise_constant_schedule(1e-3, {10: 0.1, 30: 0.5})
+        ref = [float(js(jnp.asarray(c, jnp.int32))) for c in counts]
+    ts = piecewise_constant_schedule(1e-3, {10: 0.1, 30: 0.5})
+    got = [float(ts(torch.tensor(c, dtype=torch.int32))) for c in counts]
+    np.testing.assert_allclose(got, ref, rtol=1e-7)
+    assert ref[3] == pytest.approx(1e-4) and ref[6] == pytest.approx(5e-5)
+    assert float(piecewise_constant_schedule(0.3)(torch.tensor(7))) == pytest.approx(0.3)
+    with pytest.raises(ValueError, match="non-negative"):
+        piecewise_constant_schedule(1.0, {3: -0.1})
+    opt = OPTIMIZERS["sgd"](0.5)
+    u, _ = opt.update({"w": torch.ones(2)}, opt.init({"w": torch.zeros(2)}))
+    torch.testing.assert_close(u["w"], torch.full((2,), -0.5))
 
 
 # -- one train step vs the JAX loss composed from its parts ----------------------
