@@ -47,11 +47,14 @@ SIGNATURES = {
                           _U64, _P],
     },
     "vae_traj": {
-        "l2hmc_vae_traj": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _P],
+        "l2hmc_vae_traj": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 8), _I, _I, _P],
+        "l2hmc_vae_traj_sizes": [*([_I] * 7), _P],
+        "l2hmc_vae_traj_clusters": [_I] * 6,
     },
     "vae_traj_bwd": {
-        "l2hmc_vae_traj_bwd": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 13), _I, _I, _I, _P],
+        "l2hmc_vae_traj_bwd": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 14), _I, _I, _P],
+        "l2hmc_vae_traj_bwd_sizes": [*([_I] * 7), _P],
+        "l2hmc_vae_traj_bwd_clusters": [_I] * 6,
     },
 }
 

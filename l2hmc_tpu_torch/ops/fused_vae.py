@@ -17,9 +17,13 @@ Four kernels, all in ``csrc/`` (see the notes at the top of each source):
     posterior, forward or reverse, and ``vae_traj_bwd``
     (``csrc/vae_traj_bwd.cu``): its vector-Jacobian product with the
     decoder's Hessian-vector products in the kernel and the weight and eps
-    cotangents summed over chains. Public class ``DifferentiableFusedVae``,
-    the training path, whose ``torch.autograd.Function`` launches the first
-    forward and the second backward.
+    cotangents summed over chains. Both run a tile of Ct chains on a
+    thread-block cluster of G CTAs (``csrc/vae_cluster.cuh``), one
+    configuration, ``CLUSTER``; each source reports what the host allocates
+    for it (``kernel_sizes``). Public class
+    ``DifferentiableFusedVae``, the training path, whose
+    ``torch.autograd.Function`` launches the first forward and the second
+    backward.
 
 Beside each is its plain PyTorch version (``vae_chain_plain``,
 ``vae_ais_plain``, ``vae_trajectory_plain``, ``vae_trajectory_vjp_plain``)
@@ -31,14 +35,18 @@ launches the kernel or raises. Each launch adds one to
 
 Host prep follows the JAX package: the decoder enters transposed
 (A = W.T, (out, in), biases as columns), the nets as ``_extract_net``'s 13
-arrays, the aux embedding as an (H, N) input. The kernels read every
-weight matrix with the reduction index slowest, so ``_pack_decoder`` hands
-them the decoder in both layouts and ``_pack_net`` packs the three heads
-side by side.
+arrays, the aux embedding as an (H, N) input. The sampler and AIS kernels
+read every weight matrix with the reduction index slowest, so
+``_pack_decoder`` copies the decoder into one block in both layouts and
+``_pack_net`` packs the three heads side by side. The training kernels
+take a pointer to each array instead (``_weight_ptrs``): the decoder in the
+params tree's own (in, out) layout, which A.T is, so nothing is copied per
+launch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Callable, Optional, Sequence
 
@@ -64,7 +72,11 @@ from l2hmc_tpu_torch.ops.fused_dynamics import (
 from l2hmc_tpu_torch.ops.philox import chain_draws
 
 _THREADS = 256  # threads per block of the VAE kernels (csrc/vae_common.cuh)
-TILES = (4, 8)  # chain tiles the kernels are instantiated for
+TILES = (4, 8)  # chain tiles of the sampler and AIS kernels
+# (chains per cluster Ct, CTAs per cluster G) of the training kernels, as
+# kCt, kG in csrc/vae_cluster.cuh
+CLUSTER = (40, 8)
+_KC = 32  # reduction rows per staged chunk of a cluster product (vae_cluster.cuh)
 
 
 # -- host prep -------------------------------------------------------------------
@@ -208,6 +220,89 @@ def _check_tile(tile: Optional[int], n: int, device) -> int:
     if tile not in TILES:
         raise ValueError(f"tile must be one of {TILES}, got {tile}")
     return tile
+
+
+# The shared memory per CTA as the two sources carve it, mirrored for the
+# tests on the CPU; the wrappers take the sources' own figure
+# (``kernel_sizes``), and the card tests hold the two equal.
+
+
+def _slice(m: int, g: int) -> int:
+    return -(-m // g)
+
+
+def _slice4(m: int, g: int) -> int:
+    """The decoder's split (``slice_rows4``): rows per CTA rounded up to a
+    multiple of 4, so that each CTA's rows start on a 16-byte boundary."""
+    return -(-_slice(m, g) // 4) * 4
+
+
+def _ring_floats(ct: int) -> int:
+    """The ring of a cluster product with ct columns (``ring_floats``): three
+    weight slots, each a chunk of 128 rows staged [32][128 + 4] or
+    [128][32 + 4], and three input chunks [32][ct]."""
+    return 3 * (max(_KC * (128 + 4), 128 * (_KC + 4)) + _KC * ct)
+
+
+def traj_smem_floats(ct, g, D, H, H2, E, P) -> int:
+    """Shared-memory floats of one CTA of the trajectory kernel (as
+    ``traj_floats`` in csrc/vae_traj.cu): the decoder's hidden layers and
+    the net's on the CTA's rows, eight latent state arrays, the log-det
+    partial and the product's ring."""
+    return (ct * (2 * _slice4(E, g) + _slice(H, g) + _slice(H2, g) + 8 * _slice(D, g) + 1)
+            + _ring_floats(ct))
+
+
+_BWD_STATE_ARRAYS = 22  # [Dg][Ct] arrays of the backward kernel (kStateArrays)
+
+
+def bwd_smem_floats(ct, g, D, H, H2, E, P) -> int:
+    """Shared-memory floats of one CTA of the backward kernel (as
+    ``bwd_floats`` in csrc/vae_traj_bwd.cu): the ring of the widest product
+    (or a whole operand of an outer product), the region that the sweeps
+    with a tangent share with the other activations, the latent state and
+    cotangent arrays, the two [Dg][2 Ct] arrays of a sweep with a tangent,
+    the embedding's cotangent and dld. The region is rounded up to 4
+    floats: the arrays after it take 16-byte copies."""
+    Dg, Hg, H2g = (_slice(m, g) for m in (D, H, H2))
+    Eg = _slice4(E, g)
+    stage = max(_ring_floats(2 * ct), max(H, H2, D) * ct)
+    region = -(-max(2 * ct * 2 * Eg,
+                    ct * (2 * Eg + Hg + H2g) + (ct + 1) * (Hg + H2g + 3 * Dg)) // 4) * 4
+    return stage + region + ct * (_BWD_STATE_ARRAYS * Dg + 4 * Dg + Hg + 1)
+
+
+def weight_l2_bytes(ct, N, D, H, H2, T, E, P) -> tuple[int, int]:
+    """Weight bytes one trajectory launch reads from the L2 (the decoder,
+    the nets): every cluster reads each weight once per product, the
+    decoder's three matrices twice per gradient (forward and transposed),
+    T + 1 gradients and 4 T net applications. The backward kernel reads
+    twice as much: the pass forward, then the sweeps with a tangent and the
+    nets' transposed products."""
+    clusters = -(-N // ct)
+    dec = 4 * 2 * (D * E + E * E + E * P) * (T + 1)
+    net = 4 * (2 * D * H + H * H2 + 3 * H2 * D) * 4 * T
+    return clusters * dec, clusters * net
+
+
+def max_clusters(dims, backward: bool) -> int:
+    """How many clusters the card holds at once for one of the two training
+    kernels at ``dims`` = (D, H, H2, T, E, P) (CUDA's occupancy query); a
+    negative CUDA error code if it fails."""
+    name = "vae_traj_bwd" if backward else "vae_traj"
+    return getattr(_cuda.library(name), f"l2hmc_{name}_clusters")(*dims)
+
+
+def kernel_sizes(name: str, dims, n: int) -> dict:
+    """What the training kernel ``name`` (``vae_traj`` or ``vae_traj_bwd``)
+    needs for ``n`` chains at ``dims`` = (D, H, H2, T, E, P), as its source
+    reckons it (``l2hmc_<name>_sizes``): its cluster configuration ``ct``,
+    ``g``, the shared-memory bytes per CTA and the floats of each device
+    scratch (``act``; the backward kernel's ``partial`` and ``bnd`` too)."""
+    out = (ctypes.c_longlong * 6)()
+    getattr(_cuda.library(name), f"l2hmc_{name}_sizes")(*dims, n, out)
+    keys = ("ct", "g", "smem_bytes", "act", "partial", "bnd")
+    return dict(zip(keys, out[:4] if name == "vae_traj" else out[:]))
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -457,57 +552,58 @@ def _traj_args(inp: KernelInputs, x_raw, z, v):
     return D, H, H2, T, E, P, N
 
 
-def vae_trajectory(inp: KernelInputs, x_raw, z, v, reverse: bool,
-                   tile: Optional[int] = None):
+def _weight_ptrs(inp: KernelInputs, dev):
+    """The training kernels' weights as a host array of device pointers
+    (``carve_weights`` in csrc/vae_cluster.cuh): eps, masks, the decoder's
+    W (in, out) and bias per layer, then each net's 13 arrays. W is A.T, the
+    params tree's own tensor, and the other arrays are already contiguous,
+    so ``contiguous`` copies nothing but eps (a broadcast column of D
+    floats). Returns the array and the tensors it points into."""
+    A1, B1, A2, B2, A3, B3 = inp.consts
+    arrays = [inp.eps, inp.masks, A1.T, B1, A2.T, B2, A3.T, B3,
+              *inp.xnet_w, *inp.vnet_w]
+    arrays = [a.detach().contiguous() for a in arrays]
+    for a in arrays:
+        _check("weight", a, a.shape, dev)
+    return (ctypes.c_void_p * len(arrays))(*(a.data_ptr() for a in arrays)), arrays
+
+
+def vae_trajectory(inp: KernelInputs, x_raw, z, v, reverse: bool):
     """One T-step trajectory on the decoder posterior on (D, N) float32
     state; returns what ``vae_trajectory_plain`` returns. CPU tensors take
-    the plain version; CUDA tensors launch ``csrc/vae_traj.cu`` with
-    ``tile`` chains per block (default: ``chain_tile``)."""
+    the plain version; CUDA tensors launch ``csrc/vae_traj.cu``."""
     D, H, H2, T, E, P, N = _traj_args(inp, x_raw, z, v)
     if z.device.type == "cpu":
         return vae_trajectory_plain(inp, z, v, reverse)
     if z.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {z.device}")
     dev = z.device
-    C = _check_tile(tile, N, dev)
-    _check_smem(C * (2 * E + P + H + H2 + _THREADS // 32 + 8 * D + 3))
-    block = _flat([inp.eps, inp.masks, *_pack_decoder(inp.consts),
-                   *_pack_net(inp.xnet_w), *_pack_net(inp.vnet_w)])
+    sizes = kernel_sizes("vae_traj", (D, H, H2, T, E, P), N)
+    _check_smem(sizes["smem_bytes"] // 4)
+    ptrs, _keep = _weight_ptrs(inp, dev)
     zo, vo = torch.empty_like(z), torch.empty_like(v)
     ld = torch.empty((1, N), dtype=torch.float32, device=dev)
+    act = torch.empty(sizes["act"], dtype=torch.float32, device=dev)
     lib = _cuda.library("vae_traj")
     with torch.cuda.device(dev):
         err = lib.l2hmc_vae_traj(
-            block.data_ptr(), D, H, H2, T, E, P, x_raw.data_ptr(), inp.emb.data_ptr(),
+            ptrs, D, H, H2, T, E, P, x_raw.data_ptr(), inp.emb.data_ptr(),
             z.data_ptr(), v.data_ptr(), zo.data_ptr(), vo.data_ptr(), ld.data_ptr(),
-            N, int(reverse), C, torch.cuda.current_stream().cuda_stream,
+            act.data_ptr(), N, int(reverse), torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, "vae_traj")
     LAUNCHES["vae_traj"] += 1
     return zo, vo, ld
 
 
-_BWD_D_ARRAYS = 26  # [D][C] arrays of the backward kernel (kDArrays)
-
-
-def bwd_smem_floats(C, D, H, H2, E, P) -> int:
-    """Shared-memory floats of one block of the backward kernel (as
-    ``bwd_floats`` in csrc/vae_traj_bwd.cu): the decoder's activations with
-    the tangent beside the primal, which the nets' activations share, the
-    [D][C] state and cotangent arrays, and the embedding's cotangent."""
-    region = max(2 * C * (2 * E + P),
-                 C * (2 * E + P + 2 * H + 2 * H2 + 3 * D + _THREADS // 32))
-    return region + _BWD_D_ARRAYS * D * C + H * C + 4 * C
-
-
-def vae_trajectory_vjp(inp: KernelInputs, x_raw, z, v, dZ, dV, dld, reverse: bool,
-                       tile: Optional[int] = None):
+def vae_trajectory_vjp(inp: KernelInputs, x_raw, z, v, dZ, dV, dld, reverse: bool):
     """VJP of the fused VAE trajectory at (D, N) float32 (z, v) for the
     cotangents dZ, dV (D, N) and dld (1, N); returns what
     ``vae_trajectory_vjp_plain`` returns. CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/vae_traj_bwd.cu``: each block adds
-    its tile's weight and eps cotangents into its own slice of a per-block
-    scratch, and a second kernel sums the slices in a fixed order."""
+    version; CUDA tensors launch ``csrc/vae_traj_bwd.cu``: each cluster
+    adds its chains' weight and eps cotangents into its own slice of a
+    per-cluster scratch, and a second kernel sums the slices in a fixed
+    order."""
     D, H, H2, T, E, P, N = _traj_args(inp, x_raw, z, v)
     dev = inp.eps.device
     _check("dZ", dZ, (D, N), dev)
@@ -517,29 +613,22 @@ def vae_trajectory_vjp(inp: KernelInputs, x_raw, z, v, dZ, dV, dld, reverse: boo
         return vae_trajectory_vjp_plain(inp, z, v, dZ, dV, dld, reverse)
     if z.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {z.device}")
-    C = _check_tile(tile, N, dev)
-    _check_smem(bwd_smem_floats(C, D, H, H2, E, P))
-    nets = []
-    for w in (inp.xnet_w, inp.vnet_w):
-        w1, w2, wh, _, wo = _pack_net(w)[:5]
-        nets += [w1.T, w2.T, wh.T, wo.T]
-    block = _flat([inp.eps, inp.masks, *_pack_decoder(inp.consts),
-                   *_pack_net(inp.xnet_w), *_pack_net(inp.vnet_w), *nets])
+    sizes = kernel_sizes("vae_traj_bwd", (D, H, H2, T, E, P), N)
+    _check_smem(sizes["smem_bytes"] // 4)
+    ptrs, _keep = _weight_ptrs(inp, dev)
     nf = sum(_net_sizes(D, H, H2, T))
-    n_grads = 2 * nf + D
-    blocks = (N + C - 1) // C
-    grads = torch.empty(n_grads, dtype=torch.float32, device=dev)
-    partial = torch.empty((blocks, n_grads), dtype=torch.float32, device=dev)
-    bnd = torch.empty((5 * T + 3) * D * N, dtype=torch.float32, device=dev)
+    grads = torch.empty(2 * nf + D, dtype=torch.float32, device=dev)
+    partial, bnd, act = (torch.empty(sizes[k], dtype=torch.float32, device=dev)
+                         for k in ("partial", "bnd", "act"))
     dz, dv = torch.empty_like(z), torch.empty_like(v)
     demb = torch.empty_like(inp.emb)
     lib = _cuda.library("vae_traj_bwd")
     with torch.cuda.device(dev):
         err = lib.l2hmc_vae_traj_bwd(
-            block.data_ptr(), D, H, H2, T, E, P, x_raw.data_ptr(), inp.emb.data_ptr(),
+            ptrs, D, H, H2, T, E, P, x_raw.data_ptr(), inp.emb.data_ptr(),
             z.data_ptr(), v.data_ptr(), dZ.data_ptr(), dV.data_ptr(), dld.data_ptr(),
             dz.data_ptr(), dv.data_ptr(), demb.data_ptr(), grads.data_ptr(),
-            partial.data_ptr(), bnd.data_ptr(), N, int(reverse), C,
+            partial.data_ptr(), bnd.data_ptr(), act.data_ptr(), N, int(reverse),
             torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, "vae_traj_bwd")

@@ -7,6 +7,7 @@ import torch
 
 from l2hmc_tpu_torch import targets
 from l2hmc_tpu_torch.ops import fused_dynamics as fd
+from l2hmc_tpu_torch.ops import fused_vae as fv
 from l2hmc_tpu_torch.train import ScgConfig, build_dynamics
 from l2hmc_tpu_torch.train.optim import tree_leaves
 
@@ -137,16 +138,18 @@ def _scale_heads(net, c):
     return (*net[:5], ((scaled(s_lin), s_st), scaled(t_lin), (scaled(q_lin), q_st)))
 
 
-def _vae_setup(cuda, full: bool, n: int):
+def _vae_setup(cuda, full: bool, n: int, latent_dim: int = 8, hidden: int = 16):
     """A seeded VAE at the full or the small width with a {0, 1} batch, its
     embedding and a start state on the card. The decoder's last layer
     (init factor 0.01) is scaled by 10 so that logits are O(1). At the full
     width the embedding already drives S, T, Q to ~0.2 and the heads are
-    halved; at the small width every net weight is lifted by 0.02."""
+    halved; at the small width (latent ``latent_dim``, the nets' first
+    layer ``hidden`` wide) every net weight is lifted by 0.02."""
     from l2hmc_tpu_torch.apps import vae
 
     cfg = vae.VaeConfig() if full else vae.VaeConfig(
-        latent_dim=8, leapfrogs=3, enc_hidden=32, sampler_size1=16, sampler_size2=16)
+        latent_dim=latent_dim, leapfrogs=3, enc_hidden=32, sampler_size1=hidden,
+        sampler_size2=16)
     model = vae.VaeModel.build(cfg)
     params = model.init_params(torch.Generator().manual_seed(0), device=cuda)
     smp = dict(params["smp"])
@@ -171,8 +174,6 @@ def test_vae_chain_kernel_matches_plain_on_same_bits(cuda, full, n, composed, ti
     (~1e-4 of energies of a few hundred), so at most 2 of these decisions
     may flip; chains with no flip agree to 2e-3 (sums of 1024 terms in
     another order, through up to 9 trajectories)."""
-    from l2hmc_tpu_torch.ops import fused_vae as fv
-
     model, params, x_raw, emb, z0 = _vae_setup(cuda, full, n)
     xr = x_raw.T.contiguous()
     inp = fv.prepare_vae(model.dynamics, params["smp"], params["dec"], xr, emb.T.contiguous())
@@ -202,8 +203,6 @@ def test_vae_ais_kernel_matches_plain_on_same_bits(cuda, full, n, anneal_steps, 
     most 2 may flip, and on the others log w (values of 700-1300) agrees to
     5e-3 and the mean acceptance probability to 5e-3 (a Hamiltonian
     difference of energies near 1e3 carries ~1e-3 of float32 rounding)."""
-    from l2hmc_tpu_torch.ops import fused_vae as fv
-
     model, params, x_raw, _, z0 = _vae_setup(cuda, full, n)
     dec = fv.decoder_arrays(params["dec"])
     xr, zT = x_raw.T.contiguous(), z0.T.contiguous()
@@ -222,8 +221,6 @@ def test_vae_ais_kernel_matches_plain_on_same_bits(cuda, full, n, anneal_steps, 
 
 
 def test_vae_wrappers_reject_bad_input(cuda):
-    from l2hmc_tpu_torch.ops import fused_vae as fv
-
     model, params, x_raw, emb, z0 = _vae_setup(cuda, False, 16)
     xr = x_raw.T.contiguous()
     inp = fv.prepare_vae(model.dynamics, params["smp"], params["dec"], xr, emb.T.contiguous())
@@ -238,10 +235,8 @@ def test_vae_wrappers_reject_bad_input(cuda):
 # -- the VAE training kernels -----------------------------------------------------
 
 
-def _vae_traj_inputs(cuda, full, n):
-    from l2hmc_tpu_torch.ops import fused_vae as fv
-
-    model, params, x_raw, emb, z0 = _vae_setup(cuda, full, n)
+def _vae_traj_inputs(cuda, full, n, latent_dim=8, hidden=16):
+    model, params, x_raw, emb, z0 = _vae_setup(cuda, full, n, latent_dim, hidden)
     xr = x_raw.T.contiguous()
     inp = fv.prepare_vae(model.dynamics, params["smp"], params["dec"], xr, emb.T.contiguous())
     g = torch.Generator().manual_seed(2)
@@ -250,49 +245,58 @@ def _vae_traj_inputs(cuda, full, n):
     return model, params, inp, xr, z0.T.contiguous(), v, dZ, dV, dld
 
 
-@pytest.mark.parametrize("tile", [4, 8])
-@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "backward"])
-@pytest.mark.parametrize("full,n", [(True, 203), (False, 77)], ids=["full", "small"])
-def test_vae_traj_kernel_matches_plain(cuda, full, n, reverse, tile):
-    """The training trajectory on a ragged chain count against its plain
-    version, 5e-4 (bench.py's gate); forward then reverse inverts."""
-    from l2hmc_tpu_torch.ops import fused_vae as fv
+def _cluster_cases():
+    """The kernels' cluster configuration (Ct chains per cluster) at the
+    full width on the chain counts at its edges (one chain, one short of and
+    one past a cluster, a ragged last cluster, the training batch), and at
+    the small width once; and at a latent of 128, where the first product of
+    a net (K = 256) and of the decoder (K = 128) have more chunks than the
+    ring holds at once and stream their inputs through it from the
+    cluster's shared memory."""
+    ct, g = fv.CLUSTER
+    cases = [pytest.param(True, n, 8, id=f"ct{ct}g{g}-full-n{n}")
+             for n in (1, ct - 1, ct + 1, 203, 512)]
+    cases.append(pytest.param(False, 77, 8, id=f"ct{ct}g{g}-small-n77"))
+    cases.append(pytest.param(False, 45, 128, id=f"ct{ct}g{g}-latent128-n45"))
+    return cases
 
-    _, _, inp, xr, z, v, _, _, _ = _vae_traj_inputs(cuda, full, n)
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("full,n,latent", _cluster_cases())
+def test_vae_traj_kernel_matches_plain(cuda, full, n, latent, reverse):
+    """The training trajectory against its plain version, 5e-4 (bench.py's
+    gate); forward then reverse inverts."""
+    _, _, inp, xr, z, v, _, _, _ = _vae_traj_inputs(cuda, full, n, latent)
     before = fd.LAUNCHES["vae_traj"]
-    got = fv.vae_trajectory(inp, xr, z, v, reverse, tile=tile)
+    got = fv.vae_trajectory(inp, xr, z, v, reverse)
     assert fd.LAUNCHES["vae_traj"] == before + 1
     want = fv.vae_trajectory_plain(inp, z, v, reverse)
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=0, atol=TOL)
-    z2, v2, ld2 = fv.vae_trajectory(inp, xr, got[0], got[1], not reverse, tile=tile)
+    z2, v2, ld2 = fv.vae_trajectory(inp, xr, got[0], got[1], not reverse)
     torch.testing.assert_close(z2, z, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(ld2, -got[2], rtol=1e-3, atol=1e-3)
     assert float((got[0] - z).abs().max()) > 0.05  # the chains moved
 
 
-@pytest.mark.parametrize("tile", [4, 8])
 @pytest.mark.parametrize("reverse", [False, True], ids=["forward", "backward"])
-@pytest.mark.parametrize("full,n", [(True, 203), (False, 78)], ids=["full", "small"])
-def test_vae_traj_bwd_kernel_matches_plain(cuda, full, n, reverse, tile):
+@pytest.mark.parametrize("full,n,latent", _cluster_cases())
+def test_vae_traj_bwd_kernel_matches_plain(cuda, full, n, latent, reverse):
     """The VJP kernel against its plain version: every leaf within 1e-4 of
     the leaf's largest entry (sums over chains and over up to 1024 terms in
     another order), and twice in a row bit for bit (no atomics). The nets
     are ReLU nets, so a hidden pre-activation within rounding of zero can
     gate differently in the two and change that chain's cotangents by whole
     terms: such chains show in their own outputs (demb, dz, dv), may be at
-    most 1 (every ragged last block here holds at least 2), must have a
-    pre-activation of the plain trajectory within 1e-5 of its layer's
-    largest (``relu_margins``), and are set aside by a second comparison
-    with their incoming cotangents zeroed."""
-    from l2hmc_tpu_torch.ops import fused_vae as fv
-
-    _, _, inp, xr, z, v, dZ, dV, dld = _vae_traj_inputs(cuda, full, n)
+    most 1, must have a pre-activation of the plain trajectory within 1e-5
+    of its layer's largest (``relu_margins``), and are set aside by a second
+    comparison with their incoming cotangents zeroed."""
+    _, _, inp, xr, z, v, dZ, dV, dld = _vae_traj_inputs(cuda, full, n, latent)
     before = fd.LAUNCHES["vae_traj_bwd"]
-    got = fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, reverse, tile=tile)
+    got = fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, reverse)
     assert fd.LAUNCHES["vae_traj_bwd"] == before + 1
-    again = fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, reverse, tile=tile)
+    again = fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, reverse)
     for a, b in zip(tree_leaves(list(got)), tree_leaves(list(again))):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     want = fv.vae_trajectory_vjp_plain(inp, z, v, dZ, dV, dld, reverse)
@@ -303,8 +307,7 @@ def test_vae_traj_bwd_kernel_matches_plain(cuda, full, n, reverse, tile):
     if bool(flipped.any()):
         assert float(fd.relu_margins(inp, z, v, reverse)[flipped].max()) < 1e-5
         keep = (~flipped).float()[None, :]
-        got = fv.vae_trajectory_vjp(inp, xr, z, v, dZ * keep, dV * keep, dld * keep, reverse,
-                                    tile=tile)
+        got = fv.vae_trajectory_vjp(inp, xr, z, v, dZ * keep, dV * keep, dld * keep, reverse)
         want = fv.vae_trajectory_vjp_plain(inp, z, v, dZ * keep, dV * keep, dld * keep, reverse)
     for a, b in zip(tree_leaves(list(got)), tree_leaves(list(want))):
         assert float(b.abs().max()) > 0
@@ -318,7 +321,6 @@ def test_vae_backward_through_function_launches_kernels(cuda):
     agree with the plain ``Dynamics`` under autograd to 2e-3 of each leaf's
     largest entry (a ReLU gate may flip in one of 64 chains)."""
     from l2hmc_tpu_torch.ops import DifferentiableFusedVae
-    from l2hmc_tpu_torch.ops import fused_vae as fv
     from l2hmc_tpu_torch.train.optim import tree_unflatten
 
     model, params, x_raw, _, z0 = _vae_setup(cuda, False, 64)
@@ -352,14 +354,46 @@ def test_vae_backward_through_function_launches_kernels(cuda):
 
 
 def test_vae_traj_wrappers_reject_bad_input(cuda):
-    from l2hmc_tpu_torch.ops import fused_vae as fv
-
     _, _, inp, xr, z, v, dZ, dV, dld = _vae_traj_inputs(cuda, False, 16)
     with pytest.raises(ValueError, match="contiguous"):
         fv.vae_trajectory(inp, xr, z, v.T.contiguous().T, False)
     with pytest.raises(ValueError, match="expected"):
         fv.vae_trajectory(inp, xr, z.cpu(), v, False)
-    with pytest.raises(ValueError, match="tile"):
-        fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, False, tile=16)
     with pytest.raises(ValueError, match="shape"):
         fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld[0], False)
+    # nets 6000 wide: the backward kernel's outer products would stage a
+    # [6000][Ct] operand, past a CTA's shared memory by the source's reckoning
+    _, _, inp, xr, z, v, dZ, dV, dld = _vae_traj_inputs(cuda, False, 16, hidden=6000)
+    with pytest.raises(ValueError, match="shared memory"):
+        fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, False)
+
+
+# (D, H, H2, T, E, P): the reference model, the small width, a latent of 128
+_WIDTHS = [(50, 200, 200, 5, 1024, 784), (8, 16, 16, 3, 32, 784), (128, 16, 16, 3, 32, 784)]
+
+
+@pytest.mark.parametrize("dims", _WIDTHS, ids=["reference", "small", "latent128"])
+def test_vae_traj_sizes_match_the_host_reckoning(cuda, dims):
+    """What the sources report for the host to allocate: their cluster
+    configuration is ``fused_vae.CLUSTER``, their shared memory per CTA is
+    the host's mirror of their carve, and at the training batch of 512
+    chains (13 clusters of 40) the scratches are those the source notes
+    reckon."""
+    D, H, H2, T, E, P = dims
+    n = 512
+    fwd = fv.kernel_sizes("vae_traj", dims, n)
+    bwd = fv.kernel_sizes("vae_traj_bwd", dims, n)
+    ct, g = fv.CLUSTER
+    assert (fwd["ct"], fwd["g"]) == (bwd["ct"], bwd["g"]) == (ct, g)
+    assert fwd["smem_bytes"] == 4 * fv.traj_smem_floats(ct, g, D, H, H2, E, P)
+    assert bwd["smem_bytes"] == 4 * fv.bwd_smem_floats(ct, g, D, H, H2, E, P)
+    clusters = -(-n // ct)
+    n_grads = 2 * sum(fv._net_sizes(D, H, H2, T)) + D
+    assert fwd["act"] == clusters * ct * (2 * E + P + H + H2)
+    assert bwd["act"] == clusters * ct * (2 * (2 * E + P) + 2 * H + 2 * H2 + 3 * D
+                                          + 4 * T * (H + H2 + 3 * D))
+    assert bwd["partial"] == clusters * n_grads
+    assert bwd["bnd"] == (5 * T + 3) * D * n
+    if dims == _WIDTHS[0]:
+        assert bwd["act"] == 13 * 704560 and n_grads == 182950
+    assert fv.max_clusters(dims, False) > 0 and fv.max_clusters(dims, True) > 0
