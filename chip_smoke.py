@@ -22,7 +22,8 @@ then:
   5. training: (a) the backward-trajectory kernel vs its plain version
      (SCG at 2048 and 200 chains, the 50-d ill-conditioned Gaussian with
      eps_dim and input_scale, HMC mode; both directions; per leaf within
-     1e-4 of the leaf's largest entry); (b) 20 training steps at 1024
+     1e-4 of the leaf's largest entry; timed at 1024 and 8192 chains);
+     (b) 20 training steps at 1024
      chains with fused_train=True vs False on one seed, loss histories
      within rtol 2e-3, atol 1e-2; (c) the training path: ``train`` with
      fused_train=True, 1024 chains, TRAIN_STEPS steps, then the 2000-step
@@ -36,7 +37,10 @@ then:
      data from ``apps.data.get_data()``: (a) the sampler kernel vs its plain
      version on the same Philox bits (203 and 256 chains, 3 recorded steps,
      single and composed ops, with trace); (b) the AIS kernel vs its plain
-     version (1000 chains, 20 anneal steps, 10 leapfrogs); (c) the sampling
+     version (1000 and 203 chains, 20 anneal steps, 10 leapfrogs; each
+     launch twice, bit for bit; its cluster configuration, the clusters
+     the card holds at once and the L2 weight bytes of a protocol launch);
+     (c) the sampling
      path: ``apps.eval_sampler.run`` with the default protocol (200 chains,
      2000 recorded steps of 1-3 ops, the seven-eps plain HMC baseline
      grid), its posterior moments held against a plain
@@ -258,6 +262,33 @@ def _cuda_time(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _bwd_launch_ms(fd, cuda_lib, inp, x, v, dX, dV, dld, reps):
+    """Mean ms of the backward kernel's launch (the VJP and the sum over
+    chains) through its C entry point, by CUDA events, with the arguments
+    ``fd.trajectory_vjp`` gives it made once: the device's time, apart from
+    the wrapper's host work."""
+    import torch
+
+    block = fd._kernel_block(inp, x)
+    D, H, H2, T = inp.dims
+    N = x.shape[1]
+    n_grads = sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D
+    grads = torch.empty(n_grads, dtype=torch.float32, device=x.device)
+    scratch = torch.empty(n_grads * N + 2 * (T + 1) * D * N, dtype=torch.float32,
+                          device=x.device)
+    dx, dv = torch.empty_like(x), torch.empty_like(v)
+    lib = cuda_lib.library("trajectory_bwd")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        cuda_lib.check(lib.l2hmc_trajectory_bwd(
+            block.data_ptr(), D, H, H2, T, 0, int(inp.hmc), x.data_ptr(), v.data_ptr(),
+            dX.data_ptr(), dV.data_ptr(), dld.data_ptr(), dx.data_ptr(), dv.data_ptr(),
+            grads.data_ptr(), scratch.data_ptr(), N, stream), "trajectory_bwd")
+
+    return _cuda_time(launch, reps)
+
+
 def _gen(seed):
     import torch
 
@@ -364,29 +395,48 @@ def vae_phases(dev, report, logdir):
     print(f"# VAE sampler kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
           + json.dumps(chain_cmp), flush=True)
 
-    # (b) AIS kernel vs plain on the same bits
+    # (b) AIS kernel vs plain on the same bits, at the protocol's 1000 chains
+    # and at a ragged count (not a multiple of a cluster's chains); each
+    # launch twice, bit for bit
     t_phase = time.perf_counter()
-    n_ais, k_ais, l_ais = 1000, 20, 10
-    xr, _, zT = batch(n_ais)
-    wk, acck = fv.vae_ais(dec, xr, zT, seed=6, anneal_steps=k_ais, step_size=0.05,
-                          leapfrogs=l_ais)
-    wp, accp = fv.vae_ais_plain(dec, xr, zT, seed=6, anneal_steps=k_ais, step_size=0.05,
+    k_ais, l_ais = 20, 10
+    acfg = eval_vae.EvalVaeConfig()
+    ais_dims = (D, E, P)
+    ais_cmp = {"chains_per_cta_and_ctas_per_cluster": list(fv.AIS_TILE),
+               "clusters_at_once": fv.ais_max_clusters(ais_dims),
+               "anneal_steps": k_ais, "leapfrogs": l_ais}
+    for n_ais in (1000, 203):
+        xr, _, zT = batch(n_ais)
+        wk, acck = fv.vae_ais(dec, xr, zT, seed=6, anneal_steps=k_ais, step_size=0.05,
+                              leapfrogs=l_ais)
+        wk2, acck2 = fv.vae_ais(dec, xr, zT, seed=6, anneal_steps=k_ais, step_size=0.05,
                                 leapfrogs=l_ais)
-    clean = (wk - wp).abs()[0] < 0.05
-    ais_cmp = {
-        "chains": n_ais, "anneal_steps": k_ais, "leapfrogs": l_ais,
-        "flipped_chains": int((~clean).sum()),
-        "max_abs_dlogw_unflipped": float((wk - wp).abs()[:, clean].max()),
-        "max_abs_daccept_unflipped": float((acck - accp).abs()[:, clean].max()),
-        "logw_mean": float(wk.mean()), "accept": float(acck.mean()),
-    }
+        wp, accp = fv.vae_ais_plain(dec, xr, zT, seed=6, anneal_steps=k_ais, step_size=0.05,
+                                    leapfrogs=l_ais)
+        clean = (wk - wp).abs()[0] < 0.05
+        sizes = fv.ais_sizes(ais_dims, n_ais)
+        case = {
+            "ctas": sizes["ctas"], "smem_bytes_per_cta": sizes["smem_bytes"],
+            "flipped_chains": int((~clean).sum()),
+            "max_abs_dlogw_unflipped": float((wk - wp).abs()[:, clean].max()),
+            "max_abs_daccept_unflipped": float((acck - accp).abs()[:, clean].max()),
+            "repeats_bit_for_bit": bool(torch.equal(wk, wk2) and torch.equal(acck, acck2)),
+            "logw_mean": float(wk.mean()), "accept": float(acck.mean()),
+        }
+        ais_cmp[f"n{n_ais}"] = case
+        _require(bool(torch.isfinite(wk).all()), f"vae_ais {n_ais}: non-finite log w")
+        _require(case["repeats_bit_for_bit"], f"vae_ais {n_ais}: two launches differ")
+        _require(case["flipped_chains"] <= VAE_FLIPS
+                 and case["max_abs_dlogw_unflipped"] < VAE_AIS_TOL
+                 and case["max_abs_daccept_unflipped"] < VAE_AIS_TOL, f"vae_ais {n_ais}: {case}")
+    n_path = acfg.chains_per_datapoint * acfg.num_splits
+    ais_cmp["l2_weight_bytes_per_protocol_launch"] = fv.ais_l2_bytes(
+        D, E, P, n_path, acfg.anneal_steps, acfg.leapfrogs)
     report["vae_ais_vs_plain"] = ais_cmp
     print(f"# AIS kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
           + json.dumps(ais_cmp), flush=True)
-    _require(bool(torch.isfinite(wk).all()), "vae_ais: non-finite log w")
-    _require(ais_cmp["flipped_chains"] <= VAE_FLIPS
-             and ais_cmp["max_abs_dlogw_unflipped"] < VAE_AIS_TOL
-             and ais_cmp["max_abs_daccept_unflipped"] < VAE_AIS_TOL, f"vae_ais: {ais_cmp}")
+    _require(ais_cmp["clusters_at_once"] * fv.AIS_TILE[1] >= ais_cmp["n1000"]["ctas"],
+             f"vae_ais: {ais_cmp['n1000']['ctas']} CTAs do not fit one wave")
 
     # (c) the sampling path
     fd.reset_launch_counts()
@@ -449,7 +499,6 @@ def vae_phases(dev, report, logdir):
     # (d) the AIS path
     fd.reset_launch_counts()
     t_phase = time.perf_counter()
-    acfg = eval_vae.EvalVaeConfig()
     n_data = 100
     ll_fused = eval_vae.run(model, params, acfg, dataset, seed=0, max_datapoints=n_data,
                             logdir=logdir)
@@ -501,7 +550,6 @@ def vae_phases(dev, report, logdir):
         D, H, H2, T, E, P, scfg.n_chains, scfg.n_steps, int(nb_path.sum()),
         dec_floats + net_floats, True)
 
-    n_path = acfg.chains_per_datapoint * acfg.num_splits
     xr, _, zT = batch(n_path)
 
     def ais_run(fn):
@@ -550,11 +598,12 @@ def vae_phases(dev, report, logdir):
         {"name": "vae_ais", "route": "cuda", "source": src + "vae_ais.cu",
          "replaces": "l2hmc_tpu/ops/fused_dynamics.py:2083",
          "launches": ais_launches["vae_ais"],
-         "max_abs_err": ais_cmp["max_abs_dlogw_unflipped"],
+         "max_abs_err": max(ais_cmp[k]["max_abs_dlogw_unflipped"] for k in ("n1000", "n203")),
          "ms": ais_ms, "plain_ms": ais_plain_ms, "bound_ms": ais_bound_ms,
          "bound_by": ais_bound_by, "library_ms": None,
          "shape": (f"VAE latent {D}, decoder {E}, {n_path} chains x {acfg.anneal_steps} "
-                   f"anneal steps x {acfg.leapfrogs} leapfrogs (one AIS batch)")},
+                   f"anneal steps x {acfg.leapfrogs} leapfrogs (one AIS batch), clusters of "
+                   f"{fv.AIS_TILE[1]} CTAs with {fv.AIS_TILE[0]} chains each")},
     ]
 
 
@@ -1115,7 +1164,17 @@ def main() -> int:
     vb, dXb, dVb = (torch.randn(xb.shape, generator=_gen(72 + i)).to(dev) for i in range(3))
     dldb = torch.ones((1, n_tr), device=dev)
     traj_1024_ms = _cuda_time(lambda: fd.trajectory(inp_scg, xb, vb, False), 50)
-    bwd_ms = _cuda_time(lambda: fd.trajectory_vjp(inp_scg, xb, vb, dXb, dVb, dldb, False), 20)
+    # the backward kernel's own time (its launch and the sum over chains,
+    # through the C entry point on buffers made once), and the wrapper's,
+    # whose host work (checks, packing the parameter block, allocation) it
+    # waits for at this size; at 8192 chains beside the training batch's 1024
+    xw = target.sample(_gen(75), 8192, device=dev).T.contiguous()
+    vw, dXw, dVw = (torch.randn(xw.shape, generator=_gen(76 + i)).to(dev) for i in range(3))
+    dldw = torch.ones((1, 8192), device=dev)
+    bwd_ms = _bwd_launch_ms(fd, _cuda, inp_scg, xb, vb, dXb, dVb, dldb, 200)
+    bwd_8192_ms = _bwd_launch_ms(fd, _cuda, inp_scg, xw, vw, dXw, dVw, dldw, 50)
+    bwd_wrapper_ms = _cuda_time(
+        lambda: fd.trajectory_vjp(inp_scg, xb, vb, dXb, dVb, dldb, False), 20)
     bwd_plain_ms = _cuda_time(
         lambda: fd.trajectory_vjp_plain(inp_scg, xb, vb, dXb, dVb, dldb, False), 3)
     n_grads = sum(w.numel() for w in [*inp_scg.xnet_w, *inp_scg.vnet_w]) + D
@@ -1162,6 +1221,8 @@ def main() -> int:
         "n_chains": n_tr, "steps": TRAIN_STEPS, "train_s": train_s,
         "ms_per_step": 1e3 * train_s / TRAIN_STEPS,
         "trajectory_ms": traj_1024_ms, "trajectory_bwd_ms": bwd_ms,
+        "trajectory_bwd_ms_8192_chains": bwd_8192_ms,
+        "trajectory_bwd_wrapper_ms": bwd_wrapper_ms,
         "kernel_ms_per_step": 4 * (traj_1024_ms + bwd_ms),
         "final_loss": final_loss, "final_accept": final_accept,
         "final_eps": float(hist["eps"][-1]),
@@ -1213,7 +1274,9 @@ def main() -> int:
          "max_abs_err": max(d["max_abs_err"] for c in bwd.values() for d in c.values()),
          "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
          "bound_by": bwd_bound_by, "library_ms": None,
-         "shape": f"SCG D=2 H=10 T=10, {n_tr} chains, one direction (the training batch)"},
+         "shape": (f"SCG D=2 H=10 T=10, {n_tr} chains, one direction (the training batch), "
+                   f"the launch alone; 8192 chains: {bwd_8192_ms:.4f} ms; through the "
+                   f"wrapper: {bwd_wrapper_ms:.4f} ms")},
         *vae_rows,
     ]
     report["kernels"] = kernels

@@ -8,25 +8,45 @@
 // Replaces the Pallas kernel _make_vae_ais_kernel / FusedVaeAis
 // (l2hmc_tpu/ops/fused_dynamics.py:2083, pallas_call at :2268).
 //
-// Bound on the card: operations (L decoder gradients of 7.6 MFLOP per chain
-// and anneal step; device memory sees z0 and the pixels once). The
-// block-wide product and the chain tile C are those of vae_common.cuh.
+// Bound on the card: operations, L decoder gradients of 7.6 MFLOP per
+// chain and anneal step (114.19 ms at the protocol's 1000 chains x 100
+// anneal steps x 10 leapfrogs on an H100 80GB HBM3 at 700 W, by
+// chip_smoke.py's count); device memory sees z0 and the pixels once.
+//
+// Design (vae_stream.cuh): clusters of kG CTAs, each CTA with its own tile
+// of kC chains and their activations in its own shared memory; the decoder
+// streams through a ring in every CTA, one multicast bulk copy from the L2
+// per chunk and cluster. The L2 serves clusters x (K L + 1) sweeps x 15.2
+// MB per launch: 32 x 1001 x 15.2 MB = 0.49 TB at 1000 chains, against
+// 125 x 1001 x 15.2 MB = 1.9 TB when every block of 8 chains streamed the
+// weights itself through __ldg (vae_common.cuh's product, which vae_chain.cu
+// keeps). The row-split cluster tile of the training kernels
+// (vae_cluster.cuh) was not taken: it shares a tile of 40 chains among 8
+// CTAs and exchanges partial rows through a global scratch; 1000 chains
+// would make 25 clusters of 8, and the card holds 15 at once, so a launch
+// would run in two waves at about the per-SM rate this kernel had.
 //
 // Differences from the TPU kernel, by design: Philox4x32-10 draws with
 // counter (global chain, anneal step, slot, 0), reproduced by
-// ops/philox.py; the accept is a select; the gradient at the end of one
-// leapfrog step serves as the first of the next, the energies come out of
-// the gradients' forward sweeps, and an accepted proposal hands its last
-// gradient and energy to the next anneal step, so a step costs L decoder
-// sweeps where the TPU kernel makes 2 L gradients and three energies.
-#include "vae_common.cuh"
+// ops/philox.py, so the bits do not depend on the tiling; the accept is a
+// select, so every CTA of a cluster makes the same K L + 1 sweeps; the
+// gradient at the end of one leapfrog step serves as the first of the
+// next, the energies come out of the gradients' forward sweeps, and an
+// accepted proposal hands its last gradient and energy to the next anneal
+// step, so a step costs L decoder sweeps where the TPU kernel makes 2 L
+// gradients and three energies. Sums over pixels are taken in a fixed
+// order (no atomics), so a launch repeats itself bit for bit.
+#include "vae_stream.cuh"
 
 namespace l2hmc {
 namespace vae {
 
+using stream::kC;
+
 struct AisArgs {
   Dims d;  // H, H2, T unused (0)
   Decoder dec;
+  stream::Sweep sweep;
   const float* beta;  // (K)
   const float* xraw;  // (P, N)
   const float* zin;   // (D, N)
@@ -37,130 +57,157 @@ struct AisArgs {
   uint2 key;
 };
 
-template <int C>
-__host__ __device__ inline int ais_floats(const Dims& d) {
-  // Work, five [D][C] arrays, five [C] arrays (one of them int)
-  return work_floats<C>(d) + C * (5 * d.D + 5);
+// Shared memory of one CTA: the ring, then Work (the decoder's two hidden
+// layers, its output cotangent and the sum's partials), five [D][kC] arrays
+// and five [kC] arrays (one of them int).
+inline size_t ais_smem_bytes(const Dims& d) {
+  return stream::ring_bytes() +
+         sizeof(float) * (work_floats<kC>(d) + kC * (5 * d.D + 5));
 }
 
-template <int C>
-__global__ void __launch_bounds__(kThreads) vae_ais_kernel(AisArgs a) {
-  extern __shared__ float4 smem4[];
-  float* p = reinterpret_cast<float*>(smem4);
+__global__ void __launch_bounds__(stream::kBlock, 1)
+    vae_ais_kernel(const __grid_constant__ AisArgs a) {
+  using stream::csync;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* sp = smem;
+  stream::Ring ring = stream::carve_ring(sp);
+  float* p = reinterpret_cast<float*>(sp);
   const Dims d = a.d;
-  const int DC = d.D * C;
-  const Work<C> work = carve_work<C>(p, d);
+  const int DC = d.D * kC;
+  const Work<kC> work = carve_work<kC>(p, d);
   float* z = p; p += DC;
   float* v = p; p += DC;
   float* g = p; p += DC;     // gradient of E1 at z
   float* zs = p; p += DC;    // state at the start of the anneal step
   float* gs = p; p += DC;    // gradient of E1 at zs
-  float* e_cur = p; p += C;  // E1 at z
-  float* e_start = p; p += C;
-  float* u_dir = p; p += C;  // drawn with the accept uniform, unused
-  float* u_acc = p; p += C;
-  int* flag = reinterpret_cast<int*>(p); p += C;
+  float* e_cur = p; p += kC;  // E1 at z
+  float* e_start = p; p += kC;
+  float* u_dir = p; p += kC;  // drawn with the accept uniform, unused
+  float* u_acc = p; p += kC;
+  int* flag = reinterpret_cast<int*>(p); p += kC;
+
+  if (threadIdx.x == 0) stream::init_ring(ring);
+  stream::cluster_sync();
 
   const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * C;
-  const float eps = a.eps;
+  if (tid >= stream::kConsumers) {
+    if (tid == stream::kConsumers)
+      stream::produce(a.sweep, 1 + a.K * a.L, ring,
+                      stream::cluster_rank() == 0);
+    stream::cluster_sync();
+    return;
+  }
 
-  for (int e = tid; e < DC; e += kThreads) {
-    const int i = e / C, n = n0 + e - i * C;
+  const int n0 = blockIdx.x * kC;
+  const float eps = a.eps;
+  for (int e = tid; e < DC; e += stream::kConsumers) {
+    const int i = e / kC, n = n0 + e - i * kC;
     z[e] = n < a.N ? a.zin[static_cast<size_t>(i) * a.N + n] : 0.f;
   }
-  __syncthreads();
-  decoder_grad<C>(d, a.dec, a.xraw, a.N, n0, z, gs, e_start, work);
+  csync();
+  stream::decoder_grad(ring, d, a.dec, a.sweep, a.xraw, a.N, n0, z, gs,
+                       e_start, work);
 
-  float w = 0.f, acc_sum = 0.f;  // of chain n0 + tid, for tid < C
+  float w = 0.f, acc_sum = 0.f;  // of chain n0 + tid, for tid < kC
   for (int k = 0; k < a.K; ++k) {
     const float b = a.beta[k];
-    draw<C>(d.D, n0, k, 0, a.key, v, u_dir, u_acc);
-    for (int e = tid; e < DC; e += kThreads) {
+    draw<kC>(d.D, n0, k, 0, a.key, v, u_dir, u_acc);
+    for (int e = tid; e < DC; e += stream::kConsumers) {
       zs[e] = z[e];
       g[e] = gs[e];
     }
-    __syncthreads();
+    csync();
     float h0 = 0.f;
-    if (tid < C) {
-      const float e0 = half_sq<C>(z, d.D);
+    if (tid < kC) {
+      const float e0 = half_sq<kC>(z, d.D);
       const float e1 = e_start[tid];
       w += a.beta_diff * (e0 - e1);
-      h0 = (1.f - b) * e0 + b * e1 + half_sq<C>(v, d.D);
+      h0 = (1.f - b) * e0 + b * e1 + half_sq<kC>(v, d.D);
       e_cur[tid] = e1;
     }
-    __syncthreads();  // h0 has read z and v before the leapfrog moves them
+    csync();  // h0 has read z and v before the leapfrog moves them
     for (int l = 0; l < a.L; ++l) {
-      for (int e = tid; e < DC; e += kThreads) {
+      for (int e = tid; e < DC; e += stream::kConsumers) {
         const float ga = (1.f - b) * z[e] + b * g[e];
         v[e] -= 0.5f * eps * ga;
         z[e] += eps * v[e];
       }
-      __syncthreads();
-      decoder_grad<C>(d, a.dec, a.xraw, a.N, n0, z, g, e_cur, work);
-      for (int e = tid; e < DC; e += kThreads) {
+      csync();
+      stream::decoder_grad(ring, d, a.dec, a.sweep, a.xraw, a.N, n0, z, g,
+                           e_cur, work);
+      for (int e = tid; e < DC; e += stream::kConsumers) {
         const float ga = (1.f - b) * z[e] + b * g[e];
         v[e] -= 0.5f * eps * ga;
       }
     }
-    __syncthreads();
-    if (tid < C) {
-      const float h1 = (1.f - b) * half_sq<C>(z, d.D) + b * e_cur[tid] +
-                       half_sq<C>(v, d.D);
+    csync();
+    if (tid < kC) {
+      const float h1 = (1.f - b) * half_sq<kC>(z, d.D) + b * e_cur[tid] +
+                       half_sq<kC>(v, d.D);
       const float px = accept_prob(h0 - h1);
       acc_sum += px;
       const int acc = px - u_acc[tid] >= 0.f;
       flag[tid] = acc;
       if (acc) e_start[tid] = e_cur[tid];
     }
-    __syncthreads();
-    for (int e = tid; e < DC; e += kThreads) {
-      const int c = e % C;
+    csync();
+    for (int e = tid; e < DC; e += stream::kConsumers) {
+      const int c = e % kC;
       if (flag[c]) {
         gs[e] = g[e];
       } else {
         z[e] = zs[e];
       }
     }
-    __syncthreads();
+    csync();
   }
-  if (tid < C && n0 + tid < a.N) {
+  if (tid < kC && n0 + tid < a.N) {
     a.logw[n0 + tid] = w;
     a.acc[n0 + tid] = acc_sum / static_cast<float>(a.K);
   }
+  stream::cluster_sync();
 }
 
-template <int C>
-static cudaError_t launch_ais(const AisArgs& a, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(ais_floats<C>(a.d)) * sizeof(float);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(vae_ais_kernel<C>, smem);
-  if (e != cudaSuccess) return e;
-  const int blocks = (a.N + C - 1) / C;
-  vae_ais_kernel<C><<<blocks, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+// The launch's CTAs: one per kC chains, rounded up to whole clusters.
+inline int ais_ctas(int N) {
+  const int ctas = (N + kC - 1) / kC;
+  return (ctas + stream::kG - 1) / stream::kG * stream::kG;
+}
+
+// 0 if the kernel takes these widths: every product's rows fit a slot and
+// a CTA's shared memory fits.
+inline bool ais_fits(const Dims& d) {
+  const int widths[3] = {d.D, d.E, d.P};
+  for (int M : widths)
+    if (M <= 0 || stream::chunk_rows(M) == 0) return false;
+  return ais_smem_bytes(d) <= kMaxSmem;
 }
 
 }  // namespace vae
 }  // namespace l2hmc
 
-// Plain C entry point (loaded with ctypes). Device pointers to float32:
-// params, the packed decoder in the order of carve_decoder; beta (K);
-// xraw (P, N); z (D, N); logw and acc (N). eps is the leapfrog step size,
-// beta_diff the weight update's factor, L the leapfrog steps per anneal
-// step, C the chain tile (4 or 8). Returns a cudaError_t as int.
+// Plain C entry points (loaded with ctypes).
+//
+// l2hmc_vae_ais: device pointers to float32: params, the packed decoder in
+// the order of carve_decoder, each array padded to a multiple of 4 floats
+// and the block 16-byte aligned; beta (K); xraw (P, N); z (D, N); logw and
+// acc (N). eps is the leapfrog step size, beta_diff the weight update's
+// factor, L the leapfrog steps per anneal step. Returns a cudaError_t as
+// int (a refused cluster launch included).
 extern "C" int l2hmc_vae_ais(const float* params, int D, int E, int P,
                              const float* beta, const float* xraw,
                              const float* z, float* logw, float* acc,
                              float eps, float beta_diff, int N, int K, int L,
-                             int C, unsigned long long seed, void* stream) {
+                             unsigned long long seed, void* stream) {
   using namespace l2hmc::vae;
-  if (N <= 0 || K <= 0 || L <= 0 || D <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   AisArgs a;
   a.d = Dims{D, 0, 0, 0, E, P};
+  if (N <= 0 || K <= 0 || L <= 0 || !ais_fits(a.d) ||
+      reinterpret_cast<uintptr_t>(params) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* p = params;
   a.dec = carve_decoder(p, a.d);
+  a.sweep = stream::make_sweep(a.dec, a.d);
   a.beta = beta;
   a.xraw = xraw;
   a.zin = z;
@@ -173,13 +220,34 @@ extern "C" int l2hmc_vae_ais(const float* params, int D, int E, int P,
   a.L = L;
   a.key = make_uint2(static_cast<uint32_t>(seed & 0xFFFFFFFFull),
                      static_cast<uint32_t>(seed >> 32));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 4:
-      return launch_ais<4>(a, s);
-    case 8:
-      return launch_ais<8>(a, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(l2hmc::launch_clusters(
+      vae_ais_kernel, stream::kG, ais_ctas(N) / stream::kG, stream::kBlock,
+      ais_smem_bytes(a.d), static_cast<cudaStream_t>(stream), a));
+}
+
+// What the host allocates and checks for N chains at widths (D, E, P):
+// out[0] chains per CTA, out[1] CTAs per cluster, out[2] shared-memory
+// bytes per CTA, out[3] ring slots, out[4] floats per slot, out[5] CTAs of
+// the launch. Returns a cudaError_t as int (invalid if the widths do not
+// fit).
+extern "C" int l2hmc_vae_ais_sizes(int D, int E, int P, int N,
+                                   long long* out) {
+  using namespace l2hmc::vae;
+  const Dims d{D, 0, 0, 0, E, P};
+  out[0] = kC;
+  out[1] = stream::kG;
+  out[2] = static_cast<long long>(ais_smem_bytes(d));
+  out[3] = stream::kSlots;
+  out[4] = stream::kSlotFloats;
+  out[5] = ais_ctas(N);
+  return ais_fits(d) ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// How many clusters the card holds at once at widths (D, E, P) (CUDA's
+// occupancy query; a negative CUDA error code if it fails).
+extern "C" int l2hmc_vae_ais_clusters(int D, int E, int P) {
+  using namespace l2hmc::vae;
+  const Dims d{D, 0, 0, 0, E, P};
+  return l2hmc::max_clusters(vae_ais_kernel, stream::kG, stream::kBlock,
+                             ais_smem_bytes(d));
 }

@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_launch.cuh"
+
 namespace l2hmc {
 namespace vaec {
 
@@ -860,57 +862,6 @@ __device__ __forceinline__ void store_rows(const float* src, int row0,
     const int i = e / CT, n = n0 + e - i * CT;
     if (n < N) dst[static_cast<size_t>(row0 + i) * N + n] = src[e];
   }
-}
-
-// A cluster launch of G CTAs per cluster, dynamic shared memory `smem`.
-template <class... Params, class... Args>
-inline cudaError_t launch_clusters(void (*kernel)(Params...), int G,
-                                   int clusters, size_t smem,
-                                   cudaStream_t stream, Args... args) {
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * G);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = G;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
-}
-
-// How many clusters of G CTAs with `smem` bytes each the card holds at once.
-template <class K>
-inline int max_clusters(K kernel, int G, size_t smem) {
-  if (smem > kMaxSmem) return -static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(G);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = G;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 }  // namespace vaec

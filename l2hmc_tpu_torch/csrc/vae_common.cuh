@@ -1,7 +1,9 @@
-// Shared pieces of the VAE kernels (vae_chain.cu, vae_ais.cu, vae_traj.cu,
-// vae_traj_bwd.cu): the block-wide matrix product, the decoder energy with
-// its analytic gradient, the aux-conditioned S/T/Q net, and one augmented
-// leapfrog step on the decoder posterior.
+// Shared pieces of the VAE sampler and AIS kernels (vae_chain.cu,
+// vae_ais.cu): the block-wide matrix product, the decoder energy with its
+// analytic gradient, the aux-conditioned S/T/Q net, and one augmented
+// leapfrog step on the decoder posterior. vae_ais.cu takes the layout, the
+// draws and the epilogues from here and its products from the cluster's
+// weight stream (vae_stream.cuh); vae_chain.cu takes all of it.
 //
 // Design. The SCG kernels give one thread one chain; here the latent is 50
 // wide, the nets 200 and the decoder 1024, so one block of kThreads threads
@@ -60,19 +62,25 @@ inline const float* take(const float*& p, size_t n) {
 }
 
 // The decoder's slice of the packed parameter block, in the order
-// ops/fused_vae.py packs it.
+// ops/fused_vae.py packs it (_pack_decoder): each array padded to a
+// multiple of 4 floats, so that each starts on 16 bytes of a 16-byte
+// aligned block (the AIS kernel's bulk copies need it).
+inline const float* take4(const float*& p, size_t n) {
+  return take(p, (n + 3) / 4 * 4);
+}
+
 inline Decoder carve_decoder(const float*& p, const Dims& d) {
   Decoder w;
   const size_t D = d.D, E = d.E, P = d.P;
-  w.W1 = take(p, D * E);
-  w.b1 = take(p, E);
-  w.W2 = take(p, E * E);
-  w.b2 = take(p, E);
-  w.W3 = take(p, E * P);
-  w.b3 = take(p, P);
-  w.W1t = take(p, E * D);
-  w.W2t = take(p, E * E);
-  w.W3t = take(p, P * E);
+  w.W1 = take4(p, D * E);
+  w.b1 = take4(p, E);
+  w.W2 = take4(p, E * E);
+  w.b2 = take4(p, E);
+  w.W3 = take4(p, E * P);
+  w.b3 = take4(p, P);
+  w.W1t = take4(p, E * D);
+  w.W2t = take4(p, E * E);
+  w.W3t = take4(p, P * E);
   return w;
 }
 

@@ -152,8 +152,9 @@ extern "C" int l2hmc_vae_traj(const float* const* ptrs, int D, int H, int H2,
   a.N = N;
   a.reverse = reverse;
   const size_t smem = static_cast<size_t>(traj_floats<kCt, kG>(a.d)) * sizeof(float);
-  return launch_clusters(vae_traj_kernel<kCt, kG>, kG, (N + kCt - 1) / kCt, smem,
-                         static_cast<cudaStream_t>(stream), a);
+  return l2hmc::launch_clusters(vae_traj_kernel<kCt, kG>, kG,
+                                (N + kCt - 1) / kCt, kThreads, smem,
+                                static_cast<cudaStream_t>(stream), a);
 }
 
 // What the host allocates for N chains at these widths: out[0] = Ct,
@@ -177,5 +178,5 @@ extern "C" int l2hmc_vae_traj_clusters(int D, int H, int H2, int T, int E,
   using namespace l2hmc::vaec;
   const Dims d{D, H, H2, T, E, P};
   const size_t smem = static_cast<size_t>(traj_floats<kCt, kG>(d)) * sizeof(float);
-  return max_clusters(vae_traj_kernel<kCt, kG>, kG, smem);
+  return l2hmc::max_clusters(vae_traj_kernel<kCt, kG>, kG, kThreads, smem);
 }

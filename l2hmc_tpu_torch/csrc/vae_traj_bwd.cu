@@ -867,7 +867,8 @@ extern "C" int l2hmc_vae_traj_bwd(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(bwd_floats<kCt, kG>(a.d)) * sizeof(float);
   const int clusters = (N + kCt - 1) / kCt;
-  cudaError_t e = launch_clusters(vae_traj_bwd_kernel<kCt, kG>, kG, clusters, smem, s, a);
+  cudaError_t e = l2hmc::launch_clusters(vae_traj_bwd_kernel<kCt, kG>, kG,
+                                         clusters, kThreads, smem, s, a);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_grads = 2 * net_floats(a.d) + D;
   sum_clusters_kernel<<<(n_grads + kThreads - 1) / kThreads, kThreads, 0, s>>>(
@@ -900,5 +901,5 @@ extern "C" int l2hmc_vae_traj_bwd_clusters(int D, int H, int H2, int T, int E,
   using namespace l2hmc::vaec;
   const Dims d{D, H, H2, T, E, P};
   const size_t smem = static_cast<size_t>(bwd_floats<kCt, kG>(d)) * sizeof(float);
-  return max_clusters(vae_traj_bwd_kernel<kCt, kG>, kG, smem);
+  return l2hmc::max_clusters(vae_traj_bwd_kernel<kCt, kG>, kG, kThreads, smem);
 }

@@ -43,8 +43,10 @@ SIGNATURES = {
                             _I, _I, _I, _U64, _P],
     },
     "vae_ais": {
-        "l2hmc_vae_ais": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I,
+        "l2hmc_vae_ais": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I,
                           _U64, _P],
+        "l2hmc_vae_ais_sizes": [_I, _I, _I, _I, _P],
+        "l2hmc_vae_ais_clusters": [_I, _I, _I],
     },
     "vae_traj": {
         "l2hmc_vae_traj": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 8), _I, _I, _P],

@@ -653,8 +653,9 @@ def trajectory_vjp(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
     """VJP of the fused trajectory at (D, N) float32 (x, v) for the
     cotangents dX, dV (D, N) and dld (1, N); returns what
     ``trajectory_vjp_plain`` returns. CPU tensors take the plain version;
-    CUDA tensors launch ``csrc/trajectory_bwd.cu`` (a per-chain sweep into a
-    (P, N) scratch, then a fixed-order sum over chains)."""
+    CUDA tensors launch ``csrc/trajectory_bwd.cu`` (a lane group per chain,
+    each lane writing its share of the chain's cotangents into an (N, P)
+    scratch once, then a fixed-order sum over chains)."""
     _check_state(inp, x, v, dX, dV)
     N = x.shape[1]
     if dld.shape != (1, N) or dld.dtype != torch.float32 or not dld.is_contiguous() \

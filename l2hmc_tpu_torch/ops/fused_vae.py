@@ -12,7 +12,9 @@ Four kernels, all in ``csrc/`` (see the notes at the top of each source):
     optionally the (K, D, N) trace and 1..max op compositions per recorded
     step. Public class ``FusedVaeSampler``.
   - ``vae_ais`` (``csrc/vae_ais.cu``): a whole annealed-importance-sampling
-    chain per launch. Public class ``FusedVaeAis``.
+    chain per launch, on clusters of CTAs that share one multicast weight
+    stream (``csrc/vae_stream.cuh``), one configuration, ``AIS_TILE``.
+    Public class ``FusedVaeAis``.
   - ``vae_traj`` (``csrc/vae_traj.cu``): one T-step trajectory on the decoder
     posterior, forward or reverse, and ``vae_traj_bwd``
     (``csrc/vae_traj_bwd.cu``): its vector-Jacobian product with the
@@ -72,7 +74,12 @@ from l2hmc_tpu_torch.ops.fused_dynamics import (
 from l2hmc_tpu_torch.ops.philox import chain_draws
 
 _THREADS = 256  # threads per block of the VAE kernels (csrc/vae_common.cuh)
-TILES = (4, 8)  # chain tiles of the sampler and AIS kernels
+TILES = (4, 8)  # chain tiles of the sampler kernel
+# (chains per CTA kC, CTAs per cluster kG) of the AIS kernel, and its ring
+# of weight chunks: slots, floats per slot, floats a row group may read past
+# a chunk (csrc/vae_stream.cuh)
+AIS_TILE = (8, 2)
+_AIS_SLOTS, _AIS_SLOT_FLOATS, _AIS_SLOT_PAD = 2, 16384, 4
 # (chains per cluster Ct, CTAs per cluster G) of the training kernels, as
 # kCt, kG in csrc/vae_cluster.cuh
 CLUSTER = (40, 8)
@@ -190,12 +197,22 @@ def _flat(parts) -> torch.Tensor:
     return torch.cat([p.reshape(-1) for p in parts]).contiguous()
 
 
+def _pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
 def _pack_decoder(dec_vals) -> list[torch.Tensor]:
     """The decoder in the kernels' order (csrc/vae_common.cuh,
     ``carve_decoder``): W (in, out) and bias per layer, then the three
-    transposes (out, in)."""
+    transposes (out, in), each flattened and padded with zeros to a multiple
+    of 4 floats, so that every array starts on 16 bytes of the block (the
+    AIS kernel streams them with bulk copies)."""
     A1, B1, A2, B2, A3, B3 = dec_vals
-    return [A1.T, B1, A2.T, B2, A3.T, B3, A1, A2, A3]
+    out = []
+    for a in (A1.T, B1, A2.T, B2, A3.T, B3, A1, A2, A3):
+        flat = a.reshape(-1)
+        out.append(F.pad(flat, (0, _pad4(flat.numel()) - flat.numel())))
+    return out
 
 
 def _pack_net(w: list) -> list[torch.Tensor]:
@@ -206,11 +223,12 @@ def _pack_net(w: list) -> list[torch.Tensor]:
 
 
 def chain_tile(n_chains: int, n_sms: int) -> int:
-    """Chains per block. Both kernels are bound by the latency of one
-    block's weight stream, which a tile of 8 lengthens by only a tenth over
-    a tile of 4 (measured on an H100), so the rule is: tiles of 4 while they
-    give every block an SM of its own, which spreads few chains over more
-    SMs; tiles of 8 once tiles of 4 would have to share SMs."""
+    """Chains per block of the sampler kernel (``vae_chain``). It is bound
+    by the latency of one block's weight stream, which a tile of 8 lengthened
+    by only a tenth over a tile of 4 (measured on an H100), so the rule is:
+    tiles of 4 while they give every block an SM of its own, which spreads
+    few chains over more SMs; tiles of 8 once tiles of 4 would have to share
+    SMs. The AIS kernel has one configuration (``AIS_TILE``)."""
     return 4 if n_chains <= 4 * n_sms else 8
 
 
@@ -222,8 +240,82 @@ def _check_tile(tile: Optional[int], n: int, device) -> int:
     return tile
 
 
-# The shared memory per CTA as the two sources carve it, mirrored for the
-# tests on the CPU; the wrappers take the sources' own figure
+# The AIS kernel's weight stream (csrc/vae_stream.cuh), mirrored for the
+# tests on the CPU; the wrapper takes the source's own figures
+# (``ais_sizes``), and the card tests hold the two equal.
+
+
+def _chunk_rows(M: int) -> int:
+    """Rows of an M-wide k-major matrix per chunk (``chunk_rows``): as many
+    as a slot holds, with rows x M a multiple of 4 floats."""
+    step = 1 if M % 4 == 0 else 2 if M % 2 == 0 else 4
+    return (_AIS_SLOT_FLOATS // M) // step * step
+
+
+def ais_chunk_plan(D: int, E: int, P: int) -> list[dict]:
+    """One decoder sweep of the AIS kernel's weight stream as the source
+    plans it: per product, in the order ``decoder_grad`` runs them, its
+    matrix's float offset in the packed decoder block (``_pack_decoder``)
+    and padded extent, K rows of M floats, the rows per chunk ``kc``, and
+    its chunks as (first row, rows, byte offset in the block, bytes), each
+    one bulk copy from the L2."""
+    sizes = [D * E, E, E * E, E, E * P, P, E * D, E * E, P * E]
+    offsets = np.concatenate([[0], np.cumsum([_pad4(n) for n in sizes])])
+    plan = []
+    # (name, index in the packed block, K, M): W1, W2, W3 forward, then
+    # the transposes of the sweep back
+    for name, idx, K, M in (("W1", 0, D, E), ("W2", 2, E, E), ("W3", 4, E, P),
+                            ("W3t", 8, P, E), ("W2t", 7, E, E), ("W1t", 6, E, D)):
+        kc = _chunk_rows(M)
+        chunks = []
+        for k0 in range(0, K, kc) if kc > 0 else ():
+            rows = min(kc, K - k0)
+            chunks.append((k0, rows, 4 * (int(offsets[idx]) + k0 * M), 4 * _pad4(rows * M)))
+        plan.append({"name": name, "offset": int(offsets[idx]), "extent": _pad4(sizes[idx]),
+                     "K": K, "M": M, "kc": kc, "chunks": chunks})
+    return plan
+
+
+def ais_smem_bytes(D: int, E: int, P: int) -> int:
+    """Shared-memory bytes of one CTA of the AIS kernel (``ais_smem_bytes``
+    in csrc/vae_ais.cu): the ring (a full and an empty mbarrier per slot,
+    the slots), the decoder's two hidden layers, its output cotangent and a
+    sum's partials for kC chains, five [D][kC] and five [kC] arrays."""
+    C = AIS_TILE[0]
+    ring = 16 * _AIS_SLOTS + 4 * _AIS_SLOTS * (_AIS_SLOT_FLOATS + _AIS_SLOT_PAD)
+    return ring + 4 * (C * (2 * E + P + _THREADS // 32) + C * (5 * D + 5))
+
+
+def ais_sizes(dims, n: int) -> dict:
+    """What the AIS kernel needs for ``n`` chains at ``dims`` = (D, E, P),
+    as its source reckons it (``l2hmc_vae_ais_sizes``): chains per CTA
+    ``c``, CTAs per cluster ``g``, shared-memory bytes per CTA, ring slots,
+    floats per slot and the launch's CTAs."""
+    out = (ctypes.c_longlong * 6)()
+    err = _cuda.library("vae_ais").l2hmc_vae_ais_sizes(*dims, n, out)
+    _cuda.check(err, "vae_ais sizes")
+    return dict(zip(("c", "g", "smem_bytes", "slots", "slot_floats", "ctas"), out[:]))
+
+
+def ais_max_clusters(dims) -> int:
+    """How many clusters of the AIS kernel the card holds at once at
+    ``dims`` = (D, E, P) (CUDA's occupancy query); a negative CUDA error
+    code if it fails."""
+    return _cuda.library("vae_ais").l2hmc_vae_ais_clusters(*dims)
+
+
+def ais_l2_bytes(D: int, E: int, P: int, n: int, anneal_steps: int, leapfrogs: int) -> int:
+    """Weight bytes one AIS launch reads from the L2, reckoned: every
+    cluster streams the decoder's chunks (both layouts) once per sweep, K L
+    + 1 sweeps."""
+    C, G = AIS_TILE
+    clusters = _slice(_slice(n, C), G)
+    sweep = sum(b for prod in ais_chunk_plan(D, E, P) for _, _, _, b in prod["chunks"])
+    return clusters * (anneal_steps * leapfrogs + 1) * sweep
+
+
+# The shared memory per CTA as the two training sources carve it, mirrored
+# for the tests on the CPU; the wrappers take the sources' own figure
 # (``kernel_sizes``), and the card tests hold the two equal.
 
 
@@ -481,11 +573,12 @@ def vae_chain(
 
 def vae_ais(
     dec_vals, x_raw, z0, seed: int, anneal_steps: int, step_size: float,
-    leapfrogs: int, tile: Optional[int] = None,
+    leapfrogs: int,
 ):
     """A whole AIS chain on (D, N) float32 state; returns what
     ``vae_ais_plain`` returns. CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/vae_ais.cu``."""
+    tensors launch ``csrc/vae_ais.cu`` (clusters of ``AIS_TILE[1]`` CTAs
+    with ``AIS_TILE[0]`` chains each, sharing one weight stream)."""
     E, D = dec_vals[0].shape
     P = dec_vals[4].shape[0]
     N = z0.shape[1] if z0.dim() == 2 else -1
@@ -498,9 +591,8 @@ def vae_ais(
         return vae_ais_plain(dec_vals, x_raw, z0, seed, anneal_steps, step_size, leapfrogs)
     if z0.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {z0.device}")
-    C = _check_tile(tile, N, dev)
-    _check_smem(C * (2 * E + P + _THREADS // 32 + 5 * D + 5))
-    block = _flat(_pack_decoder(dec_vals))
+    _check_smem(ais_sizes((D, E, P), N)["smem_bytes"] // 4)
+    block = _flat(_pack_decoder(dec_vals))  # a fresh allocation: 16-byte aligned
     beta = anneal_schedule(anneal_steps)
     beta_diff = float(beta[1] - beta[0] if anneal_steps > 1 else beta[0])
     beta_dev = torch.as_tensor(beta, device=dev)
@@ -511,7 +603,7 @@ def vae_ais(
         err = lib.l2hmc_vae_ais(
             block.data_ptr(), D, E, P, beta_dev.data_ptr(), x_raw.data_ptr(),
             z0.data_ptr(), log_w.data_ptr(), acc.data_ptr(),
-            float(step_size), beta_diff, N, anneal_steps, leapfrogs, C,
+            float(step_size), beta_diff, N, anneal_steps, leapfrogs,
             int(seed) & 0xFFFFFFFFFFFFFFFF, torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, "vae_ais")

@@ -93,6 +93,52 @@ def test_trajectory_bwd_kernel_matches_plain(cuda, hmc, dim, n, reverse):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def _bwd_scale_cases():
+    """SCG (learned and HMC) and the 50-d Gaussian at 333, 2048 and 8192
+    chains: the lane groups' two instantiations at a block's worth of
+    chains and at many blocks an SM."""
+    return [pytest.param(hmc, dim, n, id=f"{name}-n{n}")
+            for name, hmc, dim in (("scg", False, 2), ("hmc", True, 2), ("wide", False, 50))
+            for n in (333, 2048, 8192)]
+
+
+@pytest.mark.parametrize("hmc,dim,n", _bwd_scale_cases())
+@pytest.mark.parametrize("reverse", [False, True])
+def test_trajectory_bwd_kernel_matches_plain_at_scale(cuda, hmc, dim, n, reverse):
+    """As above, per leaf within 5e-4 of the leaf's largest entry and twice
+    bit for bit, up to 8192 chains. The nets are ReLU nets: a hidden
+    pre-activation within rounding of zero can gate differently in the
+    kernel and in its plain version and change that chain's cotangents by
+    whole terms, which the 8192-chain cases of the wide net make likely.
+    Such a chain shows in its own dx, dv, may be at most 1, must have a
+    pre-activation of the plain trajectory within 1e-5 of its layer's
+    largest (``relu_margins``), and is set aside by a second comparison
+    with its incoming cotangents zeroed (the rule of the VAE backward
+    kernel's test below)."""
+    inp, x = _inputs(cuda, hmc, dim, n)
+    g = torch.Generator().manual_seed(3)
+    v, dX, dV = (torch.randn(x.shape, generator=g).to(cuda) for _ in range(3))
+    dld = torch.randn((1, x.shape[1]), generator=g).to(cuda)
+    got = tree_leaves(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse))
+    again = tree_leaves(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse))
+    for a, b in zip(got, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    ref = tree_leaves(fd.trajectory_vjp_plain(inp, x, v, dX, dV, dld, reverse))
+    flipped = torch.zeros(n, dtype=torch.bool, device=cuda)
+    for a, b in zip(got[-2:], ref[-2:]):  # dx, dv: one column per chain
+        flipped |= (a - b).abs().amax(dim=0) > 5e-4 * b.abs().max()
+    assert int(flipped.sum()) <= 1
+    if bool(flipped.any()):
+        assert float(fd.relu_margins(inp, x, v, reverse)[flipped].max()) < 1e-5
+        keep = (~flipped).float()[None, :]
+        got = tree_leaves(fd.trajectory_vjp(inp, x, v, dX * keep, dV * keep, dld * keep,
+                                            reverse))
+        ref = tree_leaves(fd.trajectory_vjp_plain(inp, x, v, dX * keep, dV * keep,
+                                                  dld * keep, reverse))
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=5e-4 * float(b.abs().max()) + 1e-30)
+
+
 def test_backward_through_function_launches_kernel(cuda):
     """loss.backward() through DifferentiableFusedDynamics launches the
     backward kernel once per trajectory and fills every params gradient."""
@@ -194,22 +240,28 @@ def test_vae_chain_kernel_matches_plain_on_same_bits(cuda, full, n, composed, ti
     assert float((zk - zT).abs().max()) > 0.05  # the chains moved
 
 
-@pytest.mark.parametrize("tile", [4, 8])
 @pytest.mark.parametrize("anneal_steps", [1, 20])
-@pytest.mark.parametrize("full,n", [(True, 203), (False, 77)], ids=["full", "small"])
-def test_vae_ais_kernel_matches_plain_on_same_bits(cuda, full, n, anneal_steps, tile):
-    """Same Philox bits. A flipped accept sends a chain down another path
-    and moves its log w by O(1); chains within 0.05 count as unflipped, at
-    most 2 may flip, and on the others log w (values of 700-1300) agrees to
-    5e-3 and the mean acceptance probability to 5e-3 (a Hamiltonian
-    difference of energies near 1e3 carries ~1e-3 of float32 rounding)."""
+@pytest.mark.parametrize("n", [1000, 203, 77])
+@pytest.mark.parametrize("full", [True, False], ids=["full", "small"])
+def test_vae_ais_kernel_matches_plain_on_same_bits(cuda, full, n, anneal_steps):
+    """Same Philox bits, at the protocol's 1000 chains and at two counts
+    that leave the last cluster ragged. A flipped accept sends a chain down
+    another path and moves its log w by O(1); chains within 0.05 count as
+    unflipped, at most 2 may flip, and on the others log w (values of
+    700-1300) agrees to 5e-3 and the mean acceptance probability to 5e-3 (a
+    Hamiltonian difference of energies near 1e3 carries ~1e-3 of float32
+    rounding). A second launch repeats the first bit for bit."""
     model, params, x_raw, _, z0 = _vae_setup(cuda, full, n)
     dec = fv.decoder_arrays(params["dec"])
     xr, zT = x_raw.T.contiguous(), z0.T.contiguous()
     before = fd.LAUNCHES["vae_ais"]
     wk, acck = fv.vae_ais(dec, xr, zT, seed=6, anneal_steps=anneal_steps, step_size=0.05,
-                          leapfrogs=10, tile=tile)
+                          leapfrogs=10)
     assert fd.LAUNCHES["vae_ais"] == before + 1
+    wk2, acck2 = fv.vae_ais(dec, xr, zT, seed=6, anneal_steps=anneal_steps, step_size=0.05,
+                            leapfrogs=10)
+    torch.testing.assert_close(wk2, wk, rtol=0, atol=0)
+    torch.testing.assert_close(acck2, acck, rtol=0, atol=0)
     wp, accp = fv.vae_ais_plain(dec, xr, zT, seed=6, anneal_steps=anneal_steps,
                                 step_size=0.05, leapfrogs=10)
     assert torch.isfinite(wk).all()
@@ -218,6 +270,22 @@ def test_vae_ais_kernel_matches_plain_on_same_bits(cuda, full, n, anneal_steps, 
     torch.testing.assert_close(wk[:, clean], wp[:, clean], rtol=0, atol=5e-3)
     torch.testing.assert_close(acck[:, clean], accp[:, clean], rtol=0, atol=5e-3)
     assert float(acck.min()) > 0.0 and float(acck.max()) <= 1.0
+
+
+@pytest.mark.parametrize("dims", [(50, 1024, 784), (8, 32, 784)], ids=["reference", "small"])
+def test_vae_ais_sizes_match_the_host_mirror(cuda, dims):
+    """What the AIS source reports for the host to check (its chains per CTA
+    and CTAs per cluster, shared memory per CTA, ring and grid) is the
+    host's mirror of its plan, and the card holds its clusters: at the
+    protocol's 1000 chains, 126 CTAs in one wave."""
+    D, E, P = dims
+    got = fv.ais_sizes(dims, 1000)
+    c, g = fv.AIS_TILE
+    assert (got["c"], got["g"]) == (c, g)
+    assert got["smem_bytes"] == fv.ais_smem_bytes(D, E, P)
+    assert (got["slots"], got["slot_floats"]) == (fv._AIS_SLOTS, fv._AIS_SLOT_FLOATS)
+    assert got["ctas"] == 126  # 125 CTAs of 8 chains, rounded up to whole clusters
+    assert fv.ais_max_clusters(dims) * g >= got["ctas"]
 
 
 def test_vae_wrappers_reject_bad_input(cuda):
