@@ -16,7 +16,8 @@ then:
   2. trajectory kernel vs its plain version on the same inputs: SCG at 2048
      and 200 chains, the 50-d ill-conditioned Gaussian (input_scale,
      eps_dim) and HMC mode, both directions, tolerance 5e-4; forward then
-     backward must invert;
+     backward must invert; its launch timed alone at 1024, 2048 and 8192
+     chains, and through its wrapper;
   3. chain kernel vs its plain version on the same Philox bits;
   4. throughput of the chain kernel at 8192 chains x 500 MH steps;
   5. training: (a) the backward-trajectory kernel vs its plain version
@@ -35,8 +36,10 @@ then:
      50, decoder 50-1024-1024-784, aux encoder 784-512-512-200, S/T/Q nets
      200/200, 5 leapfrogs), weights seeded and lifted (``lift_vae_params``),
      data from ``apps.data.get_data()``: (a) the sampler kernel vs its plain
-     version on the same Philox bits (203 and 256 chains, 3 recorded steps,
-     single and composed ops, with trace); (b) the AIS kernel vs its plain
+     version on the same Philox bits (9, 203 and 256 chains, 3 recorded
+     steps, single and composed ops, with trace; each launch twice, bit for
+     bit; its cluster configuration, the clusters the card holds at once and
+     the L2 weight bytes of a protocol launch); (b) the AIS kernel vs its plain
      version (1000 and 203 chains, 20 anneal steps, 10 leapfrogs; each
      launch twice, bit for bit; its cluster configuration, the clusters
      the card holds at once and the L2 weight bytes of a protocol launch);
@@ -228,6 +231,16 @@ def vae_chain_bound(D, H, H2, T, E, P, N, K, total_ops, weight_floats, trace: bo
     return _bound(ops, nbytes)
 
 
+def vae_chain_l2_bytes(n, ct, ops, D, H, H2, T, E, P):
+    """Weight bytes one sampler launch reads from the L2, reckoned for the
+    report: every cluster of ct chains reads each weight once per product,
+    T decoder sweeps (each matrix forward and transposed) and 4 T net
+    applications per MH op, and the start state's sweep."""
+    sweep = 4 * 2 * (D * E + E * E + E * P)
+    net = 4 * (2 * D * H + H * H2 + 3 * H2 * D)
+    return -(-n // ct) * (ops * (T * sweep + 4 * T * net) + sweep)
+
+
 def vae_ais_bound(D, E, P, N, K, L, weight_floats):
     """The AIS kernel's least work: K anneal steps of L decoder sweeps, the
     leapfrog updates, the draws and the accept, plus the start state's
@@ -285,6 +298,28 @@ def _bwd_launch_ms(fd, cuda_lib, inp, x, v, dX, dV, dld, reps):
             block.data_ptr(), D, H, H2, T, 0, int(inp.hmc), x.data_ptr(), v.data_ptr(),
             dX.data_ptr(), dV.data_ptr(), dld.data_ptr(), dx.data_ptr(), dv.data_ptr(),
             grads.data_ptr(), scratch.data_ptr(), N, stream), "trajectory_bwd")
+
+    return _cuda_time(launch, reps)
+
+
+def _traj_launch_ms(fd, cuda_lib, inp, x, v, reps):
+    """Mean ms of the trajectory kernel's launch through its C entry point,
+    by CUDA events, with the arguments ``fd.trajectory`` gives it made once:
+    the device's time, apart from the wrapper's host work."""
+    import torch
+
+    block = fd._kernel_block(inp, x)
+    D, H, H2, T = inp.dims
+    N = x.shape[1]
+    xo, vo = torch.empty_like(x), torch.empty_like(v)
+    ld = torch.empty((1, N), dtype=torch.float32, device=x.device)
+    lib = cuda_lib.library("trajectory")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        cuda_lib.check(lib.l2hmc_trajectory(
+            block.data_ptr(), D, H, H2, T, 0, int(inp.hmc), x.data_ptr(), v.data_ptr(),
+            xo.data_ptr(), vo.data_ptr(), ld.data_ptr(), N, stream), "trajectory")
 
     return _cuda_time(launch, reps)
 
@@ -369,25 +404,32 @@ def vae_phases(dev, report, logdir):
     H, H2 = inp.dims[1], inp.dims[2]
     net_floats = sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D + D * T
 
-    # (a) sampler kernel vs plain on the same bits
+    # (a) sampler kernel vs plain on the same bits, under one cluster's
+    # chains, at a ragged count and at whole clusters; each launch twice
+    chain_dims = (D, H, H2, T, E, P)
     chain_cmp = {}
-    for n in (203, 256):
+    for n in (9, 203, 256):
         xr, embT, zT = batch(n)
         inp = fv.prepare_vae(dyn, params["smp"], params["dec"], xr, embT)
         for name, nb in (("single", None), ("composed", [2, 1, 3])):
             zk, acck, trk = fv.vae_chain(inp, xr, zT, seed=4, n_mh_steps=3,
                                          collect_trace=True, nb=nb)
+            again = fv.vae_chain(inp, xr, zT, seed=4, n_mh_steps=3, collect_trace=True, nb=nb)
             zp, accp, trp = fv.vae_chain_plain(inp, zT, seed=4, n_mh_steps=3,
                                                collect_trace=True, nb=nb)
             ops = 3 if nb is None else sum(nb)
             flipped = (acck - accp).abs()[0] * ops > 0.5
             dz = float((trk - trp).abs()[:, :, ~flipped].max())
-            case = {"flips": int(flipped.sum()), "max_abs_dz_unflipped": dz,
+            case = {"ctas": fv.chain_sizes(chain_dims, n)["ctas"],
+                    "flips": int(flipped.sum()), "max_abs_dz_unflipped": dz,
+                    "repeats_bit_for_bit": all(bool(torch.equal(a, b))
+                                               for a, b in zip((zk, acck, trk), again)),
                     "accept": float(acck.mean()),
                     "moved": float((zk - zT).abs().max())}
             chain_cmp[f"n{n}_{name}"] = case
             _require(bool(torch.isfinite(trk).all()), f"vae_chain {n} {name}: non-finite trace")
             _require(bool((trk[-1] == zk).all()), f"vae_chain {n} {name}: trace end != state")
+            _require(case["repeats_bit_for_bit"], f"vae_chain {n} {name}: two launches differ")
             _require(case["flips"] <= VAE_FLIPS and dz < VAE_CHAIN_TOL,
                      f"vae_chain {n} {name}: {case}")
             _require(case["moved"] > 0.05, f"vae_chain {n} {name}: the chains did not move")
@@ -549,6 +591,12 @@ def vae_phases(dev, report, logdir):
     chain_bound_ms, chain_bound_by = vae_chain_bound(
         D, H, H2, T, E, P, scfg.n_chains, scfg.n_steps, int(nb_path.sum()),
         dec_floats + net_floats, True)
+    chain_plan = fv.chain_sizes(chain_dims, scfg.n_chains)
+    chain_plan["clusters_at_once"] = fv.chain_max_clusters(chain_dims)
+    chain_plan["l2_weight_bytes_per_protocol_launch"] = vae_chain_l2_bytes(
+        scfg.n_chains, chain_plan["ct"], int(nb_path.sum()), *chain_dims)
+    _require(chain_plan["clusters_at_once"] * chain_plan["g"] >= chain_plan["ctas"],
+             f"vae_chain: {chain_plan['ctas']} CTAs do not fit one wave")
 
     xr, _, zT = batch(n_path)
 
@@ -570,6 +618,7 @@ def vae_phases(dev, report, logdir):
     sweeps_ais = (n_data // acfg.num_splits) * (acfg.anneal_steps * acfg.leapfrogs + 1)
     report["vae_times"] = {
         "vae_chain_ms": chain_ms, "vae_chain_ops": int(nb_path.sum()),
+        "vae_chain_plan": chain_plan,
         "vae_chain_ms_per_op": chain_ms / int(nb_path.sum()),
         "vae_chain_accept_first_100_steps": float(acc_direct.mean()),
         "vae_ais_ms": ais_ms,
@@ -592,7 +641,9 @@ def vae_phases(dev, report, logdir):
          "bound_by": chain_bound_by, "library_ms": None,
          "shape": (f"VAE latent {D}, decoder {E}, nets {H}/{H2}, T={T}, {scfg.n_chains} chains x "
                    f"{scfg.n_steps} recorded steps ({int(nb_path.sum())} MH ops), traced; "
-                   f"plain_ms over the first {plain_steps} steps "
+                   f"clusters of {chain_plan['g']} CTAs sharing {chain_plan['ct']} chains, "
+                   f"{chain_plan['ctas']} CTAs, {chain_plan['clusters_at_once']} clusters at "
+                   f"once; plain_ms over the first {plain_steps} steps "
                    f"({int(nb_path[:plain_steps].sum())} ops; kernel over the same: "
                    f"{chain_k20_ms:.2f} ms)")},
         {"name": "vae_ais", "route": "cuda", "source": src + "vae_ais.cu",
@@ -1068,8 +1119,22 @@ def main() -> int:
     inp_scg = fd.prepare(dyn, fd.energy_spec_for_target(target), scg_params, dev)
     xs = target.sample(_gen(31), 2048, device=dev).T.contiguous()
     vs = torch.randn(xs.shape, generator=_gen(32)).to(dev)
-    traj_ms = _cuda_time(lambda: fd.trajectory(inp_scg, xs, vs, False), 50)
+    # the trajectory kernel's own time (its launch through the C entry point
+    # on buffers made once) at the training batch, the row's 2048 chains and
+    # 8192, and the wrapper's, whose host work it waits for at this size
+    traj_launch_ms = {}
+    for n in (1024, 2048, 8192):
+        xn = target.sample(_gen(33), n, device=dev).T.contiguous()
+        vn = torch.randn(xn.shape, generator=_gen(34)).to(dev)
+        traj_launch_ms[n] = _traj_launch_ms(fd, _cuda, inp_scg, xn, vn, 200)
+    traj_ms = traj_launch_ms[2048]
+    traj_wrapper_ms = _cuda_time(lambda: fd.trajectory(inp_scg, xs, vs, False), 50)
     traj_plain_ms = _cuda_time(lambda: fd.trajectory_plain(inp_scg, xs, vs, False), 5)
+    report["trajectory_times"] = {
+        "launch_ms": {str(n): t for n, t in traj_launch_ms.items()},
+        "wrapper_ms_2048": traj_wrapper_ms, "plain_ms_2048": traj_plain_ms,
+    }
+    print("# trajectory kernel times: " + json.dumps(report["trajectory_times"]), flush=True)
     D, H, H2, T = inp_scg.dims
     traj_bound_ms, traj_bound_by = traj_bound(D, H, H2, T, 2048, False, inp_scg.block().numel())
 
@@ -1163,7 +1228,7 @@ def main() -> int:
     xb = target.sample(_gen(71), n_tr, device=dev).T.contiguous()
     vb, dXb, dVb = (torch.randn(xb.shape, generator=_gen(72 + i)).to(dev) for i in range(3))
     dldb = torch.ones((1, n_tr), device=dev)
-    traj_1024_ms = _cuda_time(lambda: fd.trajectory(inp_scg, xb, vb, False), 50)
+    traj_1024_ms = traj_launch_ms[1024]
     # the backward kernel's own time (its launch and the sum over chains,
     # through the C entry point on buffers made once), and the wrapper's,
     # whose host work (checks, packing the parameter block, allocation) it
@@ -1258,7 +1323,10 @@ def main() -> int:
          "max_abs_err": max(max(c["max_abs_err"].values()) for c in traj.values()),
          "ms": traj_ms, "plain_ms": traj_plain_ms, "bound_ms": traj_bound_ms,
          "bound_by": traj_bound_by, "library_ms": None,
-         "shape": "SCG D=2 H=10 T=10, 2048 chains, one direction"},
+         "shape": (f"SCG D=2 H=10 T=10, 2048 chains, one direction, the launch alone; "
+                   f"1024 chains: {traj_launch_ms[1024]:.4f} ms; 8192 chains: "
+                   f"{traj_launch_ms[8192]:.4f} ms; through the wrapper: "
+                   f"{traj_wrapper_ms:.4f} ms")},
         {"name": "chain", "route": "cuda", "source": src + "chain.cu",
          "replaces": "l2hmc_tpu/ops/fused_dynamics.py:1103",
          "launches": launches["chain"],

@@ -1,0 +1,216 @@
+"""Times the port's CUDA kernels at their protocol shapes, and compares
+source trees on one card.
+
+    python -P l2hmc_tpu_torch/apps/kernel_times.py
+    python -P l2hmc_tpu_torch/apps/kernel_times.py --trees PARENT CHANGE [...]
+
+Alone, it times the ``l2hmc_tpu_torch`` package that Python imports and
+prints one JSON line: the SCG trajectory and backward kernels' launches
+through their C entry points, the SCG chain kernel (1024 chains x 2000
+traced steps), the fused SCG training step (1024 chains), the VAE training
+kernels at the training batch (512 chains), the AIS kernel (1000 chains x
+100 anneal steps x 10 leapfrogs) and the VAE sampler (200 chains x 200
+recorded steps of 1-3 ops), all at the reference widths with seeded
+weights; kernel times by CUDA events, the training step by the host clock.
+
+With ``--trees``, each directory must hold an ``l2hmc_tpu_torch`` package
+(a checkout, or an unpacked ``git archive``). Every tree's kernels are built
+first, at once; then each tree is timed in a process of its own with that
+tree's package, in the order given and then reversed (A B C C B A), so that
+a drift of the card over the call falls on every tree alike. Prints each
+run's line and a summary of every tree's times. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def _cuda_ms(fn, reps):
+    """Mean ms of ``fn()`` over ``reps`` runs by CUDA events, after one
+    warm-up run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _gen(seed):
+    import torch
+
+    return torch.Generator().manual_seed(seed)
+
+
+def scg_times(dev) -> dict:
+    import torch
+
+    from l2hmc_tpu_torch.ops import _cuda
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+    from l2hmc_tpu_torch.train import ScgConfig, build_dynamics, train
+
+    cfg = ScgConfig(n_chains=1024)
+    dyn, target = build_dynamics(cfg)
+    params = dyn.init_params(_gen(0), eps=cfg.eps, device=dev)
+    inp = fd.prepare(dyn, fd.energy_spec_for_target(target), params, dev)
+    D, H, H2, T = inp.dims
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for n in (1024, 2048, 8192):
+        x = target.sample(_gen(1), n, device=dev).T.contiguous()
+        v = torch.randn(x.shape, generator=_gen(2)).to(dev)
+        block = fd._kernel_block(inp, x)
+        xo, vo = torch.empty_like(x), torch.empty_like(v)
+        ld = torch.empty((1, n), dtype=torch.float32, device=dev)
+        lib = _cuda.library("trajectory")
+        out[f"trajectory_launch_{n}"] = _cuda_ms(lambda: _cuda.check(lib.l2hmc_trajectory(
+            block.data_ptr(), D, H, H2, T, 0, 0, x.data_ptr(), v.data_ptr(), xo.data_ptr(),
+            vo.data_ptr(), ld.data_ptr(), n, stream), "trajectory"), 200)
+        if n == 1024:
+            dX, dV = (torch.randn(x.shape, generator=_gen(3 + i)).to(dev) for i in range(2))
+            dld = torch.ones((1, n), device=dev)
+            n_grads = sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D
+            grads = torch.empty(n_grads, dtype=torch.float32, device=dev)
+            scratch = torch.empty(n_grads * n + 2 * (T + 1) * D * n, dtype=torch.float32,
+                                  device=dev)
+            blib = _cuda.library("trajectory_bwd")
+            out["trajectory_bwd_launch_1024"] = _cuda_ms(
+                lambda: _cuda.check(blib.l2hmc_trajectory_bwd(
+                    block.data_ptr(), D, H, H2, T, 0, 0, x.data_ptr(), v.data_ptr(),
+                    dX.data_ptr(), dV.data_ptr(), dld.data_ptr(), xo.data_ptr(),
+                    vo.data_ptr(), grads.data_ptr(), scratch.data_ptr(), n, stream),
+                    "trajectory_bwd"), 200)
+    x0 = target.sample(_gen(4), 1024, device=dev).T.contiguous()
+    out["chain_1024x2000"] = _cuda_ms(lambda: fd.chain(inp, x0, 2, 2000, True), 2)
+    steps = 300
+    train(ScgConfig(n_chains=1024, n_steps=20, seed=0, fused_train=True), device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    train(ScgConfig(n_chains=1024, n_steps=steps, seed=0, fused_train=True), device=dev)
+    torch.cuda.synchronize()
+    out["fused_scg_step"] = 1e3 * (time.perf_counter() - t) / steps
+    return out
+
+
+def vae_times(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from l2hmc_tpu_torch.apps import eval_sampler, eval_vae, vae
+    from l2hmc_tpu_torch.ops import fused_vae as fv
+
+    model = vae.VaeModel.build(vae.VaeConfig())
+    params = model.init_params(_gen(0), device=dev)
+    dyn = model.dynamics
+    D = dyn.dim
+    rng = np.random.default_rng(0)
+
+    def batch(n):
+        x = torch.as_tensor((rng.random((n, 784)) < 0.3).astype(np.float32), device=dev)
+        with torch.no_grad():
+            emb = model.aux_encoder.apply(params["smp"]["aux_enc"], x)
+        xr = x.T.contiguous()
+        g = _gen(n)
+        z, v, dZ, dV = (torch.randn((D, n), generator=g).to(dev) for _ in range(4))
+        dld = torch.randn((1, n), generator=g).to(dev)
+        inp = fv.prepare_vae(dyn, params["smp"], params["dec"], xr, emb.T.contiguous())
+        return inp, xr, z, v, dZ, dV, dld
+
+    out = {}
+    with torch.no_grad():
+        inp, xr, z, v, dZ, dV, dld = batch(512)
+        out["vae_traj_512"] = _cuda_ms(lambda: fv.vae_trajectory(inp, xr, z, v, False), 20)
+        out["vae_traj_bwd_512"] = _cuda_ms(
+            lambda: fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, False), 20)
+        acfg = eval_vae.EvalVaeConfig()
+        _, xa, za, *_ = batch(acfg.chains_per_datapoint * acfg.num_splits)
+        dec = fv.decoder_arrays(params["dec"])
+        out["vae_ais_1000"] = _cuda_ms(
+            lambda: fv.vae_ais(dec, xa, za, seed=3, anneal_steps=acfg.anneal_steps,
+                               step_size=acfg.step_size, leapfrogs=acfg.leapfrogs), 2)
+        scfg = eval_sampler.EvalSamplerConfig()
+        inp, xr, z, *_ = batch(scfg.n_chains)
+        nb = fv.composition_counts(_gen(1), 200, scfg.max_composition)
+        out["vae_chain_200x200"] = _cuda_ms(
+            lambda: fv.vae_chain(inp, xr, z, seed=13, n_mh_steps=200, collect_trace=True,
+                                 nb=nb), 1)
+        out["vae_chain_200x200_ops"] = int(nb.sum())
+    return out
+
+
+def one() -> dict:
+    import torch
+
+    from l2hmc_tpu_torch.ops import _cuda
+
+    dev = torch.device("cuda")
+    _cuda.library("trajectory")
+    out = {"package": os.path.dirname(os.path.dirname(os.path.abspath(_cuda.__file__))),
+           "build_dir": _cuda.build_info.get("dir")}
+    out.update(scg_times(dev))
+    out.update(vae_times(dev))
+    return out
+
+
+def compare(trees: list[str]) -> dict:
+    """Builds every tree's kernels at once, then times the trees in the
+    order given and reversed, each in a process of its own."""
+    def run(tree, *args):
+        env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+        return subprocess.Popen([sys.executable, "-P", os.path.abspath(__file__), *args],
+                                env=env, stdout=subprocess.PIPE, text=True)
+
+    builds = [run(t, "--build") for t in trees]
+    for t, p in zip(trees, builds):
+        if p.wait() != 0:
+            raise RuntimeError(f"build failed in {t}")
+    runs = {t: [] for t in trees}
+    for t in trees + trees[::-1]:
+        p = run(t)
+        line = p.communicate()[0].strip().splitlines()[-1]
+        if p.returncode != 0:
+            raise RuntimeError(f"timing failed in {t}")
+        print(f"# {t}: {line}", flush=True)
+        runs[t].append(json.loads(line))
+    keys = [k for k, v in runs[trees[0]][0].items() if isinstance(v, float)]
+    return {t: {k: [r[k] for r in rs] for k in keys} for t, rs in runs.items()}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--trees", nargs="+", help="directories holding l2hmc_tpu_torch")
+    ap.add_argument("--build", action="store_true", help="only build the kernels")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    if args.trees:
+        print(json.dumps({"card": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip(),
+            "order": args.trees + args.trees[::-1], "ms": compare(args.trees)}))
+        return 0
+    if args.build:
+        from l2hmc_tpu_torch.ops import _cuda
+
+        _cuda.library("trajectory")
+        return 0
+    print(json.dumps(one()), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -68,11 +68,10 @@ from l2hmc_tpu_torch.train.optim import (
 @dataclasses.dataclass(frozen=True)
 class VaeConfig:
     """Hyperparameters (the JAX package's ``VaeConfig``, field for field).
-    ``fused_tile`` is not read: each CUDA kernel has its own tiling. The
-    sampler kernel (``vae_chain``) picks a tile of 4 or 8 chains per block
-    from the chain count; the AIS kernel runs 8 chains per CTA in clusters
-    of 4 CTAs, and the training kernels 40 chains per cluster of 8 CTAs,
-    one configuration each."""
+    ``fused_tile`` is not read: each CUDA kernel has its own tiling, one
+    configuration each. The sampler kernel (``vae_chain``) runs 16 chains
+    per cluster of 8 CTAs, the training kernels 40 chains per cluster of 8
+    CTAs, and the AIS kernel 8 chains per CTA in clusters of 2 CTAs."""
 
     learning_rate: float = 1e-3
     epochs: int = 100

@@ -3,11 +3,14 @@
 // substep. Counterpart of l2hmc_tpu/ops/fused_dynamics.py's _apply_stq,
 // _trajectory_step, _trajectory and QuadraticGaussianEnergy.
 //
-// Here one thread runs one chain (trajectory.cu, chain.cu). The chain's
-// state and net activations live in per-thread arrays of compile-time size
-// (registers for the small SCG instantiation, local memory for the wide
-// one); the weights are read from shared memory, loaded once per block.
-// The backward kernel runs a chain on a lane group (l2hmc_lanes.cuh).
+// Here one thread runs one chain: the chain kernel (chain.cu) runs
+// trajectory<C> on Cfg's instantiations, and they stay only as long as it
+// does. The chain's state and net activations live in per-thread arrays of
+// compile-time size (registers for the small SCG instantiation, local
+// memory for the wide one); the weights are read from shared memory, loaded
+// once per block. The trajectory kernel and its backward kernel run a chain
+// on a lane group (l2hmc_lanes.cuh), on the parameter block, the Gaussian
+// energy and the substep's expressions defined here.
 #pragma once
 
 #include <cuda_runtime.h>

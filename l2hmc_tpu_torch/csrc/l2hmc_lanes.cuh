@@ -1,7 +1,6 @@
 // Lane groups: L lanes of a warp run one chain together, spread over the
-// S/T/Q nets' hidden units and head outputs (the backward kernel,
-// trajectory_bwd.cu; the forward substep is written so that trajectory.cu
-// can take it).
+// S/T/Q nets' hidden units and head outputs (the trajectory kernel,
+// trajectory.cu, and its backward kernel, trajectory_bwd.cu).
 //
 // Lane l of a group owns the hidden units j = l, l + L, ..., j < H (first
 // layer) and k = l, l + L, ..., k < H2 (second layer), and the head outputs
@@ -24,6 +23,8 @@
 #include "l2hmc_common.cuh"
 
 namespace l2hmc {
+
+constexpr int kLaneThreads = 128;  // threads per block of the lane kernels: 128 / L chains
 
 // One instantiation: D up to DM, L lanes a chain, U hidden units a lane
 // (H, H2 <= L U); UNR = 1 unrolls every loop over D and over the units (the

@@ -1,4 +1,4 @@
-// Fused T-step L2HMC trajectory, one thread per chain.
+// Fused T-step L2HMC trajectory, a lane group per chain.
 //
 // Replaces the Pallas kernel _make_kernel / FusedDynamics
 // (l2hmc_tpu/ops/fused_dynamics.py:645, pallas_call at :718).
@@ -7,41 +7,61 @@
 // net applications (about 2*(2DH) + 2*H*H2 + 3*2*H2*D FLOP each, ~400 at
 // SCG width), two energy gradients and the elementwise updates, with a dozen
 // exp/tanh per net application; it reads x, v and writes X, V, logdet once,
-// a few tens of bytes per chain. The design keeps every intermediate in
-// registers or thread-local memory and the weights in shared memory, loaded
-// once per block, so device memory sees only the state.
+// a few tens of bytes per chain.
 //
-// State layout (D, N): element i of chain n at i * N + n, so neighbouring
-// threads touch neighbouring addresses. N need not divide the block.
-#include "l2hmc_common.cuh"
+// Design. One thread per chain left the SCG instantiation a serial chain of
+// ~19 k dependent operations per thread, on 32 of the card's 132 SMs at
+// 2048 chains (blocks of 64 threads): the time was flat from 1024 to 8192
+// chains. Here a group of L lanes runs one chain, each lane on its share of
+// the hidden units and head outputs (lane_traj_step, l2hmc_lanes.cuh, the
+// substep the backward kernel recomputes with): SCG takes L = 16 with its
+// widths fixed at compile time (ScgLanes), widths up to 64 L = 32 with two
+// units a lane (WideLanes). Blocks of kLaneThreads threads, so 1024 chains
+// make 128 blocks. Every sum over units gathers by __shfl_sync and adds in
+// index order, as the per-thread apply_stq does, so the outputs are those
+// of the per-thread substep. The weights are read from shared memory,
+// loaded once per block; device memory sees only the state. Lane 0 of a
+// group writes X, V and logdet; a group past the last chain runs on a copy
+// of it and writes nothing.
+//
+// State layout (D, N): element i of chain n at i * N + n. N need not divide
+// the block.
+#include "l2hmc_lanes.cuh"
 
 namespace l2hmc {
 
 template <class C>
-__global__ void trajectory_kernel(const float* __restrict__ params, Dims d,
-                                  int reverse, int hmc,
-                                  const float* __restrict__ xin,
-                                  const float* __restrict__ vin,
-                                  float* __restrict__ xo,
-                                  float* __restrict__ vo,
-                                  float* __restrict__ ld, int N) {
+__global__ void __launch_bounds__(kLaneThreads) trajectory_kernel(
+    const float* __restrict__ params, Dims din, int reverse, int hmc,
+    const float* __restrict__ xin, const float* __restrict__ vin,
+    float* __restrict__ xo, float* __restrict__ vo, float* __restrict__ ld,
+    int N) {
   extern __shared__ float smem[];
-  const Block B = load_block(params, smem, d);
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+  const Block B = load_block(params, smem, din);
+  const Dims d = lane_dims<C>(din);
+  const int chain = (blockIdx.x * kLaneThreads + threadIdx.x) / C::L;
+  const bool live = chain < N;  // past N: a copy of the last chain, no writes
+  const int n = live ? chain : N - 1;
+  const int lane = lane_of<C>();
+  const size_t sN = static_cast<size_t>(N);
   float x[C::DM], v[C::DM];
 #pragma unroll (C::UD)
   for (int i = 0; i < C::DM; ++i) {
     if (i >= d.D) break;
-    x[i] = xin[static_cast<size_t>(i) * N + n];
-    v[i] = vin[static_cast<size_t>(i) * N + n];
+    x[i] = xin[i * sN + n];
+    v[i] = vin[i * sN + n];
   }
-  const float l = trajectory<C>(B, d, hmc != 0, reverse != 0, x, v);
+  float l = 0.f;
+  for (int k = 0; k < d.T; ++k) {
+    const int step = reverse ? d.T - 1 - k : k;
+    l += lane_traj_step<C>(B, d, hmc != 0, reverse != 0, step, x, v, lane);
+  }
+  if (!live || lane != 0) return;
 #pragma unroll (C::UD)
   for (int i = 0; i < C::DM; ++i) {
     if (i >= d.D) break;
-    xo[static_cast<size_t>(i) * N + n] = x[i];
-    vo[static_cast<size_t>(i) * N + n] = v[i];
+    xo[i * sN + n] = x[i];
+    vo[i * sN + n] = v[i];
   }
   ld[n] = l;
 }
@@ -54,8 +74,9 @@ static cudaError_t launch_trajectory(const float* params, Dims d, int reverse,
   const size_t smem = static_cast<size_t>(block_floats(d)) * sizeof(float);
   cudaError_t e = allow_smem(trajectory_kernel<C>, smem);
   if (e != cudaSuccess) return e;
-  const int blocks = (N + kThreads - 1) / kThreads;
-  trajectory_kernel<C><<<blocks, kThreads, smem, stream>>>(
+  const long long lanes = static_cast<long long>(N) * C::L;
+  const int blocks = static_cast<int>((lanes + kLaneThreads - 1) / kLaneThreads);
+  trajectory_kernel<C><<<blocks, kLaneThreads, smem, stream>>>(
       params, d, reverse, hmc, x, v, xo, vo, ld, N);
   return cudaGetLastError();
 }
@@ -73,13 +94,13 @@ extern "C" int l2hmc_trajectory(const float* params, int D, int H, int H2,
   const Dims d{D, H, H2, T};
   if (N <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pick_cfg(d)) {
+  switch (pick_lanes(d)) {
     case 1:
-      return launch_trajectory<Small>(params, d, reverse, hmc, x, v, xo, vo,
-                                      ld, N, s);
+      return launch_trajectory<ScgLanes>(params, d, reverse, hmc, x, v, xo, vo,
+                                         ld, N, s);
     case 2:
-      return launch_trajectory<Wide>(params, d, reverse, hmc, x, v, xo, vo,
-                                     ld, N, s);
+      return launch_trajectory<WideLanes>(params, d, reverse, hmc, x, v, xo,
+                                          vo, ld, N, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -45,12 +45,11 @@
 
 namespace l2hmc {
 
-constexpr int kBwdThreads = 128;  // threads per block: 128 / L chains
 constexpr int kSumRows = 32;      // cotangent rows per block of the sum
 constexpr int kSumWarps = 32;     // warps splitting the chains of a row
 
 template <class C>
-__global__ void __launch_bounds__(kBwdThreads) trajectory_bwd_kernel(
+__global__ void __launch_bounds__(kLaneThreads) trajectory_bwd_kernel(
     const float* __restrict__ params, Dims din, int reverse, int hmc,
     const float* __restrict__ xin, const float* __restrict__ vin,
     const float* __restrict__ dXin, const float* __restrict__ dVin,
@@ -60,7 +59,7 @@ __global__ void __launch_bounds__(kBwdThreads) trajectory_bwd_kernel(
   extern __shared__ float smem[];
   const Block B = load_block(params, smem, din);
   const Dims d = lane_dims<C>(din);
-  const int chain = (blockIdx.x * kBwdThreads + threadIdx.x) / C::L;
+  const int chain = (blockIdx.x * kLaneThreads + threadIdx.x) / C::L;
   const bool live = chain < N;  // past N: a copy of the last chain, no writes
   const int n = live ? chain : N - 1;
   const int lane = lane_of<C>();
@@ -178,8 +177,8 @@ static cudaError_t launch_trajectory_bwd(
   float* G = scratch;
   float* bnd = scratch + static_cast<size_t>(P) * N;
   const long long lanes = static_cast<long long>(N) * C::L;
-  const int blocks = static_cast<int>((lanes + kBwdThreads - 1) / kBwdThreads);
-  trajectory_bwd_kernel<C><<<blocks, kBwdThreads, smem, stream>>>(
+  const int blocks = static_cast<int>((lanes + kLaneThreads - 1) / kLaneThreads);
+  trajectory_bwd_kernel<C><<<blocks, kLaneThreads, smem, stream>>>(
       params, d, reverse, hmc, x, v, dX, dV, dld, dx, dv, G, bnd, N);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;

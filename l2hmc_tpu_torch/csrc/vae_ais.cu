@@ -19,8 +19,8 @@
 // per chunk and cluster. The L2 serves clusters x (K L + 1) sweeps x 15.2
 // MB per launch: 32 x 1001 x 15.2 MB = 0.49 TB at 1000 chains, against
 // 125 x 1001 x 15.2 MB = 1.9 TB when every block of 8 chains streamed the
-// weights itself through __ldg (vae_common.cuh's product, which vae_chain.cu
-// keeps). The row-split cluster tile of the training kernels
+// weights itself through __ldg (a block-wide product, since removed). The
+// row-split cluster tile of the training kernels
 // (vae_cluster.cuh) was not taken: it shares a tile of 40 chains among 8
 // CTAs and exchanges partial rows through a global scratch; 1000 chains
 // would make 25 clusters of 8, and the card holds 15 at once, so a launch

@@ -1,11 +1,16 @@
 // The thread-block-cluster machinery of the VAE training kernels
-// (vae_traj.cu, vae_traj_bwd.cu): the cluster's split of every product's
-// rows, the product over a chain tile shared by the cluster, the S/T/Q net,
-// the decoder gradient and one augmented leapfrog step.
+// (vae_traj.cu, vae_traj_bwd.cu) and the posterior sampler (vae_chain.cu):
+// the cluster's split of every product's rows, the product over a chain
+// tile shared by the cluster, the S/T/Q net, the decoder gradient (with the
+// energy's value where the sampler asks for it) and one augmented leapfrog
+// step.
 //
-// Design. In one launch every chain runs the same T steps in the same
-// direction, so each decoder product over a tile of Ct chains is a small
-// GEMM (M = 1024 or 784 outputs, N = Ct chains, K = 50, 1024 or 784). A
+// Design. Every chain of a tile makes the same products: each decoder
+// product over a tile of Ct chains is a small GEMM (M = 1024 or 784
+// outputs, N = Ct chains, K = 50, 1024 or 784). A chain's direction enters
+// only through the time-embedding and mask columns it reads and the form of
+// its elementwise updates (one direction per launch in the training
+// kernels, one per chain in the sampler: a bit mask either way). A
 // cluster of G CTAs shares one tile of Ct chains and splits every product's
 // output rows: CTA r of the cluster owns rows [r * Mg, (r + 1) * Mg) of each
 // activation with Mg = ceil(M / G), and keeps its rows of every [rows][Ct]
@@ -28,11 +33,13 @@
 // kernel only after a last barrier, so no CTA reads the shared memory of one
 // that has exited.
 //
-// vae_common.cuh keeps the per-block design of vae_chain.cu and vae_ais.cu.
+// vae_common.cuh keeps the per-CTA layout of the AIS kernel (vae_ais.cu).
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "cluster_launch.cuh"
 
@@ -141,6 +148,25 @@ __device__ inline bool decoder_vec(const Dims& d, const Decoder& w) {
 }
 
 __device__ __forceinline__ void csync() { cg::this_cluster().sync(); }
+
+// sum over the cluster's ranks of a [Ct] array's entry c, in rank order
+__device__ __forceinline__ float rank_sum(const float* p, int G, int c) {
+  float s = 0.f;
+  for (int r = 0; r < G; ++r)
+    s += cg::this_cluster().map_shared_rank(const_cast<float*>(p), r)[c];
+  return s;
+}
+
+// The direction of the tile's chains: bit c of fw is set when chain c runs
+// forward (the training kernels set all bits or none, the sampler one per
+// chain). At leapfrog step `it` chain c reads the time-embedding and mask
+// column step_of(d, it, fw, c) and takes the forward or the inverse form of
+// the updates.
+__device__ __forceinline__ bool fwd_of(uint64_t fw, int c) { return (fw >> c) & 1; }
+
+__device__ __forceinline__ int step_of(const Dims& d, int it, uint64_t fw, int c) {
+  return fwd_of(fw, c) ? it : d.T - 1 - it;
+}
 
 // Element (k, c) of a row-split array whose slices are [sl][ld] at p in
 // every CTA of the cluster: global row k lives in rank k / sl (taken in
@@ -569,12 +595,17 @@ struct State {
 // cluster's Ct chains (chains >= N read x = 0): z and g are row-split [Dg][Ct]
 // arrays. One forward sweep keeps the two softplus layers, from which the
 // sweep back recovers sigmoid(p) = 1 - exp(-softplus(p)); it overwrites them
-// in place. The energy's value is an output of neither kernel and is not
-// formed. Ends with a cluster barrier.
-template <int CT>
+// in place. With an `energy` [Ct] array (the sampler), this CTA's share of
+// U's value goes there: the BCE terms of its pixel rows and 0.5 z^2 of its
+// latent rows, each summed in a fixed order; the caller adds the ranks'
+// shares in rank order. The training kernels pass none and U is not formed.
+// Ends with a cluster barrier.
+template <int CT, class En = std::nullptr_t>
 __device__ __noinline__ void decoder_grad(const Dims& d, const Part& q, const Decoder& w,
                              const float* __restrict__ xraw, int N,
-                             const float* z, float* g, const Work& s) {
+                             const float* z, float* g, const Work& s,
+                             En energy = nullptr) {
+  constexpr bool kEnergy = !std::is_same<En, std::nullptr_t>::value;
   constexpr int RC = Tile<CT, kNarrow>::RC;
   const int e0 = q.r * q.Eg, p0 = q.r * q.Pg, i0 = q.r * q.Dg;
   float* const h1 = s.h1;
@@ -611,6 +642,11 @@ __device__ __noinline__ void decoder_grad(const Dims& d, const Part& q, const De
         }
       });
   csync();
+  // with kEnergy, a thread's BCE terms: its epilogues all take the column
+  // group threadIdx.x % NCG (finish_pass hands out pairs kThreads apart)
+  float part[RC];
+#pragma unroll
+  for (int u = 0; u < RC; ++u) part[u] = 0.f;
   product_g<CT, kWide, false>(
       d.E, q.Pn, s.stage, vec,
       [&](int k, int j) { return w.W3 + static_cast<size_t>(k) * d.P + p0 + j; },
@@ -621,9 +657,33 @@ __device__ __noinline__ void decoder_grad(const Dims& d, const Part& q, const De
         for (int u = 0; u < RC; ++u) {
           const int n = q.n0 + c0 + u;
           const float x = n < N ? xraw[static_cast<size_t>(p0 + j) * N + n] : 0.f;
-          d3g[j * CT + c0 + u] = 1.f / (1.f + expf(-(acc[u] + b))) - x;
+          if constexpr (kEnergy) {
+            const float l = acc[u] + b;
+            d3g[j * CT + c0 + u] = 1.f / (1.f + expf(-l)) - x;
+            part[u] += fmaxf(l, 0.f) - l * x + log1pf(expf(-fabsf(l)));
+          } else {
+            d3g[j * CT + c0 + u] = 1.f / (1.f + expf(-(acc[u] + b))) - x;
+          }
         }
       });
+  if constexpr (kEnergy) {
+    // the threads' terms summed per chain in thread order through the free
+    // ring, then this CTA's latent rows of 0.5 |z|^2
+    constexpr int NCG = Tile<CT, kWide>::NCG;
+    static_assert(kThreads % NCG == 0, "a thread keeps one column group");
+    float* const red = s.stage;
+#pragma unroll
+    for (int u = 0; u < RC; ++u) red[threadIdx.x * RC + u] = part[u];
+    __syncthreads();
+    if (threadIdx.x < CT) {
+      const int c = threadIdx.x, cg0 = c / RC, u = c - cg0 * RC;
+      float e = 0.f;
+      for (int t = cg0; t < kThreads; t += NCG) e += red[t * RC + u];
+      float zz = 0.f;
+      for (int j = 0; j < q.Dn; ++j) zz = fmaf(z[j * CT + c], z[j * CT + c], zz);
+      energy[c] = e + 0.5f * zz;
+    }
+  }
   csync();
   product_g<CT, kWide, true>(
       d.P, q.En, s.stage, vec,
@@ -662,15 +722,16 @@ __device__ __noinline__ void decoder_grad(const Dims& d, const Part& q, const De
   csync();
 }
 
-// The S/T/Q net at step `step` on the row-split [Dg][Ct] inputs a, b: S, T,
-// Q [Dg][Ct] (this CTA's latent rows). emb is the (H, N) aux embedding in
-// global memory. Synchronised within the CTA on return; S, T, Q are read
-// only by their own CTA.
+// The S/T/Q net on the row-split [Dg][Ct] inputs a, b, each chain c at its
+// step step_of(d, it, fw, c): S, T, Q [Dg][Ct] (this CTA's
+// latent rows). emb is the (H, N) aux embedding in global memory.
+// Synchronised within the CTA on return; S, T, Q are read only by their own
+// CTA.
 template <int CT>
 __device__ __noinline__ void apply_net(const Dims& d, const Part& q, const Net& w,
-                          const float* __restrict__ emb, int N, int step,
-                          const float* a, const float* b, float* S, float* T,
-                          float* Q, const Work& s) {
+                          const float* __restrict__ emb, int N, int it, uint64_t fw,
+                          const float* a, const float* b, float* S, float* T, float* Q,
+                          const Work& s) {
   constexpr int RC = Tile<CT, kNarrow>::RC;
   const int h0 = q.r * q.Hg, g0 = q.r * q.H2g, i0 = q.r * q.Dg;
   float* const ha = s.ha;
@@ -687,12 +748,15 @@ __device__ __noinline__ void apply_net(const Dims& d, const Part& q, const Net& 
         return k < d.D ? dget(a, q.Dg, CT, k, c) : dget(b, q.Dg, CT, k - d.D, c);
       },
       [&](int j, int c0, const float (&acc)[RC]) {
-        const float t = w.te[(h0 + j) * d.T + step];
+        // the time-embedding column of each chain, read before the stores
+        float t[RC];
+#pragma unroll
+        for (int u = 0; u < RC; ++u) t[u] = w.te[(h0 + j) * d.T + step_of(d, it, fw, c0 + u)];
 #pragma unroll
         for (int u = 0; u < RC; ++u) {
           const int n = q.n0 + c0 + u;
           const float e = n < N ? emb[static_cast<size_t>(h0 + j) * N + n] : 0.f;
-          const float h = fmaxf(acc[u] + t + e, 0.f);
+          const float h = fmaxf(acc[u] + t[u] + e, 0.f);
           ha[j * CT + c0 + u] = h;
           hag[j * CT + c0 + u] = h;
         }
@@ -747,22 +811,21 @@ __device__ __noinline__ void apply_net(const Dims& d, const Part& q, const Net& 
 }
 
 // v' = v exp(eps S / 2) + eps / 2 (-exp(eps Q) g + T), or its inverse, on
-// this CTA's rows; also stages the x-net's second input. The caller
-// synchronises.
+// this CTA's rows, each chain in its own direction; also stages the x-net's
+// second input. The caller synchronises.
 template <int CT>
 __device__ __forceinline__ void momentum_update(const Dims& d, const Part& q,
                                                 const float* __restrict__ eps,
                                                 const float* __restrict__ masks,
-                                                int step, bool fwd,
-                                                const State& t) {
+                                                int it, uint64_t fw, const State& t) {
   const int i0 = q.r * q.Dg;
   for (int e = threadIdx.x; e < q.Dn * CT; e += kThreads) {
-    const int i = i0 + e / CT;
+    const int r = e / CT, c = e - r * CT, i = i0 + r;
     const float ep = eps[i];
     const float drift = 0.5f * ep * (-expf(ep * t.Q[e]) * t.g[e] + t.Tt[e]);
     const float sv = 0.5f * ep * t.S[e];
-    const float m = masks[i * d.T + step];
-    if (fwd) {
+    const float m = masks[i * d.T + step_of(d, it, fw, c)];
+    if (fwd_of(fw, c)) {
       t.v[e] = t.v[e] * expf(sv) + drift;
       t.ldp[e] += sv;
       t.bin[e] = m * t.z[e];
@@ -781,13 +844,14 @@ template <int CT>
 __device__ __forceinline__ void position_update(const Dims& d, const Part& q,
                                                 const float* __restrict__ eps,
                                                 const float* __restrict__ masks,
-                                                int step, bool fwd,
-                                                const State& t, bool first) {
+                                                int it, uint64_t fw, const State& t,
+                                                bool first) {
   const int i0 = q.r * q.Dg;
   for (int e = threadIdx.x; e < q.Dn * CT; e += kThreads) {
-    const int i = i0 + e / CT;
+    const int r = e / CT, c = e - r * CT, i = i0 + r;
+    const bool fwd = fwd_of(fw, c);
     const float ep = eps[i];
-    const float m = masks[i * d.T + step];
+    const float m = masks[i * d.T + step_of(d, it, fw, c)];
     const float keep = (fwd == first) ? m : 1.f - m;
     const float upd = 1.f - keep;
     const float drift = ep * (expf(ep * t.Q[e]) * t.v[e] + t.Tt[e]);
@@ -805,38 +869,40 @@ __device__ __forceinline__ void position_update(const Dims& d, const Part& q,
   }
 }
 
-// Leapfrog step `it` of the launch's trajectory, all chains in direction
-// fwd: half momentum update, the two masked position updates, the decoder
-// gradient at the new position, half momentum update. t.g holds the gradient
-// at t.z on entry and on return. tap(0) runs when t.v holds the half-updated
+// Leapfrog step `it` of a trajectory, each chain in its direction (bit c of
+// fw): half momentum update, the two masked position updates, the decoder
+// gradient at the new position (and the energy's share there, as
+// decoder_grad), half momentum update. t.g holds the gradient at t.z on
+// entry and on return. tap(0) runs when t.v holds the half-updated
 // momentum, tap(1) when t.z holds the position between the two updates.
 // Ends with a cluster barrier.
-template <int CT, class Tap>
+template <int CT, class Tap, class En = std::nullptr_t>
 __device__ __noinline__ void leapfrog_step(const Dims& d, const Part& q, const Weights& w,
                               const float* __restrict__ xraw,
                               const float* __restrict__ emb, int N, int it,
-                              bool fwd, const State& t, const Work& s, Tap tap) {
-  const int step = fwd ? it : d.T - 1 - it;
-  apply_net<CT>(d, q, w.vnet, emb, N, step, t.z, t.g, t.S, t.Tt, t.Q,
+                              uint64_t fw, const State& t, const Work& s, Tap tap,
+                              En energy = nullptr) {
+  static_assert(CT <= 64, "one bit of fw per chain");
+  apply_net<CT>(d, q, w.vnet, emb, N, it, fw, t.z, t.g, t.S, t.Tt, t.Q,
                 app_work(s, d, CT, 4 * it));
-  momentum_update<CT>(d, q, w.eps, w.masks, step, fwd, t);
+  momentum_update<CT>(d, q, w.eps, w.masks, it, fw, t);
   __syncthreads();
   tap(0);
   csync();
-  apply_net<CT>(d, q, w.xnet, emb, N, step, t.v, t.bin, t.S, t.Tt, t.Q,
+  apply_net<CT>(d, q, w.xnet, emb, N, it, fw, t.v, t.bin, t.S, t.Tt, t.Q,
                 app_work(s, d, CT, 4 * it + 1));
-  position_update<CT>(d, q, w.eps, w.masks, step, fwd, t, true);
+  position_update<CT>(d, q, w.eps, w.masks, it, fw, t, true);
   __syncthreads();
   tap(1);
   csync();
-  apply_net<CT>(d, q, w.xnet, emb, N, step, t.v, t.bin, t.S, t.Tt, t.Q,
+  apply_net<CT>(d, q, w.xnet, emb, N, it, fw, t.v, t.bin, t.S, t.Tt, t.Q,
                 app_work(s, d, CT, 4 * it + 2));
-  position_update<CT>(d, q, w.eps, w.masks, step, fwd, t, false);
+  position_update<CT>(d, q, w.eps, w.masks, it, fw, t, false);
   csync();
-  decoder_grad<CT>(d, q, w.dec, xraw, N, t.z, t.g, s);
-  apply_net<CT>(d, q, w.vnet, emb, N, step, t.z, t.g, t.S, t.Tt, t.Q,
+  decoder_grad<CT>(d, q, w.dec, xraw, N, t.z, t.g, s, energy);
+  apply_net<CT>(d, q, w.vnet, emb, N, it, fw, t.z, t.g, t.S, t.Tt, t.Q,
                 app_work(s, d, CT, 4 * it + 3));
-  momentum_update<CT>(d, q, w.eps, w.masks, step, fwd, t);
+  momentum_update<CT>(d, q, w.eps, w.masks, it, fw, t);
   csync();
 }
 

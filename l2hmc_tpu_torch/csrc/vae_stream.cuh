@@ -1,8 +1,9 @@
 // The decoder's weight stream shared by a thread-block cluster, and the
 // decoder energy and gradient built on it (the AIS kernel, vae_ais.cu).
 //
-// Why. vae_common.cuh's block-wide product has every block read every
-// weight itself, 4 bytes a thread through __ldg, for its tile of 8 chains:
+// Why. A block-wide product (the sampler's first design, since replaced)
+// had every block read every weight itself, 4 bytes a thread through
+// __ldg, for its tile of 8 chains:
 // one load feeds 8 multiply-adds. At the AIS protocol's 1000 chains 125
 // blocks each read the decoder's 15.2 MB (both layouts) per sweep, 1.9 TB
 // from the L2 per launch of 1001 sweeps, ~3.1 TB/s: the stream, not the

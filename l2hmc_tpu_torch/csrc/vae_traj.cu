@@ -95,15 +95,14 @@ __global__ void __launch_bounds__(kThreads, 1) vae_traj_kernel(TrajArgs a) {
 
   const int tid = threadIdx.x;
   const int i0 = q.r * q.Dg;
-  const bool fwd = a.reverse == 0;
+  const uint64_t fw = a.reverse == 0 ? ~0ull : 0ull;  // every chain's direction
   load_rows<Ct>(a.zin, i0, q.Dn, a.N, q.n0, t.z);
   load_rows<Ct>(a.vin, i0, q.Dn, a.N, q.n0, t.v);
   for (int e = tid; e < DC; e += kThreads) t.ldp[e] = 0.f;
   csync();
   decoder_grad<Ct>(d, q, a.w.dec, a.xraw, a.N, t.z, t.g, s);
   for (int it = 0; it < d.T; ++it)
-    leapfrog_step<Ct>(d, q, a.w, a.xraw, a.emb, a.N, it, fwd, t, s,
-                          [](int) {});
+    leapfrog_step<Ct>(d, q, a.w, a.xraw, a.emb, a.N, it, fw, t, s, [](int) {});
   store_rows<Ct>(t.z, i0, q.Dn, a.N, q.n0, a.zo);
   store_rows<Ct>(t.v, i0, q.Dn, a.N, q.n0, a.vo);
   if (tid < Ct) {

@@ -570,10 +570,10 @@ __global__ void __launch_bounds__(kThreads, 1) vae_traj_bwd_kernel(BwdArgs a) {
   store(t.v, 1);
   store(t.g, 2);
   for (int it = 0; it < d.T; ++it) {
-    leapfrog_step<Ct>(d, q, a.w, a.xraw, a.emb, N, it, !rev, t, s,
-                          [&](int which) {
-                            store(which == 0 ? t.v : t.z, inner0 + 2 * it + which);
-                          });
+    leapfrog_step<Ct>(d, q, a.w, a.xraw, a.emb, N, it, rev ? 0ull : ~0ull, t, s,
+                      [&](int which) {
+                        store(which == 0 ? t.v : t.z, inner0 + 2 * it + which);
+                      });
     store(t.z, 3 * (it + 1));
     store(t.v, 3 * (it + 1) + 1);
     store(t.g, 3 * (it + 1) + 2);

@@ -39,8 +39,9 @@ SIGNATURES = {
         "l2hmc_chain": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _U64, _P],
     },
     "vae_chain": {
-        "l2hmc_vae_chain": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _U64, _P],
+        "l2hmc_vae_chain": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 8), _I, _I, _U64, _P],
+        "l2hmc_vae_chain_sizes": [*([_I] * 7), _P],
+        "l2hmc_vae_chain_clusters": [_I] * 6,
     },
     "vae_ais": {
         "l2hmc_vae_ais": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I,

@@ -10,7 +10,10 @@ Four kernels, all in ``csrc/`` (see the notes at the top of each source):
     the decoder posterior U(z | x) = BCE(decoder(z), x) + |z|^2 / 2, with the
     decoder gradient and the aux-conditioned S/T/Q nets in the kernel,
     optionally the (K, D, N) trace and 1..max op compositions per recorded
-    step. Public class ``FusedVaeSampler``.
+    step, on a tile of chains shared by a thread-block cluster
+    (``csrc/vae_cluster.cuh``), one configuration, ``CHAIN_CLUSTER``; the
+    source reports what the host allocates (``chain_sizes``). Public class
+    ``FusedVaeSampler``.
   - ``vae_ais`` (``csrc/vae_ais.cu``): a whole annealed-importance-sampling
     chain per launch, on clusters of CTAs that share one multicast weight
     stream (``csrc/vae_stream.cuh``), one configuration, ``AIS_TILE``.
@@ -37,13 +40,12 @@ launches the kernel or raises. Each launch adds one to
 
 Host prep follows the JAX package: the decoder enters transposed
 (A = W.T, (out, in), biases as columns), the nets as ``_extract_net``'s 13
-arrays, the aux embedding as an (H, N) input. The sampler and AIS kernels
-read every weight matrix with the reduction index slowest, so
-``_pack_decoder`` copies the decoder into one block in both layouts and
-``_pack_net`` packs the three heads side by side. The training kernels
-take a pointer to each array instead (``_weight_ptrs``): the decoder in the
-params tree's own (in, out) layout, which A.T is, so nothing is copied per
-launch.
+arrays, the aux embedding as an (H, N) input. The AIS kernel streams every
+weight matrix with the reduction index slowest, so ``_pack_decoder`` copies
+the decoder into one block in both layouts. The sampler and the training
+kernels take a pointer to each array instead (``_weight_ptrs``): the decoder
+in the params tree's own (in, out) layout, which A.T is, so nothing is
+copied per launch.
 """
 
 from __future__ import annotations
@@ -73,8 +75,7 @@ from l2hmc_tpu_torch.ops.fused_dynamics import (
 )
 from l2hmc_tpu_torch.ops.philox import chain_draws
 
-_THREADS = 256  # threads per block of the VAE kernels (csrc/vae_common.cuh)
-TILES = (4, 8)  # chain tiles of the sampler kernel
+_THREADS = 256  # threads per CTA of the VAE kernels (csrc/vae_common.cuh)
 # (chains per CTA kC, CTAs per cluster kG) of the AIS kernel, and its ring
 # of weight chunks: slots, floats per slot, floats a row group may read past
 # a chunk (csrc/vae_stream.cuh)
@@ -83,6 +84,10 @@ _AIS_SLOTS, _AIS_SLOT_FLOATS, _AIS_SLOT_PAD = 2, 16384, 4
 # (chains per cluster Ct, CTAs per cluster G) of the training kernels, as
 # kCt, kG in csrc/vae_cluster.cuh
 CLUSTER = (40, 8)
+# (chains per cluster Ct, CTAs per cluster G) of the sampler kernel, as
+# kChainCt, kChainG in csrc/vae_chain.cu, and its [Ct] arrays (kChainVecs)
+CHAIN_CLUSTER = (16, 8)
+_CHAIN_VECS = 8
 _KC = 32  # reduction rows per staged chunk of a cluster product (vae_cluster.cuh)
 
 
@@ -215,31 +220,6 @@ def _pack_decoder(dec_vals) -> list[torch.Tensor]:
     return out
 
 
-def _pack_net(w: list) -> list[torch.Tensor]:
-    """One net in the kernels' order (``carve_net``), the three heads side
-    by side as (H2, 3 D)."""
-    w1, w2, wh, bh, ws, bs, ls, wt, bt, wq, bq, lq, te = w
-    return [w1, w2, wh, bh, torch.cat([ws, wt, wq], dim=1), bs, ls, bt, bq, lq, te]
-
-
-def chain_tile(n_chains: int, n_sms: int) -> int:
-    """Chains per block of the sampler kernel (``vae_chain``). It is bound
-    by the latency of one block's weight stream, which a tile of 8 lengthened
-    by only a tenth over a tile of 4 (measured on an H100), so the rule is:
-    tiles of 4 while they give every block an SM of its own, which spreads
-    few chains over more SMs; tiles of 8 once tiles of 4 would have to share
-    SMs. The AIS kernel has one configuration (``AIS_TILE``)."""
-    return 4 if n_chains <= 4 * n_sms else 8
-
-
-def _check_tile(tile: Optional[int], n: int, device) -> int:
-    if tile is None:
-        return chain_tile(n, torch.cuda.get_device_properties(device).multi_processor_count)
-    if tile not in TILES:
-        raise ValueError(f"tile must be one of {TILES}, got {tile}")
-    return tile
-
-
 # The AIS kernel's weight stream (csrc/vae_stream.cuh), mirrored for the
 # tests on the CPU; the wrapper takes the source's own figures
 # (``ais_sizes``), and the card tests hold the two equal.
@@ -362,6 +342,33 @@ def bwd_smem_floats(ct, g, D, H, H2, E, P) -> int:
     region = -(-max(2 * ct * 2 * Eg,
                     ct * (2 * Eg + Hg + H2g) + (ct + 1) * (Hg + H2g + 3 * Dg)) // 4) * 4
     return stage + region + ct * (_BWD_STATE_ARRAYS * Dg + 4 * Dg + Hg + 1)
+
+
+def chain_smem_floats(ct, g, D, H, H2, E, P) -> int:
+    """Shared-memory floats of one CTA of the sampler kernel (as
+    ``chain_floats`` in csrc/vae_chain.cu): the decoder's hidden layers and
+    the net's on the CTA's rows, ten latent state arrays, its [Ct] arrays
+    and the product's ring."""
+    return (ct * (2 * _slice4(E, g) + _slice(H, g) + _slice(H2, g) + 10 * _slice(D, g)
+                  + _CHAIN_VECS)
+            + _ring_floats(ct))
+
+
+def chain_sizes(dims, n: int) -> dict:
+    """What the sampler kernel needs for ``n`` chains at ``dims`` = (D, H,
+    H2, T, E, P), as its source reckons it (``l2hmc_vae_chain_sizes``): its
+    cluster configuration ``ct``, ``g``, the shared-memory bytes per CTA,
+    the floats of its activation scratch ``act`` and the launch's CTAs."""
+    out = (ctypes.c_longlong * 5)()
+    _cuda.library("vae_chain").l2hmc_vae_chain_sizes(*dims, n, out)
+    return dict(zip(("ct", "g", "smem_bytes", "act", "ctas"), out[:]))
+
+
+def chain_max_clusters(dims) -> int:
+    """How many clusters of the sampler kernel the card holds at once at
+    ``dims`` = (D, H, H2, T, E, P) (CUDA's occupancy query); a negative CUDA
+    error code if it fails."""
+    return _cuda.library("vae_chain").l2hmc_vae_chain_clusters(*dims)
 
 
 def weight_l2_bytes(ct, N, D, H, H2, T, E, P) -> tuple[int, int]:
@@ -522,12 +529,11 @@ def vae_trajectory_vjp_plain(inp: KernelInputs, z, v, dZ, dV, dld, reverse: bool
 def vae_chain(
     inp: KernelInputs, x_raw, z, seed: int, n_mh_steps: int,
     collect_trace: bool = False, nb: Optional[Sequence[int]] = None,
-    tile: Optional[int] = None,
 ):
     """K MH steps of the VAE posterior sampler on (D, N) float32 state;
     returns what ``vae_chain_plain`` returns. CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/vae_chain.cu`` with ``tile`` chains
-    per block (default: ``chain_tile``; the tests pick each instantiation)."""
+    version; CUDA tensors launch ``csrc/vae_chain.cu`` (clusters of
+    ``CHAIN_CLUSTER[1]`` CTAs sharing ``CHAIN_CLUSTER[0]`` chains)."""
     D, H, H2, T = inp.dims
     E, P = inp.consts[0].shape[0], inp.consts[4].shape[0]
     N = z.shape[1] if z.dim() == 2 else -1
@@ -545,10 +551,9 @@ def vae_chain(
         return vae_chain_plain(inp, z, seed, n_mh_steps, collect_trace, nb)
     if z.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {z.device}")
-    C = _check_tile(tile, N, dev)
-    _check_smem(C * (2 * E + P + H + H2 + _THREADS // 32 + 10 * D + 6))
-    block = _flat([inp.eps, inp.masks, *_pack_decoder(inp.consts),
-                   *_pack_net(inp.xnet_w), *_pack_net(inp.vnet_w)])
+    sizes = chain_sizes((D, H, H2, T, E, P), N)
+    _check_smem(sizes["smem_bytes"] // 4)
+    ptrs, _keep = _weight_ptrs(inp, dev)
     nb_dev = None if nb is None else torch.as_tensor(nb, dtype=torch.int32, device=dev)
     zo = torch.empty_like(z)
     acc = torch.empty((1, N), dtype=torch.float32, device=dev)
@@ -556,14 +561,15 @@ def vae_chain(
         torch.empty((n_mh_steps, D, N), dtype=torch.float32, device=dev)
         if collect_trace else None
     )
+    act = torch.empty(sizes["act"], dtype=torch.float32, device=dev)
     lib = _cuda.library("vae_chain")
     with torch.cuda.device(dev):
         err = lib.l2hmc_vae_chain(
-            block.data_ptr(), D, H, H2, T, E, P, x_raw.data_ptr(), inp.emb.data_ptr(),
+            ptrs, D, H, H2, T, E, P, x_raw.data_ptr(), inp.emb.data_ptr(),
             z.data_ptr(), None if nb_dev is None else nb_dev.data_ptr(),
             zo.data_ptr(), acc.data_ptr(),
-            None if trace is None else trace.data_ptr(),
-            N, n_mh_steps, C, int(seed) & 0xFFFFFFFFFFFFFFFF,
+            None if trace is None else trace.data_ptr(), act.data_ptr(),
+            N, n_mh_steps, int(seed) & 0xFFFFFFFFFFFFFFFF,
             torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, "vae_chain")
@@ -612,7 +618,8 @@ def vae_ais(
 
 
 def _net_sizes(D, H, H2, T) -> list[int]:
-    """Sizes of one net's arrays in ``_pack_net`` order."""
+    """Sizes of one net's arrays in the backward kernel's cotangent order:
+    ``_extract_net``'s 13 with the three heads side by side as (H2, 3 D)."""
     return [D * H, D * H, H * H2, H2, H2 * 3 * D, D, D, D, D, D, H * T]
 
 

@@ -199,10 +199,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="hmc"):
         fv.FusedVaeSampler(hmc.dynamics).run(tp["smp"], tp["dec"], xr, emb,
                                              torch.tensor(z0), seed=0, n_mh_steps=1)
-    with pytest.raises(ValueError, match="tile"):
-        fv._check_tile(16, 100, "cpu")
-    assert fv.chain_tile(200, 132) == 4 and fv.chain_tile(528, 132) == 4
-    assert fv.chain_tile(1000, 132) == 8
+    inp = fv.prepare_vae(tm.dynamics, tp["smp"], tp["dec"], xr.T.contiguous(),
+                         emb.T.contiguous())
+    zT = torch.tensor(z0).T.contiguous()
+    for nb in ([1, 0, 2], [1, 2]):
+        with pytest.raises(ValueError, match="op count"):
+            fv.vae_chain(inp, xr.T.contiguous(), zT, seed=0, n_mh_steps=3, nb=nb)
+    # one cluster configuration for every chain count: ceil(N / Ct) clusters
+    # of G CTAs, the last one ragged
+    ct, g = fv.CHAIN_CLUSTER
+    assert [fv._slice(n, ct) * g for n in (9, 16, 200, 203)] == [8, 8, 104, 104]
 
 
 def test_philox_draws_independent_of_chain_count_and_distinct_per_op():

@@ -1,9 +1,9 @@
-"""The host side of the cluster-tiled VAE training kernels on the CPU: the
-cluster configuration and the shared memory a CTA needs as the sources
-define them, the decoder's split, the reckoned weight traffic and the
-copy-free weight pointers. The kernels themselves, and the sizes the
-sources report for the host to allocate, run only on the card
-(tests/test_torch_cuda.py)."""
+"""The host side of the cluster-tiled VAE kernels (the training trajectory,
+its VJP and the posterior sampler) on the CPU: the cluster configurations
+and the shared memory a CTA needs as the sources define them, the decoder's
+split, the reckoned weight traffic and the copy-free weight pointers. The
+kernels themselves, and the sizes the sources report for the host to
+allocate, run only on the card (tests/test_torch_cuda.py)."""
 
 import re
 from pathlib import Path
@@ -40,15 +40,24 @@ def test_host_mirror_constants_match_the_sources():
     assert fv._BWD_STATE_ARRAYS == _constant("vae_traj_bwd.cu", "kStateArrays")
 
 
+def test_sampler_constants_match_the_source():
+    """The sampler's cluster configuration and [Ct] arrays, as
+    csrc/vae_chain.cu defines them."""
+    assert fv.CHAIN_CLUSTER == (_constant("vae_chain.cu", "kChainCt"),
+                                _constant("vae_chain.cu", "kChainG"))
+    assert fv._CHAIN_VECS == _constant("vae_chain.cu", "kChainVecs")
+
+
 @pytest.mark.parametrize("width", [REF, dict(D=128, H=16, H2=16, T=3, E=32, P=784)],
                          ids=["reference", "latent128"])
-@pytest.mark.parametrize("kernel", ["traj", "bwd"])
+@pytest.mark.parametrize("kernel", ["traj", "bwd", "chain"])
 def test_smem_per_cta_fits_at_the_reference_width(kernel, width):
-    """Both kernels' shared memory per CTA, reckoned as the kernels carve
-    it, fits the 232,448 bytes a CTA may use at the reference width, and at
-    the card tests' latent of 128 (nets 16/16, decoder 32)."""
-    fn = fv.traj_smem_floats if kernel == "traj" else fv.bwd_smem_floats
-    ct, g = fv.CLUSTER
+    """The three kernels' shared memory per CTA, reckoned as the kernels
+    carve it, fits the 232,448 bytes a CTA may use at the reference width,
+    and at the card tests' latent of 128 (nets 16/16, decoder 32)."""
+    fn = {"traj": fv.traj_smem_floats, "bwd": fv.bwd_smem_floats,
+          "chain": fv.chain_smem_floats}[kernel]
+    ct, g = fv.CHAIN_CLUSTER if kernel == "chain" else fv.CLUSTER
     floats = fn(ct, g, *(width[k] for k in SMEM_DIMS))
     assert 4 * floats <= _MAX_SMEM
     assert floats > ct * (width["E"] // g)  # at least a decoder layer's slice
@@ -84,6 +93,19 @@ def test_bwd_smem_keeps_16_byte_alignment_at_the_small_width(D, H, E):
     # [Hg][Ct] and dl [Ct], all multiples of Ct (a multiple of 8)
     tail = ct * (26 * fv._slice(D, g) + fv._slice(H, g) + 1)
     assert (floats - tail) % 4 == 0
+
+
+def test_chain_smem_reckoning_by_hand():
+    """The sampler's carve at Ct = 16, G = 8, term by term: slices of 128
+    decoder, 25 net and 7 latent rows, ten latent state arrays, eight [Ct]
+    arrays, and a ring of three weight slots and three 32 x 16 input
+    chunks; 86,016 bytes a CTA at the reference width."""
+    dims = {k: REF[k] for k in SMEM_DIMS}
+    assert fv.CHAIN_CLUSTER == (16, 8)
+    ring = 3 * (128 * 36 + 32 * 16)
+    floats = 16 * (2 * 128 + 25 + 25 + 10 * 7 + 8) + ring
+    assert fv.chain_smem_floats(16, 8, **dims) == floats
+    assert 4 * floats == 86016
 
 
 def test_decoder_split_starts_rows_on_16_bytes():
