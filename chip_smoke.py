@@ -18,7 +18,11 @@ then:
      eps_dim) and HMC mode, both directions, tolerance 5e-4; forward then
      backward must invert; its launch timed alone at 1024, 2048 and 8192
      chains, and through its wrapper;
-  3. chain kernel vs its plain version on the same Philox bits;
+  3. chain kernel vs its plain version on the same Philox bits: SCG
+     learned and HMC at 1024 chains, the 50-d Gaussian and a ragged 203
+     chains, 20 MH steps, each launch twice, bit for bit; its launch timed
+     at 1024 chains x 2000 traced steps in both modes and at 8192 x 500,
+     with its lanes a chain and ptxas's registers and spills;
   4. throughput of the chain kernel at 8192 chains x 500 MH steps;
   5. training: (a) the backward-trajectory kernel vs its plain version
      (SCG at 2048 and 200 chains, the 50-d ill-conditioned Gaussian with
@@ -322,6 +326,18 @@ def _traj_launch_ms(fd, cuda_lib, inp, x, v, reps):
             xo.data_ptr(), vo.data_ptr(), ld.data_ptr(), N, stream), "trajectory")
 
     return _cuda_time(launch, reps)
+
+
+def _ptxas_of(log, entry):
+    """ptxas's register and spill lines for the entry functions whose
+    mangled names hold ``entry``, from the build's ``-Xptxas -v`` log."""
+    lines, name = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else ""
+        elif entry in name and ("registers" in line or "spill" in line):
+            lines.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return lines
 
 
 def _gen(seed):
@@ -1144,13 +1160,19 @@ def main() -> int:
     # of the two float32 Hamiltonians (~1e-6), expected well under one flip in
     # 20480 decisions: at most 5 flips are allowed. On chains with no flip the
     # states may differ by the per-trajectory tolerance compounded over 20
-    # trajectories: 20 x 5e-4 = 1e-2.
+    # trajectories: 20 x 5e-4 = 1e-2. Cases: SCG learned and HMC at 1024
+    # chains, the 50-d Gaussian of phase 2 (the wide instantiation) and a
+    # ragged 203 chains; each launch twice, bit for bit.
     t_phase = time.perf_counter()
     chain_cmp = {}
-    for name, d_, p_ in (("l2hmc", dyn, scg_params), ("hmc", hmc_dyn, hmc_params)):
-        inp = fd.prepare(d_, fd.energy_spec_for_target(target), p_, dev)
-        xc = target.sample(_gen(41), 1024, device=dev).T.contiguous()
-        _, _, tr_k = fd.chain(inp, xc, 9, 20, collect_trace=True)
+    for name, d_, tg, p_, n in (("l2hmc", dyn, target, scg_params, 1024),
+                                ("hmc", hmc_dyn, target, hmc_params, 1024),
+                                ("icg50", icg_dyn, icg, icg_params, 1024),
+                                ("l2hmc_n203", dyn, target, scg_params, 203)):
+        inp = fd.prepare(d_, fd.energy_spec_for_target(tg), p_, dev)
+        xc = tg.sample(_gen(41), n, device=dev).T.contiguous()
+        xk, acck, tr_k = fd.chain(inp, xc, 9, 20, collect_trace=True)
+        again = fd.chain(inp, xc, 9, 20, collect_trace=True)
         _, _, tr_p = fd.chain_plain(inp, xc, 9, 20, collect_trace=True)
         prev_k = torch.cat([xc[None], tr_k[:-1]])
         prev_p = torch.cat([xc[None], tr_p[:-1]])
@@ -1159,27 +1181,47 @@ def main() -> int:
         flipped = dec_k != dec_p
         clean = ~flipped.any(dim=0)
         dx = float((tr_k - tr_p).abs()[:, :, clean].max())
-        chain_cmp[name] = {"decisions": int(dec_k.numel()), "flips": int(flipped.sum()),
-                           "max_abs_dx_unflipped": dx,
-                           "accept": float(dec_k.float().mean())}
+        repeats = all(bool((a == b).all()) for a, b in zip((xk, acck, tr_k), again))
+        chain_cmp[name] = {"n_chains": n, "decisions": int(dec_k.numel()),
+                           "flips": int(flipped.sum()), "max_abs_dx_unflipped": dx,
+                           "accept": float(dec_k.float().mean()),
+                           "repeats_bit_for_bit": repeats}
+        _require(repeats, f"chain {name}: two launches differ")
+        _require(bool((tr_k[-1] == xk).all()), f"chain {name}: trace end != state")
         _require(int(flipped.sum()) <= 5 and dx < 1e-2, f"chain {name}: {chain_cmp[name]}")
     report["chain_vs_plain"] = chain_cmp
+    print(f"# chain kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(chain_cmp), flush=True)
 
     # The plain chain is a yardstick of correctness, not of speed, and takes
-    # tens of ms per MH step: it is timed over 100 MH steps, not 2000.
+    # tens of ms per MH step: it is timed over 100 MH steps, not 2000. The
+    # kernel: the protocol's launch (1024 chains x 2000 traced steps) in
+    # L2HMC and in HMC mode, and the throughput phase's (8192 x 500).
     inp_eval = fd.prepare(dyn, fd.energy_spec_for_target(target), params, dev)
+    inp_hmc = fd.prepare(hmc_dyn, fd.energy_spec_for_target(target), hmc_params, dev)
     x0t = x0.T.contiguous()
-    chain_ms = _cuda_time(lambda: fd.chain(inp_eval, x0t, 2, eval_steps, True), 3)
+    x8192 = target.sample(_gen(51), 8192, device=dev).T.contiguous()
+    chain_ms = _cuda_time(lambda: fd.chain(inp_eval, x0t, 2, eval_steps, True), 5)
+    chain_hmc_ms = _cuda_time(lambda: fd.chain(inp_hmc, x0t, 3, eval_steps, True), 5)
+    chain_8192_ms = _cuda_time(lambda: fd.chain(inp_eval, x8192, 2, 500, False), 5)
     plain_steps = 100
-    chain_k100_ms = _cuda_time(lambda: fd.chain(inp_eval, x0t, 2, plain_steps, True), 3)
+    chain_k100_ms = _cuda_time(lambda: fd.chain(inp_eval, x0t, 2, plain_steps, True), 5)
     t = time.perf_counter()
     fd.chain_plain(inp_eval, x0t, 2, plain_steps, collect_trace=True)
     torch.cuda.synchronize()
     chain_plain_ms = 1e3 * (time.perf_counter() - t)
     chain_bound_ms, chain_bound_by = chain_bound(
         D, H, H2, T, cfg.n_chains, eval_steps, False, inp_eval.block().numel(), True)
-    print(f"# chain kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
-          + json.dumps(chain_cmp), flush=True)
+    report["chain_times"] = {
+        "lanes_per_chain": {"scg": _cuda.library("chain").l2hmc_chain_lanes(D, H, H2),
+                            "icg50": _cuda.library("chain").l2hmc_chain_lanes(50, 10, 10)},
+        "ms_1024x2000_traced": chain_ms, "ms_1024x2000_traced_hmc": chain_hmc_ms,
+        "ms_8192x500": chain_8192_ms, "ms_1024x100_traced": chain_k100_ms,
+        "plain_ms_1024x100_traced": chain_plain_ms,
+        "bound_ms_1024x2000_traced": chain_bound_ms,
+        "ptxas": _ptxas_of(_cuda.build_info.get("ptxas", ""), "12chain_kernel"),
+    }
+    print("# chain kernel times: " + json.dumps(report["chain_times"]), flush=True)
 
     # -- 4. throughput at 8192 chains ----------------------------------------------
     t_phase = time.perf_counter()
@@ -1333,9 +1375,11 @@ def main() -> int:
          "max_abs_err": max(c["max_abs_dx_unflipped"] for c in chain_cmp.values()),
          "ms": chain_ms, "plain_ms": chain_plain_ms, "bound_ms": chain_bound_ms,
          "bound_by": chain_bound_by, "library_ms": None,
-         "shape": (f"SCG D=2 H=10 T=10, 1024 chains x 2000 MH steps, traced; plain_ms "
-                   f"over {plain_steps} MH steps (kernel over {plain_steps}: "
-                   f"{chain_k100_ms:.4f} ms)")},
+         "shape": (f"SCG D=2 H=10 T=10, 1024 chains x 2000 MH steps, traced, "
+                   f"{report['chain_times']['lanes_per_chain']['scg']} lanes a chain; "
+                   f"HMC mode: {chain_hmc_ms:.4f} ms; 8192 chains x 500 steps: "
+                   f"{chain_8192_ms:.4f} ms; plain_ms over {plain_steps} MH steps "
+                   f"(kernel over {plain_steps}: {chain_k100_ms:.4f} ms)")},
         {"name": "trajectory_bwd", "route": "cuda", "source": src + "trajectory_bwd.cu",
          "replaces": "l2hmc_tpu/ops/fused_dynamics.py:801",
          "launches": train_launches["trajectory_bwd"],

@@ -7,7 +7,8 @@ source trees on one card.
 Alone, it times the ``l2hmc_tpu_torch`` package that Python imports and
 prints one JSON line: the SCG trajectory and backward kernels' launches
 through their C entry points, the SCG chain kernel (1024 chains x 2000
-traced steps), the fused SCG training step (1024 chains), the VAE training
+traced steps and 8192 x 500 untraced, each in L2HMC and in HMC mode at eps
+0.15), the fused SCG training step (1024 chains), the VAE training
 kernels at the training batch (512 chains), the AIS kernel (1000 chains x
 100 anneal steps x 10 leapfrogs) and the VAE sampler (200 chains x 200
 recorded steps of 1-3 ops), all at the reference widths with seeded
@@ -91,8 +92,15 @@ def scg_times(dev) -> dict:
                     dX.data_ptr(), dV.data_ptr(), dld.data_ptr(), xo.data_ptr(),
                     vo.data_ptr(), grads.data_ptr(), scratch.data_ptr(), n, stream),
                     "trajectory_bwd"), 200)
+    hmc_dyn, _ = build_dynamics(ScgConfig(hmc=True), target)
+    inp_hmc = fd.prepare(hmc_dyn, fd.energy_spec_for_target(target),
+                         hmc_dyn.init_params(_gen(0), eps=0.15, device=dev), dev)
     x0 = target.sample(_gen(4), 1024, device=dev).T.contiguous()
-    out["chain_1024x2000"] = _cuda_ms(lambda: fd.chain(inp, x0, 2, 2000, True), 2)
+    x1 = target.sample(_gen(5), 8192, device=dev).T.contiguous()
+    out["chain_1024x2000"] = _cuda_ms(lambda: fd.chain(inp, x0, 2, 2000, True), 3)
+    out["chain_hmc_1024x2000"] = _cuda_ms(lambda: fd.chain(inp_hmc, x0, 3, 2000, True), 3)
+    out["chain_8192x500"] = _cuda_ms(lambda: fd.chain(inp, x1, 2, 500, False), 3)
+    out["chain_hmc_8192x500"] = _cuda_ms(lambda: fd.chain(inp_hmc, x1, 3, 500, False), 3)
     steps = 300
     train(ScgConfig(n_chains=1024, n_steps=20, seed=0, fused_train=True), device=dev)
     torch.cuda.synchronize()

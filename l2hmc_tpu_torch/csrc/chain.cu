@@ -1,5 +1,5 @@
 // K whole Metropolis-Hastings steps of the direction-randomised L2HMC
-// sampler in one launch, one thread per chain, optionally writing the
+// sampler in one launch, a lane group per chain, optionally writing the
 // post-MH state of every step to a (K, D, N) trace.
 //
 // Replaces the Pallas kernel _make_chain_kernel / FusedChainSampler
@@ -11,12 +11,32 @@
 // with a trace D * 4 bytes per chain and step. The weights sit in shared
 // memory and the chain in registers for all K steps.
 //
+// Design. One thread per chain left each MH step a serial chain of ~19 k
+// dependent operations, on 16 of the card's 132 SMs at 1024 chains: the
+// time per step was flat from 1024 to 8192 chains. Here a group of lanes
+// runs one chain for all K steps, its T substeps through lane_traj_step
+// (l2hmc_lanes.cuh, the trajectory kernel's substep). Each chain draws its
+// own direction, so two chains in one warp would run the substep's two
+// branches while its full-warp shuffles name both: the group is a whole
+// warp, L = 32. At the SCG widths that is ScgChainLanes (widths fixed at
+// compile time, one hidden unit a lane, lanes 10-31 repeating the last
+// unit's arithmetic); other widths up to 64 take WideLanes. 16-lane groups
+// with shuffles on the group's own mask ran 1024 chains 1.45x slower on an
+// H100 (a warp whose two chains disagree runs both branches in turn), and
+// the trajectory kernels 14-25% slower (a warp sync before every shuffle).
+// Blocks of kLaneThreads threads, four chains. The state (x, the proposal,
+// v) is replicated in every lane, and every lane draws the same Philox
+// words and forms h0, h1, the log-det sum and the accept on its own copy in
+// one order, so the whole group decides alike with no shuffle. Lane 0
+// writes the trace row, the final state and the acceptance; a group past
+// the last chain runs to the end on a copy of it and writes nothing.
+//
 // Differences from the TPU kernel, by design:
 //  - Random numbers come from counter-based Philox4x32-10 keyed by the
 //    64-bit seed, with counter (global chain index, MH step, slot, 0):
 //    slot 0 gives the direction uniform (word 0) and the accept uniform
 //    (word 1); slot 1 + j gives the normals 2j and 2j + 1 by Box-Muller.
-//    The draws do not depend on the block size, and the plain PyTorch
+//    The draws do not depend on L or the block size, and the plain PyTorch
 //    version (ops/philox.py) reproduces them bit for bit.
 //  - The direction is picked before the trajectory and only the chosen one
 //    runs. The TPU kernel runs both and mixes them arithmetically; with a
@@ -25,27 +45,35 @@
 //    rejected proposal cannot leak into the state.
 //  - The trace goes straight to device memory; the TPU kernel's VMEM ring
 //    and DMA existed only for Mosaic.
-#include "l2hmc_common.cuh"
+#include "l2hmc_lanes.cuh"
 #include "philox.cuh"
 
 namespace l2hmc {
 
+// The SCG widths (D = 2, H = H2 = 10) on a whole warp.
+typedef LaneCfg<2, 32, 1, 1, 10> ScgChainLanes;
+
 template <class C>
-__global__ void chain_kernel(const float* __restrict__ params, Dims d, int hmc,
-                             const float* __restrict__ xin,
-                             float* __restrict__ xo,
-                             float* __restrict__ acc_out,
-                             float* __restrict__ trace, int N, int K,
-                             uint2 key) {
+__global__ void __launch_bounds__(kLaneThreads) chain_kernel(
+    const float* __restrict__ params, Dims din, int hmc,
+    const float* __restrict__ xin, float* __restrict__ xo,
+    float* __restrict__ acc_out, float* __restrict__ trace, int N, int K,
+    uint2 key) {
+  static_assert(C::L == 32, "a chain's own direction needs a warp of its own");
   extern __shared__ float smem[];
-  const Block B = load_block(params, smem, d);
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+  const Block B = load_block(params, smem, din);
+  const Dims d = lane_dims<C>(din);
+  const int chain = (blockIdx.x * kLaneThreads + threadIdx.x) / C::L;
+  const bool live = chain < N;  // past N: a copy of the last chain, no writes
+  const int n = live ? chain : N - 1;
+  const int lane = lane_of<C>();
+  const bool writer = live && lane == 0;
+  const size_t sN = static_cast<size_t>(N);
   float x[C::DM], v[C::DM], xp[C::DM];
 #pragma unroll (C::UD)
   for (int i = 0; i < C::DM; ++i) {
     if (i >= d.D) break;
-    x[i] = xin[static_cast<size_t>(i) * N + n];
+    x[i] = xin[i * sN + n];
   }
   float accepted = 0.f;
   for (int k = 0; k < K; ++k) {
@@ -62,7 +90,7 @@ __global__ void chain_kernel(const float* __restrict__ params, Dims d, int hmc,
     const uint4 r0 = philox4x32_10(
         make_uint4(static_cast<uint32_t>(n), static_cast<uint32_t>(k), 0u, 0u),
         key);
-    const bool forward = uniform24(r0.x) < 0.5f;
+    const bool reverse = !(uniform24(r0.x) < 0.5f);
     const float u_acc = uniform24(r0.y);
 
     const float h0 = gauss_energy<C>(B, d, x) + kinetic<C>(d, v);
@@ -71,7 +99,11 @@ __global__ void chain_kernel(const float* __restrict__ params, Dims d, int hmc,
       if (i >= d.D) break;
       xp[i] = x[i];
     }
-    const float lj = trajectory<C>(B, d, hmc != 0, !forward, xp, v);
+    float lj = 0.f;
+    for (int t = 0; t < d.T; ++t) {
+      const int step = reverse ? d.T - 1 - t : t;
+      lj += lane_traj_step<C>(B, d, hmc != 0, reverse, step, xp, v, lane);
+    }
     const float h1 = gauss_energy<C>(B, d, xp) + kinetic<C>(d, v);
     // exp(min(a, 0)) with NaN kept NaN (fminf would turn it into 0), then
     // the NaN guard maps it to 0
@@ -86,18 +118,19 @@ __global__ void chain_kernel(const float* __restrict__ params, Dims d, int hmc,
       }
       accepted += 1.f;
     }
-    if (trace != nullptr) {
+    if (trace != nullptr && writer) {
 #pragma unroll (C::UD)
       for (int i = 0; i < C::DM; ++i) {
         if (i >= d.D) break;
-        trace[(static_cast<size_t>(k) * d.D + i) * N + n] = x[i];
+        trace[(static_cast<size_t>(k) * d.D + i) * sN + n] = x[i];
       }
     }
   }
+  if (!writer) return;
 #pragma unroll (C::UD)
   for (int i = 0; i < C::DM; ++i) {
     if (i >= d.D) break;
-    xo[static_cast<size_t>(i) * N + n] = x[i];
+    xo[i * sN + n] = x[i];
   }
   acc_out[n] = accepted * (1.0f / static_cast<float>(K));
 }
@@ -110,15 +143,16 @@ static cudaError_t launch_chain(const float* params, Dims d, int hmc,
   const size_t smem = static_cast<size_t>(block_floats(d)) * sizeof(float);
   cudaError_t e = allow_smem(chain_kernel<C>, smem);
   if (e != cudaSuccess) return e;
-  const int blocks = (N + kThreads - 1) / kThreads;
-  chain_kernel<C><<<blocks, kThreads, smem, stream>>>(params, d, hmc, x, xo,
-                                                      acc, trace, N, K, key);
+  const long long lanes = static_cast<long long>(N) * C::L;
+  const int blocks = static_cast<int>((lanes + kLaneThreads - 1) / kLaneThreads);
+  chain_kernel<C><<<blocks, kLaneThreads, smem, stream>>>(params, d, hmc, x, xo,
+                                                          acc, trace, N, K, key);
   return cudaGetLastError();
 }
 
 }  // namespace l2hmc
 
-// Plain C entry point (loaded with ctypes). Device pointers to float32:
+// Plain C entry points (loaded with ctypes). Device pointers to float32:
 // params (the packed block), x and xo as (D, N), acc as (N,), trace as
 // (K, D, N) or null. Returns a cudaError_t as int; 0 means accepted.
 extern "C" int l2hmc_chain(const float* params, int D, int H, int H2, int T,
@@ -131,14 +165,28 @@ extern "C" int l2hmc_chain(const float* params, int D, int H, int H2, int T,
   const uint2 key = make_uint2(static_cast<uint32_t>(seed & 0xFFFFFFFFull),
                                static_cast<uint32_t>(seed >> 32));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pick_cfg(d)) {
+  switch (pick_lanes(d)) {
     case 1:
-      return launch_chain<Small>(params, d, hmc, x, xo, acc, trace, N, K, key,
-                                 s);
+      return launch_chain<ScgChainLanes>(params, d, hmc, x, xo, acc, trace, N,
+                                         K, key, s);
     case 2:
-      return launch_chain<Wide>(params, d, hmc, x, xo, acc, trace, N, K, key,
-                                s);
+      return launch_chain<WideLanes>(params, d, hmc, x, xo, acc, trace, N, K,
+                                     key, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Lanes a chain at these widths (the instantiation l2hmc_chain launches),
+// or 0 where none serves them.
+extern "C" int l2hmc_chain_lanes(int D, int H, int H2) {
+  using namespace l2hmc;
+  switch (pick_lanes(Dims{D, H, H2, 1})) {
+    case 1:
+      return ScgChainLanes::L;
+    case 2:
+      return WideLanes::L;
+    default:
+      return 0;
   }
 }

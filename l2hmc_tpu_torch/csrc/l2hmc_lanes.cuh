@@ -1,15 +1,16 @@
 // Lane groups: L lanes of a warp run one chain together, spread over the
 // S/T/Q nets' hidden units and head outputs (the trajectory kernel,
-// trajectory.cu, and its backward kernel, trajectory_bwd.cu).
+// trajectory.cu, its backward kernel, trajectory_bwd.cu, and the chain
+// kernel, chain.cu).
 //
 // Lane l of a group owns the hidden units j = l, l + L, ..., j < H (first
 // layer) and k = l, l + L, ..., k < H2 (second layer), and the head outputs
 // o = l, l + L, ... of the 3 D outputs (S, T, Q of each latent i, o = head
 // D + i). It computes its own units' activations and its own outputs'
 // pre-activations; a sum over the units of a layer gathers the group's
-// values one by one with __shfl_sync and adds them in index order, as the
-// per-thread apply_stq does (l2hmc_common.cuh), so every sum, and with it
-// every ReLU gate, is taken in the same order as there. The owners
+// values one by one with __shfl_sync and adds them in index order, so every
+// sum, and with it every ReLU gate, is taken in the same order whatever L
+// (the plain version is _apply_stq in ops/fused_dynamics.py). The owners
 // broadcast the heads' outputs, so the D-wide state and its cotangents are
 // replicated in every lane of the group. The VJP reuses the pre-activations
 // of the substep's recompute (StqSave) instead of computing them again. In
@@ -71,7 +72,10 @@ __device__ __forceinline__ Dims lane_dims(Dims d) {
 
 // This thread's lane in its group. Every lane of a warp runs to the end (a
 // group past the last chain works on a copy of it and writes nothing), so
-// the shuffles take the whole warp.
+// the shuffles take the whole warp. That needs the groups of a warp to take
+// the same branches: the trajectory kernels give every chain of a launch
+// one direction, and the chain kernel, whose chains each draw their own,
+// runs one chain a warp (L = 32).
 template <class C>
 __device__ __forceinline__ int lane_of() {
   return (threadIdx.x & 31) % C::L;
@@ -173,9 +177,9 @@ __device__ inline float head_ls(const Net& w, int head, int i) {
   return head == 0 ? w.ls[i] : w.lq[i];
 }
 
-// apply_stq (l2hmc_common.cuh) on a lane group: the same sums in the same
-// order, so the same outputs; s, t, q in every lane, what the VJP needs in
-// sv. Zero nets in HMC mode.
+// The S/T/Q net on a lane group (plain version: _apply_stq in
+// ops/fused_dynamics.py), each sum over units in index order; s, t, q in
+// every lane, what the VJP needs in sv. Zero nets in HMC mode.
 template <class C>
 __device__ inline void lane_stq(bool hmc, const Net& w, Dims d, int step,
                                 const float* a, const float* b, float* s,
@@ -225,8 +229,8 @@ __device__ inline void lane_stq(bool hmc, const Net& w, Dims d, int step,
 }
 
 // One augmented leapfrog substep in place on (x, v) on a lane group, with
-// traj_step's expressions (l2hmc_common.cuh); returns the logdet
-// increment, the same in every lane.
+// _trajectory_step's expressions (ops/fused_dynamics.py); returns the
+// logdet increment, the same in every lane.
 template <class C>
 __device__ inline float lane_traj_step(const Block& B, Dims d, bool hmc,
                                        bool reverse, int step, float* x,
@@ -399,8 +403,8 @@ struct NetAcc {
 // VJP of lane_stq at inputs (a, b) for output cotangents (ds, dt, dq),
 // from the application's saved hidden units and pre-activations sv: adds
 // the chain's weight cotangents to this lane's share and writes (da, db) in
-// every lane, each sum in apply_stq_vjp's order. relu'(0) = 0. Zero in HMC
-// mode.
+// every lane, each sum over units in index order (plain version: _stq_vjp
+// in ops/fused_dynamics.py). relu'(0) = 0. Zero in HMC mode.
 template <class C>
 __device__ inline void lane_stq_vjp(bool hmc, const Net& w, NetAcc<C>& gw,
                                     Dims d, int step, const float* a,
@@ -596,8 +600,8 @@ __device__ inline void store_net(const NetAcc<C>& a, const NetRows& r,
 // that of its logdet increment; on return they hold the cotangents of
 // (x, v), in every lane. The chain's eps cotangent is added to de, the
 // weight cotangents to this lane's shares gx (xnet) and gv (vnet). The
-// substep is recomputed first with traj_step's expressions; the backward
-// formulas are those of _step_vjp.
+// substep is recomputed first with lane_traj_step's expressions; the
+// backward formulas are those of _step_vjp.
 template <class C>
 __device__ inline void lane_traj_step_vjp(const Block& B, NetAcc<C>& gx,
                                           NetAcc<C>& gv, Dims d, bool hmc,
@@ -620,7 +624,7 @@ __device__ inline void lane_traj_step_vjp(const Block& B, NetAcc<C>& gx,
     dvo[i] = dv[i];
   }
   if (!reverse) {
-    // recompute (traj_step, forward branch)
+    // recompute (lane_traj_step, forward branch)
     gauss_grad<C>(B, d, x, g1);
     lane_stq<C>(hmc, B.vnet, d, step, x, g1, s1, t1, q1, sv1, lane);
 #pragma unroll (C::UD)
@@ -741,7 +745,7 @@ __device__ inline void lane_traj_step_vjp(const Block& B, NetAcc<C>& gx,
     lane_stq_vjp<C>(hmc, B.vnet, gv, d, step, x, g1, sv1, ds, dt, dq,
                     da, db, lane);
   } else {
-    // recompute (traj_step, reverse branch)
+    // recompute (lane_traj_step, reverse branch)
     gauss_grad<C>(B, d, x, g1);
     lane_stq<C>(hmc, B.vnet, d, step, x, g1, s1, t1, q1, sv1, lane);
 #pragma unroll (C::UD)

@@ -18,11 +18,12 @@
 // widths fixed at compile time (ScgLanes), widths up to 64 L = 32 with two
 // units a lane (WideLanes). Blocks of kLaneThreads threads, so 1024 chains
 // make 128 blocks. Every sum over units gathers by __shfl_sync and adds in
-// index order, as the per-thread apply_stq does, so the outputs are those
-// of the per-thread substep. The weights are read from shared memory,
-// loaded once per block; device memory sees only the state. Lane 0 of a
-// group writes X, V and logdet; a group past the last chain runs on a copy
-// of it and writes nothing.
+// index order (the plain versions: _apply_stq and _trajectory_step in
+// ops/fused_dynamics.py), so the outputs are those of the per-thread kernel
+// this replaced. The weights are read from shared memory, loaded once per
+// block; device memory sees only the state. Lane 0 of a group writes X, V
+// and logdet; a group past the last chain runs on a copy of it and writes
+// nothing.
 //
 // State layout (D, N): element i of chain n at i * N + n. N need not divide
 // the block.

@@ -37,6 +37,7 @@ SIGNATURES = {
     },
     "chain": {
         "l2hmc_chain": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _U64, _P],
+        "l2hmc_chain_lanes": [_I, _I, _I],
     },
     "vae_chain": {
         "l2hmc_vae_chain": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 8), _I, _I, _U64, _P],

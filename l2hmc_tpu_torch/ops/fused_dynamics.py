@@ -51,7 +51,7 @@ _NET_ARRAYS = 13
 LAUNCHES = {"trajectory": 0, "trajectory_bwd": 0, "chain": 0, "vae_chain": 0, "vae_ais": 0,
             "vae_traj": 0, "vae_traj_bwd": 0}
 
-# compile-time caps of the kernels' instantiations (csrc/l2hmc_common.cuh)
+# widths the kernels take (WideLanes in csrc/l2hmc_lanes.cuh)
 _MAX_DIM, _MAX_HIDDEN = 64, 64
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 

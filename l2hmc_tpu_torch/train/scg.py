@@ -49,7 +49,7 @@ class ScgConfig:
     the JAX package's ``ScgConfig`` (see its comments for each knob).
 
     Every field is read, except ``fused_tile`` (the CUDA kernels run a lane
-    group or a thread per chain and need no tile) and ``remat`` (a memory knob of the
+    group per chain and need no tile) and ``remat`` (a memory knob of the
     JAX package that changes no number; autograd here keeps the
     trajectories' activations). A knob that is not ported raises when set
     (``_UNPORTED``).

@@ -98,7 +98,7 @@ def _zero_bit_draws(n, d):
     return lambda step: (box_muller(zero, zero), u, u)
 
 
-@pytest.mark.parametrize("mode", ["plain", "hmc"])
+@pytest.mark.parametrize("mode", ["plain", "hmc", "eps_dim"])
 def test_plain_chain_matches_jax_kernel_on_zero_bits(mode):
     """Plain chain sampler on the zero-bits schedule vs the JAX chain kernel
     under force_tpu_interpret_mode, with its trace; tol 2e-4."""
