@@ -11,13 +11,15 @@ then:
      trajectory-kernel parity gate against ``Dynamics.forward/backward``
      (2048 chains), the fused 2000-step traced eval of the sampler and of
      the HMC baseline (eps 0.15) on 1024 chains, and the same eval through
-     the plain ``sample_chain``; the two ESS must agree within 0.30
-     relative. Launch counts are reset before and read after this phase;
+     the plain ``sample_chain`` (its MH step captured as a CUDA graph and
+     replayed); the two ESS must agree within 0.30 relative. Launch counts
+     are reset before and read after this phase;
   2. trajectory kernel vs its plain version on the same inputs: SCG at 2048
      and 200 chains, the 50-d ill-conditioned Gaussian (input_scale,
      eps_dim) and HMC mode, both directions, tolerance 5e-4; forward then
      backward must invert; its launch timed alone at 1024, 2048 and 8192
-     chains, and through its wrapper;
+     chains, through its wrapper, and through its wrapper in a captured
+     graph;
   3. chain kernel vs its plain version on the same Philox bits: SCG
      learned and HMC at 1024 chains, the 50-d Gaussian and a ragged 203
      chains, 20 MH steps, each launch twice, bit for bit; its launch timed
@@ -27,15 +29,19 @@ then:
   5. training: (a) the backward-trajectory kernel vs its plain version
      (SCG at 2048 and 200 chains, the 50-d ill-conditioned Gaussian with
      eps_dim and input_scale, HMC mode; both directions; per leaf within
-     1e-4 of the leaf's largest entry; timed at 1024 and 8192 chains);
+     1e-4 of the leaf's largest entry; timed at 1024 and 8192 chains, and
+     through its wrapper eager and captured);
      (b) 20 training steps at 1024
      chains with fused_train=True vs False on one seed, loss histories
      within rtol 2e-3, atol 1e-2; (c) the training path: ``train`` with
-     fused_train=True, 1024 chains, TRAIN_STEPS steps, then the 2000-step
-     traced eval of the trained sampler and of HMC at eps 0.15 through the
-     chain kernel; the ESS ratio must exceed 1.2, the final loss be finite
-     and the final acceptance lie in (0.1, 1). Launch counts are reset
-     before (c) and read after it;
+     fused_train=True, 1024 chains, TRAIN_STEPS captured steps, then the
+     2000-step traced eval of the trained sampler and of HMC at eps 0.15
+     through the chain kernel; the ESS ratio must exceed 1.2, the final loss
+     be finite and the final acceptance lie in (0.1, 1). Launch counts are
+     reset before (c) and read after it; (d) captured against eager: 20
+     training steps of the reference architecture plain and fused and of
+     the best recipe, and 50 MH steps of ``sample_chain`` (L2HMC and HMC),
+     each route from the same seed, bit for bit, with ms per step each way;
   6. the VAE application at the full width of the reference model (latent
      50, decoder 50-1024-1024-784, aux encoder 784-512-512-200, S/T/Q nets
      200/200, 5 leapfrogs), weights seeded and lifted (``lift_vae_params``),
@@ -72,7 +78,13 @@ then:
      ``apps.vae.restore`` of its checkpoint and ``apps.eval_vae.run`` on the
      restored state (100 datapoints). Launch counts are reset before (d)
      and read after the training and after the evaluation;
-  8. kernel times, plain times and bounds.
+  8. kernel times, plain times and bounds (the ``kernels`` line, printed
+     after phase 9);
+  9. the bench protocol (``l2hmc_tpu_torch.bench.run``) cut to seed 0 and
+     1000 training steps per arm, with the full 2000-step eval and the
+     throughputs at 8192 chains: its parity gate (5e-4) and fused-trace ESS
+     gap (0.30) held, both arms' ESS ratios above 1.2, its JSON printed as a
+     ``# bench:`` line. Launch counts are reset before and read after it.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -98,6 +110,10 @@ ESS_GAP = 0.30  # bench.py's fused-trace vs non-kernel ESS tolerance
 BWD_TOL = 1e-4  # per leaf, of the leaf's largest entry: sums over chains in another order
 TRAIN_STEPS = 5000  # the notebook's training length (SCGExperiment.ipynb cell 12)
 MIN_ESS_RATIO = 1.2  # the JAX package's short-run bar (tests/test_train_scg.py)
+# phase 9: the bench protocol cut to seed 0 and 1000 training steps per arm
+# (the full 2000-step eval and 8192-chain throughput); the 40x tripwire is
+# the full protocol's and is not applied at this depth
+BENCH_CUT = dict(seeds=(0,), n_steps=1000, tripwire=False)
 # VAE kernels against their plain versions on the same Philox bits. A flipped
 # accept needs |px - u| inside the float32 gap of two Hamiltonians near 1e3
 # (~1e-4), so at most VAE_FLIPS chains may differ in a decision; the others
@@ -277,6 +293,18 @@ def _cuda_time(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _captured_ms(fn, calls, reps):
+    """Mean ms of one ``fn()`` recorded ``calls`` times into a CUDA graph
+    (``utils.capture``, as the captured steps record theirs), by CUDA events
+    around ``reps`` replays: a wrapper's launch as a captured step replays
+    it, with its host work gone."""
+    from l2hmc_tpu_torch.utils import capture
+
+    capture.run_on_side_stream(fn)
+    graph = capture.Graph(lambda: [fn() for _ in range(calls)])
+    return _cuda_time(graph.replay, reps) / calls
 
 
 def _bwd_launch_ms(fd, cuda_lib, inp, x, v, dX, dV, dld, reps):
@@ -1001,14 +1029,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from l2hmc_tpu_torch import targets
+        from l2hmc_tpu_torch import bench, targets
         from l2hmc_tpu_torch.ops import _cuda
         from l2hmc_tpu_torch.ops import fused_dynamics as fd
         from l2hmc_tpu_torch.train import (
             ScgConfig, build_dynamics, evaluate_ess, sample_chain, train,
         )
         from l2hmc_tpu_torch.train.optim import tree_leaves
-        from l2hmc_tpu_torch.utils import Throughput
+        from l2hmc_tpu_torch.utils import Throughput, steady_ms
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
         return 2
@@ -1145,10 +1173,16 @@ def main() -> int:
         traj_launch_ms[n] = _traj_launch_ms(fd, _cuda, inp_scg, xn, vn, 200)
     traj_ms = traj_launch_ms[2048]
     traj_wrapper_ms = _cuda_time(lambda: fd.trajectory(inp_scg, xs, vs, False), 50)
+    # the wrapper's launch as a captured training step replays it, at the
+    # training batch: the host work is gone from the replay
+    x1024 = target.sample(_gen(33), 1024, device=dev).T.contiguous()
+    v1024 = torch.randn(x1024.shape, generator=_gen(34)).to(dev)
+    traj_captured_ms = _captured_ms(lambda: fd.trajectory(inp_scg, x1024, v1024, False), 50, 20)
     traj_plain_ms = _cuda_time(lambda: fd.trajectory_plain(inp_scg, xs, vs, False), 5)
     report["trajectory_times"] = {
         "launch_ms": {str(n): t for n, t in traj_launch_ms.items()},
         "wrapper_ms_2048": traj_wrapper_ms, "plain_ms_2048": traj_plain_ms,
+        "captured_wrapper_ms_1024": traj_captured_ms,
     }
     print("# trajectory kernel times: " + json.dumps(report["trajectory_times"]), flush=True)
     D, H, H2, T = inp_scg.dims
@@ -1282,6 +1316,8 @@ def main() -> int:
     bwd_8192_ms = _bwd_launch_ms(fd, _cuda, inp_scg, xw, vw, dXw, dVw, dldw, 50)
     bwd_wrapper_ms = _cuda_time(
         lambda: fd.trajectory_vjp(inp_scg, xb, vb, dXb, dVb, dldb, False), 20)
+    bwd_captured_ms = _captured_ms(
+        lambda: fd.trajectory_vjp(inp_scg, xb, vb, dXb, dVb, dldb, False), 50, 20)
     bwd_plain_ms = _cuda_time(
         lambda: fd.trajectory_vjp_plain(inp_scg, xb, vb, dXb, dVb, dldb, False), 3)
     n_grads = sum(w.numel() for w in [*inp_scg.xnet_w, *inp_scg.vnet_w]) + D
@@ -1309,7 +1345,8 @@ def main() -> int:
           + json.dumps(report["train_fused_vs_plain"]), flush=True)
     _require(loss_gap <= 1.0, f"fused and plain loss histories differ: {loss_gap} x tolerance")
 
-    # (c) the training path: train, then evaluate through the chain kernel
+    # (c) the training path: train (captured steps), then evaluate through
+    # the chain kernel
     fd.reset_launch_counts()
     t_phase = time.perf_counter()
     state, hist = train(ScgConfig(n_chains=n_tr, n_steps=TRAIN_STEPS, seed=0, fused_train=True))
@@ -1330,6 +1367,8 @@ def main() -> int:
         "trajectory_ms": traj_1024_ms, "trajectory_bwd_ms": bwd_ms,
         "trajectory_bwd_ms_8192_chains": bwd_8192_ms,
         "trajectory_bwd_wrapper_ms": bwd_wrapper_ms,
+        "trajectory_captured_ms": traj_captured_ms,
+        "trajectory_bwd_captured_ms": bwd_captured_ms,
         "kernel_ms_per_step": 4 * (traj_1024_ms + bwd_ms),
         "final_loss": final_loss, "final_accept": final_accept,
         "final_eps": float(hist["eps"][-1]),
@@ -1348,6 +1387,50 @@ def main() -> int:
     for name in ("trajectory", "trajectory_bwd", "chain"):
         _require(train_launches[name] > 0, f"kernel {name} not launched on the training path")
 
+    # (d) captured against eager: the card tests' comparison. 20 steps from
+    # one seed each way, bit for bit, for the three step kinds the bench
+    # trains (the reference architecture plain and fused, the best recipe)
+    # and 50 MH steps of sample_chain; ms per step each way, the captured
+    # one at steady state (a 220- less a 20-step run, so the capture cancels)
+    t_phase = time.perf_counter()
+    cap = {}
+    for name, kw in (("reference_plain", {}), ("reference_fused", dict(fused_train=True)),
+                     ("best_recipe", bench.BEST_RECIPE)):
+        runs = {}
+        for capture in (False, True):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            runs[capture] = train(ScgConfig(n_chains=n_tr, n_steps=20, **kw), capture=capture)
+            torch.cuda.synchronize()
+            if not capture:
+                eager_ms = 1e3 * (time.perf_counter() - t) / 20
+        (se, he), (sc, hc) = runs[False], runs[True]
+        same = all(np.array_equal(he[k], hc[k]) for k in he) and all(
+            torch.equal(a, b) for a, b in zip(
+                [*tree_leaves(se.params), *se.opt_state, se.x, se.step],
+                [*tree_leaves(sc.params), *sc.opt_state, sc.x, sc.step]))
+        cap[name] = {"bit_for_bit": same, "ms_per_step_eager": eager_ms,
+                     "ms_per_step_captured": steady_ms(
+                         lambda n, kw=kw: train(ScgConfig(n_chains=n_tr, n_steps=n, **kw)),
+                         20, 220)}
+        _require(same, f"captured {name} training differs from eager")
+    for name, d_, p_ in (("sample_chain", dyn, params), ("sample_chain_hmc", hmc_dyn, hmc_params)):
+        runs = [sample_chain(d_, p_, x0, 50, _gen(cfg.seed + 2), capture=c) for c in (False, True)]
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sample_chain(d_, p_, x0, 50, _gen(cfg.seed + 2), capture=False)
+        torch.cuda.synchronize()
+        cap[name] = {"bit_for_bit": same,
+                     "ms_per_step_eager": 1e3 * (time.perf_counter() - t) / 50,
+                     "ms_per_step_captured": steady_ms(
+                         lambda n, d_=d_, p_=p_: sample_chain(d_, p_, x0, n, _gen(cfg.seed + 2)),
+                         50, 550)}
+        _require(same, f"captured {name} differs from eager")
+    report["captured_vs_eager"] = cap
+    print(f"# captured vs eager ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(cap), flush=True)
+
     # -- 6. the VAE application ------------------------------------------------------
     with tempfile.TemporaryDirectory() as logdir:
         vae_rows = vae_phases(dev, report, logdir)
@@ -1355,6 +1438,29 @@ def main() -> int:
     # -- 7. VAE training -------------------------------------------------------------
     with tempfile.TemporaryDirectory() as logdir:
         vae_rows += vae_train_phases(dev, report, logdir)
+
+    # -- 9. the bench protocol at a cut depth ---------------------------------------
+    # l2hmc_tpu_torch.bench on seed 0 only, 1000 training steps per arm, the
+    # full 2000-step eval and throughput at 8192 chains: its parity gate and
+    # ESS gap held inside it, both arms' ratios above MIN_ESS_RATIO here
+    fd.reset_launch_counts()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as profile_dir:
+        result = bench.run(bench.Depth(**BENCH_CUT), device=dev, profile_dir=profile_dir)
+    bench_launches = dict(fd.LAUNCHES)
+    extra = result["extra"]
+    report["bench"] = {"result": result, "launches": bench_launches,
+                       "wall_s": time.perf_counter() - t_phase}
+    print("# bench: " + json.dumps(result), flush=True)
+    print(f"# bench phase ({report['bench']['wall_s']:.1f} s), launches: "
+          + json.dumps(bench_launches), flush=True)
+    _require(extra["fused_vs_plain_max_err"] < TRAJ_TOL, "bench parity gate")
+    _require(extra["ess_fused_trace_rel_gap"] < ESS_GAP, "bench ESS gap")
+    for arm, ratio in (("reference", extra["reference_arch_ratio_median"]),
+                       ("best recipe", result["value"])):
+        _require(ratio > MIN_ESS_RATIO, f"bench {arm} ESS ratio {ratio} <= {MIN_ESS_RATIO}")
+    for name in ("trajectory", "trajectory_bwd", "chain"):
+        _require(bench_launches[name] > 0, f"kernel {name} not launched on the bench path")
 
     # -- 8. the kernels line -------------------------------------------------------
     src = "l2hmc_tpu_torch/csrc/"
@@ -1368,7 +1474,8 @@ def main() -> int:
          "shape": (f"SCG D=2 H=10 T=10, 2048 chains, one direction, the launch alone; "
                    f"1024 chains: {traj_launch_ms[1024]:.4f} ms; 8192 chains: "
                    f"{traj_launch_ms[8192]:.4f} ms; through the wrapper: "
-                   f"{traj_wrapper_ms:.4f} ms")},
+                   f"{traj_wrapper_ms:.4f} ms; through the wrapper in a captured graph "
+                   f"at 1024 chains: {traj_captured_ms:.4f} ms")},
         {"name": "chain", "route": "cuda", "source": src + "chain.cu",
          "replaces": "l2hmc_tpu/ops/fused_dynamics.py:1103",
          "launches": launches["chain"],
@@ -1388,7 +1495,8 @@ def main() -> int:
          "bound_by": bwd_bound_by, "library_ms": None,
          "shape": (f"SCG D=2 H=10 T=10, {n_tr} chains, one direction (the training batch), "
                    f"the launch alone; 8192 chains: {bwd_8192_ms:.4f} ms; through the "
-                   f"wrapper: {bwd_wrapper_ms:.4f} ms")},
+                   f"wrapper: {bwd_wrapper_ms:.4f} ms; through the wrapper in a captured "
+                   f"graph: {bwd_captured_ms:.4f} ms")},
         *vae_rows,
     ]
     report["kernels"] = kernels

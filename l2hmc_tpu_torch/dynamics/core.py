@@ -7,12 +7,13 @@ steps run as a Python loop. The update equations are the paper's
 (arXiv 1711.09268, eqs. 8-13), with the exact inverse and the log-det-Jacobian
 ``sum(sv1 + sv2 + mb*sx1 + m*sx2)``.
 
-Supported: HMC mode, scalar or per-dimension (``eps_dim``) step size,
-``input_scale``, and the ``aux`` input: a per-batch side input (for the VAE
-sampler a dict of the raw batch, its embedding and the decoder params) that
-is handed to ``energy``/``grad_energy`` as ``aux=`` and to the nets as their
-fourth Zip input. Not ported yet (raise ``NotImplementedError``): ``eps_step``,
-``eps_mat``, ``net_input_fn``, ``use_temperature``.
+Supported: HMC mode, scalar or per-dimension (``eps_dim``) step size, the
+dense drift preconditioner ``eps_mat``, ``input_scale``, and the ``aux``
+input: a per-batch side input (for the VAE sampler a dict of the raw batch,
+its embedding and the decoder params) that is handed to
+``energy``/``grad_energy`` as ``aux=`` and to the nets as their fourth Zip
+input. Not ported yet (raise ``NotImplementedError``): ``eps_step``,
+``net_input_fn``, ``use_temperature``.
 """
 
 from __future__ import annotations
@@ -63,6 +64,11 @@ class Dynamics:
       hmc: plain-HMC mode — zero networks, exact leapfrog.
       eps_trainable: whether alpha = log(eps) receives gradients.
       eps_dim: per-dimension step size (alpha has shape (dim,)).
+      eps_mat: a dense trainable (dim, dim) matrix W (the params' ``"w"``
+        leaf) in place of eps on the translation terms only: v-drifts
+        become ``a @ W``, x-drifts ``a @ W.T``; the exp-gates keep the
+        scalar eps, so the log-det and the closed-form inverse are
+        unchanged. Mutually exclusive with ``eps_dim`` and ``eps_step``.
       mask_seed: seed for the per-step binary masks.
       input_scale: per-dimension sigma whitening the net inputs
         (x-like inputs / sigma, gradient inputs * sigma).
@@ -89,7 +95,9 @@ class Dynamics:
     def __post_init__(self):
         if not self.hmc and (self.xnet is None or self.vnet is None):
             raise ValueError("non-HMC dynamics requires xnet and vnet modules")
-        for name in ("eps_step", "eps_mat", "use_temperature"):
+        if sum((self.eps_dim, self.eps_step, self.eps_mat)) > 1:
+            raise ValueError("eps_dim, eps_step and eps_mat are mutually exclusive")
+        for name in ("eps_step", "use_temperature"):
             if getattr(self, name):
                 raise NotImplementedError(f"Dynamics.{name} is not ported yet")
         if self.net_input_fn is not None:
@@ -100,21 +108,21 @@ class Dynamics:
         object.__setattr__(self, "times", time_encoding(self.T))
         object.__setattr__(self, "_cache", {})
 
-    def _consts(self, like: torch.Tensor):
-        """(masks (T, dim), times (T, 2), input sigma or None) on ``like``'s
-        device and dtype, made once per device."""
-        key = (like.device, like.dtype)
+    def consts(self, device, dtype=torch.float32):
+        """(masks (T, dim), times (T, 2), input sigma or None) on ``device``
+        in ``dtype``, made once per device, so a step copies nothing from
+        the host (what a captured step needs)."""
+        key = (torch.device(device), dtype)
         c = self._cache.get(key)
         if c is None:
             sig = None
             if self.input_scale is not None:
                 sig = torch.as_tensor(
-                    np.asarray(self.input_scale, np.float32), dtype=like.dtype,
-                    device=like.device,
+                    np.asarray(self.input_scale, np.float32), dtype=dtype, device=device,
                 )
             c = (
-                torch.as_tensor(self.masks, dtype=like.dtype, device=like.device),
-                torch.as_tensor(self.times, dtype=like.dtype, device=like.device),
+                torch.as_tensor(self.masks, dtype=dtype, device=device),
+                torch.as_tensor(self.times, dtype=dtype, device=device),
                 sig,
             )
             self._cache[key] = c
@@ -124,27 +132,65 @@ class Dynamics:
 
     def init_params(self, generator: torch.Generator, eps=0.1, device=None) -> Params:
         """{"alpha": log eps, "xnet": ..., "vnet": ...}. ``eps`` may be a
-        (dim,) vector with ``eps_dim``. Runs on ``cuda`` unless ``device``
-        says otherwise."""
+        (dim,) vector with ``eps_dim``. With ``eps_mat`` the tree gains a
+        ``"w"`` leaf: a scalar eps gives W = eps I and alpha = log eps, a
+        (dim, dim) eps gives W = eps and alpha = mean log|diag W| (the
+        exp-gates' scale). Runs on ``cuda`` unless ``device`` says
+        otherwise."""
         dev = resolve_device(device)
-        alpha = torch.log(torch.as_tensor(eps, dtype=torch.float32)).to(dev)
-        if self.eps_dim:
-            alpha = torch.broadcast_to(alpha, (self.dim,)).clone()
-        elif alpha.ndim != 0:
-            raise ValueError("vector eps init requires eps_dim")
+        eps_t = torch.as_tensor(eps, dtype=torch.float32).cpu()
+        w = None
+        if self.eps_mat:
+            if eps_t.ndim == 0:
+                w = eps_t * torch.eye(self.dim, dtype=torch.float32)
+                alpha = torch.log(eps_t)
+            elif tuple(eps_t.shape) == (self.dim, self.dim):
+                d = torch.diagonal(eps_t).abs()
+                if not bool((d > 0).all()):
+                    raise ValueError(
+                        "eps_mat init requires a nonzero diagonal (a Cholesky factor "
+                        "has a positive diagonal); got zeros at indices "
+                        f"{torch.nonzero(d == 0).flatten().tolist()}"
+                    )
+                w = eps_t.clone()
+                alpha = torch.mean(torch.log(d))
+            else:
+                raise ValueError("eps_mat init requires a scalar or (dim, dim) eps")
+        else:
+            alpha = torch.log(eps_t)
+            if self.eps_dim:
+                alpha = torch.broadcast_to(alpha, (self.dim,)).clone()
+            elif alpha.ndim != 0:
+                raise ValueError("vector eps init requires eps_dim")
+        alpha = alpha.to(dev)
         if self.hmc:
-            return {"alpha": alpha, "xnet": (), "vnet": ()}
-        return {
-            "alpha": alpha,
-            "xnet": self.xnet.init(generator, dev),
-            "vnet": self.vnet.init(generator, dev),
-        }
+            params = {"alpha": alpha, "xnet": (), "vnet": ()}
+        else:
+            params = {
+                "alpha": alpha,
+                "xnet": self.xnet.init(generator, dev),
+                "vnet": self.vnet.init(generator, dev),
+            }
+        if w is not None:
+            params["w"] = w.to(dev)
+        return params
 
     def eps(self, params: Params) -> torch.Tensor:
         alpha = params["alpha"]
         if not self.eps_trainable:
             alpha = alpha.detach()
         return torch.exp(alpha)
+
+    def w(self, params: Params) -> torch.Tensor:
+        """The dense drift preconditioner W (``eps_mat``), under the same
+        trainability gate as alpha."""
+        if "w" not in params:
+            raise ValueError(
+                'params missing "w": were they initialized with eps_mat=True? '
+                "(checkpoints saved with eps_mat=False cannot drive an eps_mat Dynamics)"
+            )
+        w = params["w"]
+        return w if self.eps_trainable else w.detach()
 
     # -- energies ----------------------------------------------------------
 
@@ -177,10 +223,19 @@ class Dynamics:
 
     # -- single leapfrog substeps -----------------------------------------
 
+    def _drifts(self, params, eps):
+        """(drift_v, drift_x): how a translation term enters the update, eps
+        times it, or with ``eps_mat`` W on v-drifts and W.T on x-drifts."""
+        if self.eps_mat:
+            w = self.w(params)
+            return (lambda a: a @ w), (lambda a: a @ w.T)
+        return (lambda a: eps * a), (lambda a: eps * a)
+
     def forward_step(self, params, x, v, step_idx: int, *, aux=None):
         """One augmented leapfrog step; returns (x_out, v_out, logdet)."""
         eps = self.eps(params)
-        masks, times, sig = self._consts(x)
+        drift_v, drift_x = self._drifts(params, eps)
+        masks, times, sig = self.consts(x.device, x.dtype)
         t = times[step_idx].expand(x.shape[0], 2)
         m = masks[step_idx]
         mb = 1.0 - m
@@ -189,23 +244,23 @@ class Dynamics:
         s, tt, q = self._apply_nets(params, "vnet", [x, grad1, t, aux], sig)
         sv1 = 0.5 * eps * s
         fv1 = eps * q
-        v_h = v * torch.exp(sv1) + 0.5 * eps * (-torch.exp(fv1) * grad1 + tt)
+        v_h = v * torch.exp(sv1) + 0.5 * drift_v(-torch.exp(fv1) * grad1 + tt)
 
         s, tt, q = self._apply_nets(params, "xnet", [v_h, m * x, t, aux], sig)
         sx1 = eps * s
         fx1 = eps * q
-        y = m * x + mb * (x * torch.exp(sx1) + eps * (torch.exp(fx1) * v_h + tt))
+        y = m * x + mb * (x * torch.exp(sx1) + drift_x(torch.exp(fx1) * v_h + tt))
 
         s, tt, q = self._apply_nets(params, "xnet", [v_h, mb * y, t, aux], sig)
         sx2 = eps * s
         fx2 = eps * q
-        x_o = mb * y + m * (y * torch.exp(sx2) + eps * (torch.exp(fx2) * v_h + tt))
+        x_o = mb * y + m * (y * torch.exp(sx2) + drift_x(torch.exp(fx2) * v_h + tt))
 
         grad2 = self._grad(x_o, aux)
         s, tt, q = self._apply_nets(params, "vnet", [x_o, grad2, t, aux], sig)
         sv2 = 0.5 * eps * s
         fv2 = eps * q
-        v_o = v_h * torch.exp(sv2) + 0.5 * eps * (-torch.exp(fv2) * grad2 + tt)
+        v_o = v_h * torch.exp(sv2) + 0.5 * drift_v(-torch.exp(fv2) * grad2 + tt)
 
         logdet = torch.sum(sv1 + sv2 + mb * sx1 + m * sx2, dim=1)
         return x_o, v_o, logdet
@@ -213,7 +268,8 @@ class Dynamics:
     def backward_step(self, params, x_o, v_o, step_idx: int, *, aux=None):
         """Exact inverse of :meth:`forward_step`."""
         eps = self.eps(params)
-        masks, times, sig = self._consts(x_o)
+        drift_v, drift_x = self._drifts(params, eps)
+        masks, times, sig = self.consts(x_o.device, x_o.dtype)
         t = times[step_idx].expand(x_o.shape[0], 2)
         m = masks[step_idx]
         mb = 1.0 - m
@@ -222,23 +278,23 @@ class Dynamics:
         s, tt, q = self._apply_nets(params, "vnet", [x_o, grad1, t, aux], sig)
         sv2 = -0.5 * eps * s
         fv2 = eps * q
-        v_h = (v_o - 0.5 * eps * (-torch.exp(fv2) * grad1 + tt)) * torch.exp(sv2)
+        v_h = (v_o - 0.5 * drift_v(-torch.exp(fv2) * grad1 + tt)) * torch.exp(sv2)
 
         s, tt, q = self._apply_nets(params, "xnet", [v_h, mb * x_o, t, aux], sig)
         sx2 = -eps * s
         fx2 = eps * q
-        y = mb * x_o + m * torch.exp(sx2) * (x_o - eps * (torch.exp(fx2) * v_h + tt))
+        y = mb * x_o + m * torch.exp(sx2) * (x_o - drift_x(torch.exp(fx2) * v_h + tt))
 
         s, tt, q = self._apply_nets(params, "xnet", [v_h, m * y, t, aux], sig)
         sx1 = -eps * s
         fx1 = eps * q
-        x = m * y + mb * torch.exp(sx1) * (y - eps * (torch.exp(fx1) * v_h + tt))
+        x = m * y + mb * torch.exp(sx1) * (y - drift_x(torch.exp(fx1) * v_h + tt))
 
         grad2 = self._grad(x, aux)
         s, tt, q = self._apply_nets(params, "vnet", [x, grad2, t, aux], sig)
         sv1 = -0.5 * eps * s
         fv1 = eps * q
-        v = torch.exp(sv1) * (v_h - 0.5 * eps * (-torch.exp(fv1) * grad2 + tt))
+        v = torch.exp(sv1) * (v_h - 0.5 * drift_v(-torch.exp(fv1) * grad2 + tt))
 
         logdet = torch.sum(sv1 + sv2 + mb * sx1 + m * sx2, dim=1)
         return x, v, logdet

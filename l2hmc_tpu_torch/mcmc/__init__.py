@@ -17,6 +17,7 @@ from l2hmc_tpu_torch.mcmc.sampler import (
     metropolis,
     metropolis_mask,
     propose,
+    propose_draws,
 )
 
 __all__ = [
@@ -32,5 +33,6 @@ __all__ = [
     "metropolis",
     "metropolis_mask",
     "propose",
+    "propose_draws",
     "scg_joint_loss",
 ]

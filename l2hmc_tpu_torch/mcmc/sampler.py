@@ -43,6 +43,22 @@ def normal_like(generator: torch.Generator, like: torch.Tensor) -> torch.Tensor:
                        device=generator.device).to(like.device)
 
 
+def propose_draws(generator: torch.Generator, n: int, dim: int, *, hmc: bool,
+                  accept: bool):
+    """The random numbers ``propose`` draws from ``generator`` when it is
+    given none, in the order it draws them, float32 on the generator's
+    device: (momentum (n, dim), direction uniforms (n,) or None in HMC mode,
+    accept uniforms (n,) or None without ``accept``). Handing them back to
+    ``propose`` gives the generator-driven result bit for bit."""
+    v = torch.randn((n, dim), generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    u_dir = None if hmc else torch.rand((n,), generator=generator, dtype=torch.float32,
+                                        device=generator.device)
+    u_acc = torch.rand((n,), generator=generator, dtype=torch.float32,
+                       device=generator.device) if accept else None
+    return v, u_dir, u_acc
+
+
 def metropolis_mask(generator, p_accept: torch.Tensor, u=None) -> torch.Tensor:
     """Boolean accept mask ``p_accept - u >= 0``; ``u`` is drawn when not given."""
     if u is None:

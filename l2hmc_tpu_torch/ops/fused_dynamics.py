@@ -61,14 +61,13 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _net_scales(dynamics: Dynamics):
-    """Per-net embed-weight folds implementing ``Dynamics.input_scale``:
-    ((xnet_s0, xnet_s1), (vnet_s0, vnet_s1)); None means unscaled."""
-    sig = dynamics.input_scale
+def _net_scales(sig: Optional[torch.Tensor]):
+    """Per-net embed-weight folds implementing ``Dynamics.input_scale``, from
+    its sigma on the device: ((xnet_s0, xnet_s1), (vnet_s0, vnet_s1)); None
+    means unscaled."""
     if sig is None:
         return (None, None), (None, None)
-    s = np.asarray(sig, np.float32)
-    return (None, 1.0 / s), (1.0 / s, s)
+    return (None, 1.0 / sig), (1.0 / sig, sig)
 
 
 def _hmc_zero_net(dim: int, T: int, device, h: int = 8) -> list[torch.Tensor]:
@@ -87,10 +86,11 @@ def _hmc_zero_net(dim: int, T: int, device, h: int = 8) -> list[torch.Tensor]:
     ]
 
 
-def _extract_net(net_params: Any, trig: np.ndarray, scales=(None, None)) -> list[torch.Tensor]:
+def _extract_net(net_params: Any, trig, scales=(None, None)) -> list[torch.Tensor]:
     """Flatten a ``stq_net`` params tree into the kernels' weight list,
     folding the time path into te = W3^T trig^T + (b1 + b2 + b3) and
-    ``scales`` into the two embed weights."""
+    ``scales`` (tensors on the params' device, or None) into the two embed
+    weights. ``trig`` is the (T, 2) time encoding, numpy or a tensor."""
     zip_p = net_params[0]
     lin_h = net_params[3]
     (s_lin, s_st), t_lin, (q_lin, q_st) = net_params[5]
@@ -103,8 +103,8 @@ def _extract_net(net_params: Any, trig: np.ndarray, scales=(None, None)) -> list
     bias = e1["b"] + e2["b"] + e3["b"]
     te = e3["w"].T @ torch.as_tensor(trig.T, dtype=torch.float32, device=dev) + col(bias)
     s0, s1 = scales
-    w1 = e1["w"] if s0 is None else e1["w"] * torch.as_tensor(s0, device=dev)[:, None]
-    w2 = e2["w"] if s1 is None else e2["w"] * torch.as_tensor(s1, device=dev)[:, None]
+    w1 = e1["w"] if s0 is None else e1["w"] * s0[:, None]
+    w2 = e2["w"] if s1 is None else e2["w"] * s1[:, None]
     return [
         w1, w2,
         lin_h["w"], col(lin_h["b"]),
@@ -121,10 +121,11 @@ def _kernel_nets(dyn: Dynamics, params, device):
     if dyn.hmc:
         w = _hmc_zero_net(dyn.dim, dyn.T, device)
         return w, w
-    xs, vs = _net_scales(dyn)
+    _, times, sig = dyn.consts(device)
+    xs, vs = _net_scales(sig)
     return (
-        _extract_net(params["xnet"], dyn.times, xs),
-        _extract_net(params["vnet"], dyn.times, vs),
+        _extract_net(params["xnet"], times, xs),
+        _extract_net(params["vnet"], times, vs),
     )
 
 
@@ -142,13 +143,20 @@ class QuadraticGaussianEnergy:
 
     prec: np.ndarray  # (D, D)
     mu: np.ndarray  # (D,)
+    _dev: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def consts(self, device) -> list[torch.Tensor]:
-        d = self.mu.shape[0]
-        return [
-            torch.as_tensor(self.prec, dtype=torch.float32, device=device),
-            torch.as_tensor(self.mu, dtype=torch.float32, device=device).reshape(d, 1),
-        ]
+        """[prec (D, D), mu (D, 1)] in float32 on ``device``, made once per
+        device."""
+        device = torch.device(device)
+        c = self._dev.get(device)
+        if c is None:
+            d = self.mu.shape[0]
+            c = self._dev[device] = [
+                torch.as_tensor(self.prec, dtype=torch.float32, device=device),
+                torch.as_tensor(self.mu, dtype=torch.float32, device=device).reshape(d, 1),
+            ]
+        return list(c)
 
     @staticmethod
     def build(vals):
@@ -223,7 +231,9 @@ def prepare(dyn: Dynamics, spec, params, device, *, differentiable: bool = False
     """Host prep shared by the kernels and their plain versions. The weights
     and eps are detached unless ``differentiable``, where they keep their
     autograd history back to ``params`` (through ``_extract_net``'s folds
-    and ``eps = exp(alpha)``) for the training path."""
+    and ``eps = exp(alpha)``) for the training path. The constants come from
+    per-device caches, so on a device that has them this copies nothing
+    from the host and can be captured in a CUDA graph."""
     device = torch.device(device)
     xnet_w, vnet_w = _kernel_nets(dyn, params, device)
     eps = _eps_col(dyn.eps(params), dyn.dim).to(device)
@@ -235,7 +245,7 @@ def prepare(dyn: Dynamics, spec, params, device, *, differentiable: bool = False
     energy, grad_energy = spec.build(consts)
     return KernelInputs(
         eps=eps,
-        masks=torch.as_tensor(dyn.masks.T.copy(), dtype=torch.float32, device=device),
+        masks=dyn.consts(device)[0].T.contiguous(),
         consts=consts,
         xnet_w=xnet_w,
         vnet_w=vnet_w,
@@ -722,8 +732,11 @@ def chain(inp: KernelInputs, x, seed: int, n_mh_steps: int, collect_trace: bool 
 
 
 def _check_supported(dynamics: Dynamics) -> None:
-    if dynamics.eps_step or dynamics.eps_mat or dynamics.net_input_fn is not None:
-        raise ValueError("fused kernels do not support eps_step, eps_mat or net_input_fn")
+    for name in ("eps_step", "eps_mat"):
+        if getattr(dynamics, name):
+            raise ValueError(f"fused kernels do not support {name} (plain path only)")
+    if dynamics.net_input_fn is not None:
+        raise ValueError("fused kernels do not support net_input_fn (plain path only)")
 
 
 def _no_aux(aux) -> None:

@@ -15,6 +15,7 @@ from l2hmc_tpu_torch.train.scg import (
     StepDraws,
     TrainState,
     build_dynamics,
+    draw_step,
     evaluate_ess,
     evaluate_trained,
     hmc_sample_chain,
@@ -37,6 +38,7 @@ __all__ = [
     "StepDraws",
     "TrainState",
     "build_dynamics",
+    "draw_step",
     "evaluate_ess",
     "evaluate_trained",
     "exponential_decay",

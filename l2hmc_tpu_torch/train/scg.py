@@ -6,9 +6,9 @@ chains x and fresh z ~ N(0, I) burn-in chains at scale 0.1, Adam at lr 1e-3
 with staircase decay 0.96 per 1000 steps (``train/optim.py``), non-finite
 updates skipped. ``fused_train`` runs the trajectories through the fused
 CUDA kernels (``ops.differentiable_fused``), else through ``Dynamics`` with
-plain autograd. The steps run as a Python loop in chunks of ``log_every``
-(or 250) steps; the chain state and the optimizer state stay on the device,
-and the metrics come to the host once per chunk.
+plain autograd. The steps run in chunks of ``log_every`` (or 250) steps; the
+chain state and the optimizer state stay on the device, and the metrics come
+to the host once per chunk.
 
 Evaluation (cells 14-21): 2000 MH steps, ESS from the full-lag
 autocovariance spectrum, plain HMC at eps 0.15 as the baseline.
@@ -16,6 +16,15 @@ autocovariance spectrum, plain HMC at eps 0.15 as the baseline.
 Randomness comes from ``torch.Generator``s seeded from ``ScgConfig.seed``.
 The generators live on the CPU, so a seed gives the same chains on every
 device; the streams differ from the JAX package's threefry streams.
+
+Captured steps (the counterpart of the JAX package's jitted scans): on a CUDA
+device ``train`` records one training step and ``sample_chain`` one MH step
+as a CUDA graph (``utils.capture``) and replays it for every step. The
+draws still come from the CPU generator in the eager order (``draw_step``,
+``mcmc.propose_draws``), a chunk at a time, made by the host while the card
+runs the previous chunk; they reach the graph through static device buffers
+and the ``draws=`` injection, so the captured route gives the generator-driven
+eager route's numbers. ``capture=False`` runs the eager route on any device.
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ from l2hmc_tpu_torch import mcmc, nets, targets
 from l2hmc_tpu_torch.config import resolve_device
 from l2hmc_tpu_torch.dynamics import Dynamics
 from l2hmc_tpu_torch.evals import acl_spectrum, ess
-from l2hmc_tpu_torch.mcmc.sampler import normal_like
+from l2hmc_tpu_torch.mcmc.sampler import normal_like, propose_draws
 from l2hmc_tpu_torch.ops import differentiable_fused
 from l2hmc_tpu_torch.train.optim import (
     Adam,
@@ -41,6 +50,7 @@ from l2hmc_tpu_torch.train.optim import (
     tree_leaves,
     tree_unflatten,
 )
+from l2hmc_tpu_torch.utils.capture import WARMUP_CALLS, Graph, run_on_side_stream
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,8 +125,6 @@ class ScgConfig:
 _UNPORTED = {
     "net_type": lambda v: v == "dense",
     "eps_step": lambda v: not v,
-    "eps_mat": lambda v: not v,
-    "eps_chol_init": lambda v: v == 0.0,
     "net_input_target_fn": lambda v: not v,
     "init_temperature": lambda v: v <= 1.0,
     "pt_train_rungs": lambda v: v <= 1,
@@ -135,6 +143,7 @@ def build_dynamics(config: ScgConfig, target=None) -> tuple[Dynamics, Any]:
         mask_seed=config.mask_seed,
         eps_trainable=config.eps_trainable,
         eps_dim=config.eps_dim,
+        eps_mat=config.eps_mat,
     )
     if config.hmc:
         return Dynamics(hmc=True, **common), target
@@ -157,7 +166,7 @@ class TrainState(NamedTuple):
     opt_state: AdamState
     x: torch.Tensor  # chain state (n_chains, dim)
     generator: torch.Generator  # CPU; a train step advances it in place
-    step: int
+    step: Any  # () int32 tensor on the device (a Python int is read too)
 
 
 class StepDraws(NamedTuple):
@@ -165,20 +174,36 @@ class StepDraws(NamedTuple):
     from its generator: the x-proposal's momentum, direction and accept
     uniforms, then the burn-in chains z, then the z-proposal's momentum and
     direction uniforms. HMC mode reads no direction uniforms, and without
-    ``z_burn_in_loss`` no z draws are made."""
+    ``z_burn_in_loss`` no z draws are made (``draw_step`` leaves those None)."""
 
     v_x: torch.Tensor  # (n, d)
-    dir_x: torch.Tensor  # (n,)
+    dir_x: Optional[torch.Tensor]  # (n,)
     acc_x: torch.Tensor  # (n,)
-    z: torch.Tensor  # (n, d)
-    v_z: torch.Tensor  # (n, d)
-    dir_z: torch.Tensor  # (n,)
+    z: Optional[torch.Tensor]  # (n, d)
+    v_z: Optional[torch.Tensor]  # (n, d)
+    dir_z: Optional[torch.Tensor]  # (n,)
 
 
-def temperature_at(config: ScgConfig, step) -> float:
-    """The training temperature: 1.0 (annealing, ``init_temperature > 1``,
-    is not ported and raises in ``ScgConfig``)."""
-    return 1.0
+def draw_step(generator: torch.Generator, n: int, dim: int, *, hmc: bool = False,
+              z_burn_in: bool = True) -> StepDraws:
+    """The random numbers of one train step from ``generator``, in the order
+    the generator-driven step draws them (``mcmc.propose_draws`` twice, the
+    burn-in chains between), so a step given them equals the step that
+    draws them itself bit for bit."""
+    v_x, dir_x, acc_x = propose_draws(generator, n, dim, hmc=hmc, accept=True)
+    z = v_z = dir_z = None
+    if z_burn_in:
+        z = torch.randn((n, dim), generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        v_z, dir_z, _ = propose_draws(generator, n, dim, hmc=hmc, accept=False)
+    return StepDraws(v_x, dir_x, acc_x, z, v_z, dir_z)
+
+
+def temperature_at(config: ScgConfig, step) -> torch.Tensor:
+    """The training temperature, 1.0 (annealing, ``init_temperature > 1``,
+    is not ported and raises in ``ScgConfig``), as a float32 tensor on the
+    step counter's device (the CPU for a Python int)."""
+    return torch.ones((), dtype=torch.float32, device=getattr(step, "device", None))
 
 
 def make_optimizer(config: ScgConfig):
@@ -195,14 +220,31 @@ def init_state(
     config: ScgConfig, dynamics: Dynamics, optimizer: Adam, eps_init=None, device=None,
 ) -> TrainState:
     """Params, then chains from N(0, I) (cell 12), both drawn from one CPU
-    generator seeded with ``config.seed``; training goes on drawing from it."""
+    generator seeded with ``config.seed``; training goes on drawing from it.
+    The step counter starts as a device tensor, as the captured step needs."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(config.seed)
     params = dynamics.init_params(
         gen, eps=config.eps if eps_init is None else eps_init, device=dev
     )
     x = torch.randn((config.n_chains, config.dim), generator=gen).to(dev)
-    return TrainState(params, optimizer.init(params), x, gen, 0)
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    return TrainState(params, optimizer.init(params), x, gen, step)
+
+
+def _per_device(value):
+    """``value`` as a float32 tensor on any device, copied there once: a
+    captured step copies nothing from the host."""
+    host = torch.as_tensor(np.asarray(value, np.float32))
+    cache = {}
+
+    def on(device):
+        t = cache.get(device)
+        if t is None:
+            t = cache[device] = host.to(device)
+        return t
+
+    return on
 
 
 def make_train_step(
@@ -215,21 +257,26 @@ def make_train_step(
     ``draws`` (a ``StepDraws``) replaces the generator's numbers.
     ``loss_sigmas`` whitens the jump distance: a (dim,) vector divides, a
     (dim, dim) matrix W maps a -> a W^T. ``alpha0`` is the log-eps centre of
-    ``alpha_reg`` (log ``config.eps`` when not given)."""
+    ``alpha_reg`` (log ``config.eps`` when not given).
+
+    With a device tensor for ``state.step`` and ``draws`` on the device the
+    step makes no host copy, synchronisation or host branch on a tensor, so
+    ``train`` can record it as a CUDA graph."""
     sig = wmat = None
     if loss_sigmas is not None:
-        arr = torch.as_tensor(np.asarray(loss_sigmas, np.float32))
+        arr = np.asarray(loss_sigmas, np.float32)
         if arr.ndim == 2:
-            wmat = arr
+            wmat = _per_device(arr)
         else:
-            sig = arr[None, :]
+            sig = _per_device(arr[None, :])
     if config.alpha_reg > 0 and alpha0 is None:
         alpha0 = float(np.log(np.float32(config.eps)))
+    a0 = _per_device(alpha0) if config.alpha_reg > 0 else None
 
     def whiten(a):
         if wmat is not None:
-            return a @ wmat.to(a.device).T
-        return a / sig.to(a.device) if sig is not None else a
+            return a @ wmat(a.device).T
+        return a / sig(a.device) if sig is not None else a
 
     mixed = mcmc.loss_mixed_per_dim if config.per_dim_loss else mcmc.loss_mixed
 
@@ -269,8 +316,8 @@ def make_train_step(
                 + 1e-6)
             loss = loss + config.autocorr_penalty * torch.mean(torch.square(rho))
         if config.alpha_reg > 0:
-            a0 = torch.as_tensor(alpha0, dtype=torch.float32, device=x.device)
-            loss = loss + config.alpha_reg * torch.mean(torch.square(params["alpha"] - a0))
+            loss = loss + config.alpha_reg * torch.mean(
+                torch.square(params["alpha"] - a0(x.device)))
         return loss, out_x
 
     def train_step(state: TrainState, draws: Optional[StepDraws] = None):
@@ -284,10 +331,16 @@ def make_train_step(
         updates, opt_state = optimizer.update(tree_unflatten(state.params, grads),
                                               state.opt_state)
         if config.alpha_lr_scale != 1.0 or config.eps_unfreeze_step > 0:
-            ua = updates["alpha"] * config.alpha_lr_scale
-            if state.step < config.eps_unfreeze_step:
-                ua = torch.zeros_like(ua)
-            updates = {**updates, "alpha": ua}
+            # the dense W (eps_mat) is step-size state like alpha: the
+            # freeze and scale knobs govern both leaves alike
+            scaled = {}
+            for leaf in ("alpha", "w") if "w" in updates else ("alpha",):
+                u = updates[leaf] * config.alpha_lr_scale
+                if config.eps_unfreeze_step > 0:
+                    live = torch.as_tensor(state.step, device=u.device) >= config.eps_unfreeze_step
+                    u = torch.where(live, u, torch.zeros_like(u))
+                scaled[leaf] = u
+            updates = {**updates, **scaled}
         new_params = apply_updates(state.params, updates)
         metrics = {
             "loss": loss.detach(),
@@ -309,6 +362,133 @@ def _copy_generator(gen: torch.Generator) -> torch.Generator:
     return out
 
 
+def _pack_rows(rows: list, device) -> torch.Tensor:
+    """Per-step lists of draws (None where a step draws nothing) -> one
+    (steps, floats) float32 tensor, pinned when it is bound for a card."""
+    flat = torch.stack([torch.cat([a.reshape(-1) for a in r if a is not None]) for r in rows])
+    return flat.pin_memory() if torch.device(device).type == "cuda" else flat
+
+
+def _unpack_row(row: torch.Tensor, shapes: list) -> list:
+    """A packed row back into its draws, None where ``shapes`` has None."""
+    out, at = [], 0
+    for shape in shapes:
+        if shape is None:
+            out.append(None)
+            continue
+        size = int(np.prod(shape))
+        out.append(row[at:at + size].view(shape))
+        at += size
+    return out
+
+
+def _state_tensors(state: TrainState) -> list:
+    return [*tree_leaves(state.params), *state.opt_state, state.x, state.step]
+
+
+class _ReplayedSteps:
+    """A captured route's common part: a static device buffer for a chunk of
+    steps' packed draws (a row each, laid out as ``shapes``), a device
+    counter ``i``, and the subclass's step body ``_body``, which reads row
+    ``i`` (``_row``) and advances ``i``.
+
+    ``step`` runs the body once. On a CUDA device its first
+    ``WARMUP_CALLS`` calls run eagerly on a side stream, the next one
+    records the body as a CUDA graph, and every call from then on replays
+    it: one launch for the whole step. A capture that fails raises; nothing
+    falls back to eager on the card. On the CPU every call runs the body
+    eagerly."""
+
+    def __init__(self, shapes: list, chunk: int, device):
+        self.shapes = shapes
+        size = sum(int(np.prod(sh)) for sh in shapes if sh is not None)
+        self.draws = torch.zeros((chunk, size), dtype=torch.float32, device=device)
+        self.i = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.cuda = torch.device(device).type == "cuda"
+        self.graph = None
+        self.warm_calls = 0
+
+    def _body(self) -> None:
+        raise NotImplementedError
+
+    def _row(self) -> list:
+        return _unpack_row(self.draws.index_select(0, self.i)[0], self.shapes)
+
+    def step(self) -> None:
+        if not self.cuda:
+            self._body()
+            return
+        if self.graph is None:
+            if self.warm_calls < WARMUP_CALLS:
+                run_on_side_stream(self._body)
+                self.warm_calls += 1
+                return
+            self.graph = Graph(self._body)
+        self.graph.replay()
+
+    def run(self, draws: torch.Tensor) -> None:
+        """Enqueues one chunk: its draws to the card, then a step per row."""
+        self.draws[: len(draws)].copy_(draws, non_blocking=True)
+        self.i.zero_()
+        for _ in range(len(draws)):
+            self.step()
+
+
+class _TrainSteps(_ReplayedSteps):
+    """The captured training route: the state, a chunk's draws and its
+    metrics in static device buffers; the step body runs ``step_fn`` on row
+    ``i``'s draws, writes the new state over the old and the metrics into
+    row ``i``."""
+
+    _METRICS = ("loss", "p_accept", "eps", "temperature")
+
+    def __init__(self, step_fn, state: TrainState, chunk: int, hmc: bool, z_burn_in: bool):
+        dev = state.x.device
+        n, dim = state.x.shape
+        self.hmc, self.z_burn_in, self.n, self.dim = hmc, z_burn_in, n, dim
+        u = None if hmc else (n,)
+        z = (n, dim) if z_burn_in else None
+        # StepDraws' fields: v_x, dir_x, acc_x, z, v_z, dir_z
+        super().__init__([(n, dim), u, (n,), z, z, u if z_burn_in else None], chunk, dev)
+        self.static = state._replace(
+            params=tree_unflatten(state.params, [t.detach().clone() for t in
+                                                 tree_leaves(state.params)]),
+            opt_state=AdamState(*(t.clone() for t in state.opt_state)),
+            x=state.x.detach().clone(),
+            step=torch.as_tensor(state.step, dtype=torch.int32, device=dev).clone(),
+            generator=None,
+        )
+        self.metrics = torch.zeros((chunk, len(self._METRICS)), dtype=torch.float32, device=dev)
+        self.step_fn = step_fn
+
+    def _body(self) -> None:
+        new, m = self.step_fn(self.static, StepDraws(*self._row()))
+        for dst, src in zip(_state_tensors(self.static), _state_tensors(new)):
+            dst.copy_(src)
+        vals = torch.stack([m[k].reshape(()).to(torch.float32) for k in self._METRICS])
+        self.metrics.index_copy_(0, self.i, vals[None])
+        self.i += 1
+
+    def draw(self, generator: torch.Generator, steps: int) -> torch.Tensor:
+        """``steps`` steps' draws from ``generator``, packed on the host."""
+        return _pack_rows([draw_step(generator, self.n, self.dim, hmc=self.hmc,
+                                     z_burn_in=self.z_burn_in) for _ in range(steps)],
+                          self.draws.device)
+
+    def history(self, steps: int) -> dict:
+        m = self.metrics[:steps].cpu().numpy()
+        return {k: m[:, j].copy() for j, k in enumerate(self._METRICS)}
+
+    def state(self, generator: torch.Generator) -> TrainState:
+        """A copy of the state after the steps run so far."""
+        s = self.static
+        return TrainState(
+            tree_unflatten(s.params, [t.clone() for t in tree_leaves(s.params)]),
+            AdamState(*(t.clone() for t in s.opt_state)), s.x.clone(), generator,
+            s.step.clone(),
+        )
+
+
 def train(
     config: ScgConfig,
     target=None,
@@ -316,13 +496,21 @@ def train(
     log_every: int = 0,
     state: Optional[TrainState] = None,
     device=None,
+    capture: Optional[bool] = None,
 ) -> tuple[TrainState, dict]:
     """Train for ``config.n_steps`` steps on ``device`` (``cuda`` unless the
     caller says otherwise), or on from ``state`` (whose generator is copied,
     not advanced). Returns (final state, history: a (n_steps,) array per
     metric). With ``log_every > 0`` prints progress like the notebook (cell
     12). With ``select_best`` the returned state is the end of the chunk
-    with the lowest mean loss."""
+    with the lowest mean loss.
+
+    ``capture`` (default: on a CUDA device) runs the captured route: one
+    step recorded as a CUDA graph and replayed, its draws made ahead by
+    ``draw_step``; a capture that fails raises. On the CPU the same route
+    runs its step body eagerly. ``capture=False`` runs the eager route,
+    which draws from the generator inside each step. Both give the same
+    numbers."""
     dynamics, target = build_dynamics(config, target)
     optimizer, schedule = make_optimizer(config)
     if config.n_chains < 1:
@@ -336,6 +524,12 @@ def train(
         if not has_cov:
             raise ValueError("eps_sigma_init requires a target with a known covariance")
         eps_init = config.eps_sigma_init * np.sqrt(np.diag(np.asarray(sigma))).astype(np.float32)
+    if config.eps_chol_init > 0:
+        if not config.eps_mat:
+            raise ValueError("eps_chol_init requires eps_mat")
+        if not has_cov:
+            raise ValueError("eps_chol_init requires a target with a known covariance")
+        eps_init = (config.eps_chol_init * np.linalg.cholesky(np.asarray(sigma))).astype(np.float32)
     if state is None:
         state = init_state(config, dynamics, optimizer, eps_init=eps_init, device=device)
     else:
@@ -350,26 +544,48 @@ def train(
                        if config.whiten_full else np.sqrt(np.diag(cov)))
     alpha0 = None
     if config.alpha_reg > 0:
-        e0 = config.eps if eps_init is None else eps_init
-        alpha0 = np.log(np.asarray(e0, np.float32))
+        e0 = np.asarray(config.eps if eps_init is None else eps_init, np.float32)
+        if config.eps_mat and e0.ndim == 2:
+            # the gate scalar init_params gives a (dim, dim) init
+            alpha0 = np.mean(np.log(np.abs(np.diag(e0))))
+        elif config.eps_mat and e0.ndim != 0:
+            raise ValueError("alpha_reg with eps_mat requires a scalar or (dim, dim) eps "
+                             f"init, got shape {e0.shape}")
+        else:
+            alpha0 = np.log(e0)
     step_fn = make_train_step(config, step_dynamics, optimizer, loss_sigmas, alpha0=alpha0)
 
     # chunks of log_every (or 250) steps: the metrics come to the host once
     # per chunk, and select_best picks among chunk ends
     chunk = min(log_every if log_every and log_every > 0 else 250, config.n_steps)
+    if capture is None:
+        capture = state.x.device.type == "cuda"
+    steps = (_TrainSteps(step_fn, state, chunk, dynamics.hmc, config.z_burn_in_loss)
+             if capture else None)
+    gen = state.generator
+    pending = steps.draw(gen, chunk) if steps is not None else None
     history = []
     done = 0
     best_loss, best_state = float("inf"), None
     while done < config.n_steps:
         n = min(chunk, config.n_steps - done)
-        metrics = []
-        for _ in range(n):
-            state, m = step_fn(state)
-            metrics.append(m)
-        history.append({
-            k: torch.stack([torch.as_tensor(m[k]) for m in metrics]).cpu().numpy()
-            for k in metrics[0]
-        })
+        if steps is None:
+            metrics = []
+            for _ in range(n):
+                state, m = step_fn(state)
+                metrics.append(m)
+            history.append({
+                k: torch.stack([torch.as_tensor(m[k]) for m in metrics]).cpu().numpy()
+                for k in metrics[0]
+            })
+        else:
+            steps.run(pending[:n])
+            at_end = _copy_generator(gen)
+            later = min(chunk, config.n_steps - done - n)
+            # the next chunk's draws are made while the card runs this one
+            pending = steps.draw(gen, later) if later > 0 else None
+            history.append(steps.history(n))
+            state = steps.state(at_end)
         if config.select_best:
             chunk_loss = float(np.mean(history[-1]["loss"]))
             if chunk_loss < best_loss:
@@ -391,6 +607,31 @@ def train(
     return state, merged
 
 
+class _SampleSteps(_ReplayedSteps):
+    """The captured sampling route: the chain state, a chunk's draws and its
+    outputs in static device buffers; the step body runs one MH step on row
+    ``i``'s draws and writes its output into row ``i``."""
+
+    def __init__(self, dynamics, params, x0: torch.Tensor, chunk: int, collect: bool):
+        n, dim = x0.shape
+        super().__init__([(n, dim), None if dynamics.hmc else (n,), (n,)], chunk, x0.device)
+        self.x = x0.detach().clone()
+        self.out = torch.zeros((chunk, *((n, dim) if collect else (n,))), dtype=x0.dtype,
+                               device=x0.device)
+        self.dynamics, self.params, self.collect = dynamics, params, collect
+
+    def _body(self) -> None:
+        v, u_dir, u_acc = self._row()
+        out = mcmc.propose(None, self.dynamics, self.params, self.x, init_v=v, dir_u=u_dir,
+                           accept_u=u_acc, do_mh_step=True)
+        self.x.copy_(out.x_next)
+        self.out.index_copy_(0, self.i, (out.x_next if self.collect else out.p_accept)[None])
+        self.i += 1
+
+
+_SAMPLE_CHUNK = 250
+
+
 def sample_chain(
     dynamics: Dynamics,
     params,
@@ -400,6 +641,7 @@ def sample_chain(
     *,
     collect: bool = True,
     draws=None,
+    capture: Optional[bool] = None,
 ):
     """Run the sampler for ``n_steps`` MH steps on x0's device; returns
     (x_final, trace) with trace the (n_steps, N, D) post-MH states (or the
@@ -407,30 +649,63 @@ def sample_chain(
 
     ``draws`` optionally gives every random number instead of
     ``generator``: (momenta (K, N, D), direction uniforms (K, N), accept
-    uniforms (K, N)); HMC mode reads no direction uniforms."""
-    x = x0
-    trace = []
+    uniforms (K, N)); HMC mode reads no direction uniforms.
+
+    ``capture`` (default: on a CUDA device) records one MH step as a CUDA
+    graph and replays it, the draws made ahead a chunk at a time in the
+    eager order (``mcmc.propose_draws``); a capture that fails raises. On
+    the CPU the same route runs its step body eagerly. ``capture=False``
+    runs the eager route. Both give the same chains."""
+    if capture is None:
+        capture = x0.device.type == "cuda"
     with torch.no_grad():
-        for k in range(n_steps):
-            kw = {}
+        if not capture:
+            x = x0
+            trace = []
+            for k in range(n_steps):
+                kw = {}
+                if draws is not None:
+                    v, u_dir, u_acc = draws
+                    kw = dict(init_v=v[k], dir_u=u_dir[k], accept_u=u_acc[k])
+                out = mcmc.propose(generator, dynamics, params, x, do_mh_step=True, **kw)
+                x = out.x_next
+                trace.append(x if collect else out.p_accept)
+            return x, torch.stack(trace)
+        if n_steps <= 0:
+            raise ValueError("n_steps must be positive")
+        chunk = min(_SAMPLE_CHUNK, n_steps)
+        steps = _SampleSteps(dynamics, params, x0, chunk, collect)
+        trace = torch.empty((n_steps, *steps.out.shape[1:]), dtype=x0.dtype, device=x0.device)
+
+        def chunk_draws(k0, k1):
             if draws is not None:
                 v, u_dir, u_acc = draws
-                kw = dict(init_v=v[k], dir_u=u_dir[k], accept_u=u_acc[k])
-            out = mcmc.propose(generator, dynamics, params, x, do_mh_step=True, **kw)
-            x = out.x_next
-            trace.append(x if collect else out.p_accept)
-    return x, torch.stack(trace)
+                return _pack_rows([(v[k], None if dynamics.hmc else u_dir[k], u_acc[k])
+                                   for k in range(k0, k1)], x0.device)
+            n, dim = x0.shape
+            return _pack_rows([propose_draws(generator, n, dim, hmc=dynamics.hmc, accept=True)
+                               for _ in range(k0, k1)], x0.device)
+
+        pending = chunk_draws(0, chunk)
+        for k0 in range(0, n_steps, chunk):
+            k1 = min(k0 + chunk, n_steps)
+            steps.run(pending)
+            trace[k0:k1].copy_(steps.out[: k1 - k0])
+            if k1 < n_steps:
+                # the next chunk's draws are made while the card runs this one
+                pending = chunk_draws(k1, min(k1 + chunk, n_steps))
+        return steps.x, trace
 
 
 def hmc_sample_chain(
     target, eps: float, T: int, x0: torch.Tensor, n_steps: int,
-    generator: torch.Generator,
+    generator: torch.Generator, *, capture: Optional[bool] = None,
 ):
     """Plain-HMC baseline chain (reference utils/notebook_utils.py:25-39)."""
     dyn = Dynamics(dim=x0.shape[1], energy=target.energy,
                    grad_energy=target.grad_energy, T=T, hmc=True)
     params = dyn.init_params(generator, eps=eps, device=x0.device)
-    return sample_chain(dyn, params, x0, n_steps, generator)
+    return sample_chain(dyn, params, x0, n_steps, generator, capture=capture)
 
 
 def evaluate_ess(trace: torch.Tensor, cov: np.ndarray, max_lag: int | None = None) -> float:

@@ -2,13 +2,14 @@
 ``requires_cuda``; they skip where there is no CUDA device (run them with
 ``pytest -m requires_cuda`` on a machine with an H100 and nvcc)."""
 
+import numpy as np
 import pytest
 import torch
 
 from l2hmc_tpu_torch import targets
 from l2hmc_tpu_torch.ops import fused_dynamics as fd
 from l2hmc_tpu_torch.ops import fused_vae as fv
-from l2hmc_tpu_torch.train import ScgConfig, build_dynamics
+from l2hmc_tpu_torch.train import ScgConfig, build_dynamics, hmc_sample_chain, sample_chain, train
 from l2hmc_tpu_torch.train.optim import tree_leaves
 
 pytestmark = pytest.mark.requires_cuda
@@ -567,3 +568,59 @@ def test_vae_traj_sizes_match_the_host_reckoning(cuda, dims):
     if dims == _WIDTHS[0]:
         assert bwd["act"] == 13 * 704560 and n_grads == 182950
     assert fv.max_clusters(dims, False) > 0 and fv.max_clusters(dims, True) > 0
+
+
+# -- captured steps against eager on the card ------------------------------------
+
+# the reference architecture plain and fused, and bench's best recipe (plain)
+CAPTURE_CASES = {
+    "reference_plain": dict(),
+    "reference_fused": dict(fused_train=True),
+    "best_recipe": dict(eps_mat=True, whiten_full=True, per_dim_loss=True,
+                        z_burn_in_loss=False, autocorr_penalty=200.0),
+}
+
+
+@pytest.mark.parametrize("case", list(CAPTURE_CASES))
+def test_captured_training_equals_eager(cuda, case):
+    """20 training steps at 1024 chains from one seed, eager (the generator
+    drawing inside each step) and captured (one step replayed as a CUDA
+    graph, in two chunks, on draws made ahead): losses, metrics, params,
+    Adam state, chains and step bit for bit, and the same kernel launches."""
+    cfg = ScgConfig(n_chains=1024, n_steps=20, **CAPTURE_CASES[case])
+    runs = {}
+    for capture in (False, True):
+        fd.reset_launch_counts()
+        state, hist = train(cfg, device=cuda, capture=capture, log_every=10 if capture else 0)
+        runs[capture] = (state, hist, dict(fd.LAUNCHES))
+    (se, he, le), (sc, hc, lc) = runs[False], runs[True]
+    for k in he:
+        np.testing.assert_array_equal(hc[k], he[k], err_msg=k)
+    for a, b in zip([*tree_leaves(sc.params), *sc.opt_state, sc.x, sc.step],
+                    [*tree_leaves(se.params), *se.opt_state, se.x, se.step]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert lc == le
+    if cfg.fused_train:
+        assert lc["trajectory"] == lc["trajectory_bwd"] == 4 * 20
+
+
+@pytest.mark.parametrize("hmc", [False, True], ids=["l2hmc", "hmc"])
+def test_captured_sample_chain_equals_eager(cuda, hmc):
+    """50 MH steps of the plain sampler at 1024 chains, eager and captured
+    (one MH step replayed, the draws made ahead in the eager order): the
+    traces and final states bit for bit."""
+    dyn, tgt = build_dynamics(ScgConfig(n_chains=1024))
+    params = dyn.init_params(torch.Generator().manual_seed(0), device=cuda)
+    for net in ("xnet", "vnet"):
+        params[net] = _add(params[net], 0.03)
+    x0 = tgt.sample(torch.Generator().manual_seed(1), 1024, device=cuda)
+    runs = []
+    for capture in (False, True):
+        gen = torch.Generator().manual_seed(2)
+        if hmc:
+            runs.append(hmc_sample_chain(tgt, 0.15, 10, x0, 50, gen, capture=capture))
+        else:
+            runs.append(sample_chain(dyn, params, x0, 50, gen, capture=capture))
+    for a, b in zip(*runs):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -139,11 +139,11 @@ def test_hmc_reduction_is_plain_leapfrog():
 
 def test_unported_knobs_raise():
     tgt = targets.scg_gaussian()
-    for kw in (dict(eps_step=True), dict(eps_mat=True), dict(use_temperature=True),
+    for kw in (dict(eps_step=True), dict(use_temperature=True),
                dict(net_input_fn=lambda net, xs: xs)):
         with pytest.raises(NotImplementedError):
             dynamics.Dynamics(dim=2, energy=tgt.energy, T=2, hmc=True, **kw)
-    for kw in (dict(eps_mat=True), dict(net_type="conv"), dict(compute_dtype="bfloat16")):
+    for kw in (dict(net_type="conv"), dict(compute_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             ScgConfig(**kw)
 
@@ -157,3 +157,168 @@ def test_default_device_is_cuda(monkeypatch):
         td.init_params(torch.Generator(), eps=0.1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tgt.sample(torch.Generator(), 4)
+
+
+# -- eps_mat: the dense drift preconditioner ------------------------------------
+
+# (hmc, W init: a scalar eps or the scale of chol(Sigma)). In HMC mode
+# 0.5 chol(Sigma) is whitened leapfrog at step 0.5. The learned mode at
+# 0.5 chol(Sigma) ("chol_half") is ill-conditioned in float32 and is held by
+# its own test below; the other cases are held at 1e-5.
+EPS_MAT_CASES = {
+    "scalar": (False, None),
+    "chol": (False, 0.1),
+    "chol_half": (False, 0.5),
+    "hmc_scalar": (True, None),
+    "hmc_chol": (True, 0.5),
+}
+WELL_CONDITIONED = [c for c in EPS_MAT_CASES if c != "chol_half"]
+
+
+def _eps_mat_pair(hmc, chol_scale):
+    """(jax dyn, jax params, port dyn, port params, eps) with eps_mat, W
+    from a scalar eps (0.1 I) or from ``chol_scale`` chol(Sigma); the nets
+    lifted as in ``_pair``."""
+    kw = dict(n_chains=N, T=4, eps_mat=True, hmc=hmc)
+    jt, tt = jtargets.scg_gaussian(), targets.scg_gaussian()
+    jd, _ = jax_build_dynamics(JaxScgConfig(**kw), jt)
+    td, _ = build_dynamics(ScgConfig(**kw), tt)
+    eps = 0.1 if chol_scale is None else (chol_scale * np.linalg.cholesky(jt.sigma)).astype(
+        np.float32)
+    jp = jd.init_params(jax.random.key(0), eps=eps)
+    if not hmc:
+        for net in ("xnet", "vnet"):
+            jp[net] = jax.tree_util.tree_map(lambda a: a + 0.03, jp[net])
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    return jd, jp, td, tp, eps
+
+
+def _target_state(seed=1):
+    """(x, v): x drawn from the SCG target, so a chol(Sigma)-shaped W takes
+    steps of its designed size, and v ~ N(0, I)."""
+    x, v = _state(seed=seed)
+    chol = np.linalg.cholesky(jtargets.scg_gaussian().sigma)
+    return (x / 3.0 @ chol.T).astype(np.float32), v
+
+
+@pytest.mark.parametrize("case", WELL_CONDITIONED)
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_eps_mat_trajectory_matches_jax(case, direction):
+    """Trajectories and logdets of an eps_mat Dynamics against the JAX
+    package's on converted params, at 1e-5."""
+    jd, jp, td, tp, _ = _eps_mat_pair(*EPS_MAT_CASES[case])
+    x, v = _target_state()
+    Xr, Vr, ldr = getattr(jd, direction)(jp, jnp.asarray(x), jnp.asarray(v))
+    Xt, Vt, ldt = getattr(td, direction)(tp, torch.tensor(x), torch.tensor(v))
+    np.testing.assert_allclose(Xt.numpy(), np.asarray(Xr), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(Vt.numpy(), np.asarray(Vr), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ldt.numpy(), np.asarray(ldr), rtol=1e-5, atol=1e-5)
+    if td.hmc:
+        assert torch.all(ldt == 0.0)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_eps_mat_chol_half_learned_matches_jax(direction, monkeypatch):
+    """The learned mode at W = 0.5 chol(Sigma), the best recipe's init, with
+    the lifted nets: its exp-gates run at eps = exp(mean log|diag W|) = 0.89
+    and W's columns (norms ~5) carry the nets' O(1) translations, so a
+    forward trajectory grows to |x| ~ 2e3 within its 4 substeps, and float32
+    rounding alone moves each package's result by more than 1e-5 (asserted
+    below for the port, against its own float64 run). So both packages run
+    in float64 here and must agree to 1e-9. The JAX package's nets ask for a
+    float32 result (``preferred_element_type``) whatever the input dtype:
+    for this test its ``jnp.dot`` drops that request, and nothing else in
+    it changes."""
+    jd, jp, td, tp, _ = _eps_mat_pair(*EPS_MAT_CASES["chol_half"])
+    x, v = _target_state()
+    X32, V32, _ = getattr(td, direction)(tp, torch.tensor(x), torch.tensor(v))
+    dot = jnp.dot
+    monkeypatch.setattr(jnp, "dot", lambda a, b, preferred_element_type=None, **kw:
+                        dot(a, b, **kw))
+    jp64 = jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a), jnp.float64), jp)
+    tp64 = jax.tree_util.tree_map(torch.Tensor.double, tp)
+    Xr, Vr, ldr = getattr(jd, direction)(jp64, jnp.asarray(x, jnp.float64),
+                                         jnp.asarray(v, jnp.float64))
+    Xt, Vt, ldt = getattr(td, direction)(tp64, torch.tensor(x).double(),
+                                         torch.tensor(v).double())
+    assert Xr.dtype == Vr.dtype == ldr.dtype == jnp.float64
+    for got, want in ((Xt, Xr), (Vt, Vr), (ldt, ldr)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9, atol=1e-9)
+    f32_err = max(float((X32.double() - Xt).abs().max()), float((V32.double() - Vt).abs().max()))
+    assert f32_err > 1e-5
+
+
+@pytest.mark.parametrize("case", list(EPS_MAT_CASES))
+def test_eps_mat_init_inverse_and_logdet(case):
+    """The port's own init gives JAX's W and alpha (W = eps I and log eps,
+    or W = eps and mean log|diag W|); backward inverts forward with the
+    logdets cancelling; and in float64 the logdet equals log|det J| of the
+    (x, v) map, W being constant in the updated variable."""
+    jd, jp, td, tp, eps = _eps_mat_pair(*EPS_MAT_CASES[case])
+    own = td.init_params(torch.Generator().manual_seed(0), eps=eps, device="cpu")
+    np.testing.assert_allclose(own["w"].numpy(), np.asarray(jp["w"]), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(float(own["alpha"]), float(jp["alpha"]), rtol=1e-6)
+    # chol_half's float32 trajectories are ill-conditioned (see above): its
+    # round trip is held in float64
+    dtype = torch.float64 if case == "chol_half" else torch.float32
+    tp_rt = jax.tree_util.tree_map(lambda t: t.to(dtype), tp)
+    x, v = (torch.tensor(a, dtype=dtype) for a in _target_state())
+    X, V, ld = td.forward(tp_rt, x, v)
+    x2, v2, ld_b = td.backward(tp_rt, X, V)
+    torch.testing.assert_close(x2, x, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(v2, v, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ld + ld_b, torch.zeros_like(ld), rtol=0, atol=1e-5)
+    tp64 = jax.tree_util.tree_map(torch.Tensor.double, tp)
+    xs, vs = _target_state()
+    for i in range(3):
+        z0 = torch.tensor(np.concatenate([xs[i], vs[i]]), dtype=torch.float64)
+
+        def f(z):
+            Xz, Vz, _ = td.forward(tp64, z[None, :2], z[None, 2:])
+            return torch.cat([Xz[0], Vz[0]])
+
+        sign, logabs = torch.linalg.slogdet(torch.autograd.functional.jacobian(f, z0))
+        assert sign != 0
+        ld0 = td.forward(tp64, z0[None, :2], z0[None, 2:])[2]
+        np.testing.assert_allclose(float(ld0[0]), float(logabs), rtol=0, atol=1e-8)
+
+
+def test_eps_mat_hmc_is_preconditioned_leapfrog():
+    """HMC mode with eps_mat is v -= grad W / 2; x += v W^T; v -= grad W / 2."""
+    tgt = targets.scg_gaussian()
+    dyn = dynamics.Dynamics(dim=2, energy=tgt.energy, grad_energy=tgt.grad_energy, T=6,
+                            hmc=True, eps_mat=True)
+    params = dyn.init_params(torch.Generator(), eps=0.1, device="cpu")
+    w = torch.tensor([[0.12, 0.05], [-0.04, 0.09]])
+    params["w"] = w
+    x, v = map(torch.tensor, _state())
+    X, V, ld = dyn.forward(params, x, v)
+    xr, vr = x.clone(), v.clone()
+    for _ in range(6):
+        vr = vr - 0.5 * tgt.grad_energy(xr) @ w
+        xr = xr + vr @ w.T
+        vr = vr - 0.5 * tgt.grad_energy(xr) @ w
+    torch.testing.assert_close(X, xr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(V, vr, rtol=1e-5, atol=1e-5)
+    assert torch.all(ld == 0.0)
+
+
+def test_eps_mat_checks():
+    """A zero diagonal is refused with the JAX package's message; eps_mat
+    excludes eps_dim; params without "w" are refused; a frozen eps detaches
+    W as it detaches alpha."""
+    tgt = targets.scg_gaussian()
+    dyn = dynamics.Dynamics(dim=2, energy=tgt.energy, T=3, hmc=True, eps_mat=True)
+    with pytest.raises(ValueError, match=r"nonzero diagonal.*indices \[1\]"):
+        dyn.init_params(torch.Generator(), eps=np.array([[0.1, 0.0], [0.3, 0.0]]), device="cpu")
+    with pytest.raises(ValueError, match="scalar or \\(dim, dim\\)"):
+        dyn.init_params(torch.Generator(), eps=np.ones(2, np.float32), device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        dynamics.Dynamics(dim=2, energy=tgt.energy, T=3, hmc=True, eps_mat=True, eps_dim=True)
+    with pytest.raises(ValueError, match='missing "w"'):
+        dyn.w({"alpha": torch.tensor(0.0)})
+    frozen = dynamics.Dynamics(dim=2, energy=tgt.energy, T=3, hmc=True, eps_mat=True,
+                               eps_trainable=False)
+    p = frozen.init_params(torch.Generator(), eps=0.1, device="cpu")
+    p["w"].requires_grad_(True)
+    assert not frozen.w(p).requires_grad and dyn.w(p).requires_grad

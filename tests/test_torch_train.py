@@ -2,6 +2,10 @@
 against optax, one train step on injected draws against the JAX loss
 composed from its parts, and the training loop's own contracts."""
 
+import gc
+import weakref
+from dataclasses import replace as dataclasses_replace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,19 +20,24 @@ from l2hmc_tpu.train import build_dynamics as jax_build_dynamics
 from l2hmc_tpu.train import make_optimizer as jax_make_optimizer
 from l2hmc_tpu_torch import targets
 from l2hmc_tpu_torch.convert import params_from_jax
-from l2hmc_tpu_torch.ops import differentiable_fused
+from l2hmc_tpu_torch.ops import differentiable_fused, fused_chain_sampler, fused_for_target
 from l2hmc_tpu_torch.train import (
     ScgConfig,
     StepDraws,
     TrainState,
     build_dynamics,
+    draw_step,
     exponential_decay,
+    init_state,
     make_optimizer,
     make_train_step,
     run_experiment,
+    sample_chain,
     temperature_at,
     train,
 )
+from l2hmc_tpu_torch.mcmc import propose_draws
+from l2hmc_tpu_torch.train import scg
 from l2hmc_tpu_torch.train.optim import OPTIMIZERS, piecewise_constant_schedule, tree_leaves
 
 
@@ -196,6 +205,14 @@ STEP_CASES = {
     "hmc": dict(hmc=True, eps_dim=True),
     "frozen_eps": dict(eps_trainable=False),
     "fused": dict(fused_train=True),
+    # bench's best recipe, and eps_mat under the step-size knobs: W frozen
+    # before eps_unfreeze_step, scaled by alpha_lr_scale after it
+    "best_recipe": dict(eps_mat=True, whiten_full=True, per_dim_loss=True,
+                        z_burn_in_loss=False, autocorr_penalty=200.0),
+    "eps_mat_frozen": dict(eps_mat=True, eps_chol_init=0.1, alpha_reg=0.2,
+                           alpha_lr_scale=0.5, eps_unfreeze_step=5),
+    "eps_mat_unfrozen": dict(eps_mat=True, eps_chol_init=0.1, alpha_lr_scale=0.5,
+                             eps_unfreeze_step=5, at_step=5),
 }
 
 
@@ -214,10 +231,10 @@ def _jax_propose(jd, jp, x, v, u_dir, u_acc):
     return xp, px, x_next
 
 
-def _jax_step(cfg, jd, sigma, jp, x, d, alpha0):
+def _jax_step(cfg, jd, sigma, jp, x, d, alpha0, step=0):
     """The JAX train step (train/scg.py make_train_step, PT off, temperature
-    1) with ``mcmc.propose`` composed from forward/backward/p_accept on the
-    given draws, and the optax update."""
+    1) at step ``step`` with ``mcmc.propose`` composed from
+    forward/backward/p_accept on the given draws, and the optax update."""
     sig = wmat = None
     if cfg.whiten_full:
         wmat = jnp.asarray(np.linalg.inv(np.linalg.cholesky(sigma)), jnp.float32)
@@ -263,10 +280,11 @@ def _jax_step(cfg, jd, sigma, jp, x, d, alpha0):
     opt, _ = jax_make_optimizer(cfg)
     updates, ostate = opt.update(grads, opt.init(jp), jp)
     if cfg.alpha_lr_scale != 1.0 or cfg.eps_unfreeze_step > 0:
-        ua = updates["alpha"] * cfg.alpha_lr_scale
-        if cfg.eps_unfreeze_step > 0:
-            ua = jnp.zeros_like(ua)  # step 0 < eps_unfreeze_step
-        updates = {**updates, "alpha": ua}
+        for leaf in ["alpha"] + (["w"] if "w" in updates else []):
+            u = updates[leaf] * cfg.alpha_lr_scale
+            if step < cfg.eps_unfreeze_step:
+                u = jnp.zeros_like(u)
+            updates = {**updates, leaf: u}
     return loss, grads, optax.apply_updates(jp, updates), x_next, _adam_state(ostate)
 
 
@@ -281,6 +299,7 @@ def test_train_step_matches_jax_on_same_draws(case):
     largest entry (one Adam step moves each such entry by lr times the sign
     of its gradient) and to 2 lr elsewhere."""
     kw = dict(n_chains=N, T=3, seed=0, **STEP_CASES[case])
+    at_step = kw.pop("at_step", 0)
     jax_kw = {k: v for k, v in kw.items() if k != "fused_train"}
     tgt_kw = {}
     if kw.get("whiten_loss") or kw.get("whiten_full"):
@@ -294,6 +313,8 @@ def test_train_step_matches_jax_on_same_draws(case):
     jd, _ = jax_build_dynamics(jcfg, jt)
     td, _ = build_dynamics(cfg, tt)
     eps = np.linspace(0.08, 0.12, dim).astype(np.float32) if cfg.eps_dim else 0.1
+    if cfg.eps_chol_init:
+        eps = (cfg.eps_chol_init * np.linalg.cholesky(jt.sigma)).astype(np.float32)
     jp = jd.init_params(jax.random.key(0), eps=eps)
     if not cfg.hmc:
         for net in ("xnet", "vnet"):
@@ -308,7 +329,7 @@ def test_train_step_matches_jax_on_same_draws(case):
         jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), jp)
         jloss, jgrads, jnew, jx_next, jadam = _jax_step(
             jcfg, jd, jt.sigma, jp, jnp.asarray(x), {k: jnp.asarray(v) for k, v in d.items()},
-            alpha0)
+            alpha0, at_step)
 
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     opt, _ = make_optimizer(cfg)
@@ -319,7 +340,8 @@ def test_train_step_matches_jax_on_same_draws(case):
     elif cfg.whiten_loss:
         sigmas = np.sqrt(np.diag(tt.sigma))
     step = make_train_step(cfg, step_dyn, opt, sigmas, alpha0=alpha0)
-    state = TrainState(tp, opt.init(tp), torch.tensor(x), torch.Generator(), 0)
+    step0 = torch.tensor(at_step, dtype=torch.int32) if at_step else 0
+    state = TrainState(tp, opt.init(tp), torch.tensor(x), torch.Generator(), step0)
     draws = StepDraws(**{k: torch.tensor(v) for k, v in d.items()})
     new, metrics = step(state, draws)
 
@@ -341,9 +363,11 @@ def test_train_step_matches_jax_on_same_draws(case):
         np.testing.assert_allclose(got, ref, rtol=0, atol=2 * cfg.learning_rate)
         if not strong.any():
             np.testing.assert_array_equal(got, t0.numpy().reshape(-1))
-    assert new.step == 1 and int(new.opt_state.count) == 1
-    if cfg.eps_unfreeze_step or not cfg.eps_trainable:
-        torch.testing.assert_close(new.params["alpha"], tp["alpha"], rtol=0, atol=0)
+    assert new.step == at_step + 1 and int(new.opt_state.count) == 1
+    step_leaves = ["alpha"] + (["w"] if cfg.eps_mat else [])
+    for leaf in step_leaves:
+        frozen = at_step < cfg.eps_unfreeze_step or not cfg.eps_trainable
+        assert torch.equal(new.params[leaf], tp[leaf]) == frozen, leaf
 
 
 # -- the training loop ---------------------------------------------------------------
@@ -405,9 +429,125 @@ def test_eps_sigma_init_and_unported_knobs():
         torch.exp(state.params["alpha"]).numpy(), 0.1 * np.sqrt(np.diag(tgt.sigma)), rtol=1e-6)
     assert temperature_at(cfg, 0) == 1.0
     ScgConfig(fused_train=True)  # ported now
-    for knob in (dict(init_temperature=2.0), dict(pt_train_rungs=2), dict(eps_mat=True)):
+    for knob in (dict(init_temperature=2.0), dict(pt_train_rungs=2)):
         with pytest.raises(NotImplementedError):
             ScgConfig(**knob)
     if not torch.cuda.is_available():  # entry points run on cuda unless told otherwise
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train(ScgConfig(n_steps=1))
+
+
+# -- eps_mat in training, and the route the captured step takes ---------------------
+
+
+def test_eps_chol_init_and_fused_refusal():
+    """eps_chol_init puts W = scale chol(Sigma) and alpha = mean log|diag W|
+    (the frozen eps keeps them), and needs eps_mat; the fused paths refuse
+    eps_mat with the JAX package's message."""
+    cfg = ScgConfig(n_chains=16, T=2, n_steps=2, eps_mat=True, eps_chol_init=0.1,
+                    eps_trainable=False, alpha_reg=0.5)
+    state, hist = train(cfg, device="cpu")
+    chol = np.linalg.cholesky(targets.scg_gaussian().sigma).astype(np.float32)
+    np.testing.assert_allclose(state.params["w"].numpy(), 0.1 * chol, rtol=1e-6)
+    np.testing.assert_allclose(float(state.params["alpha"]),
+                               np.mean(np.log(np.abs(np.diag(0.1 * chol)))), rtol=1e-6)
+    assert np.isfinite(hist["loss"]).all()
+    with pytest.raises(ValueError, match="eps_chol_init requires eps_mat"):
+        train(ScgConfig(n_steps=1, eps_chol_init=0.1), device="cpu")
+    dyn, tgt = build_dynamics(ScgConfig(eps_mat=True))
+    for fused in (fused_for_target, differentiable_fused, fused_chain_sampler):
+        with pytest.raises(ValueError, match="do not support eps_mat"):
+            fused(dyn, tgt)
+    with pytest.raises(ValueError, match="do not support eps_mat"):
+        train(ScgConfig(n_steps=1, eps_mat=True, fused_train=True), device="cpu")
+
+
+ROUTE_CASES = {
+    "reference": dict(),
+    "fused": dict(fused_train=True),
+    "best_recipe": STEP_CASES["best_recipe"],
+    "hmc_knobs": dict(hmc=True, eps_mat=True, eps_unfreeze_step=3, alpha_lr_scale=0.5),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_draw_step_route_equals_generator_route(case):
+    """What the captured step relies on: 5 steps fed ``draw_step``'s
+    numbers equal the generator-driven eager steps bit for bit, both as a
+    loop over ``make_train_step`` and as ``train``'s captured route (its
+    step body run eagerly on the CPU, in chunks of 2), generator included."""
+    cfg = ScgConfig(n_chains=32, T=3, n_steps=5, **ROUTE_CASES[case])
+    ref, href = train(cfg, device="cpu", capture=False)
+    got, hgot = train(cfg, device="cpu", capture=True, log_every=2)
+    dyn, tgt = build_dynamics(cfg)
+    opt, _ = make_optimizer(cfg)
+    sigmas = (np.linalg.inv(np.linalg.cholesky(tgt.sigma)).astype(np.float32)
+              if cfg.whiten_full else None)
+    step = make_train_step(cfg, differentiable_fused(dyn, tgt) if cfg.fused_train else dyn, opt,
+                           sigmas)
+    state, h1 = train(dataclasses_replace(cfg, n_steps=1), device="cpu", capture=False)
+    losses = [float(h1["loss"][0])]
+    for _ in range(4):
+        state, m = step(state, draw_step(state.generator, 32, 2, hmc=cfg.hmc,
+                                         z_burn_in=cfg.z_burn_in_loss))
+        losses.append(float(m["loss"]))
+    np.testing.assert_array_equal(np.asarray(losses, np.float32), href["loss"])
+    for k in href:
+        np.testing.assert_array_equal(hgot[k], href[k], err_msg=k)
+    for other in (got, state):
+        for a, b in zip([*tree_leaves(other.params), *other.opt_state, other.x],
+                        [*tree_leaves(ref.params), *ref.opt_state, ref.x]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert int(other.step) == 5
+        assert torch.equal(other.generator.get_state(), ref.generator.get_state())
+
+
+@pytest.mark.parametrize("collect", [True, False], ids=["trace", "p_accept"])
+@pytest.mark.parametrize("hmc", [False, True], ids=["l2hmc", "hmc"])
+def test_sample_chain_routes_agree(hmc, collect):
+    """``sample_chain``'s captured route (its MH step body run eagerly on
+    the CPU, draws made ahead in chunks) equals the eager route bit for bit,
+    from a generator and from given draws."""
+    dyn, tgt = build_dynamics(ScgConfig(T=3, hmc=hmc, eps_mat=True))
+    params = dyn.init_params(torch.Generator().manual_seed(0), device="cpu")
+    x0 = tgt.sample(torch.Generator().manual_seed(1), 16, device="cpu")
+    runs = [sample_chain(dyn, params, x0, 7, torch.Generator().manual_seed(2), collect=collect,
+                         capture=c) for c in (False, True)]
+    g = torch.Generator().manual_seed(3)
+    draws = (torch.randn((7, 16, 2), generator=g), torch.rand((7, 16), generator=g),
+             torch.rand((7, 16), generator=g))
+    runs += [sample_chain(dyn, params, x0, 7, None, collect=collect, draws=draws, capture=c)
+             for c in (False, True)]
+    for a, b in zip(runs[0], runs[1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(runs[2], runs[3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_replayed_steps_are_freed_by_reference_counts():
+    """The captured routes' step objects (training and sampling) hold no
+    reference cycle: with the cyclic collector off they are freed as soon as
+    the last reference goes, so on the card a route's CUDA graph is
+    destroyed when its call returns, never by the collector while a later
+    call records its own graph."""
+    cfg = ScgConfig(n_chains=16, T=3, n_steps=2)
+    dyn, tgt = build_dynamics(cfg)
+    opt, _ = make_optimizer(cfg)
+    state = init_state(cfg, dyn, opt, device="cpu")
+    x0 = tgt.sample(torch.Generator().manual_seed(1), 16, device="cpu")
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        train_steps = scg._TrainSteps(make_train_step(cfg, dyn, opt), state, 2, dyn.hmc,
+                                      cfg.z_burn_in_loss)
+        train_steps.run(train_steps.draw(torch.Generator().manual_seed(2), 2))
+        sample_steps = scg._SampleSteps(dyn, state.params, x0, 2, True)
+        sample_steps.run(scg._pack_rows(
+            [propose_draws(torch.Generator().manual_seed(3), 16, 2, hmc=False, accept=True)
+             for _ in range(2)], "cpu"))
+        refs = [weakref.ref(train_steps), weakref.ref(sample_steps)]
+        del train_steps, sample_steps
+        assert [r() for r in refs] == [None, None]
+    finally:
+        if enabled:
+            gc.enable()
