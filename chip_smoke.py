@@ -84,7 +84,30 @@ then:
      1000 training steps per arm, with the full 2000-step eval and the
      throughputs at 8192 chains: its parity gate (5e-4) and fused-trace ESS
      gap (0.30) held, both arms' ESS ratios above 1.2, its JSON printed as a
-     ``# bench:`` line. Launch counts are reset before and read after it.
+     ``# bench:`` line. Launch counts are reset before and read after it;
+ 10. the distribution suite (``apps.suite``) on its energy specs (rough
+     well, GMM, funnel): (a) the trajectory and backward kernels vs their
+     plain versions on each spec, both directions (the easy rough well at
+     2048 and 203 chains, the ring at 1024 on the SCG lane configuration,
+     the funnel with chains past its clip, mog2 in HMC mode; 5e-4, and 1e-4
+     of each leaf's largest entry); (b) the chain kernel vs its plain
+     version on the same Philox bits, the same cases at their suite rows'
+     chain counts, 20 MH steps, twice bit for bit (phase 3's limits); (c)
+     the suite path: ``run_target`` on the rough well (its recipe: 2048
+     chains, T=5, hidden 20, hard mode),
+     the ring at 2048 chains and the funnel, cut to 250 training steps and
+     one training seed, with the 2000-step eval, the fused cross-check
+     (its ESS within 0.30 of the plain eval's) and the HMC grid through the
+     chain kernel; (d) fused vs plain training on the ring, the easy rough
+     well and the funnel (rtol 2e-3, atol 1e-2): the fused step's loss at
+     each of a plain run's 20 states, and two free runs of 20 steps, held
+     over their first steps (``SUITE_TRAIN``), the ring's beside the same
+     two runs on the CPU through the plain versions. Launch counts are reset
+     before (c) and read after (d), per kernel and spec; (e)
+     captured vs eager, bit for bit: 20 steps of the annealed ring and of
+     the funnel with its net-input features; (f) each spec's three kernels
+     timed at its suite row's shapes, beside their plain versions and
+     bounds.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -94,6 +117,7 @@ check fails. The full report is printed as a ``# report:`` JSON line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -195,39 +219,67 @@ def _stq_ops(D, H, H2):
             + 8 * D)  # exp(ls), exp(lq), 2 tanh, 2 scale products, 2 head sums
 
 
-def _substep_ops(D, H, H2, hmc):
+def spec_ops(kind, D, nc):
+    """(energy, gradient, gradient VJP) operations per chain of the energy
+    spec ``kind`` with ``nc`` constants (``KernelInputs.energy_args``): the
+    least each function needs, a transcendental function 1. The mixture is
+    counted in one pass over its K components with a running maximum and a
+    rescale; the kernel's second pass (it recomputes P_k (x - mu_k) to save
+    registers) is its own choice, and not counted."""
+    if kind == 0:  # Gauss: P (x - mu)
+        return 2 * D * D + 3 * D, 2 * D * D + D, 2 * D * D + D
+    if kind == 1:  # RoughWell: elementwise, one sin or cos an element
+        return 7 * D, 4 * D, 6 * D
+    if kind == 2:  # Gmm
+        K = nc // (D + D * D + 1)
+        comp = 2 * D * D + 3 * D + 2  # x - mu_k, P_k (x - mu_k), its log-weight
+        lse = 7  # the running maximum, two shifts, two exps, the rescaled sum
+        # the gradient rescales and adds one weighted D-vector a component;
+        # the VJP forms P_k^T d, P_k^T (x - mu_k), p_k.d and q_k and rescales
+        # and adds three
+        return (K * (comp + lse) + 2,
+                K * (comp + lse + 3 * D) + D,
+                K * (comp + lse + 4 * D * D + 15 * D) + 8 * D)
+    if kind == 3:  # Funnel: the neck's sum of squares, one clip and exp
+        return 2 * D + 9, 3 * D + 8, 9 * D + 10
+    raise ValueError(f"unknown energy spec kind {kind}")
+
+
+def _ops_of(inp):
+    kind, nc = inp.energy_args
+    return spec_ops(kind, inp.dims[0], nc)
+
+
+def _substep_ops(D, H, H2, hmc, ops):
     nets = 0 if hmc else 4 * _stq_ops(D, H, H2)
-    grads = 2 * (2 * D * D + D)
+    grads = 2 * ops[1]
     updates = 4 * 12 * D  # four masked updates with their exp gates and logdet
     return nets + grads + updates
 
 
-def _energy_ops(D):
-    return 2 * D * D + 3 * D
-
-
-def traj_bound(D, H, H2, T, N, hmc, block_floats):
-    ops = N * T * _substep_ops(D, H, H2, hmc)
+def traj_bound(D, H, H2, T, N, hmc, block_floats, ops):
+    work = N * T * _substep_ops(D, H, H2, hmc, ops)
     nbytes = 4 * (2 * D * N + 2 * D * N + N + block_floats)
-    return _bound(ops, nbytes)
+    return _bound(work, nbytes)
 
 
-def traj_bwd_bound(D, H, H2, T, N, hmc, block_floats, n_grads):
+def traj_bwd_bound(D, H, H2, T, N, hmc, block_floats, n_grads, ops):
     """The VJP of a trajectory: about three forward trajectories of
     operations (forward, and backward through each matrix product twice),
-    plus the sum of n_grads cotangents over the N chains."""
-    ops = 3 * N * T * _substep_ops(D, H, H2, hmc) + n_grads * N
+    two gradient VJPs a substep, plus the sum of n_grads cotangents over
+    the N chains."""
+    work = N * T * (3 * _substep_ops(D, H, H2, hmc, ops) + 2 * ops[2]) + n_grads * N
     nbytes = 4 * (4 * D * N + N + block_floats + 2 * D * N + n_grads)
-    return _bound(ops, nbytes)
+    return _bound(work, nbytes)
 
 
-def chain_bound(D, H, H2, T, N, K, hmc, block_floats, trace: bool):
+def chain_bound(D, H, H2, T, N, K, hmc, block_floats, trace: bool, ops):
     philox = (1 + (D + 1) // 2) * 10 * 8  # calls x rounds x integer ops
-    per_step = (T * _substep_ops(D, H, H2, hmc) + 2 * _energy_ops(D) + 4 * D
+    per_step = (T * _substep_ops(D, H, H2, hmc, ops) + 2 * ops[0] + 4 * D
                 + philox + 6 * D + 8)
-    ops = N * K * per_step
+    work = N * K * per_step
     nbytes = 4 * (D * N + D * N + N + block_floats + (K * D * N if trace else 0))
-    return _bound(ops, nbytes)
+    return _bound(work, nbytes)
 
 
 def _decoder_grad_ops(D, E, P):
@@ -327,8 +379,9 @@ def _bwd_launch_ms(fd, cuda_lib, inp, x, v, dX, dV, dld, reps):
 
     def launch():
         cuda_lib.check(lib.l2hmc_trajectory_bwd(
-            block.data_ptr(), D, H, H2, T, 0, int(inp.hmc), x.data_ptr(), v.data_ptr(),
-            dX.data_ptr(), dV.data_ptr(), dld.data_ptr(), dx.data_ptr(), dv.data_ptr(),
+            block.data_ptr(), D, H, H2, T, *inp.energy_args, 0, int(inp.hmc), x.data_ptr(),
+            v.data_ptr(), dX.data_ptr(), dV.data_ptr(), dld.data_ptr(), dx.data_ptr(),
+            dv.data_ptr(),
             grads.data_ptr(), scratch.data_ptr(), N, stream), "trajectory_bwd")
 
     return _cuda_time(launch, reps)
@@ -350,8 +403,8 @@ def _traj_launch_ms(fd, cuda_lib, inp, x, v, reps):
 
     def launch():
         cuda_lib.check(lib.l2hmc_trajectory(
-            block.data_ptr(), D, H, H2, T, 0, int(inp.hmc), x.data_ptr(), v.data_ptr(),
-            xo.data_ptr(), vo.data_ptr(), ld.data_ptr(), N, stream), "trajectory")
+            block.data_ptr(), D, H, H2, T, *inp.energy_args, 0, int(inp.hmc), x.data_ptr(),
+            v.data_ptr(), xo.data_ptr(), vo.data_ptr(), ld.data_ptr(), N, stream), "trajectory")
 
     return _cuda_time(launch, reps)
 
@@ -1021,6 +1074,330 @@ def vae_train_phases(dev, report, logdir):
     ]
 
 
+# -- 10. the distribution suite ---------------------------------------------------
+
+# The kernels' parity cases are ``apps.suite.PARITY_CASES``; (a) runs each at
+# these chain counts, (b) at its suite row's.
+SUITE_TRAJ_CHAINS = {"rough_well_easy": (2048, 203), "ring": (1024,), "funnel": (1024,),
+                     "mog2_hmc": (1024,)}
+SPEC_OF_CASE = {"rough_well_easy": "rough_well", "ring": "gmm", "funnel": "funnel",
+                "mog2_hmc": "gmm"}
+# The suite path cut in depth: 250 training steps and one training seed a
+# row (the recipes: 5000 and up to 4); the 2000-step eval, the HMC grid's
+# eight step sizes (through the chain kernel) and the widths and chain
+# counts as the recipes have them.
+SUITE_CUT = dict(n_steps=250, n_train_seeds=1, fused_hmc=True)
+SUITE_ROWS = (("rough_well", {}), ("ring", dict(n_chains=2048)), ("funnel", {}))
+# Fused against plain training on the suite's targets (no annealing, no
+# net-input features: the fused path takes neither), 20 steps at 1024 chains,
+# at phase 5b's bar, twice: the fused step's loss at each of the plain run's
+# 20 states on the same draws, all 20 steps; and the two free runs of
+# ``train``, the ring's over its first ``suite.RING_FREE_STEPS`` (they part
+# later by the recipe's own dynamics, as two plain routes on the CPU do,
+# which 10d runs beside them), the others' over all 20. (parity case, the
+# config's changes): the ring at its recipe's eps.
+SUITE_TRAIN = (("ring", dict(eps=0.2)), ("rough_well_easy", {}), ("funnel", {}))
+# the times of each spec's kernels at its suite row's shapes: spec -> the
+# parity case giving target, widths and chains
+SUITE_TIMES = {"rough_well": "rough_well_easy", "gmm": "ring", "funnel": "funnel"}
+
+
+def _spec_vjp_compare(fd, inp, x, v, dX, dV, dld, reverse):
+    """Kernel against plain VJP, per leaf of the leaf's largest entry, with
+    the ReLU rule of phase 7b: at most one chain whose dx, dv differ by more
+    than BWD_TOL may be set aside, if its plain trajectory has a hidden
+    pre-activation within 1e-5 of its layer's largest (``relu_margins``)."""
+    import torch
+    from l2hmc_tpu_torch.train.optim import tree_leaves
+
+    def both(keep=None):
+        args = (dX, dV, dld) if keep is None else (dX * keep, dV * keep, dld * keep)
+        return (tree_leaves(fd.trajectory_vjp(inp, x, v, *args, reverse)),
+                tree_leaves(fd.trajectory_vjp_plain(inp, x, v, *args, reverse)))
+
+    got, ref = both()
+    n = x.shape[1]
+    flipped = torch.zeros(n, dtype=torch.bool, device=x.device)
+    for a, b in zip(got[-2:], ref[-2:]):
+        flipped |= (a - b).abs().amax(dim=0) > BWD_TOL * b.abs().max()
+    set_aside = int(flipped.sum())
+    _require(set_aside <= 1, f"VJP: {set_aside} chains differ")
+    if set_aside:
+        margin = float(fd.relu_margins(inp, x, v, reverse)[flipped].max())
+        _require(margin < 1e-5, f"VJP: a differing chain with relu margin {margin}")
+        got, ref = both((~flipped).float()[None, :])
+    abs_err = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+    scale = [float(b.abs().max()) for b in ref]
+    rel = max(e / s if s > 0 else (0.0 if e == 0 else float("inf"))
+              for e, s in zip(abs_err, scale))
+    return {"max_abs_err": max(abs_err), "max_rel_err": rel, "set_aside": set_aside}
+
+
+def suite_phases(dev, report):
+    """Phase 10: the suite's energy specs through kernels 1-3 against their
+    plain versions, the suite path, fused against plain training, captured
+    against eager for the annealed and the net-input recipes, and the
+    kernels' times at the suite's shapes. Returns the ``kernels`` rows of
+    the three kernels for each of the suite's specs."""
+    import numpy as np
+    import torch
+
+    from l2hmc_tpu_torch import targets
+    from l2hmc_tpu_torch.apps import suite
+    from l2hmc_tpu_torch.ops import _cuda
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+    from l2hmc_tpu_torch.train import (
+        ScgConfig, StepDraws, build_dynamics, draw_step, init_state, make_optimizer,
+        make_train_step, train,
+    )
+    from l2hmc_tpu_torch.train.optim import tree_leaves
+
+    t_all = time.perf_counter()
+
+    # (a) the trajectory and backward kernels against their plain versions
+    t_phase = time.perf_counter()
+    traj, bwd = {}, {}
+    for name, counts in SUITE_TRAJ_CHAINS.items():
+        for n in counts:
+            inp, x = suite.parity_inputs(name, n, dev, seed=20)
+            g = _gen(61)
+            v, dX, dV = (torch.randn(x.shape, generator=g).to(dev) for _ in range(3))
+            dld = torch.randn((1, n), generator=g).to(dev)
+            key = f"{name}_n{n}"
+            traj[key], bwd[key] = {}, {}
+            for reverse in (False, True):
+                way = "backward" if reverse else "forward"
+                k_out = fd.trajectory(inp, x, v, reverse)
+                _require(all(bool(torch.isfinite(t).all()) for t in k_out),
+                         f"suite trajectory {key}: non-finite")
+                traj[key][way] = max(float((a - b).abs().max()) for a, b in
+                                     zip(k_out, fd.trajectory_plain(inp, x, v, reverse)))
+                bwd[key][way] = _spec_vjp_compare(fd, inp, x, v, dX, dV, dld, reverse)
+                _require(traj[key][way] < TRAJ_TOL, f"suite trajectory {key}: {traj[key]}")
+                _require(bwd[key][way]["max_rel_err"] <= BWD_TOL,
+                         f"suite trajectory_bwd {key}: {bwd[key][way]}")
+    report["suite_trajectory_vs_plain"] = traj
+    report["suite_trajectory_bwd_vs_plain"] = bwd
+    print(f"# suite trajectory and backward kernels vs plain ({time.perf_counter() - t_phase:.1f}"
+          f" s): " + json.dumps({"trajectory": traj, "trajectory_bwd": bwd}), flush=True)
+
+    # (b) the chain kernel against its plain version on the same Philox bits,
+    # phase 3's limits, each launch twice
+    t_phase = time.perf_counter()
+    chain_cmp = {}
+    for name, case in suite.PARITY_CASES.items():
+        inp, xc = suite.parity_inputs(name, case.n_chains, dev, seed=40)
+        xk, acck, tr_k = fd.chain(inp, xc, 9, 20, collect_trace=True)
+        again = fd.chain(inp, xc, 9, 20, collect_trace=True)
+        _, _, tr_p = fd.chain_plain(inp, xc, 9, 20, collect_trace=True)
+        dec_k = (tr_k != torch.cat([xc[None], tr_k[:-1]])).any(dim=1)
+        dec_p = (tr_p != torch.cat([xc[None], tr_p[:-1]])).any(dim=1)
+        flipped = dec_k != dec_p
+        clean = ~flipped.any(dim=0)
+        dx = float((tr_k - tr_p).abs()[:, :, clean].max())
+        repeats = all(bool((a == b).all()) for a, b in zip((xk, acck, tr_k), again))
+        chain_cmp[name] = {"n_chains": case.n_chains, "decisions": int(dec_k.numel()),
+                           "flips": int(flipped.sum()), "max_abs_dx_unflipped": dx,
+                           "accept": float(dec_k.float().mean()),
+                           "repeats_bit_for_bit": repeats}
+        _require(repeats, f"suite chain {name}: two launches differ")
+        _require(bool((tr_k[-1] == xk).all()), f"suite chain {name}: trace end != state")
+        _require(int(flipped.sum()) <= 5 and dx < 1e-2, f"suite chain {name}: {chain_cmp[name]}")
+    report["suite_chain_vs_plain"] = chain_cmp
+    print(f"# suite chain kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(chain_cmp), flush=True)
+
+    # (c) the suite path: run_target on its rows, cut in depth; then (d)
+    # fused against plain training; the launch counts of both together
+    fd.reset_launch_counts()
+    t_phase = time.perf_counter()
+    rows = {}
+    for name, kw in SUITE_ROWS:
+        t = time.perf_counter()
+        row = suite.run_target(name, device=dev, verbose=False, **SUITE_CUT, **kw)
+        row["wall_s"] = time.perf_counter() - t
+        rows[name] = row
+        print(f"# suite row {name} ({row['wall_s']:.1f} s): ess_ratio {row['ess_ratio']:.4g}, "
+              f"at config eps {row['ess_ratio_at_config_eps']:.4g}, ess_l2hmc "
+              f"{row['ess_l2hmc']:.4g}, fused trace {row.get('ess_l2hmc_fused_trace')}, "
+              f"gap {row.get('fused_ess_rel_gap')}, accept {row['final_accept']:.4g}, "
+              f"cross-check: {row['fused_cross_check']}", flush=True)
+        ess_vals = [row["ess_l2hmc"], row["ess_hmc"], *row["hmc_ess_by_eps"].values()]
+        if row["fused_cross_check"] == "ran":
+            ess_vals.append(row["ess_l2hmc_fused_trace"])
+            _require(row["fused_ess_rel_gap"] < ESS_GAP,
+                     f"suite {name}: fused-trace ESS gap {row['fused_ess_rel_gap']}")
+        _require(all(np.isfinite(e) and e > 0 for e in ess_vals), f"suite {name}: ESS {ess_vals}")
+        _require(0.0 < row["final_accept"] < 1.0, f"suite {name}: acceptance {row['final_accept']}")
+        _require(row["hmc_grid_fused"] is True, f"suite {name}: HMC grid not fused")
+    _require(rows["rough_well"]["fused_cross_check"] == "ran"
+             and rows["ring"]["fused_cross_check"] == "ran", "suite cross-check did not run")
+    report["suite_rows"] = rows
+    suite_s = time.perf_counter() - t_phase
+
+    t_phase = time.perf_counter()
+
+    def over_tolerance(got, ref):
+        got, ref = np.asarray(got), np.asarray(ref)
+        return np.abs(got - ref) / (1e-2 + 2e-3 * np.abs(ref))
+
+    fused_vs_plain = {}
+    for name, kw in SUITE_TRAIN:
+        case = suite.PARITY_CASES[name]
+        tgt = case.target()
+        cfg = ScgConfig(n_chains=1024, n_steps=20, seed=0, dim=tgt.dim, T=case.T,
+                        hidden=case.hidden, **{"eps": case.eps, **kw})
+        free_steps = suite.RING_FREE_STEPS if name == "ring" else cfg.n_steps
+        # the fused step at each state of the plain run, on its draws
+        dyn, _ = build_dynamics(cfg, tgt)
+        opt, _ = make_optimizer(cfg)
+        plain_step = make_train_step(cfg, dyn, opt)
+        fused_step = make_train_step(cfg, fd.differentiable_fused(dyn, tgt), opt)
+        state = init_state(cfg, dyn, opt, device=dev)
+        gen = _gen(cfg.seed + 100)
+        same = []
+        for _ in range(cfg.n_steps):
+            d = StepDraws(*(None if a is None else a.to(dev) for a in draw_step(
+                gen, cfg.n_chains, cfg.dim, z_burn_in=cfg.z_burn_in_loss)))
+            _, mf = fused_step(state, d)
+            state, mp = plain_step(state, d)
+            same.append((float(mf["loss"]), float(mp["loss"])))
+        same_gap = float(over_tolerance(*zip(*same)).max())
+        # the two free runs through the entry point
+        hists, step_ms = {}, {}
+        for fused in (True, False):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, hists[fused] = train(dataclasses.replace(cfg, fused_train=fused), tgt,
+                                    device=dev)
+            torch.cuda.synchronize()
+            step_ms[fused] = 1e3 * (time.perf_counter() - t) / 20
+        free = over_tolerance(hists[True]["loss"], hists[False]["loss"])
+        witness = {}
+        if name == "ring":
+            # the same two runs on the CPU, where the fused step takes the
+            # wrappers' plain versions: two plain routes on the same draws
+            cpu = {fused: train(dataclasses.replace(cfg, fused_train=fused), tgt,
+                                device="cpu")[1]["loss"] for fused in (True, False)}
+            gaps = over_tolerance(cpu[True], cpu[False])
+            witness = {"cpu_plain_routes_gap_by_step": gaps.tolist()}
+            _require(float(gaps[:free_steps].max()) <= 1.0,
+                     f"suite training on the CPU, two plain routes part: {gaps.tolist()}")
+        fused_vs_plain[name] = {"same_states_max_gap_over_tolerance": same_gap,
+                                "free_steps_held": free_steps,
+                                "free_max_gap_over_tolerance": float(free[:free_steps].max()),
+                                "free_max_gap_over_tolerance_all_20": float(free.max()),
+                                "free_gap_by_step": free.tolist(),
+                                "loss_fused_last": float(hists[True]["loss"][-1]),
+                                "loss_plain_last": float(hists[False]["loss"][-1]),
+                                "ms_per_step_fused": step_ms[True],
+                                "ms_per_step_plain": step_ms[False], **witness}
+        _require(same_gap <= 1.0, f"suite fused vs plain training {name} at the same states: "
+                                  f"{same_gap} x tolerance")
+        _require(float(free[:free_steps].max()) <= 1.0,
+                 f"suite fused vs plain training {name}: {fused_vs_plain[name]}")
+    launches = dict(fd.LAUNCHES)
+    report["suite_fused_vs_plain_training"] = fused_vs_plain
+    report["suite_path"] = {"wall_s": suite_s, "train_wall_s": time.perf_counter() - t_phase,
+                            "launches": launches}
+    print(f"# suite fused vs plain training ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(fused_vs_plain), flush=True)
+    print(f"# suite path ({suite_s:.1f} s), launches: " + json.dumps(launches), flush=True)
+    for kernel in ("trajectory", "trajectory_bwd", "chain"):
+        for spec in SUITE_TIMES:
+            _require(launches[f"{kernel}:{spec}"] > 0,
+                     f"kernel {kernel} on the {spec} spec not launched on the suite path")
+
+    # (e) captured against eager, bit for bit: the annealed ring (the
+    # temperature from the device step counter) and the funnel with its
+    # net-input features
+    t_phase = time.perf_counter()
+    cap = {}
+    for name, make, kw in (
+            ("ring_annealed", lambda: targets.gen_ring(r=2.0, var=0.1, nb_mixtures=4),
+             dict(init_temperature=5.0, eps=0.2)),
+            ("funnel_net_input", lambda: targets.GaussianFunnel(dim=10),
+             dict(net_input_target_fn=True, hidden=20, grad_clip=5.0))):
+        tgt = make()
+        cfg = ScgConfig(dim=tgt.dim, n_chains=1024, n_steps=20, **kw)
+        (se, he), (sc, hc) = (train(cfg, tgt, device=dev, capture=c) for c in (False, True))
+        same = all(np.array_equal(he[k], hc[k]) for k in he) and all(
+            torch.equal(a, b) for a, b in zip(
+                [*tree_leaves(se.params), *se.opt_state, se.x, se.step],
+                [*tree_leaves(sc.params), *sc.opt_state, sc.x, sc.step]))
+        cap[name] = {"bit_for_bit": same, "temperature_first_last": [
+            float(hc["temperature"][0]), float(hc["temperature"][-1])]}
+        _require(same, f"captured {name} training differs from eager")
+    report["suite_captured_vs_eager"] = cap
+    print(f"# suite captured vs eager ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(cap), flush=True)
+
+    # (f) each spec's kernels at its suite row's shapes: the launches alone
+    # (trajectory kernels through their C entry points), the plain versions,
+    # the bounds
+    t_phase = time.perf_counter()
+    times, rows_out = {}, []
+    src = "l2hmc_tpu_torch/csrc/"
+    for spec, case in SUITE_TIMES.items():
+        n = suite.PARITY_CASES[case].n_chains
+        inp, x = suite.parity_inputs(case, n, dev, seed=32)
+        g = _gen(34)
+        v, dX, dV = (torch.randn(x.shape, generator=g).to(dev) for _ in range(3))
+        dld = torch.ones((1, n), device=dev)
+        D, H, H2, T = inp.dims
+        ops = _ops_of(inp)
+        blk = inp.block().numel()
+        n_grads = sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D
+        steps, plain_steps = 2000, 20
+        t = {
+            "trajectory": _traj_launch_ms(fd, _cuda, inp, x, v, 200),
+            "trajectory_plain": _cuda_time(lambda: fd.trajectory_plain(inp, x, v, False), 5),
+            "trajectory_bwd": _bwd_launch_ms(fd, _cuda, inp, x, v, dX, dV, dld, 100),
+            "trajectory_bwd_plain": _cuda_time(
+                lambda: fd.trajectory_vjp_plain(inp, x, v, dX, dV, dld, False), 3),
+            "chain": _cuda_time(lambda: fd.chain(inp, x, 2, steps, True), 3),
+            f"chain_{plain_steps}": _cuda_time(lambda: fd.chain(inp, x, 2, plain_steps, True), 5),
+            f"chain_plain_{plain_steps}": _cuda_time(
+                lambda: fd.chain_plain(inp, x, 2, plain_steps, collect_trace=True), 1),
+        }
+        bounds = {
+            "trajectory": traj_bound(D, H, H2, T, n, False, blk, ops),
+            "trajectory_bwd": traj_bwd_bound(D, H, H2, T, n, False, blk, n_grads, ops),
+            "chain": chain_bound(D, H, H2, T, n, steps, False, blk, True, ops),
+        }
+        times[spec] = {"case": case, "n_chains": n, "ms": t, "bound_ms": bounds}
+        shape = f"{case} D={D} H={H} T={T}, {n} chains"
+        errs = {
+            "trajectory": max(e for k, c in traj.items() if SPEC_OF_CASE[k.rsplit('_n', 1)[0]]
+                              == spec for e in c.values()),
+            "trajectory_bwd": max(d["max_abs_err"] for k, c in bwd.items()
+                                  if SPEC_OF_CASE[k.rsplit('_n', 1)[0]] == spec
+                                  for d in c.values()),
+            "chain": max(c["max_abs_dx_unflipped"] for k, c in chain_cmp.items()
+                         if SPEC_OF_CASE[k] == spec),
+        }
+        for kernel, line, what in (
+                ("trajectory", 645, "one direction, the launch alone"),
+                ("trajectory_bwd", 801, "one direction, the launch alone"),
+                ("chain", 1103, f"{steps} MH steps, traced; plain_ms over {plain_steps} MH "
+                                f"steps (the kernel over {plain_steps}: "
+                                f"{t[f'chain_{plain_steps}']:.4f} ms)")):
+            plain = t[f"chain_plain_{plain_steps}"] if kernel == "chain" else t[f"{kernel}_plain"]
+            rows_out.append({
+                "name": f"{kernel}[{spec}]", "route": "cuda", "source": src + f"{kernel}.cu",
+                "replaces": f"l2hmc_tpu/ops/fused_dynamics.py:{line}",
+                "launches": launches[f"{kernel}:{spec}"], "max_abs_err": errs[kernel],
+                "ms": t[kernel], "plain_ms": plain, "bound_ms": bounds[kernel][0],
+                "bound_by": bounds[kernel][1], "library_ms": None,
+                "shape": f"{shape}, {what}"})
+    report["suite_kernel_times"] = times
+    print(f"# suite kernel times ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(times), flush=True)
+    report["suite_wall_s"] = time.perf_counter() - t_all
+    print(f"# suite phase: {report['suite_wall_s']:.1f} s", flush=True)
+    return rows_out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1186,7 +1563,9 @@ def main() -> int:
     }
     print("# trajectory kernel times: " + json.dumps(report["trajectory_times"]), flush=True)
     D, H, H2, T = inp_scg.dims
-    traj_bound_ms, traj_bound_by = traj_bound(D, H, H2, T, 2048, False, inp_scg.block().numel())
+    scg_ops = _ops_of(inp_scg)
+    traj_bound_ms, traj_bound_by = traj_bound(D, H, H2, T, 2048, False, inp_scg.block().numel(),
+                                              scg_ops)
 
     # -- 3. chain kernel vs plain on the same Philox bits ---------------------------
     # Tolerance: the kernel and its plain version draw identical bits, so an
@@ -1245,7 +1624,7 @@ def main() -> int:
     torch.cuda.synchronize()
     chain_plain_ms = 1e3 * (time.perf_counter() - t)
     chain_bound_ms, chain_bound_by = chain_bound(
-        D, H, H2, T, cfg.n_chains, eval_steps, False, inp_eval.block().numel(), True)
+        D, H, H2, T, cfg.n_chains, eval_steps, False, inp_eval.block().numel(), True, scg_ops)
     report["chain_times"] = {
         "lanes_per_chain": {"scg": _cuda.library("chain").l2hmc_chain_lanes(D, H, H2),
                             "icg50": _cuda.library("chain").l2hmc_chain_lanes(50, 10, 10)},
@@ -1322,7 +1701,7 @@ def main() -> int:
         lambda: fd.trajectory_vjp_plain(inp_scg, xb, vb, dXb, dVb, dldb, False), 3)
     n_grads = sum(w.numel() for w in [*inp_scg.xnet_w, *inp_scg.vnet_w]) + D
     bwd_bound_ms, bwd_bound_by = traj_bwd_bound(
-        D, H, H2, T, n_tr, False, inp_scg.block().numel(), n_grads)
+        D, H, H2, T, n_tr, False, inp_scg.block().numel(), n_grads, scg_ops)
 
     # (b) fused vs plain training on one seed
     t_phase = time.perf_counter()
@@ -1462,6 +1841,9 @@ def main() -> int:
     for name in ("trajectory", "trajectory_bwd", "chain"):
         _require(bench_launches[name] > 0, f"kernel {name} not launched on the bench path")
 
+    # -- 10. the distribution suite ----------------------------------------------
+    suite_rows = suite_phases(dev, report)
+
     # -- 8. the kernels line -------------------------------------------------------
     src = "l2hmc_tpu_torch/csrc/"
     kernels = [
@@ -1498,6 +1880,7 @@ def main() -> int:
                    f"wrapper: {bwd_wrapper_ms:.4f} ms; through the wrapper in a captured "
                    f"graph: {bwd_captured_ms:.4f} ms")},
         *vae_rows,
+        *suite_rows,
     ]
     report["kernels"] = kernels
     print("# report: " + json.dumps(report))

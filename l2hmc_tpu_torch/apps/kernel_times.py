@@ -76,8 +76,8 @@ def scg_times(dev) -> dict:
         ld = torch.empty((1, n), dtype=torch.float32, device=dev)
         lib = _cuda.library("trajectory")
         out[f"trajectory_launch_{n}"] = _cuda_ms(lambda: _cuda.check(lib.l2hmc_trajectory(
-            block.data_ptr(), D, H, H2, T, 0, 0, x.data_ptr(), v.data_ptr(), xo.data_ptr(),
-            vo.data_ptr(), ld.data_ptr(), n, stream), "trajectory"), 200)
+            block.data_ptr(), D, H, H2, T, *inp.energy_args, 0, 0, x.data_ptr(), v.data_ptr(),
+            xo.data_ptr(), vo.data_ptr(), ld.data_ptr(), n, stream), "trajectory"), 200)
         if n == 1024:
             dX, dV = (torch.randn(x.shape, generator=_gen(3 + i)).to(dev) for i in range(2))
             dld = torch.ones((1, n), device=dev)
@@ -88,8 +88,8 @@ def scg_times(dev) -> dict:
             blib = _cuda.library("trajectory_bwd")
             out["trajectory_bwd_launch_1024"] = _cuda_ms(
                 lambda: _cuda.check(blib.l2hmc_trajectory_bwd(
-                    block.data_ptr(), D, H, H2, T, 0, 0, x.data_ptr(), v.data_ptr(),
-                    dX.data_ptr(), dV.data_ptr(), dld.data_ptr(), xo.data_ptr(),
+                    block.data_ptr(), D, H, H2, T, *inp.energy_args, 0, 0, x.data_ptr(),
+                    v.data_ptr(), dX.data_ptr(), dV.data_ptr(), dld.data_ptr(), xo.data_ptr(),
                     vo.data_ptr(), grads.data_ptr(), scratch.data_ptr(), n, stream),
                     "trajectory_bwd"), 200)
     hmc_dyn, _ = build_dynamics(ScgConfig(hmc=True), target)

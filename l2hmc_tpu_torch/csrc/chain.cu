@@ -53,7 +53,7 @@ namespace l2hmc {
 // The SCG widths (D = 2, H = H2 = 10) on a whole warp.
 typedef LaneCfg<2, 32, 1, 1, 10> ScgChainLanes;
 
-template <class C>
+template <class C, class En>
 __global__ void __launch_bounds__(kLaneThreads) chain_kernel(
     const float* __restrict__ params, Dims din, int hmc,
     const float* __restrict__ xin, float* __restrict__ xo,
@@ -93,7 +93,7 @@ __global__ void __launch_bounds__(kLaneThreads) chain_kernel(
     const bool reverse = !(uniform24(r0.x) < 0.5f);
     const float u_acc = uniform24(r0.y);
 
-    const float h0 = gauss_energy<C>(B, d, x) + kinetic<C>(d, v);
+    const float h0 = En::template energy<C>(B, d, x) + kinetic<C>(d, v);
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
       if (i >= d.D) break;
@@ -102,9 +102,9 @@ __global__ void __launch_bounds__(kLaneThreads) chain_kernel(
     float lj = 0.f;
     for (int t = 0; t < d.T; ++t) {
       const int step = reverse ? d.T - 1 - t : t;
-      lj += lane_traj_step<C>(B, d, hmc != 0, reverse, step, xp, v, lane);
+      lj += lane_traj_step<C, En>(B, d, hmc != 0, reverse, step, xp, v, lane);
     }
-    const float h1 = gauss_energy<C>(B, d, xp) + kinetic<C>(d, v);
+    const float h1 = En::template energy<C>(B, d, xp) + kinetic<C>(d, v);
     // exp(min(a, 0)) with NaN kept NaN (fminf would turn it into 0), then
     // the NaN guard maps it to 0
     const float a = h0 - h1 + lj;
@@ -135,46 +135,41 @@ __global__ void __launch_bounds__(kLaneThreads) chain_kernel(
   acc_out[n] = accepted * (1.0f / static_cast<float>(K));
 }
 
-template <class C>
-static cudaError_t launch_chain(const float* params, Dims d, int hmc,
+template <class C, class En>
+static int launch_chain(const float* params, Dims d, int hmc,
                                 const float* x, float* xo, float* acc,
                                 float* trace, int N, int K, uint2 key,
                                 cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(block_floats(d)) * sizeof(float);
-  cudaError_t e = allow_smem(chain_kernel<C>, smem);
-  if (e != cudaSuccess) return e;
+  cudaError_t e = allow_smem(chain_kernel<C, En>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const long long lanes = static_cast<long long>(N) * C::L;
   const int blocks = static_cast<int>((lanes + kLaneThreads - 1) / kLaneThreads);
-  chain_kernel<C><<<blocks, kLaneThreads, smem, stream>>>(params, d, hmc, x, xo,
-                                                          acc, trace, N, K, key);
-  return cudaGetLastError();
+  chain_kernel<C, En><<<blocks, kLaneThreads, smem, stream>>>(
+      params, d, hmc, x, xo, acc, trace, N, K, key);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace l2hmc
 
 // Plain C entry points (loaded with ctypes). Device pointers to float32:
-// params (the packed block), x and xo as (D, N), acc as (N,), trace as
+// params (the packed block, with nc floats of the energy spec's constants;
+// kind as in l2hmc_trajectory), x and xo as (D, N), acc as (N,), trace as
 // (K, D, N) or null. Returns a cudaError_t as int; 0 means accepted.
 extern "C" int l2hmc_chain(const float* params, int D, int H, int H2, int T,
-                           int hmc, const float* x, float* xo, float* acc,
-                           float* trace, int N, int K,
+                           int kind, int nc, int hmc, const float* x,
+                           float* xo, float* acc, float* trace, int N, int K,
                            unsigned long long seed, void* stream) {
   using namespace l2hmc;
-  const Dims d{D, H, H2, T};
+  const Dims d{D, H, H2, T, nc};
   if (N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const uint2 key = make_uint2(static_cast<uint32_t>(seed & 0xFFFFFFFFull),
                                static_cast<uint32_t>(seed >> 32));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pick_lanes(d)) {
-    case 1:
-      return launch_chain<ScgChainLanes>(params, d, hmc, x, xo, acc, trace, N,
-                                         K, key, s);
-    case 2:
-      return launch_chain<WideLanes>(params, d, hmc, x, xo, acc, trace, N, K,
-                                     key, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<ScgChainLanes>(d, kind, [&](auto c, auto e) {
+    return launch_chain<decltype(c), decltype(e)>(params, d, hmc, x, xo, acc,
+                                                  trace, N, K, key, s);
+  });
 }
 
 // Lanes a chain at these widths (the instantiation l2hmc_chain launches),

@@ -58,6 +58,22 @@ inline int pick_lanes(Dims d) {
   return 0;
 }
 
+// Calls f(C{}, En{}) with the lane configuration that serves d (Scg where
+// pick_lanes gives 1, WideLanes where it gives 2) and the energy spec of
+// `kind`: every spec is instantiated on both configurations. Returns
+// cudaErrorInvalidValue where none serves them.
+template <class Scg, class F>
+inline int dispatch(Dims d, int kind, F&& f) {
+  switch (pick_lanes(d)) {
+    case 1:
+      return with_energy(d, kind, [&](auto e) { return f(Scg{}, e); });
+    case 2:
+      return with_energy(d, kind, [&](auto e) { return f(WideLanes{}, e); });
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // The widths as the instantiation sees them: compile-time constants where
 // it fixes them.
 template <class C>
@@ -229,9 +245,9 @@ __device__ inline void lane_stq(bool hmc, const Net& w, Dims d, int step,
 }
 
 // One augmented leapfrog substep in place on (x, v) on a lane group, with
-// _trajectory_step's expressions (ops/fused_dynamics.py); returns the
-// logdet increment, the same in every lane.
-template <class C>
+// _trajectory_step's expressions (ops/fused_dynamics.py) and the energy
+// spec En's gradient; returns the logdet increment, the same in every lane.
+template <class C, class En>
 __device__ inline float lane_traj_step(const Block& B, Dims d, bool hmc,
                                        bool reverse, int step, float* x,
                                        float* v, int lane) {
@@ -245,7 +261,7 @@ __device__ inline float lane_traj_step(const Block& B, Dims d, bool hmc,
     m[i] = B.masks[i * d.T + step];
   }
   if (!reverse) {
-    gauss_grad<C>(B, d, x, g);
+    En::template grad<C>(B, d, x, g);
     lane_stq<C>(hmc, B.vnet, d, step, x, g, s, t, q, sv, lane);
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
@@ -277,7 +293,7 @@ __device__ inline float lane_traj_step(const Block& B, Dims d, bool hmc,
              m[i] * (y[i] * expf(sx2) + e * (expf(e * q[i]) * vh[i] + t[i]));
       ld += m[i] * sx2;
     }
-    gauss_grad<C>(B, d, x, g);
+    En::template grad<C>(B, d, x, g);
     lane_stq<C>(hmc, B.vnet, d, step, x, g, s, t, q, sv, lane);
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
@@ -288,7 +304,7 @@ __device__ inline float lane_traj_step(const Block& B, Dims d, bool hmc,
       ld += sv2;
     }
   } else {
-    gauss_grad<C>(B, d, x, g);
+    En::template grad<C>(B, d, x, g);
     lane_stq<C>(hmc, B.vnet, d, step, x, g, s, t, q, sv, lane);
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
@@ -320,7 +336,7 @@ __device__ inline float lane_traj_step(const Block& B, Dims d, bool hmc,
              mb * expf(sx1) * (y[i] - e * (expf(e * q[i]) * vh[i] + t[i]));
       ld += mb * sx1;
     }
-    gauss_grad<C>(B, d, x, g);
+    En::template grad<C>(B, d, x, g);
     lane_stq<C>(hmc, B.vnet, d, step, x, g, s, t, q, sv, lane);
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
@@ -515,23 +531,6 @@ __device__ inline void lane_stq_vjp(bool hmc, const Net& w, NetAcc<C>& gw,
   }
 }
 
-// dx += P^T dg (the VJP of gauss_grad).
-template <class C>
-__device__ inline void gauss_grad_vjp(const Block& B, Dims d, const float* dg,
-                                      float* dx) {
-#pragma unroll (C::UD)
-  for (int i = 0; i < C::DM; ++i) {
-    if (i >= d.D) break;
-    float acc = 0.f;
-#pragma unroll (C::UD)
-    for (int j = 0; j < C::DM; ++j) {
-      if (j >= d.D) break;
-      acc = fmaf(B.prec[j * d.D + i], dg[j], acc);
-    }
-    dx[i] += acc;
-  }
-}
-
 // Writes te's column `step` of this lane's first-layer units into the
 // chain's gradient row g and clears it for the next substep.
 template <class C>
@@ -601,8 +600,9 @@ __device__ inline void store_net(const NetAcc<C>& a, const NetRows& r,
 // (x, v), in every lane. The chain's eps cotangent is added to de, the
 // weight cotangents to this lane's shares gx (xnet) and gv (vnet). The
 // substep is recomputed first with lane_traj_step's expressions; the
-// backward formulas are those of _step_vjp.
-template <class C>
+// backward formulas are those of _step_vjp. En's gradient VJP is taken at
+// the point of each gradient: the substep's output xo and its input x.
+template <class C, class En>
 __device__ inline void lane_traj_step_vjp(const Block& B, NetAcc<C>& gx,
                                           NetAcc<C>& gv, Dims d, bool hmc,
                                           bool reverse, int step,
@@ -625,7 +625,7 @@ __device__ inline void lane_traj_step_vjp(const Block& B, NetAcc<C>& gx,
   }
   if (!reverse) {
     // recompute (lane_traj_step, forward branch)
-    gauss_grad<C>(B, d, x, g1);
+    En::template grad<C>(B, d, x, g1);
     lane_stq<C>(hmc, B.vnet, d, step, x, g1, s1, t1, q1, sv1, lane);
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
@@ -652,7 +652,7 @@ __device__ inline void lane_traj_step_vjp(const Block& B, NetAcc<C>& gx,
       xo[i] = mb * y[i] +
               m[i] * (y[i] * expf(e * s3[i]) + e * (expf(e * q3[i]) * vh[i] + t3[i]));
     }
-    gauss_grad<C>(B, d, xo, g2);
+    En::template grad<C>(B, d, xo, g2);
     lane_stq<C>(hmc, B.vnet, d, step, xo, g2, s4, t4, q4, sv4, lane);
 
     // v' = vh E4 + e/2 (-Q4 g2 + t4)
@@ -679,7 +679,7 @@ __device__ inline void lane_traj_step_vjp(const Block& B, NetAcc<C>& gx,
       dxo[i] += da[i];
       dg[i] += db[i];
     }
-    gauss_grad_vjp<C>(B, d, dg, dxo);
+    En::template grad_vjp<C>(B, d, xo, dg, dxo);
     // x' = mb y + m (y E3 + e (Q3 vh + t3))
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
@@ -746,7 +746,7 @@ __device__ inline void lane_traj_step_vjp(const Block& B, NetAcc<C>& gx,
                     da, db, lane);
   } else {
     // recompute (lane_traj_step, reverse branch)
-    gauss_grad<C>(B, d, x, g1);
+    En::template grad<C>(B, d, x, g1);
     lane_stq<C>(hmc, B.vnet, d, step, x, g1, s1, t1, q1, sv1, lane);
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
@@ -773,7 +773,7 @@ __device__ inline void lane_traj_step_vjp(const Block& B, NetAcc<C>& gx,
       xo[i] = m[i] * y[i] + mb * expf(-e * s3[i]) *
                                 (y[i] - e * (expf(e * q3[i]) * vh[i] + t3[i]));
     }
-    gauss_grad<C>(B, d, xo, g2);
+    En::template grad<C>(B, d, xo, g2);
     lane_stq<C>(hmc, B.vnet, d, step, xo, g2, s4, t4, q4, sv4, lane);
 
     // v' = E4 (vh - e/2 (-Q4 g2 + t4))
@@ -801,7 +801,7 @@ __device__ inline void lane_traj_step_vjp(const Block& B, NetAcc<C>& gx,
       dxo[i] += da[i];
       dg[i] += db[i];
     }
-    gauss_grad_vjp<C>(B, d, dg, dxo);
+    En::template grad_vjp<C>(B, d, xo, dg, dxo);
     // x' = m y + mb E3 (y - e (Q3 vh + t3))
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
@@ -879,7 +879,7 @@ __device__ inline void lane_traj_step_vjp(const Block& B, NetAcc<C>& gx,
     dxo[i] += da[i];
     dg[i] += db[i];
   }
-  gauss_grad_vjp<C>(B, d, dg, dxo);
+  En::template grad_vjp<C>(B, d, x, dg, dxo);
 #pragma unroll (C::UD)
   for (int i = 0; i < C::DM; ++i) {
     if (i >= d.D) break;

@@ -17,7 +17,10 @@
 // substep the backward kernel recomputes with): SCG takes L = 16 with its
 // widths fixed at compile time (ScgLanes), widths up to 64 L = 32 with two
 // units a lane (WideLanes). Blocks of kLaneThreads threads, so 1024 chains
-// make 128 blocks. Every sum over units gathers by __shfl_sync and adds in
+// make 128 blocks. The target's energy is a template parameter En, an
+// energy spec of l2hmc_common.cuh; every spec is instantiated on both lane
+// configurations, and the entry point picks one by the spec's kind and the
+// widths. Every sum over units gathers by __shfl_sync and adds in
 // index order (the plain versions: _apply_stq and _trajectory_step in
 // ops/fused_dynamics.py), so the outputs are those of the per-thread kernel
 // this replaced. The weights are read from shared memory, loaded once per
@@ -31,7 +34,7 @@
 
 namespace l2hmc {
 
-template <class C>
+template <class C, class En>
 __global__ void __launch_bounds__(kLaneThreads) trajectory_kernel(
     const float* __restrict__ params, Dims din, int reverse, int hmc,
     const float* __restrict__ xin, const float* __restrict__ vin,
@@ -55,7 +58,7 @@ __global__ void __launch_bounds__(kLaneThreads) trajectory_kernel(
   float l = 0.f;
   for (int k = 0; k < d.T; ++k) {
     const int step = reverse ? d.T - 1 - k : k;
-    l += lane_traj_step<C>(B, d, hmc != 0, reverse != 0, step, x, v, lane);
+    l += lane_traj_step<C, En>(B, d, hmc != 0, reverse != 0, step, x, v, lane);
   }
   if (!live || lane != 0) return;
 #pragma unroll (C::UD)
@@ -67,42 +70,38 @@ __global__ void __launch_bounds__(kLaneThreads) trajectory_kernel(
   ld[n] = l;
 }
 
-template <class C>
-static cudaError_t launch_trajectory(const float* params, Dims d, int reverse,
+template <class C, class En>
+static int launch_trajectory(const float* params, Dims d, int reverse,
                                      int hmc, const float* x, const float* v,
                                      float* xo, float* vo, float* ld, int N,
                                      cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(block_floats(d)) * sizeof(float);
-  cudaError_t e = allow_smem(trajectory_kernel<C>, smem);
-  if (e != cudaSuccess) return e;
+  cudaError_t e = allow_smem(trajectory_kernel<C, En>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const long long lanes = static_cast<long long>(N) * C::L;
   const int blocks = static_cast<int>((lanes + kLaneThreads - 1) / kLaneThreads);
-  trajectory_kernel<C><<<blocks, kLaneThreads, smem, stream>>>(
+  trajectory_kernel<C, En><<<blocks, kLaneThreads, smem, stream>>>(
       params, d, reverse, hmc, x, v, xo, vo, ld, N);
-  return cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace l2hmc
 
 // Plain C entry point (loaded with ctypes). Pointers are device pointers to
-// float32: params (the packed block), x, v, xo, vo as (D, N), ld as (N,).
-// Returns a cudaError_t as int; 0 means the launch was accepted.
+// float32: params (the packed block, with nc floats of the energy spec's
+// constants), x, v, xo, vo as (D, N), ld as (N,). kind is the energy spec's
+// (Gauss 0, RoughWell 1, Gmm 2, Funnel 3). Returns a cudaError_t as int; 0
+// means the launch was accepted.
 extern "C" int l2hmc_trajectory(const float* params, int D, int H, int H2,
-                                int T, int reverse, int hmc, const float* x,
-                                const float* v, float* xo, float* vo,
-                                float* ld, int N, void* stream) {
+                                int T, int kind, int nc, int reverse, int hmc,
+                                const float* x, const float* v, float* xo,
+                                float* vo, float* ld, int N, void* stream) {
   using namespace l2hmc;
-  const Dims d{D, H, H2, T};
+  const Dims d{D, H, H2, T, nc};
   if (N <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pick_lanes(d)) {
-    case 1:
-      return launch_trajectory<ScgLanes>(params, d, reverse, hmc, x, v, xo, vo,
-                                         ld, N, s);
-    case 2:
-      return launch_trajectory<WideLanes>(params, d, reverse, hmc, x, v, xo,
-                                          vo, ld, N, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<ScgLanes>(d, kind, [&](auto c, auto e) {
+    return launch_trajectory<decltype(c), decltype(e)>(params, d, reverse, hmc,
+                                                       x, v, xo, vo, ld, N, s);
+  });
 }

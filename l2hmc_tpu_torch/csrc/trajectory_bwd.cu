@@ -48,7 +48,7 @@ namespace l2hmc {
 constexpr int kSumRows = 32;      // cotangent rows per block of the sum
 constexpr int kSumWarps = 32;     // warps splitting the chains of a row
 
-template <class C>
+template <class C, class En>
 __global__ void __launch_bounds__(kLaneThreads) trajectory_bwd_kernel(
     const float* __restrict__ params, Dims din, int reverse, int hmc,
     const float* __restrict__ xin, const float* __restrict__ vin,
@@ -84,7 +84,7 @@ __global__ void __launch_bounds__(kLaneThreads) trajectory_bwd_kernel(
   }
   for (int k = 0; k < d.T; ++k) {
     const int step = reverse ? d.T - 1 - k : k;
-    lane_traj_step<C>(B, d, hmc != 0, reverse != 0, step, x, v, lane);
+    lane_traj_step<C, En>(B, d, hmc != 0, reverse != 0, step, x, v, lane);
     const size_t row = static_cast<size_t>(2 * (k + 1) * d.D);
     if (writer) {
 #pragma unroll (C::UD)
@@ -118,7 +118,7 @@ __global__ void __launch_bounds__(kLaneThreads) trajectory_bwd_kernel(
       x[i] = bn[(row + i) * sN];
       v[i] = bn[(row + d.D + i) * sN];
     }
-    lane_traj_step_vjp<C>(B, gx, gv, d, hmc != 0, reverse != 0, step, x, v,
+    lane_traj_step_vjp<C, En>(B, gx, gv, d, hmc != 0, reverse != 0, step, x, v,
                           dx, dv, dl, de, lane);
     if (live) {
       flush_te<C>(gx, rx, g, d, step, lane);
@@ -164,57 +164,51 @@ __global__ void __launch_bounds__(kSumRows * kSumWarps)
   }
 }
 
-template <class C>
-static cudaError_t launch_trajectory_bwd(
+template <class C, class En>
+static int launch_trajectory_bwd(
     const float* params, Dims d, int reverse, int hmc, const float* x,
     const float* v, const float* dX, const float* dV, const float* dld,
     float* dx, float* dv, float* grads, float* scratch, int N,
     cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(block_floats(d)) * sizeof(float);
-  cudaError_t e = allow_smem(trajectory_bwd_kernel<C>, smem);
-  if (e != cudaSuccess) return e;
+  cudaError_t e = allow_smem(trajectory_bwd_kernel<C, En>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int P = 2 * net_floats(d) + d.D;
   float* G = scratch;
   float* bnd = scratch + static_cast<size_t>(P) * N;
   const long long lanes = static_cast<long long>(N) * C::L;
   const int blocks = static_cast<int>((lanes + kLaneThreads - 1) / kLaneThreads);
-  trajectory_bwd_kernel<C><<<blocks, kLaneThreads, smem, stream>>>(
+  trajectory_bwd_kernel<C, En><<<blocks, kLaneThreads, smem, stream>>>(
       params, d, reverse, hmc, x, v, dX, dV, dld, dx, dv, G, bnd, N);
   e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) return static_cast<int>(e);
   sum_chains_kernel<<<(P + kSumRows - 1) / kSumRows, kSumRows * kSumWarps, 0,
                       stream>>>(G, N, P, grads);
-  return cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace l2hmc
 
 // Plain C entry point (loaded with ctypes). Pointers are device pointers to
-// float32: params (the packed block); x, v, dX, dV, dx, dv as (D, N); dld as
+// float32: params (the packed block, with nc floats of the energy spec's
+// constants; kind as in l2hmc_trajectory); x, v, dX, dV, dx, dv as (D, N); dld as
 // (N,); grads as (P,) with P = 2 * net_floats + D, in the order xnet's 13
 // arrays | vnet's 13 arrays | eps; scratch of P * N + 2 * (T + 1) * D * N
 // floats. Returns a cudaError_t as int; 0 means both launches were accepted.
 extern "C" int l2hmc_trajectory_bwd(const float* params, int D, int H, int H2,
-                                    int T, int reverse, int hmc,
-                                    const float* x, const float* v,
+                                    int T, int kind, int nc, int reverse,
+                                    int hmc, const float* x, const float* v,
                                     const float* dX, const float* dV,
                                     const float* dld, float* dx, float* dv,
                                     float* grads, float* scratch, int N,
                                     void* stream) {
   using namespace l2hmc;
-  const Dims d{D, H, H2, T};
+  const Dims d{D, H, H2, T, nc};
   if (N <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (pick_lanes(d)) {
-    case 1:
-      return launch_trajectory_bwd<ScgLanes>(params, d, reverse, hmc, x, v,
-                                               dX, dV, dld, dx, dv, grads,
-                                               scratch, N, s);
-    case 2:
-      return launch_trajectory_bwd<WideLanes>(params, d, reverse, hmc, x, v,
-                                              dX, dV, dld, dx, dv, grads,
-                                              scratch, N, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<ScgLanes>(d, kind, [&](auto c, auto e) {
+    return launch_trajectory_bwd<decltype(c), decltype(e)>(
+        params, d, reverse, hmc, x, v, dX, dV, dld, dx, dv, grads, scratch, N,
+        s);
+  });
 }

@@ -8,12 +8,13 @@ steps run as a Python loop. The update equations are the paper's
 ``sum(sv1 + sv2 + mb*sx1 + m*sx2)``.
 
 Supported: HMC mode, scalar or per-dimension (``eps_dim``) step size, the
-dense drift preconditioner ``eps_mat``, ``input_scale``, and the ``aux``
-input: a per-batch side input (for the VAE sampler a dict of the raw batch,
-its embedding and the decoder params) that is handed to
+dense drift preconditioner ``eps_mat``, ``input_scale``, the state-dependent
+net-input features ``net_input_fn``, the temperature (``use_temperature``:
+the energy and its gradient divided by the ``temperature`` a call passes),
+and the ``aux`` input: a per-batch side input (for the VAE sampler a dict of
+the raw batch, its embedding and the decoder params) that is handed to
 ``energy``/``grad_energy`` as ``aux=`` and to the nets as their fourth Zip
-input. Not ported yet (raise ``NotImplementedError``): ``eps_step``,
-``net_input_fn``, ``use_temperature``.
+input. Not ported yet (raises ``NotImplementedError``): ``eps_step``.
 """
 
 from __future__ import annotations
@@ -70,8 +71,17 @@ class Dynamics:
         scalar eps, so the log-det and the closed-form inverse are
         unchanged. Mutually exclusive with ``eps_dim`` and ``eps_step``.
       mask_seed: seed for the per-step binary masks.
+      use_temperature: divide the energy and its gradient by the
+        ``temperature`` argument of the energies, substeps, trajectories
+        and ``p_accept`` (1.0 by default).
       input_scale: per-dimension sigma whitening the net inputs
         (x-like inputs / sigma, gradient inputs * sigma).
+      net_input_fn: a state-dependent net-input feature map
+        ``(net, inputs) -> inputs`` (``net`` is "vnet" or "xnet", ``inputs``
+        the list the S/T/Q module would see), applied after
+        ``input_scale``; exclusive with it. A fixed function of the
+        substep's own arguments, so each substep stays invertible with the
+        same log-det.
       grad_energy: batched energy gradient (same ``aux`` convention);
         autograd of ``energy`` when None.
     """
@@ -97,11 +107,15 @@ class Dynamics:
             raise ValueError("non-HMC dynamics requires xnet and vnet modules")
         if sum((self.eps_dim, self.eps_step, self.eps_mat)) > 1:
             raise ValueError("eps_dim, eps_step and eps_mat are mutually exclusive")
-        for name in ("eps_step", "use_temperature"):
-            if getattr(self, name):
-                raise NotImplementedError(f"Dynamics.{name} is not ported yet")
-        if self.net_input_fn is not None:
-            raise NotImplementedError("Dynamics.net_input_fn is not ported yet")
+        if self.input_scale is not None and self.net_input_fn is not None:
+            # net_input_fn would see already-rescaled inputs, and compute
+            # features of the wrong coordinates
+            raise ValueError(
+                "input_scale and net_input_fn are mutually exclusive — "
+                "fold the linear whitening into the feature map instead"
+            )
+        if self.eps_step:
+            raise NotImplementedError("Dynamics.eps_step is not ported yet")
         if self.grad_energy is None:
             object.__setattr__(self, "grad_energy", batched_grad(self.energy))
         object.__setattr__(self, "masks", make_masks(self.mask_seed, self.T, self.dim))
@@ -197,18 +211,21 @@ class Dynamics:
     def kinetic(self, v: torch.Tensor) -> torch.Tensor:
         return 0.5 * torch.sum(v * v, dim=1)
 
-    def _energy(self, x, aux=None) -> torch.Tensor:
-        return self.energy(x, aux=aux) if aux is not None else self.energy(x)
+    def _energy(self, x, aux=None, temperature=1.0) -> torch.Tensor:
+        e = self.energy(x, aux=aux) if aux is not None else self.energy(x)
+        return e / temperature if self.use_temperature else e
 
-    def _grad(self, x, aux=None) -> torch.Tensor:
-        return self.grad_energy(x, aux=aux) if aux is not None else self.grad_energy(x)
+    def _grad(self, x, aux=None, temperature=1.0) -> torch.Tensor:
+        g = self.grad_energy(x, aux=aux) if aux is not None else self.grad_energy(x)
+        return g / temperature if self.use_temperature else g
 
-    def hamiltonian(self, x, v, aux=None) -> torch.Tensor:
-        return self._energy(x, aux) + self.kinetic(v)
+    def hamiltonian(self, x, v, aux=None, temperature=1.0) -> torch.Tensor:
+        return self._energy(x, aux, temperature) + self.kinetic(v)
 
     def _apply_nets(self, params: Params, net: str, inputs, sig) -> tuple:
         """VNet/XNet apply; zeros in HMC mode. With ``input_scale`` vnet sees
-        [x / sigma, grad * sigma] and xnet [v, masked x / sigma]."""
+        [x / sigma, grad * sigma] and xnet [v, masked x / sigma]; then
+        ``net_input_fn`` maps the inputs."""
         if self.hmc:
             z = torch.zeros_like(inputs[0])
             return z, z, z
@@ -217,6 +234,8 @@ class Dynamics:
                 inputs = [inputs[0] / sig, inputs[1] * sig, *inputs[2:]]
             else:
                 inputs = [inputs[0], inputs[1] / sig, *inputs[2:]]
+        if self.net_input_fn is not None:
+            inputs = self.net_input_fn(net, inputs)
         mod = self.vnet if net == "vnet" else self.xnet
         s, t, q = mod.apply(params[net], inputs)
         return s, t, q
@@ -231,7 +250,7 @@ class Dynamics:
             return (lambda a: a @ w), (lambda a: a @ w.T)
         return (lambda a: eps * a), (lambda a: eps * a)
 
-    def forward_step(self, params, x, v, step_idx: int, *, aux=None):
+    def forward_step(self, params, x, v, step_idx: int, *, aux=None, temperature=1.0):
         """One augmented leapfrog step; returns (x_out, v_out, logdet)."""
         eps = self.eps(params)
         drift_v, drift_x = self._drifts(params, eps)
@@ -240,7 +259,7 @@ class Dynamics:
         m = masks[step_idx]
         mb = 1.0 - m
 
-        grad1 = self._grad(x, aux)
+        grad1 = self._grad(x, aux, temperature)
         s, tt, q = self._apply_nets(params, "vnet", [x, grad1, t, aux], sig)
         sv1 = 0.5 * eps * s
         fv1 = eps * q
@@ -256,7 +275,7 @@ class Dynamics:
         fx2 = eps * q
         x_o = mb * y + m * (y * torch.exp(sx2) + drift_x(torch.exp(fx2) * v_h + tt))
 
-        grad2 = self._grad(x_o, aux)
+        grad2 = self._grad(x_o, aux, temperature)
         s, tt, q = self._apply_nets(params, "vnet", [x_o, grad2, t, aux], sig)
         sv2 = 0.5 * eps * s
         fv2 = eps * q
@@ -265,7 +284,7 @@ class Dynamics:
         logdet = torch.sum(sv1 + sv2 + mb * sx1 + m * sx2, dim=1)
         return x_o, v_o, logdet
 
-    def backward_step(self, params, x_o, v_o, step_idx: int, *, aux=None):
+    def backward_step(self, params, x_o, v_o, step_idx: int, *, aux=None, temperature=1.0):
         """Exact inverse of :meth:`forward_step`."""
         eps = self.eps(params)
         drift_v, drift_x = self._drifts(params, eps)
@@ -274,7 +293,7 @@ class Dynamics:
         m = masks[step_idx]
         mb = 1.0 - m
 
-        grad1 = self._grad(x_o, aux)
+        grad1 = self._grad(x_o, aux, temperature)
         s, tt, q = self._apply_nets(params, "vnet", [x_o, grad1, t, aux], sig)
         sv2 = -0.5 * eps * s
         fv2 = eps * q
@@ -290,7 +309,7 @@ class Dynamics:
         fx1 = eps * q
         x = m * y + mb * torch.exp(sx1) * (y - drift_x(torch.exp(fx1) * v_h + tt))
 
-        grad2 = self._grad(x, aux)
+        grad2 = self._grad(x, aux, temperature)
         s, tt, q = self._apply_nets(params, "vnet", [x, grad2, t, aux], sig)
         sv1 = -0.5 * eps * s
         fv1 = eps * q
@@ -301,25 +320,26 @@ class Dynamics:
 
     # -- full trajectories -------------------------------------------------
 
-    def forward(self, params, x, v, *, aux=None):
+    def forward(self, params, x, v, *, aux=None, temperature=1.0):
         """T forward steps; returns (X, V, logdet)."""
         logdet = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         for step in range(self.T):
-            x, v, ld = self.forward_step(params, x, v, step, aux=aux)
+            x, v, ld = self.forward_step(params, x, v, step, aux=aux, temperature=temperature)
             logdet = logdet + ld
         return x, v, logdet
 
-    def backward(self, params, x, v, *, aux=None):
+    def backward(self, params, x, v, *, aux=None, temperature=1.0):
         """T inverse steps applied in reverse order."""
         logdet = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         for step in range(self.T - 1, -1, -1):
-            x, v, ld = self.backward_step(params, x, v, step, aux=aux)
+            x, v, ld = self.backward_step(params, x, v, step, aux=aux, temperature=temperature)
             logdet = logdet + ld
         return x, v, logdet
 
-    def p_accept(self, params, x0, v0, x1, v1, log_jac, *, aux=None) -> torch.Tensor:
+    def p_accept(self, params, x0, v0, x1, v1, log_jac, *, aux=None,
+                 temperature=1.0) -> torch.Tensor:
         """MH acceptance prob exp(min(H0 - H1 + logJ, 0)), NaN-guarded to 0."""
-        e_old = self.hamiltonian(x0, v0, aux)
-        e_new = self.hamiltonian(x1, v1, aux)
+        e_old = self.hamiltonian(x0, v0, aux, temperature)
+        e_new = self.hamiltonian(x1, v1, aux, temperature)
         p = torch.exp(torch.clamp(e_old - e_new + log_jac, max=0.0))
         return torch.where(torch.isfinite(p), p, torch.zeros_like(p))

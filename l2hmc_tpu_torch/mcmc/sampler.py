@@ -81,6 +81,7 @@ def propose(
     dir_u: Optional[torch.Tensor] = None,
     accept_u: Optional[torch.Tensor] = None,
     aux=None,
+    temperature=None,
     do_mh_step: bool = False,
 ) -> ProposeOut:
     """Direction-randomized proposal.
@@ -90,25 +91,31 @@ def propose(
     run for every chain and the results are mixed per chain. In HMC mode
     only the forward map runs. With ``do_mh_step`` the accept uniform is
     ``accept_u`` or a draw. The draws are made in the order momentum,
-    direction, accept. ``aux`` goes to the dynamics' energy and nets.
+    direction, accept. ``aux`` goes to the dynamics' energy and nets, and
+    ``temperature`` (a float or a 0-d tensor), where given, to its
+    trajectories and acceptance (a ``Dynamics`` with ``use_temperature``
+    divides the energy by it; the fused stand-ins take none).
     """
     v = normal_like(generator, x) if init_v is None else init_v
+    kw = {"aux": aux}
+    if temperature is not None:
+        kw["temperature"] = temperature
 
     if dynamics.hmc:
-        xf, vf, ljf = dynamics.forward(params, x, v, aux=aux)
-        px = dynamics.p_accept(params, x, v, xf, vf, ljf, aux=aux)
+        xf, vf, ljf = dynamics.forward(params, x, v, **kw)
+        px = dynamics.p_accept(params, x, v, xf, vf, ljf, **kw)
         out = ProposeOut(xf, vf, px, ljf)
     else:
         if dir_u is None:
             dir_u = _uniform(generator, (x.shape[0],), x)
         forward_mask = (dir_u < 0.5).to(x.dtype)
-        xf, vf, ljf = dynamics.forward(params, x, v, aux=aux)
-        xb, vb, ljb = dynamics.backward(params, x, v, aux=aux)
+        xf, vf, ljf = dynamics.forward(params, x, v, **kw)
+        xb, vb, ljb = dynamics.backward(params, x, v, **kw)
         m = forward_mask[:, None]
         x_prop = m * xf + (1.0 - m) * xb
         v_prop = m * vf + (1.0 - m) * vb
         log_jac = forward_mask * ljf + (1.0 - forward_mask) * ljb
-        px = dynamics.p_accept(params, x, v, x_prop, v_prop, log_jac, aux=aux)
+        px = dynamics.p_accept(params, x, v, x_prop, v_prop, log_jac, **kw)
         out = ProposeOut(x_prop, v_prop, px, log_jac)
 
     if do_mh_step:

@@ -3,9 +3,12 @@
 from l2hmc_tpu_torch.ops.fused_dynamics import (
     LAUNCHES,
     DifferentiableFusedDynamics,
+    FunnelEnergy,
     FusedChainSampler,
     FusedDynamics,
+    GmmEnergy,
     QuadraticGaussianEnergy,
+    RoughWellEnergy,
     differentiable_fused,
     energy_spec_for_target,
     fused_chain_sampler,
@@ -18,11 +21,14 @@ __all__ = [
     "LAUNCHES",
     "DifferentiableFusedDynamics",
     "DifferentiableFusedVae",
+    "FunnelEnergy",
     "FusedChainSampler",
     "FusedDynamics",
     "FusedVaeAis",
     "FusedVaeSampler",
+    "GmmEnergy",
     "QuadraticGaussianEnergy",
+    "RoughWellEnergy",
     "differentiable_fused",
     "energy_spec_for_target",
     "fused_chain_sampler",

@@ -28,15 +28,15 @@ _FLAGS = [
 # the entry points of each library: name -> ctypes argtypes
 _P, _I, _U64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_float
 SIGNATURES = {
+    # params, D, H, H2, T, energy kind, its constants' floats, ...
     "trajectory": {
-        "l2hmc_trajectory": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+        "l2hmc_trajectory": [_P, *([_I] * 8), _P, _P, _P, _P, _P, _I, _P],
     },
     "trajectory_bwd": {
-        "l2hmc_trajectory_bwd": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _I, _P],
+        "l2hmc_trajectory_bwd": [_P, *([_I] * 8), *([_P] * 9), _I, _P],
     },
     "chain": {
-        "l2hmc_chain": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _U64, _P],
+        "l2hmc_chain": [_P, *([_I] * 7), _P, _P, _P, _P, _I, _I, _U64, _P],
         "l2hmc_chain_lanes": [_I, _I, _I],
     },
     "vae_chain": {

@@ -20,19 +20,31 @@ Beside each kernel is its plain PyTorch version (``trajectory_plain``,
 ``trajectory_vjp_plain``, ``chain_plain``) on the same host-prepared arrays.
 A wrapper takes the plain version only for a CPU tensor; for a CUDA tensor
 it launches the kernel or raises. Each launch adds one to
-``LAUNCHES[name]``.
+``LAUNCHES[name]`` and to ``LAUNCHES[name:spec]`` (the energy spec's
+``NAME``).
 
 Host prep mirrors the JAX package: ``_extract_net`` flattens a ``stq_net``
 params tree into 13 arrays and folds the time embedding into an (H, T)
 table, ``_net_scales`` folds ``input_scale`` into the embed weights, HMC
 runs with zero nets (and the kernels skip them), ``_eps_col`` makes eps a
 (D, 1) column. Kernel layout is transposed: state (D, N), chains along the
-fast axis. Only the Gaussian energy spec is ported; other targets raise.
+fast axis.
+
+The target's energy enters through an energy spec, as in the JAX package:
+``QuadraticGaussianEnergy`` (the Gaussian family), ``RoughWellEnergy``,
+``GmmEnergy`` (ring, mog2) and ``FunnelEnergy``, picked by
+``energy_spec_for_target``. A spec is data: its constants (arrays and
+scalars) go into the kernels' parameter block, and its ``KIND`` picks the
+kernels' instantiation (the structs of ``csrc/l2hmc_common.cuh``). Its
+``build`` gives the plain versions' energy and gradient, its
+``build_grad_vjp`` the gradient's hand-derived vector-Jacobian product.
+``Phi4Energy`` (the lattice) is not ported, nor is its target.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -137,26 +149,39 @@ def _eps_col(eps: torch.Tensor, dim: int) -> torch.Tensor:
 # -- energy specs --------------------------------------------------------------
 
 
+def _cached(cache: dict, device, dtype, make) -> list[torch.Tensor]:
+    """A spec's constants on ``device`` in ``dtype``, made once per (device,
+    dtype) by ``make(device, dtype)``: a launch copies nothing from the host."""
+    key = (torch.device(device), dtype)
+    c = cache.get(key)
+    if c is None:
+        c = cache[key] = make(torch.device(device), dtype)
+    return list(c)
+
+
+def _scalars(values, device, dtype) -> list[torch.Tensor]:
+    """Scalars of a spec as one constant array, each rounded to ``dtype``
+    once (as the JAX closures' Python floats are)."""
+    return [torch.tensor(values, dtype=dtype, device=device)]
+
+
 @dataclasses.dataclass(frozen=True)
 class QuadraticGaussianEnergy:
-    """0.5 (x-mu)^T P (x-mu) — the SCG / tilted / ill-conditioned Gaussian."""
+    """0.5 (x-mu)^T P (x-mu) — the SCG / tilted / ill-conditioned Gaussian.
+    Constants: prec (D, D), mu (D, 1)."""
 
     prec: np.ndarray  # (D, D)
     mu: np.ndarray  # (D,)
     _dev: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
-    def consts(self, device) -> list[torch.Tensor]:
-        """[prec (D, D), mu (D, 1)] in float32 on ``device``, made once per
-        device."""
-        device = torch.device(device)
-        c = self._dev.get(device)
-        if c is None:
-            d = self.mu.shape[0]
-            c = self._dev[device] = [
-                torch.as_tensor(self.prec, dtype=torch.float32, device=device),
-                torch.as_tensor(self.mu, dtype=torch.float32, device=device).reshape(d, 1),
-            ]
-        return list(c)
+    KIND, NAME = 0, "gauss"
+
+    def consts(self, device, dtype=torch.float32) -> list[torch.Tensor]:
+        d = self.mu.shape[0]
+        return _cached(self._dev, device, dtype, lambda dev, dt: [
+            torch.as_tensor(self.prec, dtype=dt, device=dev),
+            torch.as_tensor(self.mu, dtype=dt, device=dev).reshape(d, 1),
+        ])
 
     @staticmethod
     def build(vals):
@@ -183,17 +208,229 @@ class QuadraticGaussianEnergy:
         return grad_vjp
 
 
+@dataclasses.dataclass(frozen=True)
+class RoughWellEnergy:
+    """0.5 |x|^2 + eps sum cos(x / freq) — the rough well (freq = eps in easy
+    mode, eps^2 in hard). Constants: one array of eps, 1/freq, eps/freq and
+    eps/freq^2, each rounded once; the closures multiply by 1/freq, as the
+    JAX ones do."""
+
+    eps: float
+    freq: float
+    _dev: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    KIND, NAME = 1, "rough_well"
+
+    def consts(self, device, dtype=torch.float32) -> list[torch.Tensor]:
+        e, f = float(self.eps), float(self.freq)
+        return _cached(self._dev, device, dtype, lambda dev, dt: _scalars(
+            [e, 1.0 / f, e / f, e / (f * f)], dev, dt))
+
+    @staticmethod
+    def build(vals):
+        (c,) = vals
+        eps, inv_f, a = c[0], c[1], c[2]
+
+        def energy(x):
+            e = 0.5 * torch.square(x) + eps * torch.cos(x * inv_f)
+            return torch.sum(e, dim=0, keepdim=True)
+
+        def grad_energy(x):
+            return x - a * torch.sin(x * inv_f)
+
+        return energy, grad_energy
+
+    @staticmethod
+    def build_grad_vjp(vals):
+        """(x, d) -> (1 - (eps/freq^2) cos(x/freq)) d."""
+        (c,) = vals
+        inv_f, b = c[1], c[3]
+
+        def grad_vjp(x, d):
+            return (1.0 - b * torch.cos(x * inv_f)) * d
+
+        return grad_vjp
+
+
+@dataclasses.dataclass(frozen=True)
+class GmmEnergy:
+    """-logsumexp_k [log c_k - 0.5 (x-mu_k)^T P_k (x-mu_k)] — a full-covariance
+    Gaussian mixture (ring, mog2). Constants: mus_t (D, K), precs (K*D, D)
+    stacked per component, log_consts (1, K). The components run in order,
+    the max subtracted before the exp."""
+
+    mus_t: np.ndarray  # (D, K)
+    precs: np.ndarray  # (K*D, D)
+    log_consts: np.ndarray  # (1, K)
+    _dev: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    KIND, NAME = 2, "gmm"
+
+    def consts(self, device, dtype=torch.float32) -> list[torch.Tensor]:
+        return _cached(self._dev, device, dtype, lambda dev, dt: [
+            torch.as_tensor(a, dtype=dt, device=dev)
+            for a in (self.mus_t, self.precs, self.log_consts)])
+
+    @staticmethod
+    def _terms(vals, x):
+        """Per component (log-weight (1, N), dk = x - mu_k, P_k dk, P_k)."""
+        mus_t, precs, log_consts = vals
+        d, k = mus_t.shape
+        out = []
+        for i in range(k):
+            dk = x - mus_t[:, i:i + 1]
+            p = precs[i * d:(i + 1) * d]
+            pd = p @ dk
+            quad = 0.5 * torch.sum(dk * pd, dim=0, keepdim=True)
+            out.append((log_consts[0, i] - quad, dk, pd, p))
+        return out
+
+    @staticmethod
+    def _weights(terms):
+        """exp(lw_k - max) per component, the max taken in component order."""
+        m = terms[0][0]
+        for lw, *_ in terms[1:]:
+            m = torch.maximum(m, lw)
+        return m, [torch.exp(lw - m) for lw, *_ in terms]
+
+    @classmethod
+    def build(cls, vals):
+        def energy(x):
+            m, ws = cls._weights(cls._terms(vals, x))
+            return -(m + torch.log(sum(ws)))
+
+        def grad_energy(x):
+            terms = cls._terms(vals, x)
+            _, ws = cls._weights(terms)
+            g = sum(w * pd for w, (_, _, pd, _) in zip(ws, terms))
+            return g / sum(ws)
+
+        return energy, grad_energy
+
+    @classmethod
+    def build_grad_vjp(cls, vals):
+        """With w~_k the softmax weights, p_k = P_k dk, q_k = 0.5 (P_k + P_k^T) dk
+        and g = sum w~_k p_k: (x, d) -> sum_k w~_k [P_k^T d - (p_k.d) q_k]
+        + (g.d) sum_k w~_k q_k."""
+        def grad_vjp(x, d):
+            terms = cls._terms(vals, x)
+            _, ws = cls._weights(terms)
+            s = sum(ws)
+            wn = [w / s for w in ws]
+            qs = [0.5 * (pd + p.T @ dk) for (_, dk, pd, p) in terms]
+            g = sum(w * pd for w, (_, _, pd, _) in zip(wn, terms))
+            gd = torch.sum(g * d, dim=0, keepdim=True)
+            out = 0.0
+            for w, q, (_, _, pd, p) in zip(wn, qs, terms):
+                pdd = torch.sum(pd * d, dim=0, keepdim=True)
+                out = out + w * (p.T @ d - pdd * q) + gd * w * q
+            return out
+
+        return grad_vjp
+
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+@dataclasses.dataclass(frozen=True)
+class FunnelEnergy:
+    """The Gaussian funnel with the reference's clipped energy: row 0 is v,
+    rows 1.. the neck, w = clip(v, -clip, clip),
+    E = 0.5 (v^2 / sigma^2 + S e^-w + n (log 2 pi + w)), S the neck's sum of
+    squares, n = dim - 1. Constants: one array of 1/sigma^2, clip and n. The
+    clip makes the v-gradient piecewise: zero d/dv through the saturated
+    exp, as ``jax.grad`` of the clamped energy gives."""
+
+    sigma: float
+    clip: float
+    dim: int
+    _dev: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    KIND, NAME = 3, "funnel"
+
+    def consts(self, device, dtype=torch.float32) -> list[torch.Tensor]:
+        vals = [1.0 / float(self.sigma) ** 2, float(self.clip), float(self.dim - 1)]
+        return _cached(self._dev, device, dtype, lambda dev, dt: _scalars(vals, dev, dt))
+
+    @staticmethod
+    def _parts(c, x):
+        is2, clip, n = c[0], c[1], c[2]
+        v = x[0:1]
+        w = torch.clamp(v, -clip, clip)
+        inv_s = torch.exp(-w)
+        inside = ((v > -clip) & (v < clip)).to(x.dtype)
+        sum_sq = torch.sum(torch.square(x[1:]), dim=0, keepdim=True)
+        return is2, n, v, w, inv_s, inside, sum_sq
+
+    @classmethod
+    def build(cls, vals):
+        (c,) = vals
+
+        def energy(x):
+            is2, n, v, w, inv_s, _, sum_sq = cls._parts(c, x)
+            return 0.5 * (torch.square(v) * is2 + sum_sq * inv_s + n * (_LOG_2PI + w))
+
+        def grad_energy(x):
+            is2, n, v, _, inv_s, inside, sum_sq = cls._parts(c, x)
+            g_v = v * is2 + 0.5 * inside * (n - sum_sq * inv_s)
+            return torch.cat([g_v, x[1:] * inv_s], dim=0)
+
+        return energy, grad_energy
+
+    @classmethod
+    def build_grad_vjp(cls, vals):
+        """With the clip's derivative the strict inside mask ``in``:
+        dx_v = d_v (1/sigma^2 + 0.5 in S e^-w) - in e^-w sum_{i>=1} x_i d_i,
+        dx_i = e^-w d_i - in x_i e^-w d_v."""
+        (c,) = vals
+
+        def grad_vjp(x, d):
+            is2, _, _, _, inv_s, inside, sum_sq = cls._parts(c, x)
+            xd = torch.sum(x[1:] * d[1:], dim=0, keepdim=True)
+            dv = d[0:1] * (is2 + 0.5 * inside * sum_sq * inv_s) - inside * inv_s * xd
+            return torch.cat([dv, inv_s * d[1:] - inside * x[1:] * inv_s * d[0:1]], dim=0)
+
+        return grad_vjp
+
+
+_SPEC_NAMES = {c.KIND: c.NAME for c in (QuadraticGaussianEnergy, RoughWellEnergy, GmmEnergy,
+                                         FunnelEnergy)}
+LAUNCHES.update({f"{k}:{n}": 0 for k in ("trajectory", "trajectory_bwd", "chain")
+                 for n in _SPEC_NAMES.values()})
+
+
+def _count(name: str, inp) -> None:
+    LAUNCHES[name] += 1
+    LAUNCHES[f"{name}:{_SPEC_NAMES[inp.kind]}"] += 1
+
+
 def energy_spec_for_target(target):
-    """Map a target to its in-kernel energy spec. Only the Gaussian family is
-    ported; any other target raises."""
+    """Map a target to its in-kernel energy spec: the Gaussian family (mu,
+    _prec), ``RoughWell``, ``GMM`` (ring, mog2) and ``GaussianFunnel``.
+    Raises ValueError for any other target."""
+    spec = _spec_or_none(target)
+    if spec is None:
+        raise ValueError(f"no fused energy spec for target {type(target).__name__}")
+    return spec
+
+
+def _spec_or_none(target):
     prec = getattr(target, "_prec", None)
     mu = getattr(target, "mu", None)
     if prec is not None and mu is not None:
         return QuadraticGaussianEnergy(np.asarray(prec), np.asarray(mu))
-    raise NotImplementedError(
-        f"no fused energy spec for target {type(target).__name__}: not yet "
-        "ported (only the Gaussian family is)"
-    )
+    if hasattr(target, "eps") and hasattr(target, "easy"):  # RoughWell
+        freq = target.eps if target.easy else target.eps * target.eps
+        return RoughWellEnergy(float(target.eps), float(freq))
+    if hasattr(target, "_precs") and hasattr(target, "_log_consts"):  # GMM
+        mus = np.asarray(target.mus, np.float32)  # (K, D)
+        k, d = mus.shape
+        precs = np.asarray(target._precs, np.float32).reshape(k * d, d)
+        log_consts = np.asarray(target._log_consts, np.float32).reshape(1, k)
+        return GmmEnergy(mus.T.copy(), precs, log_consts)
+    if hasattr(target, "clip") and hasattr(target, "sigma"):  # GaussianFunnel
+        return FunnelEnergy(float(target.sigma), float(target.clip), target.dim)
+    return None
 
 
 # -- host-prepared kernel inputs ------------------------------------------------
@@ -205,7 +442,7 @@ class KernelInputs:
 
     eps: torch.Tensor  # (D, 1)
     masks: torch.Tensor  # (D, T)
-    consts: list  # energy spec arrays: prec (D, D), mu (D, 1)
+    consts: list  # the energy spec's constant arrays
     xnet_w: list  # 13 arrays
     vnet_w: list  # 13 arrays
     hmc: bool
@@ -213,12 +450,19 @@ class KernelInputs:
     grad_energy: Callable
     grad_vjp: Optional[Callable]  # (x, d) -> the cotangent of x through grad_energy
     emb: Optional[torch.Tensor] = None  # (H, N) aux embedding added to the nets' hidden layer
+    kind: int = QuadraticGaussianEnergy.KIND  # the energy spec's, for the kernels
 
     @property
     def dims(self) -> tuple[int, int, int, int]:
         """(D, H, H2, T)."""
         w1, wh, te = self.xnet_w[0], self.xnet_w[2], self.xnet_w[12]
         return w1.shape[0], w1.shape[1], wh.shape[1], te.shape[1]
+
+    @property
+    def energy_args(self) -> tuple[int, int]:
+        """(kind, floats of the constants): the energy spec as the kernels'
+        entry points take it."""
+        return self.kind, sum(c.numel() for c in self.consts)
 
     def block(self) -> torch.Tensor:
         """The packed float32 parameter block the CUDA kernels read
@@ -253,6 +497,7 @@ def prepare(dyn: Dynamics, spec, params, device, *, differentiable: bool = False
         energy=energy,
         grad_energy=grad_energy,
         grad_vjp=spec.build_grad_vjp(consts),
+        kind=spec.KIND,
     )
 
 
@@ -650,12 +895,12 @@ def trajectory(inp: KernelInputs, x, v, reverse: bool):
     ld = torch.empty((1, N), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.l2hmc_trajectory(
-            block.data_ptr(), D, H, H2, T, int(reverse), int(inp.hmc),
+            block.data_ptr(), D, H, H2, T, *inp.energy_args, int(reverse), int(inp.hmc),
             x.data_ptr(), v.data_ptr(), xo.data_ptr(), vo.data_ptr(),
             ld.data_ptr(), N, torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, "trajectory")
-    LAUNCHES["trajectory"] += 1
+    _count("trajectory", inp)
     return xo, vo, ld
 
 
@@ -684,13 +929,13 @@ def trajectory_vjp(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
     lib = _cuda.library("trajectory_bwd")
     with torch.cuda.device(x.device):
         err = lib.l2hmc_trajectory_bwd(
-            block.data_ptr(), D, H, H2, T, int(reverse), int(inp.hmc),
+            block.data_ptr(), D, H, H2, T, *inp.energy_args, int(reverse), int(inp.hmc),
             x.data_ptr(), v.data_ptr(), dX.data_ptr(), dV.data_ptr(), dld.data_ptr(),
             dx.data_ptr(), dv.data_ptr(), grads.data_ptr(), scratch.data_ptr(), N,
             torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, "trajectory_bwd")
-    LAUNCHES["trajectory_bwd"] += 1
+    _count("trajectory_bwd", inp)
     parts = torch.split(grads, [w.numel() for w in weights] + [D])
     g = [p.view(w.shape) for p, w in zip(parts, weights)]
     return g[:_NET_ARRAYS], g[_NET_ARRAYS:], parts[-1].view(D, 1), dx, dv
@@ -717,26 +962,48 @@ def chain(inp: KernelInputs, x, seed: int, n_mh_steps: int, collect_trace: bool 
     )
     with torch.cuda.device(x.device):
         err = lib.l2hmc_chain(
-            block.data_ptr(), D, H, H2, T, int(inp.hmc), x.data_ptr(),
+            block.data_ptr(), D, H, H2, T, *inp.energy_args, int(inp.hmc), x.data_ptr(),
             xo.data_ptr(), acc.data_ptr(),
             trace.data_ptr() if trace is not None else None,
             N, n_mh_steps, int(seed) & 0xFFFFFFFFFFFFFFFF,
             torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, "chain")
-    LAUNCHES["chain"] += 1
+    _count("chain", inp)
     return xo, acc, trace
 
 
 # -- public classes ------------------------------------------------------------
 
 
-def _check_supported(dynamics: Dynamics) -> None:
+def _dynamics_refusal(dynamics: Dynamics) -> Optional[str]:
     for name in ("eps_step", "eps_mat"):
         if getattr(dynamics, name):
-            raise ValueError(f"fused kernels do not support {name} (plain path only)")
+            return f"fused kernels do not support {name} (plain path only)"
     if dynamics.net_input_fn is not None:
-        raise ValueError("fused kernels do not support net_input_fn (plain path only)")
+        return "fused kernels do not support net_input_fn (plain path only)"
+    return None
+
+
+def _check_supported(dynamics: Dynamics) -> None:
+    reason = _dynamics_refusal(dynamics)
+    if reason is not None:
+        raise ValueError(reason)
+
+
+def kernel_refusal(dynamics: Dynamics, target, hidden: int) -> Optional[str]:
+    """Why the fused kernels cannot serve this dynamics on this target with
+    S/T/Q nets of ``hidden`` units, or None where they can: a pure check,
+    made before any launch (an unsupported knob, a target with no energy
+    spec, or widths past the kernels' caps)."""
+    reason = _dynamics_refusal(dynamics)
+    if reason is None and _spec_or_none(target) is None:
+        reason = f"no fused energy spec for target {type(target).__name__}"
+    if reason is None and (dynamics.dim > _MAX_DIM
+                           or (not dynamics.hmc and hidden > _MAX_HIDDEN)):
+        reason = (f"kernel caps exceeded: dim {dynamics.dim}, hidden {hidden} "
+                  f"(caps {_MAX_DIM}, {_MAX_HIDDEN})")
+    return reason
 
 
 def _no_aux(aux) -> None:

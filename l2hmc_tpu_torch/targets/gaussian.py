@@ -103,6 +103,11 @@ def random_tilted_gaussian(
     return Gaussian(np.zeros(dim), sigma)
 
 
+def tilted_gaussian(seed: int, dim: int, log_min: float, log_max: float) -> Gaussian:
+    """The reference's TiltedGaussian: the law of ``random_tilted_gaussian``."""
+    return random_tilted_gaussian(seed, dim, log_min, log_max)
+
+
 def ill_conditioned_gaussian(dim: int = 50, log10_cond: float = 2.0) -> Gaussian:
     """Paper's 50-d ill-conditioned Gaussian: diagonal covariance with
     eigenvalues log-spaced over ``log10_cond`` decades (arXiv 1711.09268 S5.1)."""

@@ -125,15 +125,16 @@ class ScgConfig:
 _UNPORTED = {
     "net_type": lambda v: v == "dense",
     "eps_step": lambda v: not v,
-    "net_input_target_fn": lambda v: not v,
-    "init_temperature": lambda v: v <= 1.0,
     "pt_train_rungs": lambda v: v <= 1,
     "compute_dtype": lambda v: v == "float32",
 }
 
 
 def build_dynamics(config: ScgConfig, target=None) -> tuple[Dynamics, Any]:
-    """Dynamics + target for the SCG experiment (notebook cells 3, 5)."""
+    """Dynamics + target for the SCG experiment (notebook cells 3, 5).
+    ``init_temperature > 1`` turns on ``use_temperature``;
+    ``net_input_target_fn`` takes the target's ``net_input_transform()`` as
+    the nets' input features."""
     target = targets.scg_gaussian() if target is None else target
     common = dict(
         dim=config.dim,
@@ -144,6 +145,7 @@ def build_dynamics(config: ScgConfig, target=None) -> tuple[Dynamics, Any]:
         eps_trainable=config.eps_trainable,
         eps_dim=config.eps_dim,
         eps_mat=config.eps_mat,
+        use_temperature=config.init_temperature > 1.0 or config.pt_train_rungs > 1,
     )
     if config.hmc:
         return Dynamics(hmc=True, **common), target
@@ -155,7 +157,16 @@ def build_dynamics(config: ScgConfig, target=None) -> tuple[Dynamics, Any]:
         if sig.ndim != 2:
             raise ValueError("net_input_whiten needs a target with a covariance .sigma")
         input_scale = tuple(np.sqrt(np.diag(sig)).tolist())
-    return Dynamics(xnet=xnet, vnet=vnet, input_scale=input_scale, **common), target
+    net_input_fn = None
+    if config.net_input_target_fn:
+        if not hasattr(target, "net_input_transform"):
+            raise ValueError(
+                "net_input_target_fn needs a target that defines "
+                f"net_input_transform(); {type(target).__name__} does not"
+            )
+        net_input_fn = target.net_input_transform()
+    return Dynamics(xnet=xnet, vnet=vnet, input_scale=input_scale,
+                    net_input_fn=net_input_fn, **common), target
 
 
 # -- training (notebook cells 9-12) --------------------------------------------
@@ -200,10 +211,18 @@ def draw_step(generator: torch.Generator, n: int, dim: int, *, hmc: bool = False
 
 
 def temperature_at(config: ScgConfig, step) -> torch.Tensor:
-    """The training temperature, 1.0 (annealing, ``init_temperature > 1``,
-    is not ported and raises in ``ScgConfig``), as a float32 tensor on the
-    step counter's device (the CPU for a Python int)."""
-    return torch.ones((), dtype=torch.float32, device=getattr(step, "device", None))
+    """The training temperature: a linear anneal from ``init_temperature`` to
+    1 over ``anneal_frac`` of the steps (1.0 throughout without annealing),
+    as a float32 tensor on the step counter's device (the CPU for a Python
+    int). Computed from the counter on its device, so a captured step
+    replays the schedule with no host branch."""
+    device = getattr(step, "device", None)
+    if config.init_temperature <= 1.0:
+        return torch.ones((), dtype=torch.float32, device=device)
+    anneal_steps = max(int(config.n_steps * config.anneal_frac), 1)
+    step = torch.as_tensor(step, dtype=torch.int32, device=device)
+    frac = torch.clamp(1.0 - step / anneal_steps, 0.0, 1.0)
+    return 1.0 + (config.init_temperature - 1.0) * frac.to(torch.float32)
 
 
 def make_optimizer(config: ScgConfig):
@@ -279,15 +298,17 @@ def make_train_step(
         return a / sig(a.device) if sig is not None else a
 
     mixed = mcmc.loss_mixed_per_dim if config.per_dim_loss else mcmc.loss_mixed
+    anneal = config.init_temperature > 1.0
 
-    def loss_fn(params, x, gen, draws):
+    def loss_fn(params, x, gen, draws, temperature):
+        kt = {"temperature": temperature} if anneal else {}
         kx = {} if draws is None else dict(
             init_v=draws.v_x, dir_u=draws.dir_x, accept_u=draws.acc_x)
-        out_x = mcmc.propose(gen, dynamics, params, x, do_mh_step=True, **kx)
+        out_x = mcmc.propose(gen, dynamics, params, x, do_mh_step=True, **kx, **kt)
         if config.z_burn_in_loss:
             z = normal_like(gen, x) if draws is None else draws.z
             kz = {} if draws is None else dict(init_v=draws.v_z, dir_u=draws.dir_z)
-            out_z = mcmc.propose(gen, dynamics, params, z, **kz)
+            out_z = mcmc.propose(gen, dynamics, params, z, **kz, **kt)
             if config.per_dim_loss:
                 loss = (mixed(whiten(x), whiten(out_x.x_prop), out_x.p_accept,
                               scale=config.scale)
@@ -323,7 +344,8 @@ def make_train_step(
     def train_step(state: TrainState, draws: Optional[StepDraws] = None):
         leaves = [leaf.detach().requires_grad_(True) for leaf in tree_leaves(state.params)]
         params = tree_unflatten(state.params, leaves)
-        loss, out_x = loss_fn(params, state.x, state.generator, draws)
+        temperature = temperature_at(config, state.step)
+        loss, out_x = loss_fn(params, state.x, state.generator, draws, temperature)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         # a leaf the loss does not reach (alpha with eps_trainable=False)
         # gets zeros, as stop_gradient gives in JAX
@@ -347,7 +369,7 @@ def make_train_step(
             "p_accept": torch.mean(out_x.p_accept.detach()),
             # mean over dims when eps_dim (keeps the metric a scalar)
             "eps": torch.mean(dynamics.eps(new_params)),
-            "temperature": temperature_at(config, state.step),
+            "temperature": temperature,
         }
         new_state = TrainState(new_params, opt_state, out_x.x_next.detach(),
                                state.generator, state.step + 1)
@@ -515,6 +537,13 @@ def train(
     optimizer, schedule = make_optimizer(config)
     if config.n_chains < 1:
         raise ValueError(f"n_chains must be >= 1, got {config.n_chains}")
+    if config.fused_train and config.net_input_target_fn:
+        raise ValueError(
+            "fused_train cannot apply a nonlinear net_input_fn "
+            "(fused kernels fold only the linear input_scale)"
+        )
+    if config.fused_train and config.init_temperature > 1.0:
+        raise ValueError("fused_train does not support temperature annealing")
     sigma = getattr(target, "sigma", None)
     has_cov = sigma is not None and np.asarray(sigma).ndim == 2
     eps_init = None

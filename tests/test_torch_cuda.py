@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from l2hmc_tpu_torch import targets
+from l2hmc_tpu_torch.apps import suite
 from l2hmc_tpu_torch.ops import fused_dynamics as fd
 from l2hmc_tpu_torch.ops import fused_vae as fv
 from l2hmc_tpu_torch.train import ScgConfig, build_dynamics, hmc_sample_chain, sample_chain, train
@@ -246,6 +247,100 @@ def test_kernel_rejects_bad_input(cuda):
         fd.chain(inp, x.T.contiguous().T, seed=0, n_mh_steps=1)
     with pytest.raises(ValueError, match="kernel inputs on"):
         fd.trajectory(inp, x.cpu(), x.cpu(), False)
+
+
+# -- the suite's energy specs ---------------------------------------------------
+
+# Each spec at its suite row's shapes (``suite.PARITY_CASES``): the ring on
+# the SCG lane configurations, the rest on WideLanes.
+
+@pytest.mark.parametrize("n", [37, 2048])
+@pytest.mark.parametrize("case", list(suite.PARITY_CASES))
+@pytest.mark.parametrize("reverse", [False, True])
+def test_spec_trajectory_kernel_matches_plain(cuda, case, reverse, n):
+    """Each suite spec's trajectory kernel against its plain version, 5e-4,
+    and twice bit for bit."""
+    inp, x = suite.parity_inputs(case, n, cuda)
+    v = torch.randn(x.shape, generator=torch.Generator().manual_seed(2)).to(cuda)
+    before = fd.LAUNCHES["trajectory"]
+    got = fd.trajectory(inp, x, v, reverse)
+    assert fd.LAUNCHES["trajectory"] == before + 1
+    for a, b in zip(got, fd.trajectory(inp, x, v, reverse)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for g, r in zip(got, fd.trajectory_plain(inp, x, v, reverse)):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, r, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("n", [203, "suite"])
+@pytest.mark.parametrize("case", list(suite.PARITY_CASES))
+def test_spec_chain_kernel_matches_plain_on_same_bits(cuda, case, n):
+    """Each suite spec's chain kernel against its plain version on the same
+    Philox bits, 20 traced MH steps, at a ragged count and at its suite
+    row's: at most 5 flipped decisions, 1e-2 on the other chains
+    (chip_smoke.py's limits), the trace's end the state, twice bit for
+    bit."""
+    n = suite.PARITY_CASES[case].n_chains if n == "suite" else n
+    inp, x = suite.parity_inputs(case, n, cuda)
+    before = fd.LAUNCHES["chain"]
+    xk, acck, trk = fd.chain(inp, x, seed=4, n_mh_steps=20, collect_trace=True)
+    assert fd.LAUNCHES["chain"] == before + 1
+    for a, b in zip((xk, acck, trk), fd.chain(inp, x, seed=4, n_mh_steps=20, collect_trace=True)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    _, accp, trp = fd.chain_plain(inp, x, seed=4, n_mh_steps=20, collect_trace=True)
+    torch.testing.assert_close(trk[-1], xk, rtol=0, atol=0)
+    flipped = _accepts(trk, x) != _accepts(trp, x)
+    clean = ~flipped.any(dim=0)
+    assert int(flipped.sum()) <= 5
+    torch.testing.assert_close(trk[..., clean], trp[..., clean], rtol=0, atol=1e-2)
+    assert 0.0 < float(accp.mean()) < 1.0
+
+
+@pytest.mark.parametrize("n", [333, 2048])
+@pytest.mark.parametrize("case", list(suite.PARITY_CASES))
+@pytest.mark.parametrize("reverse", [False, True])
+def test_spec_trajectory_bwd_kernel_matches_plain(cuda, case, reverse, n):
+    """Each suite spec's backward kernel (its hand-derived gradient VJP at
+    both gradient points of a substep) against its plain version: per leaf
+    within 5e-4 of the leaf's largest entry, twice bit for bit, with the
+    ReLU rule of ``test_trajectory_bwd_kernel_matches_plain_at_scale``."""
+    inp, x = suite.parity_inputs(case, n, cuda)
+    g = torch.Generator().manual_seed(3)
+    v, dX, dV = (torch.randn(x.shape, generator=g).to(cuda) for _ in range(3))
+    dld = torch.randn((1, n), generator=g).to(cuda)
+    before = fd.LAUNCHES["trajectory_bwd"]
+    got = tree_leaves(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse))
+    assert fd.LAUNCHES["trajectory_bwd"] == before + 1
+    for a, b in zip(got, tree_leaves(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse))):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    ref = tree_leaves(fd.trajectory_vjp_plain(inp, x, v, dX, dV, dld, reverse))
+    flipped = torch.zeros(n, dtype=torch.bool, device=cuda)
+    for a, b in zip(got[-2:], ref[-2:]):
+        flipped |= (a - b).abs().amax(dim=0) > 5e-4 * b.abs().max()
+    assert int(flipped.sum()) <= 1
+    if bool(flipped.any()):
+        assert float(fd.relu_margins(inp, x, v, reverse)[flipped].max()) < 1e-5
+        keep = (~flipped).float()[None, :]
+        got = tree_leaves(fd.trajectory_vjp(inp, x, v, dX * keep, dV * keep, dld * keep,
+                                            reverse))
+        ref = tree_leaves(fd.trajectory_vjp_plain(inp, x, v, dX * keep, dV * keep,
+                                                  dld * keep, reverse))
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=5e-4 * float(b.abs().max()) + 1e-30)
+
+
+def test_spec_kernels_refuse_constants_of_another_spec(cuda):
+    """The entry points check the constants' count against the spec's kind:
+    a Gaussian block announced as a mixture is refused, not misread."""
+    import dataclasses
+
+    inp, x = _inputs(cuda)
+    bad = dataclasses.replace(inp, kind=fd.GmmEnergy.KIND)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fd.trajectory(bad, x, x.clone(), False)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fd.chain(dataclasses.replace(inp, kind=9), x, seed=0, n_mh_steps=1)
 
 
 # -- the VAE kernels ------------------------------------------------------------
@@ -602,6 +697,38 @@ def test_captured_training_equals_eager(cuda, case):
     assert lc == le
     if cfg.fused_train:
         assert lc["trajectory"] == lc["trajectory_bwd"] == 4 * 20
+
+
+# an annealed ring (the temperature from the device step counter) and the
+# funnel with its net-input features
+SUITE_CAPTURE_CASES = {
+    "ring_annealed": (lambda: targets.gen_ring(r=2.0, var=0.1, nb_mixtures=4),
+                      dict(init_temperature=5.0, eps=0.2)),
+    "funnel_net_input": (lambda: targets.GaussianFunnel(dim=10),
+                         dict(net_input_target_fn=True, hidden=20, grad_clip=5.0)),
+}
+
+
+@pytest.mark.parametrize("case", list(SUITE_CAPTURE_CASES))
+def test_captured_suite_training_equals_eager(cuda, case):
+    """20 training steps of the suite's annealed and net-input recipes at
+    1024 chains, eager and captured: losses, metrics (the temperature
+    among them), params, Adam state, chains and step bit for bit."""
+    make, kw = SUITE_CAPTURE_CASES[case]
+    tgt = make()
+    cfg = ScgConfig(dim=tgt.dim, n_chains=1024, n_steps=20, **kw)
+    runs = {}
+    for capture in (False, True):
+        runs[capture] = train(cfg, tgt, device=cuda, capture=capture,
+                              log_every=10 if capture else 0)
+    (se, he), (sc, hc) = runs[False], runs[True]
+    for k in he:
+        np.testing.assert_array_equal(hc[k], he[k], err_msg=k)
+    for a, b in zip([*tree_leaves(sc.params), *sc.opt_state, sc.x, sc.step],
+                    [*tree_leaves(se.params), *se.opt_state, se.x, se.step]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    if cfg.init_temperature > 1.0:
+        assert hc["temperature"][0] == 5.0 and hc["temperature"][-1] < 5.0
 
 
 @pytest.mark.parametrize("hmc", [False, True], ids=["l2hmc", "hmc"])

@@ -1,6 +1,8 @@
 """Port's Dynamics vs the JAX package's Dynamics on converted params (CPU),
 plus the integrator's own oracles."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -138,14 +140,91 @@ def test_hmc_reduction_is_plain_leapfrog():
 
 
 def test_unported_knobs_raise():
+    """eps_step still raises; use_temperature and net_input_fn are ported
+    (the latter exclusive with input_scale, with JAX's error)."""
     tgt = targets.scg_gaussian()
-    for kw in (dict(eps_step=True), dict(use_temperature=True),
-               dict(net_input_fn=lambda net, xs: xs)):
-        with pytest.raises(NotImplementedError):
-            dynamics.Dynamics(dim=2, energy=tgt.energy, T=2, hmc=True, **kw)
+    with pytest.raises(NotImplementedError):
+        dynamics.Dynamics(dim=2, energy=tgt.energy, T=2, hmc=True, eps_step=True)
+    for kw in (dict(use_temperature=True), dict(net_input_fn=lambda net, xs: xs)):
+        dynamics.Dynamics(dim=2, energy=tgt.energy, T=2, hmc=True, **kw)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        dynamics.Dynamics(dim=2, energy=tgt.energy, T=2, hmc=True, input_scale=(1.0, 2.0),
+                          net_input_fn=lambda net, xs: xs)
     for kw in (dict(net_type="conv"), dict(compute_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             ScgConfig(**kw)
+
+
+def _suite_pair(kw, jt, tt):
+    """(jax dyn, jax params, port dyn, port params) for a suite recipe on a
+    suite target, the nets lifted as in ``_pair``."""
+    kw = dict(n_chains=N, T=4, dim=tt.dim, **kw)
+    jd, _ = jax_build_dynamics(JaxScgConfig(**kw), jt)
+    td, _ = build_dynamics(ScgConfig(**kw), tt)
+    jp = jd.init_params(jax.random.key(0), eps=0.1)
+    for net in ("xnet", "vnet"):
+        jp[net] = jax.tree_util.tree_map(lambda a: a + 0.03, jp[net])
+    return jd, jp, td, params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_temperature_trajectory_and_p_accept_match_jax(direction):
+    """``use_temperature`` (the ring's annealed recipe) at temperature 3.4:
+    trajectory, logdet and acceptance against JAX's; at 1.0 they equal the
+    untempered dynamics' exactly."""
+    jd, jp, td, tp = _suite_pair(dict(init_temperature=5.0),
+                                 jtargets.gen_ring(2.0, 0.1, 4), targets.gen_ring(2.0, 0.1, 4))
+    assert td.use_temperature and jd.use_temperature
+    x, v = _state()
+    temp = np.float32(3.4)
+    ref = getattr(jd, direction)(jp, jnp.asarray(x), jnp.asarray(v), temperature=temp)
+    got = getattr(td, direction)(tp, torch.tensor(x), torch.tensor(v),
+                                 temperature=torch.tensor(temp))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=TOL, atol=TOL)
+    pr = jd.p_accept(jp, jnp.asarray(x), jnp.asarray(v), *ref, temperature=temp)
+    pt = td.p_accept(tp, torch.tensor(x), torch.tensor(v), *got, temperature=torch.tensor(temp))
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pr), rtol=TOL, atol=TOL)
+    cold = dataclasses.replace(td, use_temperature=False)
+    for a, b in zip(getattr(td, direction)(tp, torch.tensor(x), torch.tensor(v)),
+                    getattr(cold, direction)(tp, torch.tensor(x), torch.tensor(v))):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_net_input_fn_trajectory_matches_jax(direction):
+    """The funnel's net-input features (``net_input_target_fn``):
+    trajectory and logdet against JAX's, chains past the clip included."""
+    jd, jp, td, tp = _suite_pair(dict(net_input_target_fn=True),
+                                 jtargets.GaussianFunnel(dim=4), targets.GaussianFunnel(dim=4))
+    assert td.net_input_fn is not None
+    x, v = _state(4)
+    x[:4, 0] = (9.0, -9.0, 12.0, -12.0)
+    x[:4, 1:] *= 0.02  # the neck at the clipped scale past the negative clip
+    ref = getattr(jd, direction)(jp, jnp.asarray(x), jnp.asarray(v))
+    got = getattr(td, direction)(tp, torch.tensor(x), torch.tensor(v))
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4, atol=1e-4)
+
+
+def test_net_input_fn_keeps_the_logdet():
+    """With the funnel's features the accumulated logdet still equals
+    log |det J| of the (x, v) -> (X, V) map (float64, autograd's J)."""
+    _, _, td, tp = _suite_pair(dict(net_input_target_fn=True),
+                               jtargets.GaussianFunnel(dim=2), targets.GaussianFunnel(dim=2))
+    tp64 = jax.tree_util.tree_map(torch.Tensor.double, tp)
+    x, v = _state(2)
+    for i in range(3):
+        z0 = torch.tensor(np.concatenate([x[i], v[i]]), dtype=torch.float64)
+
+        def f(z):
+            X, V, _ = td.forward(tp64, z[None, :2], z[None, 2:])
+            return torch.cat([X[0], V[0]])
+
+        logabs = torch.linalg.slogdet(torch.autograd.functional.jacobian(f, z0))[1]
+        ld = td.forward(tp64, z0[None, :2], z0[None, 2:])[2]
+        np.testing.assert_allclose(float(ld[0]), float(logabs), rtol=0, atol=1e-8)
 
 
 def test_default_device_is_cuda(monkeypatch):

@@ -183,10 +183,11 @@ def test_wrapper_input_checks():
 
 
 def test_non_gaussian_target_not_ported():
+    """A target with no energy spec raises the JAX package's ValueError."""
     class Opaque:
         dim = 2
 
-    with pytest.raises(NotImplementedError, match="not yet"):
+    with pytest.raises(ValueError, match="no fused energy spec"):
         fd.energy_spec_for_target(Opaque())
 
 

@@ -18,7 +18,9 @@ from l2hmc_tpu.mcmc import losses as jlosses
 from l2hmc_tpu.train import ScgConfig as JaxScgConfig
 from l2hmc_tpu.train import build_dynamics as jax_build_dynamics
 from l2hmc_tpu.train import make_optimizer as jax_make_optimizer
+from l2hmc_tpu.train import temperature_at as jax_temperature_at
 from l2hmc_tpu_torch import targets
+from l2hmc_tpu_torch.apps import suite
 from l2hmc_tpu_torch.convert import params_from_jax
 from l2hmc_tpu_torch.ops import differentiable_fused, fused_chain_sampler, fused_for_target
 from l2hmc_tpu_torch.train import (
@@ -213,28 +215,40 @@ STEP_CASES = {
                            alpha_lr_scale=0.5, eps_unfreeze_step=5),
     "eps_mat_unfrozen": dict(eps_mat=True, eps_chol_init=0.1, alpha_lr_scale=0.5,
                              eps_unfreeze_step=5, at_step=5),
+    # the suite's recipes: the ring annealed (at a step where the
+    # temperature is 3.4), the funnel with its net-input features
+    "annealed": dict(init_temperature=5.0, n_steps=10, at_step=3, target="ring"),
+    "net_input": dict(net_input_target_fn=True, target="funnel"),
+}
+# the suite targets of STEP_CASES: (JAX, port)
+STEP_TARGETS = {
+    "ring": (lambda: jtargets.gen_ring(r=2.0, var=0.1, nb_mixtures=4),
+             lambda: targets.gen_ring(r=2.0, var=0.1, nb_mixtures=4)),
+    "funnel": (lambda: jtargets.GaussianFunnel(dim=4), lambda: targets.GaussianFunnel(dim=4)),
 }
 
 
-def _jax_propose(jd, jp, x, v, u_dir, u_acc):
+def _jax_propose(jd, jp, x, v, u_dir, u_acc, temperature=1.0):
+    kt = dict(temperature=temperature)
     if jd.hmc:
-        xp, vp, lj = jd.forward(jp, x, v)
+        xp, vp, lj = jd.forward(jp, x, v, **kt)
     else:
         fwd = (u_dir < 0.5).astype(x.dtype)
-        xf, vf, ljf = jd.forward(jp, x, v)
-        xb, vb, ljb = jd.backward(jp, x, v)
+        xf, vf, ljf = jd.forward(jp, x, v, **kt)
+        xb, vb, ljb = jd.backward(jp, x, v, **kt)
         m = fwd[:, None]
         xp, vp = m * xf + (1 - m) * xb, m * vf + (1 - m) * vb
         lj = fwd * ljf + (1 - fwd) * ljb
-    px = jd.p_accept(jp, x, v, xp, vp, lj)
+    px = jd.p_accept(jp, x, v, xp, vp, lj, **kt)
     x_next = jnp.where((px - u_acc >= 0.0)[:, None], xp, x)
     return xp, px, x_next
 
 
 def _jax_step(cfg, jd, sigma, jp, x, d, alpha0, step=0):
-    """The JAX train step (train/scg.py make_train_step, PT off, temperature
-    1) at step ``step`` with ``mcmc.propose`` composed from
+    """The JAX train step (train/scg.py make_train_step, PT off) at step
+    ``step``, at its ``temperature_at``, with ``mcmc.propose`` composed from
     forward/backward/p_accept on the given draws, and the optax update."""
+    temperature = jax_temperature_at(cfg, step)
     sig = wmat = None
     if cfg.whiten_full:
         wmat = jnp.asarray(np.linalg.inv(np.linalg.cholesky(sigma)), jnp.float32)
@@ -249,9 +263,11 @@ def _jax_step(cfg, jd, sigma, jp, x, d, alpha0, step=0):
     mixed = jlosses.loss_mixed_per_dim if cfg.per_dim_loss else jlosses.loss_mixed
 
     def loss_fn(params):
-        xp, px, x_next = _jax_propose(jd, params, x, d["v_x"], d["dir_x"], d["acc_x"])
+        xp, px, x_next = _jax_propose(jd, params, x, d["v_x"], d["dir_x"], d["acc_x"],
+                                      temperature)
         if cfg.z_burn_in_loss:
-            zp, pz, _ = _jax_propose(jd, params, d["z"], d["v_z"], d["dir_z"], d["acc_x"])
+            zp, pz, _ = _jax_propose(jd, params, d["z"], d["v_z"], d["dir_z"], d["acc_x"],
+                                     temperature)
             z = d["z"]
             if cfg.per_dim_loss:
                 loss = (mixed(whiten(x), whiten(xp), px, scale=cfg.scale)
@@ -300,6 +316,7 @@ def test_train_step_matches_jax_on_same_draws(case):
     of its gradient) and to 2 lr elsewhere."""
     kw = dict(n_chains=N, T=3, seed=0, **STEP_CASES[case])
     at_step = kw.pop("at_step", 0)
+    suite_target = kw.pop("target", None)
     jax_kw = {k: v for k, v in kw.items() if k != "fused_train"}
     tgt_kw = {}
     if kw.get("whiten_loss") or kw.get("whiten_full"):
@@ -308,6 +325,11 @@ def test_train_step_matches_jax_on_same_draws(case):
     dim = tgt_kw.get("dim", 2)
     jt = jtargets.ill_conditioned_gaussian(dim, 2.0) if dim > 2 else jtargets.scg_gaussian()
     tt = targets.ill_conditioned_gaussian(dim, 2.0) if dim > 2 else targets.scg_gaussian()
+    if suite_target is not None:
+        jt, tt = (make() for make in STEP_TARGETS[suite_target])
+        dim = tt.dim
+    sigma = getattr(jt, "sigma", None)
+    scale = np.sqrt(np.diag(sigma)) if np.ndim(sigma) == 2 else 1.0
     jcfg = JaxScgConfig(dim=dim, **jax_kw)
     cfg = ScgConfig(dim=dim, **kw)
     jd, _ = jax_build_dynamics(jcfg, jt)
@@ -320,7 +342,7 @@ def test_train_step_matches_jax_on_same_draws(case):
         for net in ("xnet", "vnet"):
             jp[net] = jax.tree_util.tree_map(lambda a: a + 0.03, jp[net])
     rng = np.random.default_rng(11)
-    x = (rng.standard_normal((N, dim)) * np.sqrt(np.diag(jt.sigma))).astype(np.float32)
+    x = (rng.standard_normal((N, dim)) * scale).astype(np.float32)
     d = {k: rng.standard_normal((N, dim)).astype(np.float32) for k in ("v_x", "z", "v_z")}
     d.update({k: rng.uniform(size=N).astype(np.float32) for k in ("dir_x", "acc_x", "dir_z")})
     alpha0 = np.log(np.float32(0.1))
@@ -328,7 +350,7 @@ def test_train_step_matches_jax_on_same_draws(case):
     with jax.enable_x64(False):
         jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32), jp)
         jloss, jgrads, jnew, jx_next, jadam = _jax_step(
-            jcfg, jd, jt.sigma, jp, jnp.asarray(x), {k: jnp.asarray(v) for k, v in d.items()},
+            jcfg, jd, sigma, jp, jnp.asarray(x), {k: jnp.asarray(v) for k, v in d.items()},
             alpha0, at_step)
 
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
@@ -386,6 +408,23 @@ def test_fused_train_matches_plain_training():
     assert abs(float(hists[True]["eps"][-1]) - 0.1) > 1e-4  # eps trains
 
 
+def test_ring_training_routes_agree_over_their_free_steps():
+    """On the suite's ring at 1024 chains and its recipe's eps, the fused
+    step's route (the wrappers' plain versions on the CPU) and the module
+    route agree to the SCG bar over ``suite.RING_FREE_STEPS`` free steps:
+    the steps over which chip_smoke.py holds the ring's fused against plain
+    training on the card. Later two plain routes part too, by the recipe's
+    own dynamics."""
+    case = suite.PARITY_CASES["ring"]
+    tgt = case.target()
+    hists = {}
+    for fused in (False, True):
+        cfg = ScgConfig(n_chains=1024, n_steps=suite.RING_FREE_STEPS, seed=0, dim=tgt.dim,
+                        T=case.T, hidden=case.hidden, eps=0.2, fused_train=fused)
+        _, hists[fused] = train(cfg, tgt, device="cpu")
+    np.testing.assert_allclose(hists[True]["loss"], hists[False]["loss"], rtol=2e-3, atol=1e-2)
+
+
 def test_train_resume_continuity():
     """train() from an explicit state continues where it stopped: 20 + 20
     steps equal 40 steps exactly, and the given state's generator is not
@@ -429,12 +468,47 @@ def test_eps_sigma_init_and_unported_knobs():
         torch.exp(state.params["alpha"]).numpy(), 0.1 * np.sqrt(np.diag(tgt.sigma)), rtol=1e-6)
     assert temperature_at(cfg, 0) == 1.0
     ScgConfig(fused_train=True)  # ported now
-    for knob in (dict(init_temperature=2.0), dict(pt_train_rungs=2)):
+    ScgConfig(init_temperature=2.0, net_input_target_fn=True)  # ported now
+    for knob in (dict(pt_train_rungs=2), dict(net_type="conv")):
         with pytest.raises(NotImplementedError):
             ScgConfig(**knob)
     if not torch.cuda.is_available():  # entry points run on cuda unless told otherwise
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train(ScgConfig(n_steps=1))
+
+
+def test_temperature_at_matches_jax_over_the_schedule():
+    """The linear anneal against JAX's at every step of a schedule, from a
+    Python int and from the device step counter (an int32 tensor): float32
+    to 1e-6, 1.0 after ``anneal_frac`` of the steps."""
+    for kw in (dict(init_temperature=5.0, n_steps=50), dict(init_temperature=3.0, n_steps=7,
+                                                             anneal_frac=0.5)):
+        cfg, jcfg = ScgConfig(**kw), JaxScgConfig(**kw)
+        for step in range(cfg.n_steps + 2):
+            ref = float(jax_temperature_at(jcfg, jnp.asarray(step, jnp.int32)))
+            for s in (step, torch.tensor(step, dtype=torch.int32)):
+                got = temperature_at(cfg, s)
+                assert got.dtype == torch.float32 and got.shape == ()
+                np.testing.assert_allclose(float(got), ref, rtol=1e-6)
+        assert float(temperature_at(cfg, cfg.n_steps)) == 1.0
+
+
+def test_suite_recipes_refusals():
+    """JAX's errors: the fused training path takes neither annealing nor a
+    net-input feature map, and ``net_input_target_fn`` needs a target that
+    defines its transform."""
+    funnel = targets.GaussianFunnel(dim=4)
+    with pytest.raises(ValueError, match="cannot apply a nonlinear net_input_fn"):
+        train(ScgConfig(dim=4, n_steps=1, net_input_target_fn=True, fused_train=True), funnel,
+              device="cpu")
+    with pytest.raises(ValueError, match="does not support temperature annealing"):
+        train(ScgConfig(n_steps=1, init_temperature=5.0, fused_train=True), device="cpu")
+    with pytest.raises(ValueError, match="net_input_transform"):
+        build_dynamics(ScgConfig(net_input_target_fn=True))
+    dyn, _ = build_dynamics(ScgConfig(dim=4, net_input_target_fn=True), funnel)
+    assert dyn.net_input_fn is not None and not dyn.use_temperature
+    assert build_dynamics(ScgConfig(init_temperature=5.0))[0].use_temperature
+    assert build_dynamics(ScgConfig(init_temperature=5.0, hmc=True))[0].use_temperature
 
 
 # -- eps_mat in training, and the route the captured step takes ---------------------
