@@ -107,7 +107,32 @@ then:
      captured vs eager, bit for bit: 20 steps of the annealed ring and of
      the funnel with its net-input features; (f) each spec's three kernels
      timed at its suite row's shapes, beside their plain versions and
-     bounds.
+     bounds;
+ 11. the phi^4 lattice (``apps.phi4``) on the ``Phi4`` spec: (a) the
+     trajectory and backward kernels vs their plain versions at L = 8
+     (D = 64, hidden 32, T = 10, 512 chains, both directions; phase 2's and
+     5a's bars), and both refusing L = 16 with their cap named, the chain
+     kernel refusing L = 64; (b) the chain kernel vs its plain version on
+     the same Philox bits, 20 MH steps, twice bit for bit: the site-parallel
+     configuration at L = 16 (512 chains, learned and HMC), L = 32 (256),
+     L = 8 (512; the chain kernel runs the lattice there at every width)
+     and a dense 128-d Gaussian (203), at PHI4_FLIPS and phase 3's 1e-2 on
+     the other chains; (c) the app's
+     path: ``apps.phi4.run`` at L = 16 (m^2 = -1, lam = 0.5, 512 chains,
+     hidden 32, T = 10, 300 training steps, the 1000-step kernel eval, HMC,
+     a parallel-tempered eval at 8 rungs cut to PHI4_PT_STEPS), its kernel
+     eval's tunnelling rate and magnetization ESS held against a plain
+     ``sample_chain`` eval of the same params from the same x0, each the
+     mean over PHI4_SEEDS random streams (PHI4_GAP), then at L = 8 and at
+     L = 32 cut in training and eval; (d) captured training
+     steps with conv nets at L = 16 against eager ones (cuDNN's TF32 off),
+     and fused against plain training at L = 8: the fused step's loss at
+     each of a plain run's 20 states on the same draws (phase 5b's bar),
+     two free runs through ``train`` beside it (reported). Launch
+     counts are reset before (c) and read after each of its runs, and reset
+     before the fused training run of (d) and read after it; (e) the
+     kernels at the app's shapes timed beside their plain versions and
+     bounds, with the L2 weight bytes of a site-parallel launch reckoned.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -242,6 +267,12 @@ def spec_ops(kind, D, nc):
                 K * (comp + lse + 4 * D * D + 15 * D) + 8 * D)
     if kind == 3:  # Funnel: the neck's sum of squares, one clip and exp
         return 2 * D + 9, 3 * D + 8, 9 * D + 10
+    if kind == 4:  # Phi4: a 5-point stencil a site
+        # energy: two differences and their squares, the potential's x^2,
+        # x^4 and FMA, the halves and the sums; gradient: the Laplacian's
+        # five terms, m^2 x, 4 lam x^3; VJP: the diagonal's FMA and product,
+        # the neighbours' sum of d and the difference
+        return 14 * D, 11 * D, 8 * D
     raise ValueError(f"unknown energy spec kind {kind}")
 
 
@@ -366,7 +397,7 @@ def _bwd_launch_ms(fd, cuda_lib, inp, x, v, dX, dV, dld, reps):
     the wrapper's host work."""
     import torch
 
-    block = fd._kernel_block(inp, x)
+    block = fd._kernel_block(inp, x, "trajectory_bwd")
     D, H, H2, T = inp.dims
     N = x.shape[1]
     n_grads = sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D
@@ -393,7 +424,7 @@ def _traj_launch_ms(fd, cuda_lib, inp, x, v, reps):
     the device's time, apart from the wrapper's host work."""
     import torch
 
-    block = fd._kernel_block(inp, x)
+    block = fd._kernel_block(inp, x, "trajectory")
     D, H, H2, T = inp.dims
     N = x.shape[1]
     xo, vo = torch.empty_like(x), torch.empty_like(v)
@@ -425,6 +456,45 @@ def _gen(seed):
     import torch
 
     return torch.Generator().manual_seed(seed)
+
+
+def _over_tolerance(got, ref):
+    """|got - ref| as a share of the SCG training bar (rtol 2e-3, atol 1e-2),
+    elementwise."""
+    import numpy as np
+
+    got, ref = np.asarray(got), np.asarray(ref)
+    return np.abs(got - ref) / (1e-2 + 2e-3 * np.abs(ref))
+
+
+def _chain_vs_plain(fd, inp, xc, what, max_flips):
+    """The chain kernel against its plain version on the same Philox bits
+    from the (D, N) state ``xc``, 20 traced MH steps, the kernel launched
+    twice: at most ``max_flips`` accept decisions may differ (a decision
+    flips only where px - u lies within the two versions' rounding of the
+    Hamiltonians), the other chains' states agree within 1e-2 (20 x the
+    trajectory gate), the second launch repeats the first bit for bit and
+    the trace ends at the state. Returns the summary."""
+    import torch
+
+    xk, acck, tr_k = fd.chain(inp, xc, 9, 20, collect_trace=True)
+    again = fd.chain(inp, xc, 9, 20, collect_trace=True)
+    _, _, tr_p = fd.chain_plain(inp, xc, 9, 20, collect_trace=True)
+    dec_k = (tr_k != torch.cat([xc[None], tr_k[:-1]])).any(dim=1)  # (K, N) accepted
+    dec_p = (tr_p != torch.cat([xc[None], tr_p[:-1]])).any(dim=1)
+    flipped = dec_k != dec_p
+    clean = ~flipped.any(dim=0)
+    dx = float((tr_k - tr_p).abs()[:, :, clean].max())
+    repeats = all(bool((a == b).all()) for a, b in zip((xk, acck, tr_k), again))
+    out = {"n_chains": xc.shape[1], "decisions": int(dec_k.numel()),
+           "flips": int(flipped.sum()), "chains_flipped": int((~clean).sum()),
+           "max_abs_dx_unflipped": dx, "accept": float(dec_k.float().mean()),
+           "repeats_bit_for_bit": repeats}
+    _require(repeats, f"{what}: two launches differ")
+    _require(bool((tr_k[-1] == xk).all()), f"{what}: trace end != state")
+    _require(bool(torch.isfinite(tr_k).all()), f"{what}: non-finite")
+    _require(int(flipped.sum()) <= max_flips and dx < 1e-2, f"{what}: {out}")
+    return out
 
 
 def lift_vae_params(params):
@@ -961,18 +1031,15 @@ def vae_train_phases(dev, report, logdir):
             rows.append([float(metrics[k]) for k in ("elbo", "sampler_loss", "log_prob")])
         hists[fused] = np.asarray(rows)
 
-    def over_tolerance(got, ref):
-        return np.abs(got - ref) / (1e-2 + 2e-3 * np.abs(ref))
-
     def where(gaps):
         """The loss and the step (1-based) of the largest entry of a
         (steps, 3) array of gaps."""
         step, col = np.unravel_index(int(np.argmax(gaps)), gaps.shape)
         return [("elbo", "sampler_loss", "log_prob")[col], int(step) + 1]
 
-    same_params = over_tolerance(np.asarray(at_plain_states), hists[False])
+    same_params = _over_tolerance(np.asarray(at_plain_states), hists[False])
     same_params_gap = float(same_params.max())
-    free = over_tolerance(hists[True], hists[False])
+    free = _over_tolerance(hists[True], hists[False])
     held = np.where(np.arange(len(free))[:, None] < VAE_SAMPLER_FREE_STEPS, free,
                     free * np.asarray([1.0, 0.0, 1.0]))
     gap = float(held.max())
@@ -1187,22 +1254,7 @@ def suite_phases(dev, report):
     chain_cmp = {}
     for name, case in suite.PARITY_CASES.items():
         inp, xc = suite.parity_inputs(name, case.n_chains, dev, seed=40)
-        xk, acck, tr_k = fd.chain(inp, xc, 9, 20, collect_trace=True)
-        again = fd.chain(inp, xc, 9, 20, collect_trace=True)
-        _, _, tr_p = fd.chain_plain(inp, xc, 9, 20, collect_trace=True)
-        dec_k = (tr_k != torch.cat([xc[None], tr_k[:-1]])).any(dim=1)
-        dec_p = (tr_p != torch.cat([xc[None], tr_p[:-1]])).any(dim=1)
-        flipped = dec_k != dec_p
-        clean = ~flipped.any(dim=0)
-        dx = float((tr_k - tr_p).abs()[:, :, clean].max())
-        repeats = all(bool((a == b).all()) for a, b in zip((xk, acck, tr_k), again))
-        chain_cmp[name] = {"n_chains": case.n_chains, "decisions": int(dec_k.numel()),
-                           "flips": int(flipped.sum()), "max_abs_dx_unflipped": dx,
-                           "accept": float(dec_k.float().mean()),
-                           "repeats_bit_for_bit": repeats}
-        _require(repeats, f"suite chain {name}: two launches differ")
-        _require(bool((tr_k[-1] == xk).all()), f"suite chain {name}: trace end != state")
-        _require(int(flipped.sum()) <= 5 and dx < 1e-2, f"suite chain {name}: {chain_cmp[name]}")
+        chain_cmp[name] = _chain_vs_plain(fd, inp, xc, f"suite chain {name}", 5)
     report["suite_chain_vs_plain"] = chain_cmp
     print(f"# suite chain kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
           + json.dumps(chain_cmp), flush=True)
@@ -1237,10 +1289,6 @@ def suite_phases(dev, report):
 
     t_phase = time.perf_counter()
 
-    def over_tolerance(got, ref):
-        got, ref = np.asarray(got), np.asarray(ref)
-        return np.abs(got - ref) / (1e-2 + 2e-3 * np.abs(ref))
-
     fused_vs_plain = {}
     for name, kw in SUITE_TRAIN:
         case = suite.PARITY_CASES[name]
@@ -1262,7 +1310,7 @@ def suite_phases(dev, report):
             _, mf = fused_step(state, d)
             state, mp = plain_step(state, d)
             same.append((float(mf["loss"]), float(mp["loss"])))
-        same_gap = float(over_tolerance(*zip(*same)).max())
+        same_gap = float(_over_tolerance(*zip(*same)).max())
         # the two free runs through the entry point
         hists, step_ms = {}, {}
         for fused in (True, False):
@@ -1272,14 +1320,14 @@ def suite_phases(dev, report):
                                     device=dev)
             torch.cuda.synchronize()
             step_ms[fused] = 1e3 * (time.perf_counter() - t) / 20
-        free = over_tolerance(hists[True]["loss"], hists[False]["loss"])
+        free = _over_tolerance(hists[True]["loss"], hists[False]["loss"])
         witness = {}
         if name == "ring":
             # the same two runs on the CPU, where the fused step takes the
             # wrappers' plain versions: two plain routes on the same draws
             cpu = {fused: train(dataclasses.replace(cfg, fused_train=fused), tgt,
                                 device="cpu")[1]["loss"] for fused in (True, False)}
-            gaps = over_tolerance(cpu[True], cpu[False])
+            gaps = _over_tolerance(cpu[True], cpu[False])
             witness = {"cpu_plain_routes_gap_by_step": gaps.tolist()}
             _require(float(gaps[:free_steps].max()) <= 1.0,
                      f"suite training on the CPU, two plain routes part: {gaps.tolist()}")
@@ -1396,6 +1444,364 @@ def suite_phases(dev, report):
     report["suite_wall_s"] = time.perf_counter() - t_all
     print(f"# suite phase: {report['suite_wall_s']:.1f} s", flush=True)
     return rows_out
+
+
+# -- 11. the phi^4 lattice ---------------------------------------------------------
+
+# The parity cases are ``apps.phi4.PARITY_CASES``. (b)'s bars: the kernel and
+# its plain version draw the same bits, so a
+# decision differs only where px - u lies inside the float32 gap of two
+# Hamiltonians of a few hundred (sums of 256-1024 terms in another order,
+# ~1e-4): at most PHI4_FLIPS of the decisions may flip (20 of 10240 at 512
+# chains x 20 steps), and the other chains agree to phase 3's 1e-2.
+PHI4_FLIPS = 0.002
+PHI4_CHAIN_CASES = ("phi4_L16", "phi4_L32", "gauss_D128", "phi4_L16_hmc", "phi4_L8")
+# (c) the app's path at full width (L = 16, hidden 32, the JAX runner's
+# defaults) cut in depth: 300 training steps (the protocol: 2000), the
+# 1000-step eval, the parallel-tempered evals cut to PHI4_PT_STEPS at 8
+# rungs (the protocol's m^2 = -4 row: 24 rungs, 1000 steps). The kernel's
+# eval and a plain sample_chain eval of the same params from the same x0
+# are chains of one sampler on two random streams: their tunnelling rates
+# and magnetization ESS, each the mean over PHI4_SEEDS streams (the run's
+# and two more), must agree within PHI4_GAP relative (bench.py's ESS-gap
+# bar) of the plain ones, the rate's floor 0.01 (a rate under 1% is noise
+# at 512 chains x 1000 steps). One stream a route is too few: two single
+# streams have given ESS_m 0.31 apart with their rates 0.006 apart (H100,
+# L = 16 after 300 training steps); the estimator sums every lag's
+# autocorrelation above 0.05, and its late lags average few products, so a
+# 1000-step ESS_m moves by tens of percent between streams (the per-stream
+# values are reported).
+PHI4_RUN = dict(L=16, m2=-1.0, lam=0.5, n_chains=512, hidden=32, leapfrogs=10, n_steps=300,
+                eval_steps=1000, pt_rungs=8, pt_t_max=16.0)
+PHI4_PT_STEPS = 100
+PHI4_SEEDS = 3
+PHI4_GAP = 0.30
+# the other widths' runs of the app, cut in training and eval: L = 8 and
+# L = 32 at the JAX package's 256 chains
+# (phi4_results.json)
+PHI4_RUNS_MORE = (dict(L=8, n_chains=512, n_steps=50, eval_steps=500),
+                  dict(L=32, n_chains=256, n_steps=50, eval_steps=500))
+
+
+def phi4_l2_weight_bytes(D, H, H2, T, N, K, chains_per_block):
+    """Weight bytes one site-parallel chain launch reads from the L2,
+    reckoned for the report: each block of ``chains_per_block`` chains
+    reads, per MH step, both nets' first-layer and head weights, the second
+    layer once per chain, and the biases and scales, in each of the 4 T net
+    applications."""
+    per_app = 2 * D * H + 3 * H2 * D + chains_per_block * H * H2 + 5 * D + H2 + H
+    return -(-N // chains_per_block) * K * 4 * T * per_app * 4
+
+
+def phi4_phases(dev, report):
+    """Phase 11: the Phi4 spec through kernels 1-2 at L = 8, the chain
+    kernel's site-parallel configuration at L = 8, 16 and 32, the phi^4 app's
+    path, conv-net and fused training, and the kernels' times. Returns the
+    ``kernels`` rows 1e, 2e, 3e, 3f and 3g."""
+    import numpy as np
+    import torch
+
+    from l2hmc_tpu_torch import targets
+    from l2hmc_tpu_torch.apps import phi4
+    from l2hmc_tpu_torch.ops import _cuda
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+    from l2hmc_tpu_torch.train import (
+        ScgConfig, StepDraws, build_dynamics, draw_step, init_state, make_optimizer,
+        make_train_step, sample_chain, train,
+    )
+    from l2hmc_tpu_torch.train.optim import tree_leaves
+
+    t_all = time.perf_counter()
+    out = {}
+
+    # (a) kernels 1-2 on Phi4 at L = 8 against their plain versions; past 64
+    # they refuse, naming the kernel and its cap
+    t_phase = time.perf_counter()
+    inp8, x8 = phi4.parity_inputs("phi4_L8", 512, dev, seed=20)
+    g = _gen(61)
+    v8, dX8, dV8 = (torch.randn(x8.shape, generator=g).to(dev) for _ in range(3))
+    dld8 = torch.randn((1, 512), generator=g).to(dev)
+    traj, bwd = {}, {}
+    for reverse in (False, True):
+        way = "backward" if reverse else "forward"
+        k_out = fd.trajectory(inp8, x8, v8, reverse)
+        again = fd.trajectory(inp8, x8, v8, reverse)
+        _require(all(bool(torch.isfinite(t).all()) for t in k_out), "phi4 trajectory: non-finite")
+        _require(all(bool((a == b).all()) for a, b in zip(k_out, again)),
+                 "phi4 trajectory: two launches differ")
+        traj[way] = max(float((a - b).abs().max())
+                        for a, b in zip(k_out, fd.trajectory_plain(inp8, x8, v8, reverse)))
+        bwd[way] = _spec_vjp_compare(fd, inp8, x8, v8, dX8, dV8, dld8, reverse)
+        _require(traj[way] < TRAJ_TOL, f"phi4 trajectory {way}: {traj[way]}")
+        _require(bwd[way]["max_rel_err"] <= BWD_TOL, f"phi4 trajectory_bwd {way}: {bwd[way]}")
+    inp16, x16 = phi4.parity_inputs("phi4_L16", 512, dev, seed=20)
+    refusals = {}
+    for kernel, call in (("trajectory", lambda: fd.trajectory(inp16, x16, x16, False)),
+                         ("trajectory_bwd", lambda: fd.trajectory_vjp(
+                             inp16, x16, x16, x16, x16, torch.zeros((1, 512), device=dev),
+                             False))):
+        try:
+            call()
+            refusals[kernel] = None
+        except ValueError as e:
+            refusals[kernel] = str(e)
+        _require(refusals[kernel] is not None and kernel in refusals[kernel]
+                 and "dim 64" in refusals[kernel], f"{kernel} at L = 16: {refusals[kernel]}")
+    t64 = targets.Phi4Lattice(L=64)
+    d64, _ = build_dynamics(ScgConfig(dim=t64.dim, hidden=32), t64)
+    refusals["chain_L64"] = fd.kernel_refusal(d64, t64, 32)
+    try:
+        fd.fused_chain_sampler(d64, t64).run(
+            d64.init_params(_gen(0), device=dev), t64.sample(_gen(1), 4, device=dev), seed=0,
+            n_mh_steps=1)
+        chain64 = None
+    except ValueError as e:
+        chain64 = str(e)
+    _require(chain64 is not None and "chain kernel caps" in chain64 and "1024" in chain64,
+             f"chain kernel at L = 64: {chain64}")
+    out["kernels_1_2_vs_plain_L8"] = {"trajectory": traj, "trajectory_bwd": bwd,
+                                      "refusals": refusals}
+    print(f"# phi4 trajectory and backward kernels vs plain ({time.perf_counter() - t_phase:.1f}"
+          " s): " + json.dumps(out["kernels_1_2_vs_plain_L8"]), flush=True)
+
+    # (b) the chain kernel against its plain version on the same Philox bits
+    t_phase = time.perf_counter()
+    chain_cmp = {}
+    for name in PHI4_CHAIN_CASES:
+        n = phi4.PARITY_CASES[name].n_chains
+        inp, xc = phi4.parity_inputs(name, n, dev, seed=40)
+        D, H, H2, T = inp.dims
+        chain_cmp[name] = _chain_vs_plain(fd, inp, xc, f"phi4 chain {name}",
+                                          PHI4_FLIPS * 20 * n)
+        chain_cmp[name].update(dim=D, configuration=(
+            "site-parallel" if fd.chain_on_sites(inp) else
+            f"{_cuda.library('chain').l2hmc_chain_lanes(D, H, H2)} lanes"))
+        _require(0.0 < chain_cmp[name]["accept"] < 1.0, f"phi4 chain {name}: hollow acceptance")
+    ptx = _ptxas_of(_cuda.build_info.get("ptxas", ""), "site_chain_kernel")
+    out["chain_vs_plain"] = chain_cmp
+    out["site_chain_ptxas"] = ptx
+    print(f"# phi4 chain kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(chain_cmp), flush=True)
+    site_chains, site_threads = fd.site_tile()
+    print("# phi4 site-parallel chain kernel: " + json.dumps(
+        {"ptxas": ptx, "chains_a_block": site_chains, "threads_a_block": site_threads}),
+          flush=True)
+
+    # (c) the app's path through apps.phi4.run; launch counts per run
+    fd.reset_launch_counts()
+    t_phase = time.perf_counter()
+    row, state = phi4.run(**PHI4_RUN, pt_eval_steps=PHI4_PT_STEPS, device=dev,
+                          return_state=True)
+    launches_run = dict(fd.LAUNCHES)
+    row["wall_s"] = time.perf_counter() - t_phase
+    _require(row["fused_eval"] == "ran", f"phi4 run: kernel eval refused: {row['fused_eval']}")
+    _require(launches_run["chain:phi4"] >= 1, "chain kernel not launched on the phi4 path")
+    # more streams of the kernel eval, and the plain eval of the same params
+    # from the same x0 on as many streams (the run's are seed + 2)
+    tgt = targets.Phi4Lattice(L=PHI4_RUN["L"], m2=PHI4_RUN["m2"], lam=PHI4_RUN["lam"])
+    dyn, _ = build_dynamics(ScgConfig(dim=tgt.dim, hidden=PHI4_RUN["hidden"],
+                                      T=PHI4_RUN["leapfrogs"]), tgt)
+    x0 = tgt.sample(_gen(1), PHI4_RUN["n_chains"], device=dev)  # run's seed + 1
+    steps = PHI4_RUN["eval_steps"]
+
+    def scores(trace):
+        m = trace.mean(dim=2).cpu().numpy()
+        return {"tunneling_rate": phi4.tunneling_rate(m), "ess_m": phi4.magnetization_ess(m)}
+
+    kernel_runs = [{"tunneling_rate": row["tunneling_rate_l2hmc"], "ess_m": row["ess_m_l2hmc"]}]
+    sampler = fd.fused_chain_sampler(dyn, tgt)
+    for i in range(1, PHI4_SEEDS):
+        kernel_runs.append(scores(sampler.run(state.params, x0, seed=2 + 100 * i, n_mh_steps=steps,
+                                         collect_trace=True)[2]))
+    plain, plain_s = [], []
+    for i in range(PHI4_SEEDS):
+        t = time.perf_counter()
+        _, ptrace = sample_chain(dyn, state.params, x0, steps, _gen(2 + 100 * i))
+        torch.cuda.synchronize()
+        plain_s.append(time.perf_counter() - t)
+        plain.append(scores(ptrace))
+        del ptrace
+    means = {route: {k: float(np.mean([r[k] for r in runs])) for k in runs[0]}
+             for route, runs in (("kernel", kernel_runs), ("plain", plain))}
+    gaps = {"tunneling_rate": abs(means["kernel"]["tunneling_rate"]
+                                  - means["plain"]["tunneling_rate"])
+            / max(means["plain"]["tunneling_rate"], 0.01),
+            "ess_m": abs(means["kernel"]["ess_m"] - means["plain"]["ess_m"])
+            / max(means["plain"]["ess_m"], 1e-12)}
+    out["run_L16"] = {"row": row, "kernel_evals": kernel_runs, "plain_evals": plain,
+                      "plain_eval_s": plain_s, "means": means, "gap_over_plain": gaps,
+                      "launches": launches_run}
+    print(f"# phi4 run L=16 ({row['wall_s']:.1f} s): " + json.dumps(out["run_L16"]), flush=True)
+    vals = [v for k, v in row.items() if k.startswith(("tunneling", "ess_m"))]
+    _require(all(np.isfinite(v) for v in vals), f"phi4 run: {row}")
+    _require(0.0 < row["final_accept"] < 1.0, f"phi4 run: acceptance {row['final_accept']}")
+    _require(max(gaps.values()) <= PHI4_GAP, f"phi4 kernel eval vs plain eval: {gaps}")
+    more = {}
+    for kw in PHI4_RUNS_MORE:
+        before = fd.LAUNCHES["chain:phi4"]
+        t = time.perf_counter()
+        r = phi4.run(device=dev, **kw)
+        r["wall_s"] = time.perf_counter() - t
+        r["launches_chain"] = fd.LAUNCHES["chain:phi4"] - before
+        more[f"L{kw['L']}"] = r
+        print(f"# phi4 run L={kw['L']} ({r['wall_s']:.1f} s): " + json.dumps(r), flush=True)
+        _require(r["fused_eval"] == "ran" and r["launches_chain"] >= 1,
+                 f"phi4 run L={kw['L']}: {r['fused_eval']}")
+        _require(all(np.isfinite(v) for k, v in r.items() if k.startswith(("tunneling", "ess"))),
+                 f"phi4 run L={kw['L']}: {r}")
+    out["runs_more"] = more
+
+    # (d) conv-net training at L = 16, captured against eager, cuDNN's TF32
+    # off; fused against plain training at L = 8 (kernels 1-2 on Phi4)
+    t_phase = time.perf_counter()
+    _require(torch.backends.cudnn.allow_tf32 is False, "cuDNN TF32 is on")
+    _require(torch.backends.cuda.matmul.allow_tf32 is False, "matmul TF32 is on")
+    conv_cfg = ScgConfig(dim=tgt.dim, n_chains=128, n_steps=5, T=10, net_type="conv", eps=0.05,
+                         seed=0)
+    conv = {}
+    for capture in (False, True):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, hist = train(conv_cfg, tgt, device=dev, capture=capture)
+        torch.cuda.synchronize()
+        conv[capture] = (st, hist, 1e3 * (time.perf_counter() - t) / conv_cfg.n_steps)
+
+    conv_gap = float(_over_tolerance(conv[True][1]["loss"], conv[False][1]["loss"]).max())
+    moved = any(bool((a != b).any()) for a, b in zip(
+        tree_leaves(conv[True][0].params),
+        tree_leaves(build_dynamics(conv_cfg, tgt)[0].init_params(_gen(0), eps=0.05, device=dev))))
+    out["conv_training_L16"] = {
+        "steps": conv_cfg.n_steps, "n_chains": conv_cfg.n_chains,
+        "loss_captured": conv[True][1]["loss"].tolist(),
+        "loss_eager": conv[False][1]["loss"].tolist(),
+        "captured_vs_eager_gap_over_tolerance": conv_gap,
+        "p_accept_last": float(conv[True][1]["p_accept"][-1]),
+        "ms_per_step_eager": conv[False][2], "ms_per_step_captured_incl_recording": conv[True][2],
+        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    _require(bool(np.isfinite(conv[True][1]["loss"]).all()), "conv training: non-finite loss")
+    _require(moved, "conv training: the params did not move")
+    _require(conv_gap <= 1.0, f"conv training captured vs eager: {conv_gap} x tolerance")
+    # fused against plain at L = 8, as 10d: the fused step's loss at each of
+    # the plain run's 20 states on the same draws, held at phase 5b's bar;
+    # the two free runs through ``train`` reported and not held: on an H100
+    # they agree to 3.5e-5 relative over steps 1-5 and then part, 10.8x the
+    # bar by step 17, the ring's way in 10d (losses near -2000, and Adam's
+    # sign-like step turns rounding into parameter gaps)
+    t8 = targets.Phi4Lattice(L=8, m2=-1.0, lam=0.5)
+    fcfg = ScgConfig(dim=t8.dim, n_chains=512, n_steps=20, T=10, hidden=32, seed=0)
+    dyn8, _ = build_dynamics(fcfg, t8)
+    opt8, _ = make_optimizer(fcfg)
+    plain_step = make_train_step(fcfg, dyn8, opt8)
+    fused_step = make_train_step(fcfg, fd.differentiable_fused(dyn8, t8), opt8)
+    state8 = init_state(fcfg, dyn8, opt8, device=dev)
+    gen8 = _gen(fcfg.seed + 100)
+    same = []
+    for _ in range(fcfg.n_steps):
+        d = StepDraws(*(None if a is None else a.to(dev) for a in draw_step(
+            gen8, fcfg.n_chains, fcfg.dim, z_burn_in=fcfg.z_burn_in_loss)))
+        _, mf = fused_step(state8, d)
+        state8, mp = plain_step(state8, d)
+        same.append((float(mf["loss"]), float(mp["loss"])))
+    fused_gap = float(_over_tolerance(*zip(*same)).max())
+    # the fused training path's own launches: the counts set to 0 just
+    # before it and read just after
+    hists = {}
+    fd.reset_launch_counts()
+    hists[True] = train(dataclasses.replace(fcfg, fused_train=True), t8, device=dev)[1]
+    launches = dict(fd.LAUNCHES)
+    hists[False] = train(dataclasses.replace(fcfg, fused_train=False), t8, device=dev)[1]
+    out["fused_vs_plain_training_L8"] = {
+        "same_states_max_gap_over_tolerance": fused_gap,
+        "free_gap_by_step": _over_tolerance(hists[True]["loss"], hists[False]["loss"]).tolist(),
+        "loss_fused": hists[True]["loss"].tolist(), "loss_plain": hists[False]["loss"].tolist()}
+    out["fused_training_launches"] = launches
+    print(f"# phi4 training ({time.perf_counter() - t_phase:.1f} s): " + json.dumps(
+        {k: out[k] for k in ("conv_training_L16", "fused_vs_plain_training_L8")}), flush=True)
+    print("# phi4 fused training launches (L = 8, 20 steps): " + json.dumps(launches), flush=True)
+    _require(fused_gap <= 1.0, f"phi4 fused vs plain training at the same states: {fused_gap} "
+                               "x tolerance")
+    for kernel in ("trajectory", "trajectory_bwd"):
+        _require(launches[f"{kernel}:phi4"] > 0,
+                 f"kernel {kernel} on Phi4 not launched by fused training")
+
+    # (e) the kernels at the app's shapes: launches alone, plain versions,
+    # bounds; the site-parallel launches' L2 weight bytes
+    t_phase = time.perf_counter()
+    dld8 = torch.ones((1, 512), device=dev)
+    D, H, H2, T = inp8.dims
+    ops8 = _ops_of(inp8)
+    blk8 = inp8.block().numel()
+    n_grads = sum(w.numel() for w in [*inp8.xnet_w, *inp8.vnet_w]) + D
+    times = {
+        "trajectory": _traj_launch_ms(fd, _cuda, inp8, x8, v8, 200),
+        "trajectory_plain": _cuda_time(lambda: fd.trajectory_plain(inp8, x8, v8, False), 5),
+        "trajectory_bwd": _bwd_launch_ms(fd, _cuda, inp8, x8, v8, dX8, dV8, dld8, 100),
+        "trajectory_bwd_plain": _cuda_time(
+            lambda: fd.trajectory_vjp_plain(inp8, x8, v8, dX8, dV8, dld8, False), 3),
+    }
+    steps, plain_steps = 1000, 20  # the rows' launch: the app's eval
+    chain_rows = {}
+    for case, label in (("phi4_L8", "3e"), ("phi4_L16", "3f"), ("phi4_L32", "3g")):
+        n = phi4.PARITY_CASES[case].n_chains
+        inp, xc = phi4.parity_inputs(case, n, dev, seed=32)
+        Dc, Hc, H2c, Tc = inp.dims
+        ms = _cuda_time(lambda: fd.chain(inp, xc, 2, steps, True), 1)
+        ms20 = _cuda_time(lambda: fd.chain(inp, xc, 2, plain_steps, True), 3)
+        plain = _cuda_time(lambda: fd.chain_plain(inp, xc, 2, plain_steps, collect_trace=True), 1)
+        bound = chain_bound(Dc, Hc, H2c, Tc, n, steps, False, inp.block().numel(), True,
+                            _ops_of(inp))
+        site = fd.chain_on_sites(inp)
+        l2 = (phi4_l2_weight_bytes(Dc, Hc, H2c, Tc, n, steps, site_chains) if site else None)
+        chain_rows[label] = {"case": case, "dim": Dc, "n_chains": n, "site": site, "ms": ms,
+                             f"ms_{plain_steps}": ms20, f"plain_ms_{plain_steps}": plain,
+                             "bound_ms": bound, "l2_weight_bytes": l2,
+                             "l2_weight_bytes_per_s": None if l2 is None else l2 / (ms * 1e-3)}
+    bounds = {
+        "trajectory": traj_bound(D, H, H2, T, 512, False, blk8, ops8),
+        "trajectory_bwd": traj_bwd_bound(D, H, H2, T, 512, False, blk8, n_grads, ops8),
+    }
+    out["kernel_times"] = {"L8": {"ms": times, "bound_ms": bounds}, "chain": chain_rows}
+    print(f"# phi4 kernel times ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(out["kernel_times"]), flush=True)
+
+    src = "l2hmc_tpu_torch/csrc/"
+    shape8 = f"phi4 L=8 D={D} H={H} T={T}, 512 chains, one direction, the launch alone"
+    rows = [
+        {"name": "trajectory[phi4]", "route": "cuda", "source": src + "trajectory.cu",
+         "replaces": "l2hmc_tpu/ops/fused_dynamics.py:645",
+         "launches": launches["trajectory:phi4"], "max_abs_err": max(traj.values()),
+         "ms": times["trajectory"], "plain_ms": times["trajectory_plain"],
+         "bound_ms": bounds["trajectory"][0], "bound_by": bounds["trajectory"][1],
+         "library_ms": None, "shape": shape8, "row": "1e"},
+        {"name": "trajectory_bwd[phi4]", "route": "cuda", "source": src + "trajectory_bwd.cu",
+         "replaces": "l2hmc_tpu/ops/fused_dynamics.py:801",
+         "launches": launches["trajectory_bwd:phi4"],
+         "max_abs_err": max(d["max_abs_err"] for d in bwd.values()),
+         "ms": times["trajectory_bwd"], "plain_ms": times["trajectory_bwd_plain"],
+         "bound_ms": bounds["trajectory_bwd"][0], "bound_by": bounds["trajectory_bwd"][1],
+         "library_ms": None, "shape": shape8, "row": "2e"},
+    ]
+    launch_of = {"3e": more["L8"]["launches_chain"], "3f": launches_run["chain:phi4"],
+                 "3g": more["L32"]["launches_chain"]}
+    for label, c in chain_rows.items():
+        shape = (f"{c['case']} D={c['dim']} H=32 T=10, {c['n_chains']} chains x {steps} MH "
+                 f"steps, traced, "
+                 + (f"site-parallel ({site_chains} chains a block of {site_threads} "
+                    f"threads), {c['l2_weight_bytes']:.4g} L2 weight bytes reckoned"
+                    if c["site"] else "32 lanes a chain (WideLanes)")
+                 + f"; plain_ms over {plain_steps} MH steps (the kernel over {plain_steps}: "
+                   f"{c[f'ms_{plain_steps}']:.4f} ms)")
+        rows.append({"name": "chain[phi4]", "route": "cuda", "source": src + "chain.cu",
+                     "replaces": "l2hmc_tpu/ops/fused_dynamics.py:1103",
+                     "launches": launch_of[label],
+                     "max_abs_err": chain_cmp[c["case"]]["max_abs_dx_unflipped"],
+                     "ms": c["ms"], "plain_ms": c[f"plain_ms_{plain_steps}"],
+                     "bound_ms": c["bound_ms"][0], "bound_by": c["bound_ms"][1],
+                     "library_ms": None, "shape": shape, "row": label})
+    report["phi4"] = out
+    report["phi4_wall_s"] = time.perf_counter() - t_all
+    print(f"# phi4 phase: {report['phi4_wall_s']:.1f} s", flush=True)
+    return rows
 
 
 def main() -> int:
@@ -1584,24 +1990,7 @@ def main() -> int:
                                 ("l2hmc_n203", dyn, target, scg_params, 203)):
         inp = fd.prepare(d_, fd.energy_spec_for_target(tg), p_, dev)
         xc = tg.sample(_gen(41), n, device=dev).T.contiguous()
-        xk, acck, tr_k = fd.chain(inp, xc, 9, 20, collect_trace=True)
-        again = fd.chain(inp, xc, 9, 20, collect_trace=True)
-        _, _, tr_p = fd.chain_plain(inp, xc, 9, 20, collect_trace=True)
-        prev_k = torch.cat([xc[None], tr_k[:-1]])
-        prev_p = torch.cat([xc[None], tr_p[:-1]])
-        dec_k = (tr_k != prev_k).any(dim=1)  # (K, N) accepted
-        dec_p = (tr_p != prev_p).any(dim=1)
-        flipped = dec_k != dec_p
-        clean = ~flipped.any(dim=0)
-        dx = float((tr_k - tr_p).abs()[:, :, clean].max())
-        repeats = all(bool((a == b).all()) for a, b in zip((xk, acck, tr_k), again))
-        chain_cmp[name] = {"n_chains": n, "decisions": int(dec_k.numel()),
-                           "flips": int(flipped.sum()), "max_abs_dx_unflipped": dx,
-                           "accept": float(dec_k.float().mean()),
-                           "repeats_bit_for_bit": repeats}
-        _require(repeats, f"chain {name}: two launches differ")
-        _require(bool((tr_k[-1] == xk).all()), f"chain {name}: trace end != state")
-        _require(int(flipped.sum()) <= 5 and dx < 1e-2, f"chain {name}: {chain_cmp[name]}")
+        chain_cmp[name] = _chain_vs_plain(fd, inp, xc, f"chain {name}", 5)
     report["chain_vs_plain"] = chain_cmp
     print(f"# chain kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
           + json.dumps(chain_cmp), flush=True)
@@ -1844,6 +2233,9 @@ def main() -> int:
     # -- 10. the distribution suite ----------------------------------------------
     suite_rows = suite_phases(dev, report)
 
+    # -- 11. the phi^4 lattice --------------------------------------------------
+    phi4_rows = phi4_phases(dev, report)
+
     # -- 8. the kernels line -------------------------------------------------------
     src = "l2hmc_tpu_torch/csrc/"
     kernels = [
@@ -1881,6 +2273,7 @@ def main() -> int:
                    f"graph: {bwd_captured_ms:.4f} ms")},
         *vae_rows,
         *suite_rows,
+        *phi4_rows,
     ]
     report["kernels"] = kernels
     print("# report: " + json.dumps(report))

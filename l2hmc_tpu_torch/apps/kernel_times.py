@@ -71,7 +71,7 @@ def scg_times(dev) -> dict:
     for n in (1024, 2048, 8192):
         x = target.sample(_gen(1), n, device=dev).T.contiguous()
         v = torch.randn(x.shape, generator=_gen(2)).to(dev)
-        block = fd._kernel_block(inp, x)
+        block = inp.block()
         xo, vo = torch.empty_like(x), torch.empty_like(v)
         ld = torch.empty((1, n), dtype=torch.float32, device=dev)
         lib = _cuda.library("trajectory")

@@ -24,7 +24,11 @@
 // with shuffles on the group's own mask ran 1024 chains 1.45x slower on an
 // H100 (a warp whose two chains disagree runs both branches in turn), and
 // the trajectory kernels 14-25% slower (a warp sync before every shuffle).
-// Blocks of kLaneThreads threads, four chains. The state (x, the proposal,
+// Blocks of kLaneThreads threads, four chains. Past 64 wide (up to 1024,
+// the phi^4 lattice's 32 x 32) a lane group cannot hold the state and the
+// block cannot hold the weights: l2hmc_sites.cuh runs those widths, a tile of
+// chains a block with the threads over the sites, and the phi^4 lattice at
+// every width (site_chain). The state (x, the proposal,
 // v) is replicated in every lane, and every lane draws the same Philox
 // words and forms h0, h1, the log-det sum and the accept on its own copy in
 // one order, so the whole group decides alike with no shuffle. Lane 0
@@ -46,6 +50,7 @@
 //  - The trace goes straight to device memory; the TPU kernel's VMEM ring
 //    and DMA existed only for Mosaic.
 #include "l2hmc_lanes.cuh"
+#include "l2hmc_sites.cuh"
 #include "philox.cuh"
 
 namespace l2hmc {
@@ -166,14 +171,23 @@ extern "C" int l2hmc_chain(const float* params, int D, int H, int H2, int T,
   const uint2 key = make_uint2(static_cast<uint32_t>(seed & 0xFFFFFFFFull),
                                static_cast<uint32_t>(seed >> 32));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (site_chain(d, kind)) {
+    return with_site_energy(d, kind, [&](auto e) {
+      return launch_site_chain<decltype(e)>(params, d, hmc, x, xo, acc, trace,
+                                            N, K, key, s);
+    });
+  }
   return dispatch<ScgChainLanes>(d, kind, [&](auto c, auto e) {
-    return launch_chain<decltype(c), decltype(e)>(params, d, hmc, x, xo, acc,
-                                                  trace, N, K, key, s);
+    if constexpr (std::is_same_v<decltype(e), Phi4>)
+      return static_cast<int>(cudaErrorInvalidValue);  // site_chain's
+    else
+      return launch_chain<decltype(c), decltype(e)>(params, d, hmc, x, xo, acc,
+                                                    trace, N, K, key, s);
   });
 }
 
-// Lanes a chain at these widths (the instantiation l2hmc_chain launches),
-// or 0 where none serves them.
+// Lanes a chain at these widths (the instantiation l2hmc_chain launches for
+// every spec but Phi4), or 0 where no lane group serves them.
 extern "C" int l2hmc_chain_lanes(int D, int H, int H2) {
   using namespace l2hmc;
   switch (pick_lanes(Dims{D, H, H2, 1})) {
@@ -185,3 +199,7 @@ extern "C" int l2hmc_chain_lanes(int D, int H, int H2) {
       return 0;
   }
 }
+
+// The site-parallel configuration's chains and threads a block.
+extern "C" int l2hmc_chain_site_chains() { return l2hmc::kSiteChains; }
+extern "C" int l2hmc_chain_site_threads() { return l2hmc::kSiteThreads; }

@@ -3,11 +3,12 @@
 // its gradient and the gradient's vector-Jacobian product) and the kinetic
 // energy. Counterpart of l2hmc_tpu/ops/fused_dynamics.py's energy specs
 // (QuadraticGaussianEnergy :391, RoughWellEnergy :422, GmmEnergy :446,
-// FunnelEnergy :501). The kernels (trajectory.cu, trajectory_bwd.cu,
-// chain.cu) run a chain on a lane group (l2hmc_lanes.cuh), whose S/T/Q net
-// and substep have their plain versions in ops/fused_dynamics.py
-// (_apply_stq, _trajectory_step), and take the energy spec as a template
-// parameter En.
+// FunnelEnergy :501, Phi4Energy :548). The kernels (trajectory.cu,
+// trajectory_bwd.cu, chain.cu) run a chain on a lane group
+// (l2hmc_lanes.cuh), or, in the chain kernel past 64 wide, a tile of chains
+// on a block (l2hmc_sites.cuh); their S/T/Q net and substep have their
+// plain versions in ops/fused_dynamics.py (_apply_stq, _trajectory_step),
+// and they take the energy spec as a template parameter En.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -69,14 +70,8 @@ __device__ inline Net net_at(const float*& p, Dims d) {
   return n;
 }
 
-// Copies the parameter block into dynamic shared memory. Every thread of
-// the block must call it (it synchronises), before any thread returns.
-__device__ inline Block load_block(const float* __restrict__ g, float* s,
-                                   Dims d) {
-  const int n = block_floats(d);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = g[i];
-  __syncthreads();
-  const float* p = s;
+// The arrays of a parameter block at p, where it lies.
+__device__ inline Block block_at(const float* p, Dims d) {
   Block b;
   b.eps = take(p, d.D);
   b.masks = take(p, d.D * d.T);
@@ -84,6 +79,16 @@ __device__ inline Block load_block(const float* __restrict__ g, float* s,
   b.xnet = net_at(p, d);
   b.vnet = net_at(p, d);
   return b;
+}
+
+// Copies the parameter block into dynamic shared memory. Every thread of
+// the block must call it (it synchronises), before any thread returns.
+__device__ inline Block load_block(const float* __restrict__ g, float* s,
+                                   Dims d) {
+  const int n = block_floats(d);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = g[i];
+  __syncthreads();
+  return block_at(s, d);
 }
 
 // -- energy specs ---------------------------------------------------------------
@@ -97,8 +102,13 @@ __device__ inline Block load_block(const float* __restrict__ g, float* s,
 //   energy(B, d, x)             E(x)
 //   grad_vjp(B, d, x, dg, dx)   dx += J(x)^T dg, J the Jacobian of grad E
 // The arithmetic is the JAX closures' (l2hmc_tpu/ops/fused_dynamics.py
-// :391-544) and their plain versions' (the specs' build and build_grad_vjp
-// in ops/fused_dynamics.py), sums over i in index order.
+// :391-597) and their plain versions' (the specs' build and build_grad_vjp
+// in ops/fused_dynamics.py), sums over i in index order. The specs the
+// site-parallel chain kernel takes (Gauss, Phi4) also give one
+// site i of one chain's D-vector x, which that kernel keeps in shared
+// memory, from the constants c:
+//   grad_at(c, D, x, i)         (grad E(x))_i
+//   energy_at(c, D, x, i)       site i's term of E(x)
 
 // 0.5 (x - mu)^T P (x - mu). Constants: P (D x D, row-major) | mu (D).
 struct Gauss {
@@ -153,6 +163,19 @@ struct Gauss {
       e = fmaf(dx[i], acc, e);
     }
     return 0.5f * e;
+  }
+
+  __device__ static float grad_at(const float* c, int D, const float* x,
+                                 int i) {
+    const float* mu = c + D * D;
+    float acc = 0.f;
+    for (int j = 0; j < D; ++j) acc = fmaf(c[i * D + j], x[j] - mu[j], acc);
+    return acc;
+  }
+  // 0.5 (x_i - mu_i) (P (x - mu))_i
+  __device__ static float energy_at(const float* c, int D, const float* x,
+                                   int i) {
+    return 0.5f * ((x[i] - c[D * D + i]) * grad_at(c, D, x, i));
   }
 
   // dx += P^T dg
@@ -437,6 +460,91 @@ struct Funnel {
   }
 };
 
+// The 2-D phi^4 lattice action on the flattened L x L state, D = L L, site
+// r L + c, as a 5-point stencil with JAX's neighbours: down and up are flat
+// shifts by -+L (periodic in r for free), right and left flat shifts by
+// -+1 whose row-end sites wrap within their row (right of c = L-1 is
+// x[i - (L-1)], left of c = 0 is x[i + (L-1)]).
+//   E = sum_i 0.5 [(right - x)^2 + (down - x)^2] + 0.5 m2 x^2 + lam x^4
+//   grad = 4 x - (right + left + down + up) + m2 x + 4 lam x^3
+// Constants: m2 | lam | L. The Hessian is symmetric, so the gradient's VJP
+// is (4 + m2 + 12 lam x^2) dg - (the sum of dg over the four neighbours).
+// The lane groups replicate the state in every lane, so the neighbours are
+// a lane's own values (local memory on WideLanes, the only configuration
+// that serves a square D up to 64).
+struct Phi4 {
+  static constexpr int kKind = 4;
+  __host__ __device__ static bool fits(Dims d) {
+    int L = 1;
+    while (L * L < d.D) ++L;
+    return d.NC == 3 && L * L == d.D;
+  }
+
+  // site i's right, left, down and up neighbours
+  __device__ static void nbrs(int L, int D, int i, int& r, int& l, int& dn,
+                              int& up) {
+    const int c = i % L;
+    r = c == L - 1 ? i - (L - 1) : i + 1;
+    l = c == 0 ? i + (L - 1) : i - 1;
+    dn = i + L >= D ? i + L - D : i + L;
+    up = i < L ? i - L + D : i - L;
+  }
+
+  __device__ static float grad_at(const float* c, int D, const float* x,
+                                 int i) {
+    int r, l, dn, up;
+    nbrs(static_cast<int>(c[2]), D, i, r, l, dn, up);
+    const float xi = x[i];
+    const float lap = 4.f * xi - x[r] - x[l] - x[dn] - x[up];
+    return lap + c[0] * xi + (4.f * c[1]) * xi * xi * xi;
+  }
+
+  __device__ static float energy_at(const float* c, int D, const float* x,
+                                   int i) {
+    int r, l, dn, up;
+    nbrs(static_cast<int>(c[2]), D, i, r, l, dn, up);
+    const float xi = x[i], a = x[r] - xi, b = x[dn] - xi, x2 = xi * xi;
+    return 0.5f * (a * a + b * b) + ((0.5f * c[0]) * x2 + c[1] * (x2 * x2));
+  }
+
+  template <class C>
+  __device__ static void grad(const Block& B, Dims d, const float* x,
+                              float* g) {
+#pragma unroll (C::UD)
+    for (int i = 0; i < C::DM; ++i) {
+      if (i >= d.D) break;
+      g[i] = grad_at(B.c, d.D, x, i);
+    }
+  }
+
+  template <class C>
+  __device__ static float energy(const Block& B, Dims d, const float* x) {
+    float e = 0.f;
+#pragma unroll (C::UD)
+    for (int i = 0; i < C::DM; ++i) {
+      if (i >= d.D) break;
+      e += energy_at(B.c, d.D, x, i);
+    }
+    return e;
+  }
+
+  // dx += (4 + m2 + 12 lam x^2) dg - (right + left + down + up of dg)
+  template <class C>
+  __device__ static void grad_vjp(const Block& B, Dims d, const float* x,
+                                  const float* dg, float* dx) {
+    const int L = static_cast<int>(B.c[2]);
+    const float m2 = B.c[0], lam12 = 12.f * B.c[1];
+#pragma unroll (C::UD)
+    for (int i = 0; i < C::DM; ++i) {
+      if (i >= d.D) break;
+      int r, l, dn, up;
+      nbrs(L, d.D, i, r, l, dn, up);
+      dx[i] += (4.f + m2 + lam12 * x[i] * x[i]) * dg[i] -
+               (dg[r] + dg[l] + dg[dn] + dg[up]);
+    }
+  }
+};
+
 // Calls f(En{}) with the spec of `kind`; cudaErrorInvalidValue for an unknown
 // kind or constants that do not fit it.
 template <class F>
@@ -451,6 +559,8 @@ inline int with_energy(Dims d, int kind, F&& f) {
       return Gmm::fits(d) ? f(Gmm{}) : bad;
     case Funnel::kKind:
       return Funnel::fits(d) ? f(Funnel{}) : bad;
+    case Phi4::kKind:
+      return Phi4::fits(d) ? f(Phi4{}) : bad;
     default:
       return bad;
   }

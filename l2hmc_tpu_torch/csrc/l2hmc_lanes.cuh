@@ -21,6 +21,8 @@
 // a substep touches only its own step's column, each step is visited once,
 // so each lane writes its column once at the end of the substep.
 #pragma once
+#include <type_traits>
+
 #include "l2hmc_common.cuh"
 
 namespace l2hmc {
@@ -48,25 +50,38 @@ struct LaneCfg {
 typedef LaneCfg<2, 16, 1, 1, 10> ScgLanes;  // SCG: D = 2, H = H2 = 10
 typedef LaneCfg<64, 32, 2, 0> WideLanes;    // any D, H, H2 <= 64
 
-// Which instantiation serves these widths: 1 = ScgLanes, 2 = WideLanes,
-// 0 = none.
+// The widest state of the chain kernel's site-parallel configuration
+// (l2hmc_sites.cuh), which takes the hidden widths WideLanes takes.
+constexpr int kSiteMaxDim = 1024;
+
+// Which configuration serves these widths: 1 = ScgLanes, 2 = WideLanes,
+// 3 = the chain kernel's site-parallel configuration (past WideLanes'
+// widths; the trajectory kernels take none there), 0 = none.
 inline int pick_lanes(Dims d) {
   if (d.D == ScgLanes::DM && d.H == ScgLanes::EH && d.H2 == ScgLanes::EH)
     return 1;
   if (d.D <= WideLanes::DM && d.H <= WideLanes::HM && d.H2 <= WideLanes::HM)
     return 2;
+  if (d.D <= kSiteMaxDim && d.H <= WideLanes::HM && d.H2 <= WideLanes::HM)
+    return 3;
   return 0;
 }
 
 // Calls f(C{}, En{}) with the lane configuration that serves d (Scg where
 // pick_lanes gives 1, WideLanes where it gives 2) and the energy spec of
-// `kind`: every spec is instantiated on both configurations. Returns
-// cudaErrorInvalidValue where none serves them.
+// `kind`: every spec is instantiated on both configurations, except Phi4 on
+// the SCG widths (D = 2 is no square lattice; Phi4::fits refuses it).
+// Returns cudaErrorInvalidValue where no lane configuration serves them.
 template <class Scg, class F>
 inline int dispatch(Dims d, int kind, F&& f) {
   switch (pick_lanes(d)) {
     case 1:
-      return with_energy(d, kind, [&](auto e) { return f(Scg{}, e); });
+      return with_energy(d, kind, [&](auto e) {
+        if constexpr (std::is_same_v<decltype(e), Phi4>)
+          return static_cast<int>(cudaErrorInvalidValue);
+        else
+          return f(Scg{}, e);
+      });
     case 2:
       return with_energy(d, kind, [&](auto e) { return f(WideLanes{}, e); });
     default:

@@ -73,7 +73,8 @@ class Dynamics:
       mask_seed: seed for the per-step binary masks.
       use_temperature: divide the energy and its gradient by the
         ``temperature`` argument of the energies, substeps, trajectories
-        and ``p_accept`` (1.0 by default).
+        and ``p_accept`` (1.0 by default): a scalar, or an (n,) tensor of
+        one a chain (the rungs of ``mcmc.pt_sample_chain``).
       input_scale: per-dimension sigma whitening the net inputs
         (x-like inputs / sigma, gradient inputs * sigma).
       net_input_fn: a state-dependent net-input feature map
@@ -217,7 +218,11 @@ class Dynamics:
 
     def _grad(self, x, aux=None, temperature=1.0) -> torch.Tensor:
         g = self.grad_energy(x, aux=aux) if aux is not None else self.grad_energy(x)
-        return g / temperature if self.use_temperature else g
+        if not self.use_temperature:
+            return g
+        if torch.is_tensor(temperature) and temperature.dim() == 1:  # one a chain
+            temperature = temperature[:, None]
+        return g / temperature
 
     def hamiltonian(self, x, v, aux=None, temperature=1.0) -> torch.Tensor:
         return self._energy(x, aux, temperature) + self.kinetic(v)

@@ -1,5 +1,5 @@
-"""MH sampling and the training losses (counterpart of ``l2hmc_tpu/mcmc``;
-tempering is not ported yet)."""
+"""MH sampling, parallel tempering and the training losses (counterpart of
+``l2hmc_tpu/mcmc``)."""
 
 from l2hmc_tpu_torch.mcmc.losses import (
     get_loss,
@@ -19,10 +19,17 @@ from l2hmc_tpu_torch.mcmc.sampler import (
     propose,
     propose_draws,
 )
+from l2hmc_tpu_torch.mcmc.tempering import (
+    geometric_temps,
+    pt_hmc_sample_chain,
+    pt_sample_chain,
+    swap_step,
+)
 
 __all__ = [
     "ProposeOut",
     "chain_operator",
+    "geometric_temps",
     "get_loss",
     "loss_inverse",
     "loss_logsumexp",
@@ -34,5 +41,8 @@ __all__ = [
     "metropolis_mask",
     "propose",
     "propose_draws",
+    "pt_hmc_sample_chain",
+    "pt_sample_chain",
     "scg_joint_loss",
+    "swap_step",
 ]

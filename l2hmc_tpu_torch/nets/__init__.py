@@ -1,4 +1,4 @@
-"""S/T/Q networks (counterpart of ``l2hmc_tpu/nets``; dense nets only so far)."""
+"""S/T/Q networks (counterpart of ``l2hmc_tpu/nets``): dense and lattice conv nets."""
 
 from l2hmc_tpu_torch.nets.core import (
     Module,
@@ -11,6 +11,7 @@ from l2hmc_tpu_torch.nets.core import (
     sequential,
     zip_modules,
 )
+from l2hmc_tpu_torch.nets.lattice import conv2d, lattice_net_factory, lattice_stq_net
 from l2hmc_tpu_torch.nets.stq import scg_net_factory, stq_net, vae_net_factory
 
 __all__ = [
@@ -18,6 +19,9 @@ __all__ = [
     "activation",
     "add_inputs",
     "constant_zero",
+    "conv2d",
+    "lattice_net_factory",
+    "lattice_stq_net",
     "linear",
     "parallel",
     "scale_tanh",

@@ -38,6 +38,8 @@ SIGNATURES = {
     "chain": {
         "l2hmc_chain": [_P, *([_I] * 7), _P, _P, _P, _P, _I, _I, _U64, _P],
         "l2hmc_chain_lanes": [_I, _I, _I],
+        "l2hmc_chain_site_chains": [],
+        "l2hmc_chain_site_threads": [],
     },
     "vae_chain": {
         "l2hmc_vae_chain": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 8), _I, _I, _U64, _P],

@@ -32,13 +32,21 @@ fast axis.
 
 The target's energy enters through an energy spec, as in the JAX package:
 ``QuadraticGaussianEnergy`` (the Gaussian family), ``RoughWellEnergy``,
-``GmmEnergy`` (ring, mog2) and ``FunnelEnergy``, picked by
-``energy_spec_for_target``. A spec is data: its constants (arrays and
-scalars) go into the kernels' parameter block, and its ``KIND`` picks the
-kernels' instantiation (the structs of ``csrc/l2hmc_common.cuh``). Its
-``build`` gives the plain versions' energy and gradient, its
-``build_grad_vjp`` the gradient's hand-derived vector-Jacobian product.
-``Phi4Energy`` (the lattice) is not ported, nor is its target.
+``GmmEnergy`` (ring, mog2), ``FunnelEnergy`` and ``Phi4Energy`` (the
+lattice), picked by ``energy_spec_for_target``. A spec is data: its
+constants (arrays and scalars) go into the kernels' parameter block, and its
+``KIND`` picks the kernels' instantiation (the structs of
+``csrc/l2hmc_common.cuh``). Its ``build`` gives the plain versions' energy
+and gradient, its ``build_grad_vjp`` the gradient's hand-derived
+vector-Jacobian product.
+
+Widths: every kernel takes hidden widths up to 64. The trajectory kernels
+take states up to 64 wide (lane groups, ``csrc/l2hmc_lanes.cuh``); the chain
+kernel up to 1024, past 64 on the site-parallel configuration
+(``csrc/l2hmc_sites.cuh``) for the specs that have per-site versions
+(Gaussian, phi^4), and on the phi^4 lattice at every width
+(``chain_on_sites``). ``kernel_refusal`` and the wrappers name the
+kernel and the cap a request exceeds.
 """
 
 from __future__ import annotations
@@ -63,8 +71,12 @@ _NET_ARRAYS = 13
 LAUNCHES = {"trajectory": 0, "trajectory_bwd": 0, "chain": 0, "vae_chain": 0, "vae_ais": 0,
             "vae_traj": 0, "vae_traj_bwd": 0}
 
-# widths the kernels take (WideLanes in csrc/l2hmc_lanes.cuh)
-_MAX_DIM, _MAX_HIDDEN = 64, 64
+# widths the kernels take: hidden widths up to 64 everywhere; state widths up
+# to 64 on the lane groups (WideLanes in csrc/l2hmc_lanes.cuh), and up to 1024
+# for the chain kernel's site-parallel configuration (csrc/l2hmc_sites.cuh)
+_MAX_HIDDEN = 64
+_LANE_DIM = 64
+_MAX_DIM = {"trajectory": _LANE_DIM, "trajectory_bwd": _LANE_DIM, "chain": 1024}
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 
 
@@ -393,8 +405,75 @@ class FunnelEnergy:
         return grad_vjp
 
 
+@dataclasses.dataclass(frozen=True)
+class Phi4Energy:
+    """The 2-D phi^4 lattice action (``targets.Phi4Lattice``) as a 5-point
+    stencil on the flattened (D, N) state, D = L*L, site r*L + c. The
+    neighbours are JAX's construction (l2hmc_tpu/ops/fused_dynamics.py
+    :548-597): vertical ones flat rolls by -+L (periodic in r for free),
+    horizontal ones flat rolls by -+1 with the row-end sites wrapping
+    within their row: right of c = L-1 is phi[i - (L-1)], left of c = 0 is
+    phi[i + (L-1)]. Constants: one array of m^2, lam and L, each rounded
+    once. The Hessian is symmetric, so the gradient's VJP is
+    (4 + m^2 + 12 lam phi^2) d - (the sum of d over the four neighbours)."""
+
+    L: int
+    m2: float
+    lam: float
+    _dev: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    KIND, NAME = 4, "phi4"
+
+    def consts(self, device, dtype=torch.float32) -> list[torch.Tensor]:
+        vals = [float(self.m2), float(self.lam), float(self.L)]
+        return _cached(self._dev, device, dtype, lambda dev, dt: _scalars(vals, dev, dt))
+
+    @staticmethod
+    def _neighbors(x):
+        """(right, left, down, up) of every site of (D, N) x; L = sqrt(D)."""
+        d = x.shape[0]
+        L = math.isqrt(d)
+        c = (torch.arange(d, device=x.device) % L)[:, None]
+        right = torch.where(c == L - 1, torch.roll(x, L - 1, 0), torch.roll(x, -1, 0))
+        left = torch.where(c == 0, torch.roll(x, -(L - 1), 0), torch.roll(x, 1, 0))
+        return right, left, torch.roll(x, -L, 0), torch.roll(x, L, 0)
+
+    @classmethod
+    def build(cls, vals):
+        (c,) = vals
+        m2, lam = c[0], c[1]
+
+        def grad_energy(x):
+            right, left, down, up = cls._neighbors(x)
+            lap = 4.0 * x - right - left - down - up
+            return lap + m2 * x + (4.0 * lam) * x * x * x
+
+        def energy(x):
+            right, _, down, _ = cls._neighbors(x)
+            x2 = torch.square(x)
+            kin = 0.5 * (torch.square(right - x) + torch.square(down - x))
+            pot = (0.5 * m2) * x2 + lam * torch.square(x2)
+            return torch.sum(kin + pot, dim=0, keepdim=True)
+
+        return energy, grad_energy
+
+    @classmethod
+    def build_grad_vjp(cls, vals):
+        """(x, d) -> (4 + m^2 + 12 lam x^2) d - (right + left + down + up of d)."""
+        (c,) = vals
+        m2, lam = c[0], c[1]
+
+        def grad_vjp(x, d):
+            right, left, down, up = cls._neighbors(d)
+            return (4.0 + m2 + (12.0 * lam) * x * x) * d - (right + left + down + up)
+
+        return grad_vjp
+
+
 _SPEC_NAMES = {c.KIND: c.NAME for c in (QuadraticGaussianEnergy, RoughWellEnergy, GmmEnergy,
-                                         FunnelEnergy)}
+                                         FunnelEnergy, Phi4Energy)}
+# the specs the chain kernel's site-parallel configuration takes (past 64)
+_SITE_KINDS = (QuadraticGaussianEnergy.KIND, Phi4Energy.KIND)
 LAUNCHES.update({f"{k}:{n}": 0 for k in ("trajectory", "trajectory_bwd", "chain")
                  for n in _SPEC_NAMES.values()})
 
@@ -406,8 +485,8 @@ def _count(name: str, inp) -> None:
 
 def energy_spec_for_target(target):
     """Map a target to its in-kernel energy spec: the Gaussian family (mu,
-    _prec), ``RoughWell``, ``GMM`` (ring, mog2) and ``GaussianFunnel``.
-    Raises ValueError for any other target."""
+    _prec), ``RoughWell``, ``GMM`` (ring, mog2), ``GaussianFunnel`` and
+    ``Phi4Lattice``. Raises ValueError for any other target."""
     spec = _spec_or_none(target)
     if spec is None:
         raise ValueError(f"no fused energy spec for target {type(target).__name__}")
@@ -430,6 +509,8 @@ def _spec_or_none(target):
         return GmmEnergy(mus.T.copy(), precs, log_consts)
     if hasattr(target, "clip") and hasattr(target, "sigma"):  # GaussianFunnel
         return FunnelEnergy(float(target.sigma), float(target.clip), target.dim)
+    if hasattr(target, "lam") and hasattr(target, "m2"):  # Phi4Lattice
+        return Phi4Energy(int(target.L), float(target.m2), float(target.lam))
     return None
 
 
@@ -501,19 +582,48 @@ def prepare(dyn: Dynamics, spec, params, device, *, differentiable: bool = False
     )
 
 
-def _kernel_block(inp: KernelInputs, x: torch.Tensor) -> torch.Tensor:
-    """The packed parameter block for a kernel launch on ``x``'s device,
-    after checking what the kernels take."""
+def _caps_refusal(kernel: str, dim: int, hidden: int, kind: int) -> Optional[str]:
+    """Why ``kernel`` cannot take a state ``dim`` wide with S/T/Q nets of
+    ``hidden`` units on the energy spec ``kind``, or None where it can."""
+    cap = _MAX_DIM[kernel]
+    if dim > cap or hidden > _MAX_HIDDEN:
+        return (f"{kernel} kernel caps exceeded: dim {dim}, hidden {hidden} "
+                f"(caps dim {cap}, hidden {_MAX_HIDDEN})")
+    if dim > _LANE_DIM and kind not in _SITE_KINDS:
+        names = ", ".join(_SPEC_NAMES[k] for k in _SITE_KINDS)
+        return (f"{kernel} kernel past dim {_LANE_DIM} takes the {names} specs, "
+                f"not {_SPEC_NAMES[kind]}")
+    return None
+
+
+def chain_on_sites(inp: KernelInputs) -> bool:
+    """Whether the chain kernel runs ``inp`` on its site-parallel
+    configuration (``site_chain`` in csrc/l2hmc_sites.cuh): past 64 wide,
+    and the phi^4 lattice at every width."""
+    return inp.dims[0] > _LANE_DIM or inp.kind == Phi4Energy.KIND
+
+
+def site_tile() -> tuple[int, int]:
+    """(chains, threads) a block of the chain kernel's site-parallel
+    configuration, from the built library."""
+    lib = _cuda.library("chain")
+    return lib.l2hmc_chain_site_chains(), lib.l2hmc_chain_site_threads()
+
+
+def _kernel_block(inp: KernelInputs, x: torch.Tensor, kernel: str) -> torch.Tensor:
+    """The packed parameter block for a launch of ``kernel`` on ``x``'s
+    device, after checking what the kernel takes."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {x.device}")
     D, H, H2, T = inp.dims
-    if D > _MAX_DIM or H > _MAX_HIDDEN or H2 > _MAX_HIDDEN:
-        raise ValueError(
-            f"kernel caps exceeded: dim {D}, hidden {H}/{H2} "
-            f"(caps {_MAX_DIM}, {_MAX_HIDDEN})"
-        )
+    reason = _caps_refusal(kernel, D, 0 if inp.hmc else max(H, H2), inp.kind)
+    if reason is not None:
+        raise ValueError(reason)
     block = inp.block()
-    if 4 * block.numel() > _MAX_SMEM:
+    # the lane groups stage the block in shared memory; the site-parallel
+    # chain kernel reads it from the L2
+    on_sites = kernel == "chain" and chain_on_sites(inp)
+    if not on_sites and 4 * block.numel() > _MAX_SMEM:
         raise ValueError(f"parameter block of {4 * block.numel()} bytes exceeds shared memory")
     return block
 
@@ -887,7 +997,7 @@ def trajectory(inp: KernelInputs, x, v, reverse: bool):
     _check_state(inp, x, v)
     if x.device.type == "cpu":
         return trajectory_plain(inp, x, v, reverse)
-    block = _kernel_block(inp, x)
+    block = _kernel_block(inp, x, "trajectory")
     D, H, H2, T = inp.dims
     N = x.shape[1]
     lib = _cuda.library("trajectory")
@@ -918,7 +1028,7 @@ def trajectory_vjp(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
         raise ValueError(f"dld must be a contiguous float32 (1, {N}) tensor on {x.device}")
     if x.device.type == "cpu":
         return trajectory_vjp_plain(inp, x, v, dX, dV, dld, reverse)
-    block = _kernel_block(inp, x)
+    block = _kernel_block(inp, x, "trajectory_bwd")
     D, H, H2, T = inp.dims
     weights = [*inp.xnet_w, *inp.vnet_w]
     n_grads = sum(w.numel() for w in weights) + D
@@ -950,7 +1060,7 @@ def chain(inp: KernelInputs, x, seed: int, n_mh_steps: int, collect_trace: bool 
         raise ValueError("n_mh_steps must be positive")
     if x.device.type == "cpu":
         return chain_plain(inp, x, seed, n_mh_steps, collect_trace)
-    block = _kernel_block(inp, x)
+    block = _kernel_block(inp, x, "chain")
     D, H, H2, T = inp.dims
     N = x.shape[1]
     lib = _cuda.library("chain")
@@ -991,18 +1101,21 @@ def _check_supported(dynamics: Dynamics) -> None:
         raise ValueError(reason)
 
 
-def kernel_refusal(dynamics: Dynamics, target, hidden: int) -> Optional[str]:
-    """Why the fused kernels cannot serve this dynamics on this target with
-    S/T/Q nets of ``hidden`` units, or None where they can: a pure check,
-    made before any launch (an unsupported knob, a target with no energy
-    spec, or widths past the kernels' caps)."""
+def kernel_refusal(dynamics: Dynamics, target, hidden: int, *,
+                   net_type: str = "dense") -> Optional[str]:
+    """Why the chain kernel (the fused evals') cannot serve this dynamics on
+    this target with S/T/Q nets of ``net_type`` and ``hidden`` units, or
+    None where it can: a pure check, made before any launch (conv nets, an
+    unsupported knob, a target with no energy spec, or widths past the
+    kernel's caps)."""
     reason = _dynamics_refusal(dynamics)
-    if reason is None and _spec_or_none(target) is None:
+    if reason is None and net_type != "dense" and not dynamics.hmc:
+        reason = f"fused kernels take dense S/T/Q nets, not {net_type} (plain path only)"
+    spec = _spec_or_none(target)
+    if reason is None and spec is None:
         reason = f"no fused energy spec for target {type(target).__name__}"
-    if reason is None and (dynamics.dim > _MAX_DIM
-                           or (not dynamics.hmc and hidden > _MAX_HIDDEN)):
-        reason = (f"kernel caps exceeded: dim {dynamics.dim}, hidden {hidden} "
-                  f"(caps {_MAX_DIM}, {_MAX_HIDDEN})")
+    if reason is None:
+        reason = _caps_refusal("chain", dynamics.dim, 0 if dynamics.hmc else hidden, spec.KIND)
     return reason
 
 

@@ -71,10 +71,8 @@ def chain_draws(seed: int, n: int, d: int, step: int, device, op: int = 0):
     key = seed_key(seed)
     chains = torch.arange(n, dtype=torch.int64, device=device)
     r0 = philox4x32_10((chains, step, 0, op), key)
-    rows = []
-    for j in range((d + 1) // 2):
-        r = philox4x32_10((chains, step, 1 + j, op), key)
-        rows.append(box_muller(r[0], r[1]))
-        if 2 * j + 1 < d:
-            rows.append(box_muller(r[2], r[3]))
-    return torch.stack(rows), uniform24(r0[0]), uniform24(r0[1])
+    # slot 1 + j gives rows 2j and 2j + 1, all j at once
+    slots = 1 + torch.arange((d + 1) // 2, dtype=torch.int64, device=device)[:, None]
+    r = philox4x32_10((chains[None, :], step, slots, op), key)
+    rows = torch.stack([box_muller(r[0], r[1]), box_muller(r[2], r[3])], dim=1)
+    return rows.reshape(-1, n)[:d], uniform24(r0[0]), uniform24(r0[1])

@@ -1,5 +1,4 @@
-"""Target distributions (counterpart of ``l2hmc_tpu/targets``; the lattice
-target is not ported yet)."""
+"""Target distributions (counterpart of ``l2hmc_tpu/targets``)."""
 
 from l2hmc_tpu_torch.targets.base import Target, batched_grad
 from l2hmc_tpu_torch.targets.funnel import GaussianFunnel
@@ -12,6 +11,7 @@ from l2hmc_tpu_torch.targets.gaussian import (
     tilted_gaussian,
 )
 from l2hmc_tpu_torch.targets.gmm import GMM, gen_ring, mog2
+from l2hmc_tpu_torch.targets.lattice import Phi4Lattice
 from l2hmc_tpu_torch.targets.rough_well import RoughWell
 from l2hmc_tpu_torch.targets.transformed import Bijector, FunnelWhiten, TransformedTarget
 
@@ -21,6 +21,7 @@ __all__ = [
     "GMM",
     "Gaussian",
     "GaussianFunnel",
+    "Phi4Lattice",
     "RoughWell",
     "Target",
     "TransformedTarget",

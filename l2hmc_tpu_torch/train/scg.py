@@ -123,7 +123,6 @@ class ScgConfig:
 
 # sampler-changing knobs the port cannot honour yet: name -> accepted values
 _UNPORTED = {
-    "net_type": lambda v: v == "dense",
     "eps_step": lambda v: not v,
     "pt_train_rungs": lambda v: v <= 1,
     "compute_dtype": lambda v: v == "float32",
@@ -131,8 +130,9 @@ _UNPORTED = {
 
 
 def build_dynamics(config: ScgConfig, target=None) -> tuple[Dynamics, Any]:
-    """Dynamics + target for the SCG experiment (notebook cells 3, 5).
-    ``init_temperature > 1`` turns on ``use_temperature``;
+    """Dynamics + target for the SCG experiment (notebook cells 3, 5):
+    dense S/T/Q nets, or with ``net_type="conv"`` the lattice conv nets of a
+    square ``dim``. ``init_temperature > 1`` turns on ``use_temperature``;
     ``net_input_target_fn`` takes the target's ``net_input_transform()`` as
     the nets' input features."""
     target = targets.scg_gaussian() if target is None else target
@@ -149,8 +149,17 @@ def build_dynamics(config: ScgConfig, target=None) -> tuple[Dynamics, Any]:
     )
     if config.hmc:
         return Dynamics(hmc=True, **common), target
-    xnet = nets.scg_net_factory(config.dim, factor=2.0, hidden=config.hidden)
-    vnet = nets.scg_net_factory(config.dim, factor=1.0, hidden=config.hidden)
+    if config.net_type == "conv":
+        L = int(round(np.sqrt(config.dim)))
+        if L * L != config.dim:
+            raise ValueError(f"net_type='conv' needs a square lattice dim, got {config.dim}")
+        xnet, vnet = (nets.lattice_net_factory(L, factor=f, channels=config.conv_channels,
+                                               depth=config.conv_depth) for f in (2.0, 1.0))
+    elif config.net_type == "dense":
+        xnet = nets.scg_net_factory(config.dim, factor=2.0, hidden=config.hidden)
+        vnet = nets.scg_net_factory(config.dim, factor=1.0, hidden=config.hidden)
+    else:
+        raise ValueError(f"unknown net_type: {config.net_type!r}")
     input_scale = None
     if config.net_input_whiten:
         sig = np.asarray(getattr(target, "sigma", None))
@@ -544,6 +553,8 @@ def train(
         )
     if config.fused_train and config.init_temperature > 1.0:
         raise ValueError("fused_train does not support temperature annealing")
+    if config.fused_train and config.net_type != "dense" and not config.hmc:
+        raise ValueError("fused_train needs dense S/T/Q nets (the kernels take no conv nets)")
     sigma = getattr(target, "sigma", None)
     has_cov = sigma is not None and np.asarray(sigma).ndim == 2
     eps_init = None

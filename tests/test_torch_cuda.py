@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from l2hmc_tpu_torch import targets
-from l2hmc_tpu_torch.apps import suite
+from l2hmc_tpu_torch.apps import phi4, suite
 from l2hmc_tpu_torch.ops import fused_dynamics as fd
 from l2hmc_tpu_torch.ops import fused_vae as fv
 from l2hmc_tpu_torch.train import ScgConfig, build_dynamics, hmc_sample_chain, sample_chain, train
@@ -341,6 +341,108 @@ def test_spec_kernels_refuse_constants_of_another_spec(cuda):
         fd.trajectory(bad, x, x.clone(), False)
     with pytest.raises(RuntimeError, match="launch failed"):
         fd.chain(dataclasses.replace(inp, kind=9), x, seed=0, n_mh_steps=1)
+
+
+# -- the phi^4 lattice ------------------------------------------------------------
+
+# The lattice's parity cases (``phi4.PARITY_CASES``): L = 8 on the lane groups
+# of kernels 1-2, L = 8, 16 and 32 and a dense 128-d Gaussian on the chain
+# kernel's site-parallel configuration.
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_phi4_trajectory_kernels_match_plain_at_L8(cuda, reverse):
+    """Phi4 through the trajectory kernel (5e-4) and its backward kernel
+    (per leaf within 5e-4 of the leaf's largest entry, the ReLU rule of
+    ``test_spec_trajectory_bwd_kernel_matches_plain``) at L = 8, hidden 32,
+    512 chains, twice bit for bit."""
+    inp, x = phi4.parity_inputs("phi4_L8", 512, cuda)
+    g = torch.Generator().manual_seed(3)
+    v, dX, dV = (torch.randn(x.shape, generator=g).to(cuda) for _ in range(3))
+    dld = torch.randn((1, 512), generator=g).to(cuda)
+    got = fd.trajectory(inp, x, v, reverse)
+    for a, b in zip(got, fd.trajectory(inp, x, v, reverse)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(got, fd.trajectory_plain(inp, x, v, reverse)):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=TOL)
+    got = tree_leaves(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse))
+    ref = tree_leaves(fd.trajectory_vjp_plain(inp, x, v, dX, dV, dld, reverse))
+    flipped = torch.zeros(512, dtype=torch.bool, device=cuda)
+    for a, b in zip(got[-2:], ref[-2:]):
+        flipped |= (a - b).abs().amax(dim=0) > 5e-4 * b.abs().max()
+    assert int(flipped.sum()) <= 1
+    if bool(flipped.any()):
+        assert float(fd.relu_margins(inp, x, v, reverse)[flipped].max()) < 1e-5
+        keep = (~flipped).float()[None, :]
+        got = tree_leaves(fd.trajectory_vjp(inp, x, v, dX * keep, dV * keep, dld * keep,
+                                            reverse))
+        ref = tree_leaves(fd.trajectory_vjp_plain(inp, x, v, dX * keep, dV * keep,
+                                                  dld * keep, reverse))
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=5e-4 * float(b.abs().max()) + 1e-30)
+
+
+@pytest.mark.parametrize("case,n", [("phi4_L16", 512), ("phi4_L16", 37), ("phi4_L32", 256),
+                                    ("gauss_D128", 203), ("phi4_L16_hmc", 203),
+                                    ("phi4_L8", 512)])
+def test_phi4_chain_kernel_matches_plain_on_same_bits(cuda, case, n):
+    """The chain kernel at the lattice's widths (the site-parallel
+    configuration, which runs the lattice at every width) against its plain
+    version on the same Philox bits, 20 traced MH steps, at a ragged count
+    and at the protocol's: at most 0.2% of the decisions flipped
+    (chip_smoke.py's PHI4_FLIPS), 1e-2 on the other chains, the trace's end
+    the state, twice bit for bit."""
+    inp, x = phi4.parity_inputs(case, n, cuda)
+    before = fd.LAUNCHES["chain:phi4" if "phi4" in case else "chain:gauss"]
+    xk, acck, trk = fd.chain(inp, x, seed=4, n_mh_steps=20, collect_trace=True)
+    assert fd.LAUNCHES["chain:phi4" if "phi4" in case else "chain:gauss"] == before + 1
+    for a, b in zip((xk, acck, trk), fd.chain(inp, x, seed=4, n_mh_steps=20, collect_trace=True)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    _, accp, trp = fd.chain_plain(inp, x, seed=4, n_mh_steps=20, collect_trace=True)
+    torch.testing.assert_close(trk[-1], xk, rtol=0, atol=0)
+    flipped = _accepts(trk, x) != _accepts(trp, x)
+    clean = ~flipped.any(dim=0)
+    assert int(flipped.sum()) <= 0.002 * flipped.numel()
+    torch.testing.assert_close(trk[..., clean], trp[..., clean], rtol=0, atol=1e-2)
+    assert 0.0 < float(accp.mean()) < 1.0
+
+
+def test_kernels_refuse_past_their_caps(cuda):
+    """Kernels 1-2 take states up to 64 wide, the chain kernel up to 1024
+    (past 64 on the Gaussian and phi^4 specs): past them each raises naming
+    the kernel and its cap; nothing falls back to a plain version."""
+    inp, x = phi4.parity_inputs("phi4_L16", 8, cuda)
+    with pytest.raises(ValueError, match="trajectory kernel caps exceeded: dim 256"):
+        fd.trajectory(inp, x, x.clone(), False)
+    with pytest.raises(ValueError, match="trajectory_bwd kernel caps exceeded: dim 256"):
+        fd.trajectory_vjp(inp, x, x.clone(), x.clone(), x.clone(),
+                          torch.zeros((1, 8), device=cuda), False)
+    t64 = targets.Phi4Lattice(L=64)
+    dyn, _ = build_dynamics(ScgConfig(dim=t64.dim, hidden=32), t64)
+    with pytest.raises(ValueError, match="chain kernel caps exceeded: dim 4096"):
+        fd.fused_chain_sampler(dyn, t64).run(dyn.init_params(torch.Generator(), device=cuda),
+                                             t64.sample(torch.Generator(), 4, device=cuda),
+                                             seed=0, n_mh_steps=1)
+    rough = targets.RoughWell(dim=100, eps=0.1, easy=True)
+    dyn, _ = build_dynamics(ScgConfig(dim=100, hidden=32), rough)
+    with pytest.raises(ValueError, match="chain kernel past dim 64 takes the gauss, phi4 specs"):
+        fd.fused_chain_sampler(dyn, rough).run(dyn.init_params(torch.Generator(), device=cuda),
+                                               rough.sample(torch.Generator(), 4, device=cuda),
+                                               seed=0, n_mh_steps=1)
+
+
+def test_conv_training_on_the_card_keeps_tf32_off(cuda):
+    """Conv S/T/Q training at L = 16 on the card (cuDNN), captured and
+    eager: TF32 stays off for matmul and cuDNN, and the two routes' losses
+    agree to the SCG training bar (rtol 2e-3, atol 1e-2)."""
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    tgt = targets.Phi4Lattice(L=16, m2=-1.0, lam=0.5)
+    cfg = ScgConfig(dim=tgt.dim, n_chains=64, n_steps=5, T=3, net_type="conv", eps=0.05)
+    _, he = train(cfg, tgt, device=cuda, capture=False)
+    _, hc = train(cfg, tgt, device=cuda, capture=True)
+    assert np.isfinite(hc["loss"]).all()
+    np.testing.assert_allclose(hc["loss"], he["loss"], rtol=2e-3, atol=1e-2)
 
 
 # -- the VAE kernels ------------------------------------------------------------

@@ -140,8 +140,9 @@ def test_hmc_reduction_is_plain_leapfrog():
 
 
 def test_unported_knobs_raise():
-    """eps_step still raises; use_temperature and net_input_fn are ported
-    (the latter exclusive with input_scale, with JAX's error)."""
+    """eps_step and bf16 operands still raise; use_temperature,
+    net_input_fn (exclusive with input_scale, with JAX's error) and the
+    lattice conv nets are ported."""
     tgt = targets.scg_gaussian()
     with pytest.raises(NotImplementedError):
         dynamics.Dynamics(dim=2, energy=tgt.energy, T=2, hmc=True, eps_step=True)
@@ -150,9 +151,9 @@ def test_unported_knobs_raise():
     with pytest.raises(ValueError, match="mutually exclusive"):
         dynamics.Dynamics(dim=2, energy=tgt.energy, T=2, hmc=True, input_scale=(1.0, 2.0),
                           net_input_fn=lambda net, xs: xs)
-    for kw in (dict(net_type="conv"), dict(compute_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            ScgConfig(**kw)
+    ScgConfig(dim=16, net_type="conv")  # ported now
+    with pytest.raises(NotImplementedError):
+        ScgConfig(compute_dtype="bfloat16")
 
 
 def _suite_pair(kw, jt, tt):

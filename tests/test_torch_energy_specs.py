@@ -1,4 +1,4 @@
-"""The suite's energy specs (rough well, GMM, funnel) on the CPU: each spec's
+"""The energy specs (rough well, GMM, funnel, phi^4) on the CPU: each spec's
 plain energy and gradient against the JAX spec's closures, its hand-derived
 gradient VJP against autograd in float64 and against ``jax.vjp`` of the JAX
 closure, and the plain trajectory, chain and trajectory VJP built on it
@@ -40,6 +40,9 @@ CASES = {
              lambda: targets.mog2(distance=4.0, var=0.1), fd.GmmEnergy, 0.1),
     "funnel": (lambda: jtargets.GaussianFunnel(dim=6), lambda: targets.GaussianFunnel(dim=6),
                fd.FunnelEnergy, 0.02),
+    # the JAX test's lattice (tests/test_fused_dynamics.py:87)
+    "phi4": (lambda: jtargets.Phi4Lattice(L=4, m2=-4.0, lam=1.0),
+             lambda: targets.Phi4Lattice(L=4, m2=-4.0, lam=1.0), fd.Phi4Energy, 0.1),
 }
 # the funnel's first chains start past its clip (|v| > 8) on both sides
 PAST_CLIP = (8.5, -8.5, 9.0, -9.0, 12.0, -12.0, 20.0, -20.0)
@@ -96,7 +99,7 @@ def test_spec_maps_and_packs(name):
     nc = sum(c.numel() for c in spec.consts("cpu"))
     assert inp.energy_args == (spec.KIND, nc)
     assert nc == {"rough_well_easy": 4, "ring": 4 * (D + D * D + 1),
-                  "mog2": 2 * (D + D * D + 1), "funnel": 3}[name]
+                  "mog2": 2 * (D + D * D + 1), "funnel": 3, "phi4": 3}[name]
     net = 2 * D * H + H * H2 + H2 + 3 * H2 * D + 5 * D + H * T_
     assert inp.block().numel() == D + D * T_ + nc + 2 * net
     for c, jc in zip(spec.consts("cpu"), jfd.energy_spec_for_target(jt).consts()):

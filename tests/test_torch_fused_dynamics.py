@@ -160,6 +160,27 @@ def test_chain_draws_layout_and_law():
     assert abs(float(u_dir.mean()) - 0.5) < 0.02
 
 
+@pytest.mark.parametrize("d,op", [(1, 0), (2, 0), (5, 2), (257, 0)])
+def test_chain_draws_equal_the_per_slot_words(d, op):
+    """``chain_draws`` forms every slot's normals in one Philox call; they
+    equal the per-slot form (slot 1 + j gives rows 2j and 2j + 1), bit for
+    bit."""
+    n, step, seed = 37, 7, 12345678901
+    v, u_dir, u_acc = chain_draws(seed, n, d, step, "cpu", op=op)
+    key = (seed & 0xFFFFFFFF, seed >> 32)
+    chains = torch.arange(n, dtype=torch.int64)
+    rows = []
+    for j in range((d + 1) // 2):
+        r = philox4x32_10((chains, step, 1 + j, op), key)
+        rows.append(box_muller(r[0], r[1]))
+        if 2 * j + 1 < d:
+            rows.append(box_muller(r[2], r[3]))
+    torch.testing.assert_close(v, torch.stack(rows), rtol=0, atol=0)
+    r0 = philox4x32_10((chains, step, 0, op), key)
+    torch.testing.assert_close(u_dir, (r0[0] >> 8).to(torch.float32) / (1 << 24), rtol=0, atol=0)
+    torch.testing.assert_close(u_acc, (r0[1] >> 8).to(torch.float32) / (1 << 24), rtol=0, atol=0)
+
+
 def test_packed_block_layout():
     """The packed block has the length csrc/l2hmc_common.cuh computes."""
     _, _, _, td, tt, tp, _, _ = _setup()

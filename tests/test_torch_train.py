@@ -469,9 +469,9 @@ def test_eps_sigma_init_and_unported_knobs():
     assert temperature_at(cfg, 0) == 1.0
     ScgConfig(fused_train=True)  # ported now
     ScgConfig(init_temperature=2.0, net_input_target_fn=True)  # ported now
-    for knob in (dict(pt_train_rungs=2), dict(net_type="conv")):
-        with pytest.raises(NotImplementedError):
-            ScgConfig(**knob)
+    ScgConfig(dim=16, net_type="conv")  # ported now
+    with pytest.raises(NotImplementedError):
+        ScgConfig(pt_train_rungs=2)
     if not torch.cuda.is_available():  # entry points run on cuda unless told otherwise
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train(ScgConfig(n_steps=1))
