@@ -54,9 +54,10 @@ then:
      launch twice, bit for bit; its cluster configuration, the clusters
      the card holds at once and the L2 weight bytes of a protocol launch);
      (c) the sampling
-     path: ``apps.eval_sampler.run`` with the default protocol (200 chains,
-     2000 recorded steps of 1-3 ops, the seven-eps plain HMC baseline
-     grid), its posterior moments held against a plain
+     path: ``apps.eval_sampler.run`` with the default protocol cut to 1000
+     recorded steps of 1-3 ops and a burn-in of 500 (200 chains, the
+     seven-eps plain HMC baseline grid; VAE_SAMPLING_CUT), its posterior
+     moments held against a plain
      ``vae_chain_plain`` run with its own
      stream; (d) the AIS path: ``apps.eval_vae.run`` with the default
      protocol on 100 datapoints, held against the same entry point with
@@ -86,19 +87,23 @@ then:
      gap (0.30) held, both arms' ESS ratios above 1.2, its JSON printed as a
      ``# bench:`` line. Launch counts are reset before and read after it;
  10. the distribution suite (``apps.suite``) on its energy specs (rough
-     well, GMM, funnel): (a) the trajectory and backward kernels vs their
+     well, GMM, funnel) and on the 50-d ill-conditioned Gaussian at its
+     recipe's hidden 100 (icg, the chain kernel's site-parallel
+     configuration; the trajectory kernels stop at hidden 64): (a) the trajectory and backward kernels vs their
      plain versions on each spec, both directions (the easy rough well at
      2048 and 203 chains, the ring at 1024 on the SCG lane configuration,
      the funnel with chains past its clip, mog2 in HMC mode; 5e-4, and 1e-4
      of each leaf's largest entry); (b) the chain kernel vs its plain
-     version on the same Philox bits, the same cases at their suite rows'
-     chain counts, 20 MH steps, twice bit for bit (phase 3's limits); (c)
+     version on the same Philox bits, the same cases and icg (2048 chains,
+     eps_dim) at their suite rows' chain counts, 20 MH steps, twice bit for
+     bit (phase 3's limits; icg's flips at PHI4_FLIPS); (c)
      the suite path: ``run_target`` on the rough well (its recipe: 2048
      chains, T=5, hidden 20, hard mode),
-     the ring at 2048 chains and the funnel, cut to 250 training steps and
-     one training seed, with the 2000-step eval, the fused cross-check
+     the ring at 2048 chains, the funnel and icg at 2048 chains, cut to 250
+     training steps (icg 20) and
+     one training seed, with a 1000-step eval, the fused cross-check
      (its ESS within 0.30 of the plain eval's) and the HMC grid through the
-     chain kernel; (d) fused vs plain training on the ring, the easy rough
+     chain kernel (icg's plain); (d) fused vs plain training on the ring, the easy rough
      well and the funnel (rtol 2e-3, atol 1e-2): the fused step's loss at
      each of a plain run's 20 states, and two free runs of 20 steps, held
      over their first steps (``SUITE_TRAIN``), the ring's beside the same
@@ -107,15 +112,18 @@ then:
      captured vs eager, bit for bit: 20 steps of the annealed ring and of
      the funnel with its net-input features; (f) each spec's three kernels
      timed at its suite row's shapes, beside their plain versions and
-     bounds;
+     bounds, and the chain kernel on icg (row 3i: 2048 chains x 2000 traced
+     steps, its L2 weight bytes reckoned);
  11. the phi^4 lattice (``apps.phi4``) on the ``Phi4`` spec: (a) the
      trajectory and backward kernels vs their plain versions at L = 8
      (D = 64, hidden 32, T = 10, 512 chains, both directions; phase 2's and
      5a's bars), and both refusing L = 16 with their cap named, the chain
-     kernel refusing L = 64; (b) the chain kernel vs its plain version on
-     the same Philox bits, 20 MH steps, twice bit for bit: the site-parallel
-     configuration at L = 16 (512 chains, learned and HMC), L = 32 (256),
-     L = 8 (512; the chain kernel runs the lattice there at every width)
+     kernel refusing L = 128 and hidden 129 with its caps named; (b) the
+     chain kernel vs its plain version on the same Philox bits, 20 MH
+     steps, twice bit for bit: the site-parallel configuration at L = 16
+     (512 chains, learned and HMC), L = 32 (256), L = 64 (256; hidden 64,
+     T = 24, the shipped 64 x 64 recipe's shape), L = 8 (512; the chain
+     kernel runs the lattice there at every width)
      and a dense 128-d Gaussian (203), at PHI4_FLIPS and phase 3's 1e-2 on
      the other chains; (c) the app's
      path: ``apps.phi4.run`` at L = 16 (m^2 = -1, lam = 0.5, 512 chains,
@@ -123,8 +131,11 @@ then:
      a parallel-tempered eval at 8 rungs cut to PHI4_PT_STEPS), its kernel
      eval's tunnelling rate and magnetization ESS held against a plain
      ``sample_chain`` eval of the same params from the same x0, each the
-     mean over PHI4_SEEDS random streams (PHI4_GAP), then at L = 8 and at
-     L = 32 cut in training and eval; (d) captured training
+     mean over PHI4_SEEDS random streams (PHI4_GAP), the same at L = 64
+     (A_control's shape of the JAX package's 64 x 64 record: 256 chains,
+     hidden 32, T = 10, eps 0.03, training cut to 100 steps; PHI4_RUN_L64,
+     PHI4_SEEDS_L64 streams), then at L = 8 and at L = 32 cut in training
+     and eval; (d) captured training
      steps with conv nets at L = 16 against eager ones (cuDNN's TF32 off),
      and fused against plain training at L = 8: the fused step's loss at
      each of a plain run's 20 states on the same draws (phase 5b's bar),
@@ -132,7 +143,9 @@ then:
      counts are reset before (c) and read after each of its runs, and reset
      before the fused training run of (d) and read after it; (e) the
      kernels at the app's shapes timed beside their plain versions and
-     bounds, with the L2 weight bytes of a site-parallel launch reckoned.
+     bounds, with the L2 weight bytes of a site-parallel launch reckoned:
+     rows 3e-3g at L = 8, 16, 32, and 3h at L = 64 at the trained params of
+     (c)'s L = 64 run and at the shipped recipe's shape (hidden 64, T = 24).
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -176,6 +189,10 @@ VAE_AIS_TOL = 5e-3
 # VAE_MEAN_TOL posterior standard deviations, variances within a factor
 # 1 +- VAE_VAR_TOL.
 VAE_PLAIN_STEPS, VAE_PLAIN_BURN_IN = 240, 80
+# 6c's sampling path cut to half the protocol's recorded steps and burn-in
+# (its plain seven-eps HMC grid is ~95% of the run), to keep the script under
+# 1000 s; (e) times the kernel's launch at the protocol's 2000 steps.
+VAE_SAMPLING_CUT = dict(n_steps=1000, burn_in=500)
 VAE_MEAN_TOL = 0.1
 VAE_VAR_TOL = 0.15
 # eval_vae.run through the AIS kernel against the ais_estimate loop on the
@@ -362,12 +379,13 @@ def _bound(ops, nbytes):
     return 1e3 * t_bytes, "bytes"
 
 
-def _cuda_time(fn, reps):
+def _cuda_time(fn, reps, warmup=True):
     """Mean ms of ``fn()`` over ``reps`` runs by CUDA events, after one
-    warm-up run."""
+    warm-up run (without it where ``fn``'s kernel has run before)."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -651,12 +669,13 @@ def vae_phases(dev, report, logdir):
     fd.reset_launch_counts()
     t_phase = time.perf_counter()
     scfg = eval_sampler.EvalSamplerConfig()
-    curves = eval_sampler.run(model, params, scfg, dataset, seed=0)
+    run_cfg = dataclasses.replace(scfg, **VAE_SAMPLING_CUT)
+    curves = eval_sampler.run(model, params, run_cfg, dataset, seed=0)
     torch.cuda.synchronize()
     sampling_s = time.perf_counter() - t_phase
     sampling_launches = dict(fd.LAUNCHES)
     trace = curves["trace"]
-    post = trace[scfg.burn_in:]
+    post = trace[run_cfg.burn_in:]
     moved = float((trace[1:] != trace[:-1]).any(dim=2).float().mean())
 
     # the same posterior through the plain version, its own stream and depth
@@ -677,7 +696,7 @@ def vae_phases(dev, report, logdir):
     var_gap = float((var_f / var_p - 1.0).abs().max())
     hmc_curves = curves["hmc"]
     report["vae_sampling_path"] = {
-        "n_chains": scfg.n_chains, "n_steps": scfg.n_steps, "burn_in": scfg.burn_in,
+        "n_chains": run_cfg.n_chains, "n_steps": run_cfg.n_steps, "burn_in": run_cfg.burn_in,
         "max_composition": scfg.max_composition, "hmc_eps_grid": list(scfg.hmc_eps_grid),
         "data_source": curves["data_source"], "weights": "seeded, untrained, lifted",
         "moved_per_recorded_step": moved,
@@ -694,7 +713,7 @@ def vae_phases(dev, report, logdir):
     }
     print(f"# VAE sampling path ({sampling_s:.1f} s, plain comparison {plain_s:.1f} s): "
           + json.dumps(report["vae_sampling_path"]), flush=True)
-    _require(trace.shape == (scfg.n_steps, scfg.n_chains, D), "VAE trace shape")
+    _require(trace.shape == (run_cfg.n_steps, run_cfg.n_chains, D), "VAE trace shape")
     _require(bool(torch.isfinite(trace).all()), "non-finite VAE trace")
     _require(bool(np.isfinite(curves["trained"]).all())
              and all(bool(np.isfinite(c).all()) for c in hmc_curves.values()),
@@ -1148,13 +1167,18 @@ def vae_train_phases(dev, report, logdir):
 SUITE_TRAJ_CHAINS = {"rough_well_easy": (2048, 203), "ring": (1024,), "funnel": (1024,),
                      "mog2_hmc": (1024,)}
 SPEC_OF_CASE = {"rough_well_easy": "rough_well", "ring": "gmm", "funnel": "funnel",
-                "mog2_hmc": "gmm"}
+                "mog2_hmc": "gmm", "icg": "gauss"}
 # The suite path cut in depth: 250 training steps and one training seed a
-# row (the recipes: 5000 and up to 4); the 2000-step eval, the HMC grid's
-# eight step sizes (through the chain kernel) and the widths and chain
-# counts as the recipes have them.
-SUITE_CUT = dict(n_steps=250, n_train_seeds=1, fused_hmc=True)
-SUITE_ROWS = (("rough_well", {}), ("ring", dict(n_chains=2048)), ("funnel", {}))
+# row (the recipes: 5000 and up to 4), a 1000-step eval (the recipes: 2000),
+# the HMC grid's eight step sizes (through the chain kernel) and the widths
+# and chain counts as the recipes have them. icg (2048 chains, the JAX
+# record's) trains 20 steps, and its HMC grid runs plain: through the chain
+# kernel it runs the 50-d Gaussian on WideLanes in HMC mode, where every lane
+# of a warp repeats the chain's dense gradient (ROADMAP P7), ~22 s an eps at
+# 2000 steps on an H100. The row shows the cross-check's path, not a ratio.
+SUITE_CUT = dict(n_steps=250, n_train_seeds=1, fused_hmc=True, eval_steps=1000)
+SUITE_ROWS = (("rough_well", {}), ("ring", dict(n_chains=2048)), ("funnel", {}),
+              ("icg", dict(n_chains=2048, n_steps=20, fused_hmc=False)))
 # Fused against plain training on the suite's targets (no annealing, no
 # net-input features: the fused path takes neither), 20 steps at 1024 chains,
 # at phase 5b's bar, twice: the fused step's loss at each of the plain run's
@@ -1254,7 +1278,10 @@ def suite_phases(dev, report):
     chain_cmp = {}
     for name, case in suite.PARITY_CASES.items():
         inp, xc = suite.parity_inputs(name, case.n_chains, dev, seed=40)
-        chain_cmp[name] = _chain_vs_plain(fd, inp, xc, f"suite chain {name}", 5)
+        # phase 3's 5 flips on the lane groups, the lattice's share on the
+        # site-parallel configuration (icg at hidden 100)
+        flips = PHI4_FLIPS * 20 * case.n_chains if fd.chain_on_sites(inp) else 5
+        chain_cmp[name] = _chain_vs_plain(fd, inp, xc, f"suite chain {name}", flips)
     report["suite_chain_vs_plain"] = chain_cmp
     print(f"# suite chain kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
           + json.dumps(chain_cmp), flush=True)
@@ -1266,7 +1293,7 @@ def suite_phases(dev, report):
     rows = {}
     for name, kw in SUITE_ROWS:
         t = time.perf_counter()
-        row = suite.run_target(name, device=dev, verbose=False, **SUITE_CUT, **kw)
+        row = suite.run_target(name, device=dev, verbose=False, **{**SUITE_CUT, **kw})
         row["wall_s"] = time.perf_counter() - t
         rows[name] = row
         print(f"# suite row {name} ({row['wall_s']:.1f} s): ess_ratio {row['ess_ratio']:.4g}, "
@@ -1281,9 +1308,10 @@ def suite_phases(dev, report):
                      f"suite {name}: fused-trace ESS gap {row['fused_ess_rel_gap']}")
         _require(all(np.isfinite(e) and e > 0 for e in ess_vals), f"suite {name}: ESS {ess_vals}")
         _require(0.0 < row["final_accept"] < 1.0, f"suite {name}: acceptance {row['final_accept']}")
-        _require(row["hmc_grid_fused"] is True, f"suite {name}: HMC grid not fused")
-    _require(rows["rough_well"]["fused_cross_check"] == "ran"
-             and rows["ring"]["fused_cross_check"] == "ran", "suite cross-check did not run")
+        _require(row["hmc_grid_fused"] is (name != "icg"), f"suite {name}: HMC grid fused "
+                                                            f"{row['hmc_grid_fused']}")
+    _require(all(rows[r]["fused_cross_check"] == "ran" for r in ("rough_well", "ring", "icg")),
+             "suite cross-check did not run")
     report["suite_rows"] = rows
     suite_s = time.perf_counter() - t_phase
 
@@ -1355,6 +1383,8 @@ def suite_phases(dev, report):
         for spec in SUITE_TIMES:
             _require(launches[f"{kernel}:{spec}"] > 0,
                      f"kernel {kernel} on the {spec} spec not launched on the suite path")
+    # icg's cross-check, the suite path's only site-parallel launches
+    _require(launches["chain:sites"] > 0, "icg's chain kernel not launched on the suite path")
 
     # (e) captured against eager, bit for bit: the annealed ring (the
     # temperature from the device step counter) and the funnel with its
@@ -1438,6 +1468,33 @@ def suite_phases(dev, report):
                 "ms": t[kernel], "plain_ms": plain, "bound_ms": bounds[kernel][0],
                 "bound_by": bounds[kernel][1], "library_ms": None,
                 "shape": f"{shape}, {what}"})
+    # row 3i: the chain kernel on icg at its recipe's widths (D = 50, hidden
+    # 100: the site-parallel configuration), 2048 chains x 2000 traced steps
+    inp, x = suite.parity_inputs("icg", suite.PARITY_CASES["icg"].n_chains, dev, seed=32)
+    D, H, H2, T = inp.dims
+    n = x.shape[1]
+    t = {"chain": _cuda_time(lambda: fd.chain(inp, x, 2, steps, True), 1, warmup=False),
+         f"chain_{plain_steps}": _cuda_time(lambda: fd.chain(inp, x, 2, plain_steps, True), 5),
+         f"chain_plain_{plain_steps}": _cuda_time(
+             lambda: fd.chain_plain(inp, x, 2, plain_steps, collect_trace=True), 1)}
+    bound = chain_bound(D, H, H2, T, n, steps, False, inp.block().numel(), True, _ops_of(inp))
+    chains_a_block, threads_a_block, smem = fd.site_tile(D, H, H2)
+    l2 = phi4_l2_weight_bytes(D, H, H2, T, n, steps, chains_a_block)
+    times["icg"] = {"case": "icg", "n_chains": n, "ms": t, "bound_ms": {"chain": bound},
+                    "site_tile": [chains_a_block, threads_a_block, smem],
+                    "l2_weight_bytes": l2, "l2_weight_bytes_per_s": l2 / (t["chain"] * 1e-3)}
+    rows_out.append({
+        "name": "chain[gauss]", "route": "cuda", "source": src + "chain.cu",
+        "replaces": "l2hmc_tpu/ops/fused_dynamics.py:1103",
+        "launches": launches["chain:sites"],
+        "max_abs_err": chain_cmp["icg"]["max_abs_dx_unflipped"],
+        "ms": t["chain"], "plain_ms": t[f"chain_plain_{plain_steps}"], "bound_ms": bound[0],
+        "bound_by": bound[1], "library_ms": None, "row": "3i",
+        "shape": (f"icg D={D} H={H} T={T} eps_dim, {n} chains x {steps} MH steps, traced, "
+                  f"site-parallel ({chains_a_block} chains a block of {threads_a_block} "
+                  f"threads, {smem} bytes of shared memory), {l2:.4g} L2 weight bytes "
+                  f"reckoned; plain_ms over {plain_steps} MH steps (the kernel over "
+                  f"{plain_steps}: {t[f'chain_{plain_steps}']:.4f} ms)")})
     report["suite_kernel_times"] = times
     print(f"# suite kernel times ({time.perf_counter() - t_phase:.1f} s): "
           + json.dumps(times), flush=True)
@@ -1455,7 +1512,7 @@ def suite_phases(dev, report):
 # ~1e-4): at most PHI4_FLIPS of the decisions may flip (20 of 10240 at 512
 # chains x 20 steps), and the other chains agree to phase 3's 1e-2.
 PHI4_FLIPS = 0.002
-PHI4_CHAIN_CASES = ("phi4_L16", "phi4_L32", "gauss_D128", "phi4_L16_hmc", "phi4_L8")
+PHI4_CHAIN_CASES = ("phi4_L16", "phi4_L32", "phi4_L64", "gauss_D128", "phi4_L16_hmc", "phi4_L8")
 # (c) the app's path at full width (L = 16, hidden 32, the JAX runner's
 # defaults) cut in depth: 300 training steps (the protocol: 2000), the
 # 1000-step eval, the parallel-tempered evals cut to PHI4_PT_STEPS at 8
@@ -1481,14 +1538,24 @@ PHI4_GAP = 0.30
 # (phi4_results.json)
 PHI4_RUNS_MORE = (dict(L=8, n_chains=512, n_steps=50, eval_steps=500),
                   dict(L=32, n_chains=256, n_steps=50, eval_steps=500))
+# The 64 x 64 lattice at the JAX package's A_control shape (phi4_64_r3.json:
+# 256 chains, hidden 32, T = 10, eps = hmc_eps = 0.03, the 1000-step eval),
+# training cut to 100 steps (the protocol: 2000), its kernel eval held
+# against a plain eval as L = 16's, each side the mean over PHI4_SEEDS_L64
+# streams.
+PHI4_RUN_L64 = dict(L=64, m2=-1.0, lam=0.5, n_chains=256, hidden=32, leapfrogs=10,
+                    n_steps=100, eval_steps=1000, eps=0.03, hmc_eps=0.03)
+PHI4_SEEDS_L64 = 3
 
 
 def phi4_l2_weight_bytes(D, H, H2, T, N, K, chains_per_block):
     """Weight bytes one site-parallel chain launch reads from the L2,
-    reckoned for the report: each block of ``chains_per_block`` chains
-    reads, per MH step, both nets' first-layer and head weights, the second
-    layer once per chain, and the biases and scales, in each of the 4 T net
-    applications."""
+    reckoned for the report: one block a tile of ``chains_per_block``
+    chains, and each block reads, per MH step, both nets' first-layer and
+    head weights (one load serving the tile's chains), the second layer once
+    per chain, and the biases and scales, in each of the 4 T net
+    applications. The energy spec's constants (a dense Gaussian's precision
+    matrix) are not counted."""
     per_app = 2 * D * H + 3 * H2 * D + chains_per_block * H * H2 + 5 * D + H2 + H
     return -(-N // chains_per_block) * K * 4 * T * per_app * 4
 
@@ -1547,18 +1614,21 @@ def phi4_phases(dev, report):
             refusals[kernel] = str(e)
         _require(refusals[kernel] is not None and kernel in refusals[kernel]
                  and "dim 64" in refusals[kernel], f"{kernel} at L = 16: {refusals[kernel]}")
-    t64 = targets.Phi4Lattice(L=64)
-    d64, _ = build_dynamics(ScgConfig(dim=t64.dim, hidden=32), t64)
-    refusals["chain_L64"] = fd.kernel_refusal(d64, t64, 32)
-    try:
-        fd.fused_chain_sampler(d64, t64).run(
-            d64.init_params(_gen(0), device=dev), t64.sample(_gen(1), 4, device=dev), seed=0,
-            n_mh_steps=1)
-        chain64 = None
-    except ValueError as e:
-        chain64 = str(e)
-    _require(chain64 is not None and "chain kernel caps" in chain64 and "1024" in chain64,
-             f"chain kernel at L = 64: {chain64}")
+    # the chain kernel past its caps: L = 128 (dim 16384), hidden 129 at L = 16
+    for key, L, hidden in (("chain_L128", 128, 32), ("chain_hidden129", 16, 129)):
+        tl = targets.Phi4Lattice(L=L)
+        dl, _ = build_dynamics(ScgConfig(dim=tl.dim, hidden=hidden), tl)
+        try:
+            fd.fused_chain_sampler(dl, tl).run(
+                dl.init_params(_gen(0), device=dev), tl.sample(_gen(1), 4, device=dev), seed=0,
+                n_mh_steps=1)
+            refusals[key] = None
+        except ValueError as e:
+            refusals[key] = str(e)
+        _require(refusals[key] is not None and "chain kernel caps" in refusals[key]
+                 and "caps dim 4096, hidden 128" in refusals[key]
+                 and refusals[key] == fd.kernel_refusal(dl, tl, hidden),
+                 f"chain kernel at L = {L}, hidden {hidden}: {refusals[key]}")
     out["kernels_1_2_vs_plain_L8"] = {"trajectory": traj, "trajectory_bwd": bwd,
                                       "refusals": refusals}
     print(f"# phi4 trajectory and backward kernels vs plain ({time.perf_counter() - t_phase:.1f}"
@@ -1576,66 +1646,86 @@ def phi4_phases(dev, report):
         chain_cmp[name].update(dim=D, configuration=(
             "site-parallel" if fd.chain_on_sites(inp) else
             f"{_cuda.library('chain').l2hmc_chain_lanes(D, H, H2)} lanes"))
+        if fd.chain_on_sites(inp):
+            geom = fd.site_tile(D, H, H2)
+            _require(geom == fd.site_geometry(D, H, H2),
+                     f"phi4 chain {name}: site geometry {geom} != {fd.site_geometry(D, H, H2)}")
+            chain_cmp[name]["chains_threads_smem_bytes_a_block"] = geom
         _require(0.0 < chain_cmp[name]["accept"] < 1.0, f"phi4 chain {name}: hollow acceptance")
     ptx = _ptxas_of(_cuda.build_info.get("ptxas", ""), "site_chain_kernel")
     out["chain_vs_plain"] = chain_cmp
     out["site_chain_ptxas"] = ptx
     print(f"# phi4 chain kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
           + json.dumps(chain_cmp), flush=True)
-    site_chains, site_threads = fd.site_tile()
+    site_chains, site_threads, _ = fd.site_tile(1024, 32, 32)
     print("# phi4 site-parallel chain kernel: " + json.dumps(
         {"ptxas": ptx, "chains_a_block": site_chains, "threads_a_block": site_threads}),
           flush=True)
 
     # (c) the app's path through apps.phi4.run; launch counts per run
-    fd.reset_launch_counts()
-    t_phase = time.perf_counter()
-    row, state = phi4.run(**PHI4_RUN, pt_eval_steps=PHI4_PT_STEPS, device=dev,
-                          return_state=True)
-    launches_run = dict(fd.LAUNCHES)
-    row["wall_s"] = time.perf_counter() - t_phase
-    _require(row["fused_eval"] == "ran", f"phi4 run: kernel eval refused: {row['fused_eval']}")
-    _require(launches_run["chain:phi4"] >= 1, "chain kernel not launched on the phi4 path")
-    # more streams of the kernel eval, and the plain eval of the same params
-    # from the same x0 on as many streams (the run's are seed + 2)
-    tgt = targets.Phi4Lattice(L=PHI4_RUN["L"], m2=PHI4_RUN["m2"], lam=PHI4_RUN["lam"])
-    dyn, _ = build_dynamics(ScgConfig(dim=tgt.dim, hidden=PHI4_RUN["hidden"],
-                                      T=PHI4_RUN["leapfrogs"]), tgt)
-    x0 = tgt.sample(_gen(1), PHI4_RUN["n_chains"], device=dev)  # run's seed + 1
-    steps = PHI4_RUN["eval_steps"]
-
     def scores(trace):
         m = trace.mean(dim=2).cpu().numpy()
         return {"tunneling_rate": phi4.tunneling_rate(m), "ess_m": phi4.magnetization_ess(m)}
 
-    kernel_runs = [{"tunneling_rate": row["tunneling_rate_l2hmc"], "ess_m": row["ess_m_l2hmc"]}]
-    sampler = fd.fused_chain_sampler(dyn, tgt)
-    for i in range(1, PHI4_SEEDS):
-        kernel_runs.append(scores(sampler.run(state.params, x0, seed=2 + 100 * i, n_mh_steps=steps,
-                                         collect_trace=True)[2]))
-    plain, plain_s = [], []
-    for i in range(PHI4_SEEDS):
-        t = time.perf_counter()
-        _, ptrace = sample_chain(dyn, state.params, x0, steps, _gen(2 + 100 * i))
-        torch.cuda.synchronize()
-        plain_s.append(time.perf_counter() - t)
-        plain.append(scores(ptrace))
-        del ptrace
-    means = {route: {k: float(np.mean([r[k] for r in runs])) for k in runs[0]}
-             for route, runs in (("kernel", kernel_runs), ("plain", plain))}
-    gaps = {"tunneling_rate": abs(means["kernel"]["tunneling_rate"]
-                                  - means["plain"]["tunneling_rate"])
-            / max(means["plain"]["tunneling_rate"], 0.01),
-            "ess_m": abs(means["kernel"]["ess_m"] - means["plain"]["ess_m"])
-            / max(means["plain"]["ess_m"], 1e-12)}
-    out["run_L16"] = {"row": row, "kernel_evals": kernel_runs, "plain_evals": plain,
-                      "plain_eval_s": plain_s, "means": means, "gap_over_plain": gaps,
-                      "launches": launches_run}
-    print(f"# phi4 run L=16 ({row['wall_s']:.1f} s): " + json.dumps(out["run_L16"]), flush=True)
-    vals = [v for k, v in row.items() if k.startswith(("tunneling", "ess_m"))]
-    _require(all(np.isfinite(v) for v in vals), f"phi4 run: {row}")
-    _require(0.0 < row["final_accept"] < 1.0, f"phi4 run: acceptance {row['final_accept']}")
-    _require(max(gaps.values()) <= PHI4_GAP, f"phi4 kernel eval vs plain eval: {gaps}")
+    def run_vs_plain(run_kw, n_streams, **extra):
+        """apps.phi4.run, then its kernel eval on more streams and a plain
+        sample_chain eval of the same params from the same x0 on as many
+        (the run's streams are seed + 2): the means' gaps, held at
+        PHI4_GAP."""
+        fd.reset_launch_counts()
+        t0 = time.perf_counter()
+        row, state = phi4.run(**run_kw, **extra, device=dev, return_state=True)
+        launches_run = dict(fd.LAUNCHES)
+        row["wall_s"] = time.perf_counter() - t0
+        L = run_kw["L"]
+        _require(row["fused_eval"] == "ran",
+                 f"phi4 run L={L}: kernel eval refused: {row['fused_eval']}")
+        _require(launches_run["chain:phi4"] >= 1, f"chain kernel not launched at L={L}")
+        tgt = targets.Phi4Lattice(L=L, m2=run_kw["m2"], lam=run_kw["lam"])
+        dyn, _ = build_dynamics(ScgConfig(dim=tgt.dim, hidden=run_kw["hidden"],
+                                          T=run_kw["leapfrogs"]), tgt)
+        x0 = tgt.sample(_gen(1), run_kw["n_chains"], device=dev)  # run's seed + 1
+        steps = run_kw["eval_steps"]
+        kernel_runs = [{"tunneling_rate": row["tunneling_rate_l2hmc"],
+                        "ess_m": row["ess_m_l2hmc"]}]
+        sampler = fd.fused_chain_sampler(dyn, tgt)
+        for i in range(1, n_streams):
+            kernel_runs.append(scores(sampler.run(state.params, x0, seed=2 + 100 * i,
+                                                  n_mh_steps=steps, collect_trace=True)[2]))
+        plain, plain_s = [], []
+        for i in range(n_streams):
+            t = time.perf_counter()
+            _, ptrace = sample_chain(dyn, state.params, x0, steps, _gen(2 + 100 * i))
+            torch.cuda.synchronize()
+            plain_s.append(time.perf_counter() - t)
+            plain.append(scores(ptrace))
+            del ptrace
+        means = {route: {k: float(np.mean([r[k] for r in runs])) for k in runs[0]}
+                 for route, runs in (("kernel", kernel_runs), ("plain", plain))}
+        gaps = {"tunneling_rate": abs(means["kernel"]["tunneling_rate"]
+                                      - means["plain"]["tunneling_rate"])
+                / max(means["plain"]["tunneling_rate"], 0.01),
+                "ess_m": abs(means["kernel"]["ess_m"] - means["plain"]["ess_m"])
+                / max(means["plain"]["ess_m"], 1e-12)}
+        # each side's own spread: the streams' standard deviation over their
+        # mean
+        spread = {route: {k: float(np.std([r[k] for r in runs]) / max(np.mean(
+            [r[k] for r in runs]), 1e-12)) for k in runs[0]}
+            for route, runs in (("kernel", kernel_runs), ("plain", plain))}
+        res = {"row": row, "kernel_evals": kernel_runs, "plain_evals": plain,
+               "plain_eval_s": plain_s, "means": means, "gap_over_plain": gaps,
+               "stream_spread": spread, "launches": launches_run}
+        print(f"# phi4 run L={L} ({row['wall_s']:.1f} s): " + json.dumps(res), flush=True)
+        vals = [v for k, v in row.items() if k.startswith(("tunneling", "ess_m"))]
+        _require(all(np.isfinite(v) for v in vals), f"phi4 run L={L}: {row}")
+        _require(0.0 < row["final_accept"] < 1.0,
+                 f"phi4 run L={L}: acceptance {row['final_accept']}")
+        _require(max(gaps.values()) <= PHI4_GAP, f"phi4 L={L} kernel eval vs plain eval: {gaps}")
+        return res, state
+
+    out["run_L16"], _ = run_vs_plain(PHI4_RUN, PHI4_SEEDS, pt_eval_steps=PHI4_PT_STEPS)
+    launches_run = out["run_L16"]["launches"]
+    out["run_L64"], state64 = run_vs_plain(PHI4_RUN_L64, PHI4_SEEDS_L64)
     more = {}
     for kw in PHI4_RUNS_MORE:
         before = fd.LAUNCHES["chain:phi4"]
@@ -1656,6 +1746,7 @@ def phi4_phases(dev, report):
     t_phase = time.perf_counter()
     _require(torch.backends.cudnn.allow_tf32 is False, "cuDNN TF32 is on")
     _require(torch.backends.cuda.matmul.allow_tf32 is False, "matmul TF32 is on")
+    tgt = targets.Phi4Lattice(L=PHI4_RUN["L"], m2=PHI4_RUN["m2"], lam=PHI4_RUN["lam"])
     conv_cfg = ScgConfig(dim=tgt.dim, n_chains=128, n_steps=5, T=10, net_type="conv", eps=0.05,
                          seed=0)
     conv = {}
@@ -1740,19 +1831,39 @@ def phi4_phases(dev, report):
             lambda: fd.trajectory_vjp_plain(inp8, x8, v8, dX8, dV8, dld8, False), 3),
     }
     steps, plain_steps = 1000, 20  # the rows' launch: the app's eval
+    # 3h at the L = 64 run's trained params (A_control's shape), and at the
+    # shipped recipe's (the phi4_L64 parity case)
+    t64 = targets.Phi4Lattice(L=64, m2=PHI4_RUN_L64["m2"], lam=PHI4_RUN_L64["lam"])
+    dyn64, _ = build_dynamics(ScgConfig(dim=t64.dim, hidden=PHI4_RUN_L64["hidden"],
+                                        T=PHI4_RUN_L64["leapfrogs"]), t64)
+
+    def a_control_inputs():
+        inp = fd.prepare(dyn64, fd.energy_spec_for_target(t64), state64.params, dev)
+        return inp, t64.sample(_gen(33), PHI4_RUN_L64["n_chains"], device=dev).T.contiguous()
+
     chain_rows = {}
-    for case, label in (("phi4_L8", "3e"), ("phi4_L16", "3f"), ("phi4_L32", "3g")):
-        n = phi4.PARITY_CASES[case].n_chains
-        inp, xc = phi4.parity_inputs(case, n, dev, seed=32)
+    for label, case, make in (
+            ("3e", "phi4_L8", None), ("3f", "phi4_L16", None), ("3g", "phi4_L32", None),
+            ("3h", "phi4_L64", a_control_inputs), ("3h_recipe", "phi4_L64", None)):
+        inp, xc = (make() if make else
+                   phi4.parity_inputs(case, phi4.PARITY_CASES[case].n_chains, dev, seed=32))
         Dc, Hc, H2c, Tc = inp.dims
-        ms = _cuda_time(lambda: fd.chain(inp, xc, 2, steps, True), 1)
+        n = xc.shape[1]
+        # the 1000-step launches at L = 64 run once, their instantiations
+        # warmed up by (b)
+        wide = Dc > 1024
+        ms = _cuda_time(lambda: fd.chain(inp, xc, 2, steps, True), 1, warmup=not wide)
         ms20 = _cuda_time(lambda: fd.chain(inp, xc, 2, plain_steps, True), 3)
-        plain = _cuda_time(lambda: fd.chain_plain(inp, xc, 2, plain_steps, collect_trace=True), 1)
+        plain = (_cuda_time(lambda: fd.chain_plain(inp, xc, 2, plain_steps, collect_trace=True),
+                            1) if label != "3h_recipe" else None)
         bound = chain_bound(Dc, Hc, H2c, Tc, n, steps, False, inp.block().numel(), True,
                             _ops_of(inp))
         site = fd.chain_on_sites(inp)
-        l2 = (phi4_l2_weight_bytes(Dc, Hc, H2c, Tc, n, steps, site_chains) if site else None)
-        chain_rows[label] = {"case": case, "dim": Dc, "n_chains": n, "site": site, "ms": ms,
+        chains_a_block = fd.site_tile(Dc, Hc, H2c)[0]
+        l2 = (phi4_l2_weight_bytes(Dc, Hc, H2c, Tc, n, steps, chains_a_block) if site
+              else None)
+        chain_rows[label] = {"case": case, "dim": Dc, "hidden": Hc, "T": Tc, "n_chains": n,
+                             "site": site, "chains_a_block": chains_a_block, "ms": ms,
                              f"ms_{plain_steps}": ms20, f"plain_ms_{plain_steps}": plain,
                              "bound_ms": bound, "l2_weight_bytes": l2,
                              "l2_weight_bytes_per_s": None if l2 is None else l2 / (ms * 1e-3)}
@@ -1782,15 +1893,25 @@ def phi4_phases(dev, report):
          "library_ms": None, "shape": shape8, "row": "2e"},
     ]
     launch_of = {"3e": more["L8"]["launches_chain"], "3f": launches_run["chain:phi4"],
-                 "3g": more["L32"]["launches_chain"]}
+                 "3g": more["L32"]["launches_chain"],
+                 "3h": out["run_L64"]["launches"]["chain:phi4"]}
+    recipe = chain_rows["3h_recipe"]
     for label, c in chain_rows.items():
-        shape = (f"{c['case']} D={c['dim']} H=32 T=10, {c['n_chains']} chains x {steps} MH "
-                 f"steps, traced, "
-                 + (f"site-parallel ({site_chains} chains a block of {site_threads} "
+        if label not in launch_of:
+            continue
+        shape = (f"{c['case']} D={c['dim']} H={c['hidden']} T={c['T']}, {c['n_chains']} chains "
+                 f"x {steps} MH steps, traced, "
+                 + (f"site-parallel ({c['chains_a_block']} chains a block of {site_threads} "
                     f"threads), {c['l2_weight_bytes']:.4g} L2 weight bytes reckoned"
                     if c["site"] else "32 lanes a chain (WideLanes)")
                  + f"; plain_ms over {plain_steps} MH steps (the kernel over {plain_steps}: "
                    f"{c[f'ms_{plain_steps}']:.4f} ms)")
+        if label == "3h":
+            shape += (f"; at the L = 64 run's trained params (A_control's shape); the shipped "
+                      f"recipe's shape (H={recipe['hidden']} T={recipe['T']}): "
+                      f"{recipe['ms']:.2f} ms, {recipe['l2_weight_bytes']:.4g} L2 weight bytes "
+                      f"reckoned, bound {recipe['bound_ms'][0]:.4g} ms; the app's plain "
+                      f"sample_chain eval: {out['run_L64']['plain_eval_s'][0]:.2f} s")
         rows.append({"name": "chain[phi4]", "route": "cuda", "source": src + "chain.cu",
                      "replaces": "l2hmc_tpu/ops/fused_dynamics.py:1103",
                      "launches": launch_of[label],

@@ -2,7 +2,7 @@
 source trees on one card.
 
     python -P l2hmc_tpu_torch/apps/kernel_times.py
-    python -P l2hmc_tpu_torch/apps/kernel_times.py --trees PARENT CHANGE [...]
+    python -P l2hmc_tpu_torch/apps/kernel_times.py --trees PARENT CHANGE [...] [--sites]
 
 Alone, it times the ``l2hmc_tpu_torch`` package that Python imports and
 prints one JSON line: the SCG trajectory and backward kernels' launches
@@ -12,7 +12,12 @@ traced steps and 8192 x 500 untraced, each in L2HMC and in HMC mode at eps
 kernels at the training batch (512 chains), the AIS kernel (1000 chains x
 100 anneal steps x 10 leapfrogs) and the VAE sampler (200 chains x 200
 recorded steps of 1-3 ops), all at the reference widths with seeded
-weights; kernel times by CUDA events, the training step by the host clock.
+weights; and the chain kernel's site-parallel configuration at its rows'
+shapes (3e-3g: the phi^4 lattice at L = 8, 16, 32, 1000 traced steps; 3h:
+L = 64 at the A_control shape and at the shipped recipe's, 1000 traced
+steps; 3i: icg at hidden 100, 2000 traced steps; a tree whose caps refuse
+a row gives null); kernel times by CUDA events, the training step by the
+host clock.
 
 With ``--trees``, each directory must hold an ``l2hmc_tpu_torch`` package
 (a checkout, or an unpacked ``git archive``). Every tree's kernels are built
@@ -32,12 +37,13 @@ import sys
 import time
 
 
-def _cuda_ms(fn, reps):
+def _cuda_ms(fn, reps, warmup=True):
     """Mean ms of ``fn()`` over ``reps`` runs by CUDA events, after one
-    warm-up run."""
+    warm-up run (without it where ``fn``'s kernel has run before)."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -157,7 +163,51 @@ def vae_times(dev) -> dict:
     return out
 
 
-def one() -> dict:
+def site_times(dev) -> dict:
+    import torch
+
+    from l2hmc_tpu_torch import targets
+    from l2hmc_tpu_torch.apps import phi4, suite
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+    from l2hmc_tpu_torch.train import ScgConfig, build_dynamics
+    from l2hmc_tpu_torch.train.optim import tree_leaves, tree_unflatten
+
+    def a_control():
+        # the JAX package's 64 x 64 A_control shape: hidden 32, T = 10, eps
+        # 0.03, 256 chains, the parity cases' lifted weights
+        t = targets.Phi4Lattice(L=64)
+        dyn, _ = build_dynamics(ScgConfig(dim=t.dim, hidden=32, T=10), t)
+        params = dyn.init_params(_gen(0), eps=0.03, device=dev)
+        for net in ("xnet", "vnet"):
+            params[net] = tree_unflatten(params[net], [a + 0.003 for a in
+                                                       tree_leaves(params[net])])
+        inp = fd.prepare(dyn, fd.energy_spec_for_target(t), params, dev)
+        return inp, t.sample(_gen(1), 256, device=dev).T.contiguous()
+
+    def case(mod, name):
+        return lambda: mod.parity_inputs(name, mod.PARITY_CASES[name].n_chains, dev, seed=32)
+
+    out = {}
+    for label, make, steps in (("3e", case(phi4, "phi4_L8"), 1000),
+                               ("3f", case(phi4, "phi4_L16"), 1000),
+                               ("3g", case(phi4, "phi4_L32"), 1000),
+                               ("3h", a_control, 1000),
+                               ("3h_recipe", case(phi4, "phi4_L64"), 1000),
+                               ("3i", case(suite, "icg"), 2000)):
+        key = f"chain_{label}"
+        try:
+            inp, x = make()
+            fd.chain(inp, x, 2, 2, True)
+        except (KeyError, ValueError):  # a tree without the case, or past its caps
+            out[key] = None
+            continue
+        out[key] = _cuda_ms(lambda: fd.chain(inp, x, 2, steps, True), 1, warmup=False)
+        del inp, x
+        torch.cuda.empty_cache()
+    return out
+
+
+def one(sites_only: bool = False) -> dict:
     import torch
 
     from l2hmc_tpu_torch.ops import _cuda
@@ -166,12 +216,14 @@ def one() -> dict:
     _cuda.library("trajectory")
     out = {"package": os.path.dirname(os.path.dirname(os.path.abspath(_cuda.__file__))),
            "build_dir": _cuda.build_info.get("dir")}
-    out.update(scg_times(dev))
-    out.update(vae_times(dev))
+    if not sites_only:
+        out.update(scg_times(dev))
+        out.update(vae_times(dev))
+    out.update(site_times(dev))
     return out
 
 
-def compare(trees: list[str]) -> dict:
+def compare(trees: list[str], sites_only: bool = False) -> dict:
     """Builds every tree's kernels at once, then times the trees in the
     order given and reversed, each in a process of its own."""
     def run(tree, *args):
@@ -185,20 +237,22 @@ def compare(trees: list[str]) -> dict:
             raise RuntimeError(f"build failed in {t}")
     runs = {t: [] for t in trees}
     for t in trees + trees[::-1]:
-        p = run(t)
+        p = run(t, *(["--sites"] if sites_only else []))
         line = p.communicate()[0].strip().splitlines()[-1]
         if p.returncode != 0:
             raise RuntimeError(f"timing failed in {t}")
         print(f"# {t}: {line}", flush=True)
         runs[t].append(json.loads(line))
-    keys = [k for k, v in runs[trees[0]][0].items() if isinstance(v, float)]
-    return {t: {k: [r[k] for r in rs] for k in keys} for t, rs in runs.items()}
+    keys = [k for k, v in runs[trees[-1]][0].items() if isinstance(v, float)]
+    return {t: {k: [r.get(k) for r in rs] for k in keys} for t, rs in runs.items()}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trees", nargs="+", help="directories holding l2hmc_tpu_torch")
     ap.add_argument("--build", action="store_true", help="only build the kernels")
+    ap.add_argument("--sites", action="store_true",
+                    help="only the site-parallel chain kernel's rows (3e-3i)")
     args = ap.parse_args()
     import torch
 
@@ -209,14 +263,15 @@ def main() -> int:
         print(json.dumps({"card": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True).stdout.strip(),
-            "order": args.trees + args.trees[::-1], "ms": compare(args.trees)}))
+            "order": args.trees + args.trees[::-1],
+            "ms": compare(args.trees, args.sites)}))
         return 0
     if args.build:
         from l2hmc_tpu_torch.ops import _cuda
 
         _cuda.library("trajectory")
         return 0
-    print(json.dumps(one()), flush=True)
+    print(json.dumps(one(args.sites)), flush=True)
     return 0
 
 

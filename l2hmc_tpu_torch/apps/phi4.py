@@ -15,10 +15,10 @@ Usage:
 
 Everything runs on ``--device`` (default ``cuda``). On the card a dense
 net's eval is one traced launch of the chain kernel
-(``ops.fused_chain_sampler``; every lattice up to 32 x 32 on its
+(``ops.fused_chain_sampler``; every lattice up to 64 x 64 on its
 site-parallel configuration). Whether the kernel serves the run is decided up front by
 the pure check ``ops.fused_dynamics.kernel_refusal`` (a conv net, a state
-past 1024 wide, a hidden width past 64); a run it refuses evaluates through
+past 4096 wide, a hidden width past 128); a run it refuses evaluates through
 the plain ``sample_chain``, and the result records the reason as
 ``fused_eval``. There is no fallback after a failure: a kernel launch that
 fails raises.
@@ -56,15 +56,20 @@ class ParityCase(NamedTuple):
 
 # The cases on which the card tests and chip_smoke.py hold the kernels to
 # their plain versions at the lattice's widths: L = 8 (D = 64) on the lane
-# groups of kernels 1-2, L = 8, 16 and 32 (D = 64, 256, 1024) and a dense
-# 128-d Gaussian on the chain kernel's site-parallel configuration, HMC mode
-# at L = 16. The app's m^2 = -1, lam = 0.5 and hidden 32; eps as the app's at
-# L = 16, halved at L = 32 (the stability bound tightens with the lattice).
+# groups of kernels 1-2, L = 8, 16, 32 and 64 (D = 64, 256, 1024, 4096) and
+# a dense 128-d Gaussian on the chain kernel's site-parallel configuration,
+# HMC mode at L = 16. The app's m^2 = -1, lam = 0.5 and hidden 32; eps as the
+# app's at L = 16, halved at L = 32 (the stability bound tightens with the
+# lattice). L = 64 at the kernel shape of the JAX package's shipped 64 x 64
+# recipe (phi4_64_r3.json, L_T24: hidden 64, T = 24, eps 0.03, 256 chains),
+# the widest hidden layer and longest trajectory a recorded protocol runs.
 PARITY_CASES: dict[str, ParityCase] = {
     "phi4_L8": ParityCase(lambda: Phi4Lattice(L=8, m2=-1.0, lam=0.5), 32, 10, 0.1, False, 512),
     "phi4_L16": ParityCase(lambda: Phi4Lattice(L=16, m2=-1.0, lam=0.5), 32, 10, 0.1, False,
                            512),
     "phi4_L32": ParityCase(lambda: Phi4Lattice(L=32, m2=-1.0, lam=0.5), 32, 10, 0.05, False,
+                           256),
+    "phi4_L64": ParityCase(lambda: Phi4Lattice(L=64, m2=-1.0, lam=0.5), 64, 24, 0.03, False,
                            256),
     "phi4_L16_hmc": ParityCase(lambda: Phi4Lattice(L=16, m2=-1.0, lam=0.5), 32, 10, 0.1, True,
                                512),

@@ -14,10 +14,11 @@ Everything runs on ``--device`` (default ``cuda``). Two differences from the
 JAX runner, by design:
   - No fallback. Whether the chain kernel can serve a row (its fused
     cross-check) is decided up front by a pure check
-    (``ops.fused_dynamics.kernel_refusal``: hidden widths past 64, a
+    (``ops.fused_dynamics.kernel_refusal``: hidden widths past 128, a
     ``net_input_fn``, ``eps_mat``, a target with no energy spec); a row it
     cannot serve records the reason as ``fused_cross_check``. A row it can
-    serve runs the kernel's traced eval, and any failure raises.
+    serve runs the kernel's traced eval (icg's at hidden 100 on the kernel's
+    site-parallel configuration), and any failure raises.
   - The fused cross-check runs on a CUDA device, as the JAX one runs on a
     TPU only. ``--fused_hmc`` runs wherever it is asked: through the chain
     kernel on the card, through its plain version (``chain_plain``) on the
@@ -151,6 +152,10 @@ class ParityCase(NamedTuple):
     eps: float
     hmc: bool
     n_chains: int  # the chains of the suite row that runs the case
+    # a step size per dimension, eps times the target's standard deviation
+    # in it (eps_dim, as the recipe's eps_sigma_init sets it)
+    eps_dim: bool = False
+    lift: float = 0.03  # added to every initial net weight
 
 
 # The cases on which the card tests and chip_smoke.py hold each energy spec's
@@ -160,7 +165,14 @@ class ParityCase(NamedTuple):
 # count. The easy rough well: the hard one is float32-chaotic (a 1e-6
 # perturbation grows ~1e3x over 3 steps) and is held statistically, by the
 # suite path's ESS gap. The funnel starts chains past its clip on both sides
-# (FUNNEL_PAST_CLIP), at a step its neck there keeps stable.
+# (FUNNEL_PAST_CLIP), at a step its neck there keeps stable. icg at its
+# recipe's widths (D = 50, hidden 100, the chain kernel's site-parallel
+# configuration; the trajectory kernels stop at hidden 64, so it is a case
+# of the chain kernel alone, TRAJECTORY_CASES the others) with per-dimension
+# step sizes 0.02 sigma_i (0.002-0.2) and the weights lifted by 0.001: the
+# recipe starts training at 0.1 sigma_i, where an untrained net of 100 units
+# over inputs up to 10 wide accepts 0-1% of proposals (64 chains, 5 steps, on
+# the CPU; 0.02 sigma_i and 0.001: 34%).
 PARITY_CASES: dict[str, ParityCase] = {
     "rough_well_easy": ParityCase(
         lambda: targets_lib.RoughWell(dim=10, eps=0.1, easy=True), 20, 5, 0.05, False, 2048),
@@ -169,7 +181,10 @@ PARITY_CASES: dict[str, ParityCase] = {
     "funnel": ParityCase(lambda: targets_lib.GaussianFunnel(dim=10), 20, 10, 0.02, False, 512),
     "mog2_hmc": ParityCase(
         lambda: targets_lib.mog2(distance=4.0, var=0.1), 10, 10, 0.25, True, 2048),
+    "icg": ParityCase(lambda: targets_lib.ill_conditioned_gaussian(50, 4.0), 100, 10, 0.02,
+                      False, 2048, eps_dim=True, lift=0.001),
 }
+TRAJECTORY_CASES = ("rough_well_easy", "ring", "funnel", "mog2_hmc")
 FUNNEL_PAST_CLIP = (8.5, -8.5, 9.0, -9.0, 12.0, -12.0, 20.0, -20.0)
 # Fused and plain training on the ring, two free runs of 1024 chains from one
 # seed at the recipe's eps (0.2), agree to the SCG bar (rtol 2e-3, atol
@@ -182,16 +197,21 @@ RING_FREE_STEPS = 10
 
 def parity_inputs(case: str, n: int, device, seed: int = 0):
     """The kernel inputs (``fd.KernelInputs``) and (D, n) start states of a
-    parity case, from ``seed``: the nets' initial weights lifted by 0.03 so
-    that no output is zero, states drawn from the target, and the funnel's
+    parity case, from ``seed``: the nets' initial weights lifted (by the
+    case's ``lift``) so that no output is zero, states drawn from the
+    target, and the funnel's
     first chains set past its clip with necks at the clipped scale."""
     c = PARITY_CASES[case]
     tgt = c.target()
-    dyn, _ = build_dynamics(ScgConfig(dim=tgt.dim, hidden=c.hidden, T=c.T, hmc=c.hmc), tgt)
-    params = dyn.init_params(_gen(seed), eps=c.eps, device=device)
+    dyn, _ = build_dynamics(ScgConfig(dim=tgt.dim, hidden=c.hidden, T=c.T, hmc=c.hmc,
+                                      eps_dim=c.eps_dim), tgt)
+    eps = (c.eps * np.sqrt(np.diag(np.asarray(tgt.sigma))).astype(np.float32) if c.eps_dim
+           else c.eps)
+    params = dyn.init_params(_gen(seed), eps=eps, device=device)
     if not c.hmc:
         for net in ("xnet", "vnet"):
-            params[net] = tree_unflatten(params[net], [a + 0.03 for a in tree_leaves(params[net])])
+            params[net] = tree_unflatten(params[net],
+                                         [a + c.lift for a in tree_leaves(params[net])])
     x = tgt.sample(_gen(seed + 1), n, device="cpu")
     if case == "funnel":
         v = torch.tensor(FUNNEL_PAST_CLIP)

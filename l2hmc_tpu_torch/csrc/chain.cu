@@ -24,11 +24,12 @@
 // with shuffles on the group's own mask ran 1024 chains 1.45x slower on an
 // H100 (a warp whose two chains disagree runs both branches in turn), and
 // the trajectory kernels 14-25% slower (a warp sync before every shuffle).
-// Blocks of kLaneThreads threads, four chains. Past 64 wide (up to 1024,
-// the phi^4 lattice's 32 x 32) a lane group cannot hold the state and the
-// block cannot hold the weights: l2hmc_sites.cuh runs those widths, a tile of
-// chains a block with the threads over the sites, and the phi^4 lattice at
-// every width (site_chain). The state (x, the proposal,
+// Blocks of kLaneThreads threads, four chains. Past 64 wide (up to 4096,
+// the phi^4 lattice's 64 x 64) or past hidden 64 (up to 128) a lane group
+// cannot hold the state and the block cannot hold the weights:
+// l2hmc_sites.cuh runs those widths, a tile of chains a block with the
+// threads over the sites, and the phi^4 lattice at every width
+// (site_chain). The state (x, the proposal,
 // v) is replicated in every lane, and every lane draws the same Philox
 // words and forms h0, h1, the log-det sum and the accept on its own copy in
 // one order, so the whole group decides alike with no shuffle. Lane 0
@@ -160,11 +161,15 @@ static int launch_chain(const float* params, Dims d, int hmc,
 // Plain C entry points (loaded with ctypes). Device pointers to float32:
 // params (the packed block, with nc floats of the energy spec's constants;
 // kind as in l2hmc_trajectory), x and xo as (D, N), acc as (N,), trace as
-// (K, D, N) or null. Returns a cudaError_t as int; 0 means accepted.
+// (K, D, N) or null, scratch as (ceil(N / C) C, D) with C the chains a
+// block of l2hmc_chain_site_chains (the site-parallel configuration's
+// accepted states; null elsewhere). Returns a cudaError_t as int; 0 means
+// accepted.
 extern "C" int l2hmc_chain(const float* params, int D, int H, int H2, int T,
                            int kind, int nc, int hmc, const float* x,
-                           float* xo, float* acc, float* trace, int N, int K,
-                           unsigned long long seed, void* stream) {
+                           float* xo, float* acc, float* trace, float* scratch,
+                           int N, int K, unsigned long long seed,
+                           void* stream) {
   using namespace l2hmc;
   const Dims d{D, H, H2, T, nc};
   if (N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -174,7 +179,7 @@ extern "C" int l2hmc_chain(const float* params, int D, int H, int H2, int T,
   if (site_chain(d, kind)) {
     return with_site_energy(d, kind, [&](auto e) {
       return launch_site_chain<decltype(e)>(params, d, hmc, x, xo, acc, trace,
-                                            N, K, key, s);
+                                            scratch, N, K, key, s);
     });
   }
   return dispatch<ScgChainLanes>(d, kind, [&](auto c, auto e) {
@@ -200,6 +205,22 @@ extern "C" int l2hmc_chain_lanes(int D, int H, int H2) {
   }
 }
 
-// The site-parallel configuration's chains and threads a block.
-extern "C" int l2hmc_chain_site_chains() { return l2hmc::kSiteChains; }
-extern "C" int l2hmc_chain_site_threads() { return l2hmc::kSiteThreads; }
+// The site-parallel configuration's geometry at these widths, as
+// l2hmc_chain launches it: chains a block, threads a block, bytes of
+// dynamic shared memory a block; 0 where the widths are past its caps.
+static bool site_widths(int D, int H, int H2) {
+  using namespace l2hmc;
+  return D > 0 && D <= kSiteMaxDim && H <= kSiteMaxHidden && H2 <= kSiteMaxHidden;
+}
+extern "C" int l2hmc_chain_site_chains(int D, int H, int H2) {
+  return site_widths(D, H, H2) ? l2hmc::kSiteChains : 0;
+}
+extern "C" int l2hmc_chain_site_threads(int D, int H, int H2) {
+  return site_widths(D, H, H2) ? l2hmc::kSiteThreads : 0;
+}
+extern "C" int l2hmc_chain_site_smem_bytes(int D, int H, int H2) {
+  using namespace l2hmc;
+  if (!site_widths(D, H, H2)) return 0;
+  const int hm = site_hm(Dims{D, H, H2, 1});
+  return site_smem_floats(D, hm) * static_cast<int>(sizeof(float));
+}

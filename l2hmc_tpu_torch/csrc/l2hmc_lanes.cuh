@@ -50,19 +50,21 @@ struct LaneCfg {
 typedef LaneCfg<2, 16, 1, 1, 10> ScgLanes;  // SCG: D = 2, H = H2 = 10
 typedef LaneCfg<64, 32, 2, 0> WideLanes;    // any D, H, H2 <= 64
 
-// The widest state of the chain kernel's site-parallel configuration
-// (l2hmc_sites.cuh), which takes the hidden widths WideLanes takes.
-constexpr int kSiteMaxDim = 1024;
+// The widest state and hidden widths of the chain kernel's site-parallel
+// configuration (l2hmc_sites.cuh): the 64 x 64 phi^4 lattice, and the
+// suite's ill-conditioned Gaussian at hidden 100.
+constexpr int kSiteMaxDim = 4096;
+constexpr int kSiteMaxHidden = 128;
 
 // Which configuration serves these widths: 1 = ScgLanes, 2 = WideLanes,
-// 3 = the chain kernel's site-parallel configuration (past WideLanes'
-// widths; the trajectory kernels take none there), 0 = none.
+// 3 = the chain kernel's site-parallel configuration (a state or a hidden
+// width past WideLanes'; the trajectory kernels take none there), 0 = none.
 inline int pick_lanes(Dims d) {
   if (d.D == ScgLanes::DM && d.H == ScgLanes::EH && d.H2 == ScgLanes::EH)
     return 1;
   if (d.D <= WideLanes::DM && d.H <= WideLanes::HM && d.H2 <= WideLanes::HM)
     return 2;
-  if (d.D <= kSiteMaxDim && d.H <= WideLanes::HM && d.H2 <= WideLanes::HM)
+  if (d.D <= kSiteMaxDim && d.H <= kSiteMaxHidden && d.H2 <= kSiteMaxHidden)
     return 3;
   return 0;
 }

@@ -36,10 +36,11 @@ SIGNATURES = {
         "l2hmc_trajectory_bwd": [_P, *([_I] * 8), *([_P] * 9), _I, _P],
     },
     "chain": {
-        "l2hmc_chain": [_P, *([_I] * 7), _P, _P, _P, _P, _I, _I, _U64, _P],
+        "l2hmc_chain": [_P, *([_I] * 7), _P, _P, _P, _P, _P, _I, _I, _U64, _P],
         "l2hmc_chain_lanes": [_I, _I, _I],
-        "l2hmc_chain_site_chains": [],
-        "l2hmc_chain_site_threads": [],
+        "l2hmc_chain_site_chains": [_I, _I, _I],
+        "l2hmc_chain_site_threads": [_I, _I, _I],
+        "l2hmc_chain_site_smem_bytes": [_I, _I, _I],
     },
     "vae_chain": {
         "l2hmc_vae_chain": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 8), _I, _I, _U64, _P],

@@ -21,7 +21,8 @@ Beside each kernel is its plain PyTorch version (``trajectory_plain``,
 A wrapper takes the plain version only for a CPU tensor; for a CUDA tensor
 it launches the kernel or raises. Each launch adds one to
 ``LAUNCHES[name]`` and to ``LAUNCHES[name:spec]`` (the energy spec's
-``NAME``).
+``NAME``), and a chain launch on the site-parallel configuration to
+``LAUNCHES["chain:sites"]``.
 
 Host prep mirrors the JAX package: ``_extract_net`` flattens a ``stq_net``
 params tree into 13 arrays and folds the time embedding into an (H, T)
@@ -40,13 +41,13 @@ constants (arrays and scalars) go into the kernels' parameter block, and its
 and gradient, its ``build_grad_vjp`` the gradient's hand-derived
 vector-Jacobian product.
 
-Widths: every kernel takes hidden widths up to 64. The trajectory kernels
-take states up to 64 wide (lane groups, ``csrc/l2hmc_lanes.cuh``); the chain
-kernel up to 1024, past 64 on the site-parallel configuration
-(``csrc/l2hmc_sites.cuh``) for the specs that have per-site versions
-(Gaussian, phi^4), and on the phi^4 lattice at every width
-(``chain_on_sites``). ``kernel_refusal`` and the wrappers name the
-kernel and the cap a request exceeds.
+Widths: the trajectory kernels take states and hidden widths up to 64
+(lane groups, ``csrc/l2hmc_lanes.cuh``); the chain kernel states up to 4096
+wide (the 64 x 64 phi^4 lattice) and hidden widths up to 128, past 64 on its
+site-parallel configuration (``csrc/l2hmc_sites.cuh``, ``site_geometry``)
+for the specs that have per-site versions (Gaussian, phi^4), and the phi^4
+lattice there at every width (``chain_on_sites``). ``kernel_refusal`` and
+the wrappers name the kernel and the caps a request exceeds.
 """
 
 from __future__ import annotations
@@ -71,13 +72,17 @@ _NET_ARRAYS = 13
 LAUNCHES = {"trajectory": 0, "trajectory_bwd": 0, "chain": 0, "vae_chain": 0, "vae_ais": 0,
             "vae_traj": 0, "vae_traj_bwd": 0}
 
-# widths the kernels take: hidden widths up to 64 everywhere; state widths up
-# to 64 on the lane groups (WideLanes in csrc/l2hmc_lanes.cuh), and up to 1024
-# for the chain kernel's site-parallel configuration (csrc/l2hmc_sites.cuh)
-_MAX_HIDDEN = 64
-_LANE_DIM = 64
-_MAX_DIM = {"trajectory": _LANE_DIM, "trajectory_bwd": _LANE_DIM, "chain": 1024}
+# widths the kernels take: states and hidden widths up to 64 on the lane
+# groups (WideLanes in csrc/l2hmc_lanes.cuh), the trajectory kernels' only
+# form; states up to 4096 wide and hidden widths up to 128 on the chain
+# kernel's site-parallel configuration (csrc/l2hmc_sites.cuh; the caps
+# kSiteMaxDim, kSiteMaxHidden in csrc/l2hmc_lanes.cuh)
+_LANE_WIDTH = 64
+_MAX_DIM = {"trajectory": _LANE_WIDTH, "trajectory_bwd": _LANE_WIDTH, "chain": 4096}
+_MAX_HIDDEN = {"trajectory": _LANE_WIDTH, "trajectory_bwd": _LANE_WIDTH, "chain": 128}
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
+# the site-parallel configuration's tile: chains and threads a block
+_SITE_CHAINS, _SITE_THREADS = 4, 256
 
 
 def reset_launch_counts() -> None:
@@ -476,6 +481,7 @@ _SPEC_NAMES = {c.KIND: c.NAME for c in (QuadraticGaussianEnergy, RoughWellEnergy
 _SITE_KINDS = (QuadraticGaussianEnergy.KIND, Phi4Energy.KIND)
 LAUNCHES.update({f"{k}:{n}": 0 for k in ("trajectory", "trajectory_bwd", "chain")
                  for n in _SPEC_NAMES.values()})
+LAUNCHES["chain:sites"] = 0  # the chain kernel's site-parallel launches
 
 
 def _count(name: str, inp) -> None:
@@ -585,29 +591,49 @@ def prepare(dyn: Dynamics, spec, params, device, *, differentiable: bool = False
 def _caps_refusal(kernel: str, dim: int, hidden: int, kind: int) -> Optional[str]:
     """Why ``kernel`` cannot take a state ``dim`` wide with S/T/Q nets of
     ``hidden`` units on the energy spec ``kind``, or None where it can."""
-    cap = _MAX_DIM[kernel]
-    if dim > cap or hidden > _MAX_HIDDEN:
+    cap, hcap = _MAX_DIM[kernel], _MAX_HIDDEN[kernel]
+    if dim > cap or hidden > hcap:
         return (f"{kernel} kernel caps exceeded: dim {dim}, hidden {hidden} "
-                f"(caps dim {cap}, hidden {_MAX_HIDDEN})")
-    if dim > _LANE_DIM and kind not in _SITE_KINDS:
+                f"(caps dim {cap}, hidden {hcap})")
+    past = ("dim" if dim > _LANE_WIDTH else "hidden" if hidden > _LANE_WIDTH else None)
+    if past is not None and kind not in _SITE_KINDS:
         names = ", ".join(_SPEC_NAMES[k] for k in _SITE_KINDS)
-        return (f"{kernel} kernel past dim {_LANE_DIM} takes the {names} specs, "
+        return (f"{kernel} kernel past {past} {_LANE_WIDTH} takes the {names} specs, "
                 f"not {_SPEC_NAMES[kind]}")
     return None
 
 
 def chain_on_sites(inp: KernelInputs) -> bool:
     """Whether the chain kernel runs ``inp`` on its site-parallel
-    configuration (``site_chain`` in csrc/l2hmc_sites.cuh): past 64 wide,
-    and the phi^4 lattice at every width."""
-    return inp.dims[0] > _LANE_DIM or inp.kind == Phi4Energy.KIND
+    configuration (``site_chain`` in csrc/l2hmc_sites.cuh, by
+    ``pick_lanes`` in csrc/l2hmc_lanes.cuh): a state or a hidden width past
+    64, and the phi^4 lattice at every width."""
+    return max(inp.dims[:3]) > _LANE_WIDTH or inp.kind == Phi4Energy.KIND
 
 
-def site_tile() -> tuple[int, int]:
-    """(chains, threads) a block of the chain kernel's site-parallel
-    configuration, from the built library."""
+def site_geometry(dim: int, hidden: int, hidden2: int) -> tuple[int, int, int]:
+    """(chains, threads, bytes of shared memory) a block of the chain
+    kernel's site-parallel configuration takes at these widths: a host
+    mirror of ``site_smem_floats`` in csrc/l2hmc_sites.cuh. Its buffers hold
+    64 hidden units, or 128 where a width passes 64; x', v and g of the
+    tile's chains lie in shared memory, the accepted states in the wrapper's
+    scratch. Raises past the caps."""
+    reason = _caps_refusal("chain", dim, max(hidden, hidden2), QuadraticGaussianEnergy.KIND)
+    if reason is not None:
+        raise ValueError(reason)
+    hm = _LANE_WIDTH if max(hidden, hidden2) <= _LANE_WIDTH else _MAX_HIDDEN["chain"]
+    C, W = _SITE_CHAINS, _SITE_THREADS // 32
+    floats = 3 * C * dim + W * C * hm + 2 * C * hm + W * 3 * C + 3 * C
+    return C, _SITE_THREADS, 4 * floats
+
+
+def site_tile(dim: int, hidden: int, hidden2: int) -> tuple[int, int, int]:
+    """``site_geometry`` as the built library reports it (chains, threads,
+    bytes of shared memory a block; zeros past the caps)."""
     lib = _cuda.library("chain")
-    return lib.l2hmc_chain_site_chains(), lib.l2hmc_chain_site_threads()
+    return (lib.l2hmc_chain_site_chains(dim, hidden, hidden2),
+            lib.l2hmc_chain_site_threads(dim, hidden, hidden2),
+            lib.l2hmc_chain_site_smem_bytes(dim, hidden, hidden2))
 
 
 def _kernel_block(inp: KernelInputs, x: torch.Tensor, kernel: str) -> torch.Tensor:
@@ -1070,16 +1096,25 @@ def chain(inp: KernelInputs, x, seed: int, n_mh_steps: int, collect_trace: bool 
         torch.empty((n_mh_steps, D, N), dtype=torch.float32, device=x.device)
         if collect_trace else None
     )
+    scratch = None
+    if chain_on_sites(inp):
+        # the site-parallel tiles' accepted states, a tile's chains past N
+        # included
+        c = lib.l2hmc_chain_site_chains(D, H, H2)
+        scratch = torch.empty(-(-N // c) * c * D, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.l2hmc_chain(
             block.data_ptr(), D, H, H2, T, *inp.energy_args, int(inp.hmc), x.data_ptr(),
             xo.data_ptr(), acc.data_ptr(),
             trace.data_ptr() if trace is not None else None,
+            scratch.data_ptr() if scratch is not None else None,
             N, n_mh_steps, int(seed) & 0xFFFFFFFFFFFFFFFF,
             torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, "chain")
     _count("chain", inp)
+    if scratch is not None:
+        LAUNCHES["chain:sites"] += 1
     return xo, acc, trace
 
 
@@ -1267,6 +1302,10 @@ class FusedChainSampler:
 
 def fused_chain_sampler(dynamics: Dynamics, target) -> FusedChainSampler:
     """Whole-chain fused sampler for a spec-supported target (HMC mode runs
-    as exact leapfrog with the nets skipped)."""
+    as exact leapfrog with the nets skipped). The JAX sampler's
+    ``loop_traj`` (a fori_loop trajectory, on by default at dim >= 2048,
+    where T unrolled copies overflowed the TPU's scoped VMEM) has no
+    counterpart here: the CUDA chain kernel loops over T at run time at
+    every width, so there is nothing to switch."""
     _check_supported(dynamics)
     return FusedChainSampler(dynamics, energy_spec_for_target(target))

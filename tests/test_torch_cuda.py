@@ -8,6 +8,7 @@ import torch
 
 from l2hmc_tpu_torch import targets
 from l2hmc_tpu_torch.apps import phi4, suite
+from l2hmc_tpu_torch.ops import _cuda
 from l2hmc_tpu_torch.ops import fused_dynamics as fd
 from l2hmc_tpu_torch.ops import fused_vae as fv
 from l2hmc_tpu_torch.train import ScgConfig, build_dynamics, hmc_sample_chain, sample_chain, train
@@ -252,10 +253,12 @@ def test_kernel_rejects_bad_input(cuda):
 # -- the suite's energy specs ---------------------------------------------------
 
 # Each spec at its suite row's shapes (``suite.PARITY_CASES``): the ring on
-# the SCG lane configurations, the rest on WideLanes.
+# the SCG lane configurations, the rest on WideLanes, icg (hidden 100) on the
+# chain kernel's site-parallel configuration; the trajectory kernels take
+# ``suite.TRAJECTORY_CASES``.
 
 @pytest.mark.parametrize("n", [37, 2048])
-@pytest.mark.parametrize("case", list(suite.PARITY_CASES))
+@pytest.mark.parametrize("case", suite.TRAJECTORY_CASES)
 @pytest.mark.parametrize("reverse", [False, True])
 def test_spec_trajectory_kernel_matches_plain(cuda, case, reverse, n):
     """Each suite spec's trajectory kernel against its plain version, 5e-4,
@@ -277,7 +280,8 @@ def test_spec_trajectory_kernel_matches_plain(cuda, case, reverse, n):
 def test_spec_chain_kernel_matches_plain_on_same_bits(cuda, case, n):
     """Each suite spec's chain kernel against its plain version on the same
     Philox bits, 20 traced MH steps, at a ragged count and at its suite
-    row's: at most 5 flipped decisions, 1e-2 on the other chains
+    row's: at most 5 flipped decisions on the lane groups, 0.2% on the
+    site-parallel configuration (icg), 1e-2 on the other chains
     (chip_smoke.py's limits), the trace's end the state, twice bit for
     bit."""
     n = suite.PARITY_CASES[case].n_chains if n == "suite" else n
@@ -291,13 +295,13 @@ def test_spec_chain_kernel_matches_plain_on_same_bits(cuda, case, n):
     torch.testing.assert_close(trk[-1], xk, rtol=0, atol=0)
     flipped = _accepts(trk, x) != _accepts(trp, x)
     clean = ~flipped.any(dim=0)
-    assert int(flipped.sum()) <= 5
+    assert int(flipped.sum()) <= (0.002 * flipped.numel() if fd.chain_on_sites(inp) else 5)
     torch.testing.assert_close(trk[..., clean], trp[..., clean], rtol=0, atol=1e-2)
     assert 0.0 < float(accp.mean()) < 1.0
 
 
 @pytest.mark.parametrize("n", [333, 2048])
-@pytest.mark.parametrize("case", list(suite.PARITY_CASES))
+@pytest.mark.parametrize("case", suite.TRAJECTORY_CASES)
 @pytest.mark.parametrize("reverse", [False, True])
 def test_spec_trajectory_bwd_kernel_matches_plain(cuda, case, reverse, n):
     """Each suite spec's backward kernel (its hand-derived gradient VJP at
@@ -383,6 +387,7 @@ def test_phi4_trajectory_kernels_match_plain_at_L8(cuda, reverse):
 
 
 @pytest.mark.parametrize("case,n", [("phi4_L16", 512), ("phi4_L16", 37), ("phi4_L32", 256),
+                                    ("phi4_L64", 256), ("phi4_L64", 37),
                                     ("gauss_D128", 203), ("phi4_L16_hmc", 203),
                                     ("phi4_L8", 512)])
 def test_phi4_chain_kernel_matches_plain_on_same_bits(cuda, case, n):
@@ -408,27 +413,67 @@ def test_phi4_chain_kernel_matches_plain_on_same_bits(cuda, case, n):
 
 
 def test_kernels_refuse_past_their_caps(cuda):
-    """Kernels 1-2 take states up to 64 wide, the chain kernel up to 1024
-    (past 64 on the Gaussian and phi^4 specs): past them each raises naming
-    the kernel and its cap; nothing falls back to a plain version."""
+    """Kernels 1-2 take states and hidden widths up to 64, the chain kernel
+    states up to 4096 wide and hidden widths up to 128 (past 64 on the
+    Gaussian and phi^4 specs): past them each raises naming the kernel and
+    its caps; nothing falls back to a plain version."""
     inp, x = phi4.parity_inputs("phi4_L16", 8, cuda)
     with pytest.raises(ValueError, match="trajectory kernel caps exceeded: dim 256"):
         fd.trajectory(inp, x, x.clone(), False)
     with pytest.raises(ValueError, match="trajectory_bwd kernel caps exceeded: dim 256"):
         fd.trajectory_vjp(inp, x, x.clone(), x.clone(), x.clone(),
                           torch.zeros((1, 8), device=cuda), False)
-    t64 = targets.Phi4Lattice(L=64)
-    dyn, _ = build_dynamics(ScgConfig(dim=t64.dim, hidden=32), t64)
-    with pytest.raises(ValueError, match="chain kernel caps exceeded: dim 4096"):
-        fd.fused_chain_sampler(dyn, t64).run(dyn.init_params(torch.Generator(), device=cuda),
-                                             t64.sample(torch.Generator(), 4, device=cuda),
-                                             seed=0, n_mh_steps=1)
+    for L, hidden, match in ((128, 32, "chain kernel caps exceeded: dim 16384"),
+                             (16, 129, "chain kernel caps exceeded: dim 256, hidden 129")):
+        t = targets.Phi4Lattice(L=L)
+        dyn, _ = build_dynamics(ScgConfig(dim=t.dim, hidden=hidden), t)
+        with pytest.raises(ValueError, match=match + r".*\(caps dim 4096, hidden 128\)"):
+            fd.fused_chain_sampler(dyn, t).run(dyn.init_params(torch.Generator(), device=cuda),
+                                               t.sample(torch.Generator(), 4, device=cuda),
+                                               seed=0, n_mh_steps=1)
     rough = targets.RoughWell(dim=100, eps=0.1, easy=True)
     dyn, _ = build_dynamics(ScgConfig(dim=100, hidden=32), rough)
     with pytest.raises(ValueError, match="chain kernel past dim 64 takes the gauss, phi4 specs"):
         fd.fused_chain_sampler(dyn, rough).run(dyn.init_params(torch.Generator(), device=cuda),
                                                rough.sample(torch.Generator(), 4, device=cuda),
                                                seed=0, n_mh_steps=1)
+
+
+def test_chain_on_sites_and_site_geometry_match_the_library(cuda):
+    """Over a grid of widths: the host's ``chain_on_sites`` picks the
+    site-parallel configuration exactly where the library's ``pick_lanes``
+    gives no lane group (``l2hmc_chain_lanes`` 0), and the host mirror
+    ``site_geometry`` equals the library's chains, threads and shared memory
+    a block, zeros past the caps."""
+    gauss = targets.ill_conditioned_gaussian
+    for dim in (2, 10, 50, 64, 65, 128, 1024, 4096, 4097):
+        for hidden in (10, 32, 64, 65, 100, 128, 129):
+            h2 = hidden
+            try:
+                host = fd.site_geometry(dim, hidden, h2)
+            except ValueError:
+                host = (0, 0, 0)
+            assert fd.site_tile(dim, hidden, h2) == host, (dim, hidden)
+            if host == (0, 0, 0) or dim > 1024:
+                continue  # past the caps; a dense Gaussian past 1024 is not built here
+            tgt = targets.scg_gaussian() if dim == 2 else gauss(dim)
+            dyn, _ = build_dynamics(ScgConfig(dim=dim, hidden=hidden, T=2), tgt)
+            inp = fd.prepare(dyn, fd.energy_spec_for_target(tgt),
+                             dyn.init_params(torch.Generator(), device="cpu"), "cpu")
+            lanes = _cuda.library("chain").l2hmc_chain_lanes(dim, hidden, h2)
+            assert fd.chain_on_sites(inp) == (lanes == 0), (dim, hidden, lanes)
+
+
+def test_suite_icg_runs_its_fused_cross_check(cuda):
+    """The suite's icg row (hidden 100, eps_dim) at a tiny depth on the card:
+    its fused cross-check runs on the chain kernel's site-parallel
+    configuration."""
+    before = fd.LAUNCHES["chain:sites"]
+    row = suite.run_target("icg", device=cuda, verbose=False, n_chains=64, n_steps=6,
+                           eval_steps=20, n_train_seeds=1, val_steps=10)
+    assert row["fused_cross_check"] == "ran"
+    assert fd.LAUNCHES["chain:sites"] >= before + 2  # the warm-up and the traced eval
+    assert np.isfinite(row["ess_l2hmc_fused_trace"])
 
 
 def test_conv_training_on_the_card_keeps_tf32_off(cuda):

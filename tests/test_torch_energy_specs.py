@@ -239,4 +239,4 @@ def test_unmapped_target_raises_jax_error():
     td, _ = build_dynamics(ScgConfig())
     assert fd.kernel_refusal(td, Opaque(), 10) == "no fused energy spec for target Opaque"
     assert fd.kernel_refusal(td, targets.scg_gaussian(), 10) is None
-    assert "caps" in fd.kernel_refusal(td, targets.scg_gaussian(), 100)
+    assert "caps" in fd.kernel_refusal(td, targets.scg_gaussian(), 129)
