@@ -145,7 +145,24 @@ then:
      kernels at the app's shapes timed beside their plain versions and
      bounds, with the L2 weight bytes of a site-parallel launch reckoned:
      rows 3e-3g at L = 8, 16, 32, and 3h at L = 64 at the trained params of
-     (c)'s L = 64 run and at the shipped recipe's shape (hidden 64, T = 24).
+     (c)'s L = 64 run and at the shipped recipe's shape (hidden 64, T = 24);
+ 12. bfloat16 operands (``compute_dtype="bfloat16"``) in the four VAE kernels
+     at phases 6-7's width and weights, each bf16 instantiation against its
+     plain version with the same operands and against the bf16-float32 gap
+     of the plain versions (the bars at BF16_GAP_SHARE): (a) the training
+     kernels at 512 and 203 chains, both directions, inverting, twice bit
+     for bit; (b) the sampler at 9, 203 and 256 chains on the same Philox
+     bits; (c) AIS at 1000 and 203 chains, 20 anneal steps; (d) bf16 fused
+     training against its plain route (``vae_trajectory_plain`` under
+     autograd) at the plain run's 20 states; (e) the bf16 path:
+     ``apps.vae.train`` with ``fused_train=True,
+     fused_compute_dtype="bfloat16"`` at 7d's depth, ``restore``, the
+     restored model's posterior through the bf16 sampler and its
+     log-likelihood through bf16 AIS beside float32 AIS; (f) each bf16
+     launch timed at its protocol shape with its plain version, both bounds
+     (the bf16 tensor-core peak and the float32 pipe), ptxas's registers and
+     spills and the reckoned L2 weight bytes. Launch counts are reset before
+     (e) and read after it.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -164,8 +181,10 @@ import tempfile
 import time
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): float32
-# outside the tensor cores, and HBM3 bandwidth.
+# outside the tensor cores, bfloat16 on the tensor cores (dense), and HBM3
+# bandwidth.
 PEAK_F32_OPS = 67e12
+PEAK_BF16_TC_OPS = 989e12
 PEAK_BYTES = 3.35e12
 TRAJ_TOL = 5e-4  # bench.py's compiled-parity gate
 ESS_GAP = 0.30  # bench.py's fused-trace vs non-kernel ESS tolerance
@@ -337,38 +356,64 @@ def _decoder_grad_ops(D, E, P):
     return 4 * (D * E + E * E + E * P) + 2 * E * 10 + P * 14 + 4 * D
 
 
-def vae_chain_bound(D, H, H2, T, E, P, N, K, total_ops, weight_floats, trace: bool):
-    """The sampler kernel's least work: ``total_ops`` MH ops (this run's nb
-    sequence summed), each T decoder sweeps (the gradient at the end of one
-    leapfrog step is the first of the next, the energy comes with it) and
-    4 T aux-conditioned net applications, plus the start state's sweep."""
+def _dec_products(D, E, P):
+    """The operations of one decoder sweep's six matrix products (the
+    three forward and their transposes), a multiply-add 2."""
+    return 4 * (D * E + E * E + E * P)
+
+
+def _net_products(D, H, H2):
+    """The operations of one S/T/Q net application's matrix products."""
+    return 4 * D * H + 2 * H * H2 + 6 * H2 * D
+
+
+def vae_chain_work(D, H, H2, T, E, P, N, K, total_ops, weight_bytes, trace: bool):
+    """The sampler kernel's least work as (operations, of them in matrix
+    products, bytes): ``total_ops`` MH ops (this run's nb sequence summed),
+    each T decoder sweeps (the gradient at the end of one leapfrog step is
+    the first of the next, the energy comes with it) and 4 T aux-conditioned
+    net applications, plus the start state's sweep."""
     philox = (1 + (D + 1) // 2) * 10 * 8
     per_op = (T * (_decoder_grad_ops(D, E, P) + 4 * (_stq_ops(D, H, H2) + H) + 4 * 12 * D)
               + philox + 10 * D + 8)
     ops = N * (total_ops * per_op + _decoder_grad_ops(D, E, P))
-    nbytes = 4 * (D * N + P * N + H * N + weight_floats + K + D * N + N
-                  + (K * D * N if trace else 0))
+    products = N * (total_ops * T * (_dec_products(D, E, P) + 4 * _net_products(D, H, H2))
+                    + _dec_products(D, E, P))
+    nbytes = (4 * (D * N + P * N + H * N + K + D * N + N + (K * D * N if trace else 0))
+              + weight_bytes)
+    return ops, products, nbytes
+
+
+def vae_chain_bound(D, H, H2, T, E, P, N, K, total_ops, weight_floats, trace: bool):
+    ops, _, nbytes = vae_chain_work(D, H, H2, T, E, P, N, K, total_ops, 4 * weight_floats, trace)
     return _bound(ops, nbytes)
 
 
-def vae_chain_l2_bytes(n, ct, ops, D, H, H2, T, E, P):
+def vae_chain_l2_bytes(n, ct, ops, D, H, H2, T, E, P, item=4):
     """Weight bytes one sampler launch reads from the L2, reckoned for the
-    report: every cluster of ct chains reads each weight once per product,
-    T decoder sweeps (each matrix forward and transposed) and 4 T net
-    applications per MH op, and the start state's sweep."""
-    sweep = 4 * 2 * (D * E + E * E + E * P)
-    net = 4 * (2 * D * H + H * H2 + 3 * H2 * D)
+    report (weights of ``item`` bytes): every cluster of ct chains reads
+    each weight once per product, T decoder sweeps (each matrix forward and
+    transposed) and 4 T net applications per MH op, and the start state's
+    sweep."""
+    sweep = item * 2 * (D * E + E * E + E * P)
+    net = item * (2 * D * H + H * H2 + 3 * H2 * D)
     return -(-n // ct) * (ops * (T * sweep + 4 * T * net) + sweep)
 
 
-def vae_ais_bound(D, E, P, N, K, L, weight_floats):
-    """The AIS kernel's least work: K anneal steps of L decoder sweeps, the
-    leapfrog updates, the draws and the accept, plus the start state's
-    sweep."""
+def vae_ais_work(D, E, P, N, K, L, weight_bytes):
+    """The AIS kernel's least work as (operations, of them in matrix
+    products, bytes): K anneal steps of L decoder sweeps, the leapfrog
+    updates, the draws and the accept, plus the start state's sweep."""
     philox = (1 + (D + 1) // 2) * 10 * 8
     per_step = L * (_decoder_grad_ops(D, E, P) + 10 * D) + philox + 10 * D + 12
     ops = N * (K * per_step + _decoder_grad_ops(D, E, P))
-    nbytes = 4 * (D * N + P * N + weight_floats + K + 2 * N)
+    products = N * (K * L + 1) * _dec_products(D, E, P)
+    nbytes = 4 * (D * N + P * N + K + 2 * N) + weight_bytes
+    return ops, products, nbytes
+
+
+def vae_ais_bound(D, E, P, N, K, L, weight_floats):
+    ops, _, nbytes = vae_ais_work(D, E, P, N, K, L, 4 * weight_floats)
     return _bound(ops, nbytes)
 
 
@@ -377,6 +422,21 @@ def _bound(ops, nbytes):
     if t_ops >= t_bytes:
         return 1e3 * t_ops, "operations"
     return 1e3 * t_bytes, "bytes"
+
+
+def _bf16_bounds(ops, products, nbytes):
+    """A bfloat16-operand kernel's two bounds, in ms: the least time the
+    card could take (its matrix products at the bf16 tensor-core peak, its
+    other operations at the float32 peak, each pipe alone, or its bytes,
+    whichever is longest), with what bounds it; and the time of all its
+    operations on the float32 pipe that the kernel, written for the CUDA
+    cores, runs them on."""
+    t_ops = max(products / PEAK_BF16_TC_OPS, (ops - products) / PEAK_F32_OPS)
+    t_bytes = nbytes / PEAK_BYTES
+    f32_pipe_ms = 1e3 * max(ops / PEAK_F32_OPS, t_bytes)
+    if t_ops >= t_bytes:
+        return 1e3 * t_ops, "operations", f32_pipe_ms
+    return 1e3 * t_bytes, "bytes", f32_pipe_ms
 
 
 def _cuda_time(fn, reps, warmup=True):
@@ -844,33 +904,51 @@ def vae_phases(dev, report, logdir):
     ]
 
 
-def vae_traj_bound(D, H, H2, T, E, P, N, weight_floats):
-    """The training trajectory's least work: T + 1 decoder sweeps (the
-    gradient at the end of a leapfrog step is the first of the next), 4 T
-    net applications and the updates."""
+def vae_traj_work(D, H, H2, T, E, P, N, weight_bytes):
+    """The training trajectory's least work as (operations, of them in
+    matrix products, bytes): T + 1 decoder sweeps (the gradient at the end
+    of a leapfrog step is the first of the next), 4 T net applications and
+    the updates."""
     per_chain = ((T + 1) * _decoder_grad_ops(D, E, P)
                  + T * (4 * (_stq_ops(D, H, H2) + H) + 4 * 12 * D))
-    nbytes = 4 * (2 * D * N + P * N + H * N + weight_floats + 2 * D * N + N)
-    return _bound(N * per_chain, nbytes)
+    products = N * ((T + 1) * _dec_products(D, E, P) + 4 * T * _net_products(D, H, H2))
+    nbytes = 4 * (2 * D * N + P * N + H * N + 2 * D * N + N) + weight_bytes
+    return N * per_chain, products, nbytes
+
+
+def vae_traj_bound(D, H, H2, T, E, P, N, weight_floats):
+    ops, _, nbytes = vae_traj_work(D, H, H2, T, E, P, N, 4 * weight_floats)
+    return _bound(ops, nbytes)
+
+
+def vae_traj_bwd_work(D, H, H2, T, E, P, N, weight_bytes, n_grads, blocks, hvps=None):
+    """The VJP's least work as (operations, of them in matrix products,
+    bytes), per chain: the trajectory again (the recompute: T + 1 decoder
+    sweeps, 4 T net applications), one more sweep's worth per
+    Hessian-vector product for the tangent that rides on the recomputed
+    primal (six more products; ``hvps`` of them, T + 1 by default: one per
+    point, its two gradient calls' cotangents added, which bfloat16
+    operands forbid, 2 T then), and per net application the transposed
+    products, the outer products of the weight cotangents (each as many
+    multiply-adds as the net's own products) and the substep's elementwise
+    VJP; plus the sum of the blocks' partial cotangents. The primal sweep
+    and the nets' forward pass count once."""
+    hvps = T + 1 if hvps is None else hvps
+    net_products = _net_products(D, H, H2)
+    recompute = ((T + 1) * _decoder_grad_ops(D, E, P)
+                 + T * (4 * (_stq_ops(D, H, H2) + H) + 4 * 12 * D))
+    back = (hvps * _decoder_grad_ops(D, E, P)
+            + 4 * T * (2 * net_products + 40 * D))
+    ops = N * (recompute + back) + n_grads * blocks
+    products = N * ((T + 1 + hvps) * _dec_products(D, E, P) + 12 * T * net_products)
+    nbytes = (4 * (4 * D * N + N + P * N + H * N + 2 * D * N + H * N + n_grads)
+              + weight_bytes)
+    return ops, products, nbytes
 
 
 def vae_traj_bwd_bound(D, H, H2, T, E, P, N, weight_floats, n_grads, blocks):
-    """The VJP's least work per chain: the trajectory again (the recompute:
-    T + 1 decoder sweeps, 4 T net applications), one more sweep's worth per
-    decoder sweep for the tangent that rides on the recomputed primal (the
-    Hessian-vector product: six more products), and per net application
-    the transposed products, the outer products of the weight cotangents
-    (each as many multiply-adds as the net's own products) and the
-    substep's elementwise VJP; plus the sum of the blocks' partial
-    cotangents. The primal sweep and the nets' forward pass count once."""
-    net_products = 4 * D * H + 2 * H * H2 + 6 * H2 * D
-    recompute = ((T + 1) * _decoder_grad_ops(D, E, P)
-                 + T * (4 * (_stq_ops(D, H, H2) + H) + 4 * 12 * D))
-    back = ((T + 1) * _decoder_grad_ops(D, E, P)
-            + 4 * T * (2 * net_products + 40 * D))
-    ops = N * (recompute + back) + n_grads * blocks
-    nbytes = 4 * (4 * D * N + N + P * N + H * N + weight_floats
-                  + 2 * D * N + H * N + n_grads)
+    ops, _, nbytes = vae_traj_bwd_work(D, H, H2, T, E, P, N, 4 * weight_floats, n_grads,
+                                       blocks)
     return _bound(ops, nbytes)
 
 
@@ -1158,6 +1236,704 @@ def vae_train_phases(dev, report, logdir):
          "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
          "bound_by": bwd_bound_by, "library_ms": None, "shape": shape},
     ]
+
+
+# -- 12. bfloat16 operands in the VAE kernels ---------------------------------------
+#
+# The four VAE kernels' bfloat16 instantiations (compute_dtype="bfloat16")
+# against their plain versions with the same operands (ops/operands.py),
+# which round at the same sites: the two differ where float32 sums in
+# another order put a value on the other side of a bfloat16 rounding
+# boundary. At the card tests' small width that is rare (12a's small-width
+# case; on an H100: the VJP within 0.034-0.047 of the bf16-float32 gap in
+# RMS, the trajectory within 0.012). At the reference width (sums of 1024
+# terms, ~3000 rounded values a chain and sweep) it happens a few times a
+# sweep, and a flipped rounding (2^-8 of the value) moves that chain's
+# later values, though less than lowering every operand does. So each
+# comparison is held to a share of the gap between the plain bfloat16 and
+# the plain float32 results on the same inputs (the bf16-float32 gap):
+# BF16_GAP_SHARE on the trajectories in max-norm and RMS and on the
+# sampler's chains in RMS over the chains that flipped in neither
+# comparison. The VJP, whose Hessian terms carry every flip of the pass
+# forward, is bounded by BF16_VJP_GAP_SHARE of each leaf's gap in RMS (on
+# an H100 0.45-0.61 here, up to 0.92 on the card tests' inputs, where the
+# plain VJP summed in float64 reads up to 0.79 and the float32 kernel 1.0:
+# RMS does not tell them apart) and held by the shares of the bf16 signals
+# it carries (``_vjp_shares``), which do: the whole bf16-float32 gap within
+# BF16_SIGNAL_BAND of 1 (0.86-0.95; the float32 kernel 0.00), and the part
+# that rounding the cotangents makes at least BF16_CT_SHARE (0.34-0.74 at
+# the reference width, 0.97 at the small one; a VJP without that rounding
+# reads 0). A sound VJP reads under 1 there because a flipped rounding
+# upstream moves a cotangent by more than its own rounding error, which
+# then no longer matches the plain version's: the plain VJP summed in
+# float64, a sound one in another order, reads 0.91-0.98 and 0.53-0.88.
+# AIS chains that part once stay apart (20 anneal steps of 10 leapfrogs
+# carry a flipped rounding into another path, as far as bf16 from float32
+# does): its log w
+# is held at BF16_GAP_SHARE in median over 20 steps and in RMS over one. A
+# flipped accept (|px - u| within the two versions' Hamiltonian gap, ~1e-2
+# here against float32's ~1e-4) sends a chain elsewhere: at most
+# BF16_FLIP_SHARE of the chains may flip (a tenth on an H100). The bf16
+# trajectory inverts as its plain version does: most chains to float32
+# rounding, but a state carried back with float32 rounding can put a value
+# on the other side of a bf16 boundary (the JAX package's exact inverse at
+# its test's widths, 1e-5, is no bound here): at most BF16_FLIP_SHARE of
+# the chains miss by more than BF16_INVERSE_TOL, none by more than
+# BF16_RESOLUTION (the JAX package's bf16 parity bar; 1-2% of the chains
+# and 6.2e-3 at most on an H100, the plain version alike).
+BF16_GAP_SHARE = 0.5
+BF16_VJP_GAP_SHARE = 1.0
+BF16_SIGNAL_BAND = 0.25
+BF16_CT_SHARE = 0.25
+BF16_FLIP_SHARE = 0.2
+BF16_INVERSE_TOL = 1e-4
+BF16_RESOLUTION = 2e-2
+# (d): fused bf16 training against its plain route at the plain run's
+# states, the ELBO and log-probability at phase 7c's bar. The sampler loss
+# (a mean over 512 chains of jump distances over the encoder's variances
+# and of their reciprocals, near -1e4 and carried by a few chains) moves
+# with every accept that a bf16 rounding flips, a tenth of the chains as in
+# (b): it is held at rtol BF16_SAMPLER_LOSS_RTOL (2.6e-3 at its worst step
+# on an H100).
+BF16_SAMPLER_LOSS_RTOL = 1e-2
+# (e): the training path at phase 7d's depth (8 batches of 512 an epoch)
+BF16_TRAIN_EPOCHS = VAE_TRAIN_EPOCHS
+# (e): the restored model's posterior through the bf16 sampler: the
+# sampling protocol's 200 chains cut to this many recorded steps
+BF16_SAMPLER_STEPS = 100
+
+
+def _gap(a, b, mask=None):
+    """max |a - b| over the columns (chains) of ``mask`` (all without)."""
+    d = (a - b).abs()
+    if mask is not None:
+        d = d[..., mask]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def _rms(a, b, mask=None):
+    """The root-mean-square of a - b over the columns of ``mask``."""
+    d = (a - b).double()
+    if mask is not None:
+        d = d[..., mask]
+    return float(d.pow(2).mean().sqrt()) if d.numel() else 0.0
+
+
+def _share(err, gap):
+    return err / gap if gap > 0 else (0.0 if err == 0 else float("inf"))
+
+
+def _plain_vae_dynamics(fv, dynamics, compute_dtype):
+    """``DifferentiableFusedVae``'s surface with its trajectories through
+    the kernels' plain version (``vae_trajectory_plain``, the operands
+    lowered by ``ops.operands``) under autograd: the plain route of bf16
+    training, on the same tensors as the fused one."""
+
+    class PlainVaeTrajectories(fv.DifferentiableFusedVae):
+        def _run(self, params, z, v, aux, reverse: bool):
+            x_raw = aux["raw"].detach().T.contiguous()
+            inp = fv.prepare_vae(self.dynamics, params, aux["dec"], x_raw,
+                                 aux["emb"].T.contiguous(), differentiable=True,
+                                 compute_dtype=self.compute_dtype)
+            Z, V, ld = fv.vae_trajectory_plain(inp, z.T.contiguous(), v.T.contiguous(), reverse)
+            return Z.T, V.T, ld[0]
+
+    return PlainVaeTrajectories(dynamics, compute_dtype=compute_dtype)
+
+
+def _inner(a, b):
+    return float(a.double().flatten() @ b.double().flatten())
+
+
+def _plain_vjp_unrounded_cotangents(fv, inp, *args):
+    """A control: the plain VJP with the forward's operands lowered but its
+    activation cotangents left in float32, as a VJP that rounds the one and
+    not the other would compute them (``ops.operands.dot_ct`` without its
+    rounding of the product)."""
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+    from l2hmc_tpu_torch.ops import operands
+
+    def unrounded(w, g, cd):
+        return operands.lower(w, cd) @ g
+
+    saved = fd.dot_ct, fv.dot_ct
+    fd.dot_ct = fv.dot_ct = unrounded
+    try:
+        return fv.vae_trajectory_vjp_plain(inp, *args)
+    finally:
+        fd.dot_ct, fv.dot_ct = saved
+
+
+def _plain_vjp_float64(fv, inp, xr, *args):
+    """A sound VJP that sums in another order: the plain bf16 VJP in
+    float64 (operands still lowered to bfloat16), returned in float32."""
+    def f64(t):
+        return t.double()
+
+    dec, x64 = [f64(a) for a in inp.consts], f64(xr)
+    energy, grad_energy = fv._vae_decoder_closures(dec, x64, inp.cd)
+    inp64 = dataclasses.replace(
+        inp, eps=f64(inp.eps), masks=f64(inp.masks), consts=dec, emb=f64(inp.emb),
+        xnet_w=[f64(a) for a in inp.xnet_w], vnet_w=[f64(a) for a in inp.vnet_w],
+        energy=energy, grad_energy=grad_energy, grad_vjp=fv.build_grad_vjp(dec, x64, inp.cd))
+    out = fv.vae_trajectory_vjp_plain(inp64, *(f64(t) for t in args[:-1]), args[-1])
+    return [t.float() for t in _leaves(out)]
+
+
+def _leaves(vjp):
+    from l2hmc_tpu_torch.train.optim import tree_leaves
+
+    return tree_leaves(list(vjp))
+
+
+def _vjp_shares(leaves, ref, ref32, noct):
+    """Over the leaves of a VJP: the largest share of the bf16-float32 gap
+    in RMS, and the shares of the two bf16 signals that the VJP carries,
+    the whole plain bf16-float32 gap and the part of it that rounding the
+    activation cotangents makes (plain bf16 against ``noct``): each the
+    projection of the VJP's difference from the signal's base on the signal,
+    pooled over the leaves with each leaf's bf16-float32 gap as its unit
+    (1 where the VJP carries the signal whole, 0 where it does not; noise
+    off the signal's direction does not count)."""
+    rms = sig_num = ct_num = ct_den = 0.0
+    n = 0
+    for a, b, c, d in zip(leaves, ref, ref32, noct):
+        g2 = _inner(b - c, b - c)
+        if g2 == 0:
+            continue
+        n += 1
+        rms = max(rms, _share(_rms(a, b), _rms(b, c)))
+        sig_num += _inner(a - c, b - c) / g2
+        ct_num += _inner(a - d, b - d) / g2
+        ct_den += _inner(b - d, b - d) / g2
+    return {"rms_share_of_bf16_f32_gap": rms, "signal_share": sig_num / max(n, 1),
+            "ct_signal_share": ct_num / ct_den if ct_den > 0 else 1.0}
+
+
+def _bf16_vjp_compare(fv, inp, inp32, xr, z, v, dZ, dV, dld, reverse):
+    """The bf16 VJP kernel against its plain version and the plain float32
+    VJP, over the leaves: the largest share of the bf16-float32 gap in RMS,
+    in max-norm and in median, the shares of the bf16 signals it carries
+    (``_vjp_shares``: the bar), the kernel's largest gap over the leaf's
+    largest entry, the largest absolute gap, the gap to the float32 kernel
+    and a bit-for-bit repeat; and the same shares for two controls, the
+    float32 VJP kernel and the plain VJP without the cotangents' rounding,
+    which a VJP kernel that ignored bf16 or rounded only its forward would
+    read, and for a sound VJP in another order (``_plain_vjp_float64``)."""
+    import torch
+
+    args = (z, v, dZ, dV, dld, reverse)
+    got = fv.vae_trajectory_vjp(inp, xr, *args)
+    again = fv.vae_trajectory_vjp(inp, xr, *args)
+    k32 = fv.vae_trajectory_vjp(inp32, xr, *args)
+    ref, ref32 = (fv.vae_trajectory_vjp_plain(i, *args) for i in (inp, inp32))
+    noct = _plain_vjp_unrounded_cotangents(fv, inp, *args)
+    got, again, k32, ref, ref32, noct = (_leaves(t)
+                                         for t in (got, again, k32, ref, ref32, noct))
+    repeats = all(bool(torch.equal(a, b)) for a, b in zip(again, got))
+    max_share = med_share = rel = abs_err = 0.0
+    for a, b, c in zip(got, ref, ref32):
+        err, scale = _gap(a, b), float(b.abs().max())
+        abs_err = max(abs_err, err)
+        max_share = max(max_share, _share(err, _gap(b, c)))
+        med_share = max(med_share, _share(float((a - b).abs().median()),
+                                          float((b - c).abs().median())))
+        rel = max(rel, err / scale if scale > 0 else 0.0)
+    return {**_vjp_shares(got, ref, ref32, noct), "max_share_of_bf16_f32_gap": max_share,
+            "median_share_of_bf16_f32_gap": med_share, "max_rel_err": rel,
+            "max_abs_err": abs_err, "repeats_bit_for_bit": repeats,
+            "kernel_bf16_vs_f32": max(_gap(a, b) for a, b in zip(got, k32)),
+            "control_f32_kernel": _vjp_shares(k32, ref, ref32, noct),
+            "control_unrounded_cotangents": _vjp_shares(noct, ref, ref32, noct),
+            "plain_float64": _vjp_shares(_plain_vjp_float64(fv, inp, xr, *args), ref, ref32,
+                                         noct)}
+
+
+def _vjp_bars_hold(case, rms_share):
+    """The bf16 VJP's bars: apart from the float32 kernel, within
+    ``rms_share`` of each leaf's bf16-float32 gap in RMS, and carrying the
+    bf16 signals (the whole within BF16_SIGNAL_BAND of 1, the cotangents'
+    rounding at least BF16_CT_SHARE); the two controls must miss them, or
+    the bars could not tell them apart."""
+    def carries(c):
+        return (abs(c["signal_share"] - 1.0) <= BF16_SIGNAL_BAND
+                and c["ct_signal_share"] >= BF16_CT_SHARE)
+
+    return (case["kernel_bf16_vs_f32"] > 0 and case["rms_share_of_bf16_f32_gap"] <= rms_share
+            and carries(case) and not carries(case["control_f32_kernel"])
+            and not carries(case["control_unrounded_cotangents"]))
+
+
+def _bf16_small_width(dev):
+    """Phase 12a at the card tests' small width (latent 8, decoder 32, nets
+    16/16, T = 3; 203 chains, lifted weights), where a flipped rounding is
+    rare: the training kernels' shares of the bf16-float32 gap, the
+    trajectory in max-norm and RMS, the VJP's leaves in RMS, each held at
+    BF16_GAP_SHARE."""
+    import torch
+
+    from l2hmc_tpu_torch.apps import vae
+    from l2hmc_tpu_torch.ops import fused_vae as fv
+
+    cfg = vae.VaeConfig(latent_dim=8, leapfrogs=3, enc_hidden=32, sampler_size1=16,
+                        sampler_size2=16)
+    model = vae.VaeModel.build(cfg)
+    params = lift_vae_params(model.init_params(_gen(0), device=dev))
+    n, D = 203, cfg.latent_dim
+    g = _gen(1000 + n)
+    x = (torch.rand((n, 784), generator=g) < 0.3).float().to(dev)
+    with torch.no_grad():
+        emb = model.aux_encoder.apply(params["smp"]["aux_enc"], x)
+    z, v, dZ, dV = (torch.randn((D, n), generator=g).to(dev) for _ in range(4))
+    dld = torch.randn((1, n), generator=g).to(dev)
+    xr, embT = x.T.contiguous(), emb.T.contiguous()
+    inp, inp32 = (fv.prepare_vae(model.dynamics, params["smp"], params["dec"], xr, embT,
+                                 compute_dtype=c) for c in ("bfloat16", None))
+    out = {}
+    for reverse in (False, True):
+        got = fv.vae_trajectory(inp, xr, z, v, reverse)
+        ref = fv.vae_trajectory_plain(inp, z, v, reverse)
+        ref32 = fv.vae_trajectory_plain(inp32, z, v, reverse)
+        case = {"traj_max_share": max(_share(_gap(a, b), _gap(b, c))
+                                      for a, b, c in zip(got, ref, ref32)),
+                "traj_rms_share": max(_share(_rms(a, b), _rms(b, c))
+                                      for a, b, c in zip(got, ref, ref32)),
+                **_bf16_vjp_compare(fv, inp, inp32, xr, z, v, dZ, dV, dld, reverse)}
+        out["backward" if reverse else "forward"] = case
+        _require(max(case["traj_max_share"], case["traj_rms_share"]) <= BF16_GAP_SHARE
+                 and _vjp_bars_hold(case, BF16_GAP_SHARE) and case["repeats_bit_for_bit"],
+                 f"bf16 training kernels, small width: {case}")
+    return out
+
+
+def _bf16_ais_log_likelihood(fv, params, x, k_chains, latent_dim, acfg, seed, dev):
+    """``eval_vae.run``'s protocol (the seeded binarization ``x``, its start
+    states and seeds from one generator, 50 datapoints an AIS batch) through
+    ``FusedVaeAis(compute_dtype="bfloat16")``: the average of the
+    per-datapoint logmeanexp of log w."""
+    import math
+
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    total = 0.0
+    for i in range(0, x.shape[0], acfg.num_splits):
+        batch = torch.as_tensor(x[i:i + acfg.num_splits], dtype=torch.float32, device=dev)
+        tiled = torch.repeat_interleave(batch, k_chains, dim=0)
+        z0 = torch.randn((tiled.shape[0], latent_dim), generator=gen).to(dev)
+        s = int(torch.randint(0, 2**31 - 1, (), generator=gen))
+        w, _ = fv.FusedVaeAis(latent_dim=latent_dim, compute_dtype="bfloat16").run(
+            params["dec"], tiled, z0, seed=s, anneal_steps=acfg.anneal_steps,
+            step_size=acfg.step_size, leapfrogs=acfg.leapfrogs)
+        groups = w.reshape(batch.shape[0], k_chains)
+        total += float(torch.sum(torch.logsumexp(groups, dim=1) - math.log(k_chains)))
+    return total / x.shape[0]
+
+
+def _weight_bytes(fv, inp):
+    """Bytes of the weights a cluster kernel reads for ``inp``, as the
+    wrapper hands them over (``fused_vae._weight_ptrs``: the products'
+    matrices in ``inp.cd``, the rest float32)."""
+    arrays = fv._weight_ptrs(inp, inp.eps.device)[1]
+    return sum(a.numel() * a.element_size() for a in arrays)
+
+
+def bf16_vae_phases(dev, report, logdir, cfg=None):
+    """Phase 12: the four VAE kernels' bfloat16 instantiations against their
+    plain versions, bf16 training against its plain route, the bf16 path
+    through its entry points and the kernels' times; returns their rows of
+    the ``kernels`` line. ``cfg`` is the model's ``VaeConfig`` (the
+    reference model by default)."""
+    import numpy as np
+    import torch
+
+    from l2hmc_tpu_torch.apps import data as data_lib
+    from l2hmc_tpu_torch.apps import eval_sampler, eval_vae, vae
+    from l2hmc_tpu_torch.ops import _cuda
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+    from l2hmc_tpu_torch.ops import fused_vae as fv
+    from l2hmc_tpu_torch.train.optim import tree_leaves
+
+    BF = "bfloat16"
+    t_phase = time.perf_counter()
+    cfg = vae.VaeConfig() if cfg is None else cfg
+    model = vae.VaeModel.build(cfg)
+    params = lift_vae_params(model.init_params(_gen(0), device=dev))
+    dataset = data_lib.get_data()
+    dyn = model.dynamics
+    D, T = dyn.dim, dyn.T
+    x_test = data_lib.binarize(np.random.default_rng(0), dataset.test)
+    dec = fv.decoder_arrays(params["dec"])
+    E, P = dec[0].shape[0], dec[4].shape[0]
+
+    def batch(n):
+        """n test images (cycled), their embedding and a N(0, I) start."""
+        x = torch.as_tensor(x_test[np.arange(n) % len(x_test)], device=dev)
+        with torch.no_grad():
+            emb = model.aux_encoder.apply(params["smp"]["aux_enc"], x)
+        z = torch.randn((n, D), generator=_gen(n)).to(dev)
+        return x.T.contiguous(), emb.T.contiguous(), z.T.contiguous()
+
+    def inputs(n):
+        """Phase 7's inputs at n chains, with bf16 and with float32
+        operands."""
+        xr, embT, _ = batch(n)
+        g = _gen(1000 + n)
+        z, v, dZ, dV = (torch.randn((D, n), generator=g).to(dev) for _ in range(4))
+        dld = torch.randn((1, n), generator=g).to(dev)
+        inp, inp32 = (fv.prepare_vae(dyn, params["smp"], params["dec"], xr, embT, compute_dtype=c)
+                      for c in (BF, None))
+        return inp, inp32, xr, z, v, dZ, dV, dld
+
+    # (a) rows 4-5: the training kernels at the training batch and a ragged
+    # count, both directions
+    traj_cmp, bwd_cmp = {}, {}
+    for n in (cfg.batch_size, 203):
+        inp, inp32, xr, z, v, dZ, dV, dld = inputs(n)
+        for reverse in (False, True):
+            name = f"n{n}_{'backward' if reverse else 'forward'}"
+            got = fv.vae_trajectory(inp, xr, z, v, reverse)
+            again = fv.vae_trajectory(inp, xr, z, v, reverse)
+            ref = fv.vae_trajectory_plain(inp, z, v, reverse)
+            ref32 = fv.vae_trajectory_plain(inp32, z, v, reverse)
+            k32 = fv.vae_trajectory(inp32, xr, z, v, reverse)
+            inv = fv.vae_trajectory(inp, xr, got[0], got[1], not reverse)
+            pinv = fv.vae_trajectory_plain(inp, ref[0], ref[1], not reverse)
+
+            def chain_err(back):
+                """Per chain, the largest miss of (z, v) after the inverse."""
+                return torch.maximum((back[0] - z).abs().amax(0), (back[1] - v).abs().amax(0))
+
+            k_inv, p_inv = chain_err(inv), chain_err(pinv)
+            case = {
+                "max_abs_err": max(_gap(a, b) for a, b in zip(got, ref)),
+                "max_share_of_bf16_f32_gap": max(_share(_gap(a, b), _gap(b, c))
+                                                 for a, b, c in zip(got, ref, ref32)),
+                "rms_share_of_bf16_f32_gap": max(_share(_rms(a, b), _rms(b, c))
+                                                 for a, b, c in zip(got, ref, ref32)),
+                "plain_bf16_vs_f32": max(_gap(a, b) for a, b in zip(ref, ref32)),
+                "kernel_bf16_vs_f32": max(_gap(a, b) for a, b in zip(got, k32)),
+                "inverse_err": max(_gap(inv[0], z), _gap(inv[1], v), _gap(inv[2], -got[2])),
+                "inverse_err_plain": max(_gap(pinv[0], z), _gap(pinv[1], v),
+                                         _gap(pinv[2], -ref[2])),
+                "inverse_chains_over_tol": int((k_inv > BF16_INVERSE_TOL).sum()),
+                "inverse_chains_over_tol_plain": int((p_inv > BF16_INVERSE_TOL).sum()),
+                "inverse_median": float(k_inv.median()),
+                "repeats_bit_for_bit": all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+            }
+            traj_cmp[name] = case
+            _require(all(bool(torch.isfinite(a).all()) for a in got),
+                     f"vae_traj bf16 {name}: non-finite output")
+            _require(case["repeats_bit_for_bit"], f"vae_traj bf16 {name}: two launches differ")
+            _require(case["max_share_of_bf16_f32_gap"] <= BF16_GAP_SHARE
+                     and case["rms_share_of_bf16_f32_gap"] <= BF16_GAP_SHARE
+                     and case["kernel_bf16_vs_f32"] > 0
+                     and case["inverse_chains_over_tol"] <= BF16_FLIP_SHARE * n
+                     and case["inverse_err"] <= BF16_RESOLUTION,
+                     f"vae_traj bf16 {name}: {case}")
+            bwd = _bf16_vjp_compare(fv, inp, inp32, xr, z, v, dZ, dV, dld, reverse)
+            bwd_cmp[name] = bwd
+            _require(bwd["repeats_bit_for_bit"], f"vae_traj_bwd bf16 {name}: two launches differ")
+            _require(_vjp_bars_hold(bwd, BF16_VJP_GAP_SHARE), f"vae_traj_bwd bf16 {name}: {bwd}")
+    small = _bf16_small_width(dev)
+    report["bf16_vae_traj_vs_plain"] = traj_cmp
+    report["bf16_vae_traj_bwd_vs_plain"] = bwd_cmp
+    report["bf16_vae_training_kernels_small_width"] = small
+    print(f"# bf16 VAE training kernels vs plain ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps({"vae_traj": traj_cmp, "vae_traj_bwd": bwd_cmp,
+                        "small_width": small}), flush=True)
+
+    # (b) row 6: the sampler on the same Philox bits, single and composed ops
+    t_phase = time.perf_counter()
+    chain_cmp = {}
+    for n in (9, 203, 256):
+        xr, embT, zT = batch(n)
+        inp, inp32 = (fv.prepare_vae(dyn, params["smp"], params["dec"], xr, embT, compute_dtype=c)
+                      for c in (BF, None))
+        for name, nb in (("single", None), ("composed", [2, 1, 3])):
+            kw = dict(seed=4, n_mh_steps=3, collect_trace=True, nb=nb)
+            zk, acck, trk = fv.vae_chain(inp, xr, zT, **kw)
+            again = fv.vae_chain(inp, xr, zT, **kw)
+            z32, _, _ = fv.vae_chain(inp32, xr, zT, **kw)
+            _, accp, trp = fv.vae_chain_plain(inp, zT, **kw)
+            _, acc3, tr3 = fv.vae_chain_plain(inp32, zT, **kw)
+            ops = 3 if nb is None else sum(nb)
+
+            def moved_at(tr):
+                """(K, N): the recorded steps at which a chain moved."""
+                return (tr != torch.cat([zT[None], tr[:-1]])).any(dim=1)
+
+            def flips(tr_a, acc_a, tr_b, acc_b):
+                """Chains whose acceptance or a recorded step's move
+                differs, or whose states part by 0.1 (ops that flipped
+                apart within a step)."""
+                return (((acc_a - acc_b).abs()[0] * ops > 0.5)
+                        | (moved_at(tr_a) != moved_at(tr_b)).any(0)
+                        | ((tr_a - tr_b).abs().amax(dim=(0, 1)) > 0.1))
+
+            flipped, flip32 = flips(trk, acck, trp, accp), flips(trp, accp, tr3, acc3)
+            clean = ~(flipped | flip32)
+            case = {"flipped_chains": int(flipped.sum()), "bf16_f32_flipped_chains": int(flip32.sum()),
+                    "max_abs_dz_unflipped": _gap(trk, trp, ~flipped),
+                    "rms_share_of_bf16_f32_gap_unflipped": _share(_rms(trk, trp, clean),
+                                                                  _rms(trp, tr3, clean)),
+                    "max_share_of_bf16_f32_gap_unflipped": _share(_gap(trk, trp, clean),
+                                                                  _gap(trp, tr3, clean)),
+                    "kernel_bf16_vs_f32": _gap(zk, z32),
+                    "repeats_bit_for_bit": all(bool(torch.equal(a, b))
+                                               for a, b in zip((zk, acck, trk), again)),
+                    "accept": float(acck.mean()), "moved": _gap(zk, zT)}
+            chain_cmp[f"n{n}_{name}"] = case
+            _require(bool(torch.isfinite(trk).all()) and bool(torch.equal(trk[-1], zk)),
+                     f"vae_chain bf16 {n} {name}: non-finite trace or trace end != state")
+            _require(case["repeats_bit_for_bit"], f"vae_chain bf16 {n} {name}: launches differ")
+            _require(case["flipped_chains"] <= max(VAE_FLIPS, BF16_FLIP_SHARE * n)
+                     and case["rms_share_of_bf16_f32_gap_unflipped"] <= BF16_GAP_SHARE
+                     and case["kernel_bf16_vs_f32"] > 0 and case["moved"] > 0.05,
+                     f"vae_chain bf16 {n} {name}: {case}")
+    report["bf16_vae_chain_vs_plain"] = chain_cmp
+    print(f"# bf16 VAE sampler kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(chain_cmp), flush=True)
+
+    # (c) row 7: AIS on the same bits, at the protocol's 1000 chains and a
+    # ragged count
+    t_phase = time.perf_counter()
+    k_ais, l_ais = 20, 10
+    ais_cmp = {"anneal_steps": k_ais, "leapfrogs": l_ais}
+    for n in (1000, 203):
+        xr, _, zT = batch(n)
+        kw = dict(seed=6, anneal_steps=k_ais, step_size=0.05, leapfrogs=l_ais)
+        wk, acck = fv.vae_ais(dec, xr, zT, **kw, compute_dtype=BF)
+        wk2, acck2 = fv.vae_ais(dec, xr, zT, **kw, compute_dtype=BF)
+        w32, _ = fv.vae_ais(dec, xr, zT, **kw)
+        wp, accp = fv.vae_ais_plain(dec, xr, zT, **kw, compute_dtype=BF)
+        w3, acc3 = fv.vae_ais_plain(dec, xr, zT, **kw)
+        # one anneal step: the chains have not parted yet
+        kw1 = dict(kw, anneal_steps=1)
+        w1k, w1p, w13 = (fn(dec, xr, zT, **kw1, **c)[0] for fn, c in (
+            (fv.vae_ais, {"compute_dtype": BF}), (fv.vae_ais_plain, {"compute_dtype": BF}),
+            (fv.vae_ais_plain, {})))
+        # a flipped accept moves a chain's log w by O(1)
+        flipped, flip32 = ((wk - wp).abs()[0] >= 0.5), ((wp - w3).abs()[0] >= 0.5)
+        clean = ~(flipped | flip32)
+        case = {"flipped_chains": int(flipped.sum()), "bf16_f32_flipped_chains": int(flip32.sum()),
+                "max_abs_dlogw_unflipped": _gap(wk, wp, ~flipped),
+                "median_share_of_bf16_f32_gap": _share(float((wk - wp).abs().median()),
+                                                       float((wp - w3).abs().median())),
+                "rms_share_of_bf16_f32_gap_unflipped": _share(_rms(wk, wp, clean),
+                                                              _rms(wp, w3, clean)),
+                "rms_share_of_bf16_f32_gap_one_step": _share(_rms(w1k, w1p), _rms(w1p, w13)),
+                "kernel_bf16_vs_f32_logw": _gap(wk, w32),
+                "max_abs_daccept_unflipped": _gap(acck, accp, clean),
+                "plain_bf16_vs_f32_accept": _gap(accp, acc3, clean),
+                "repeats_bit_for_bit": bool(torch.equal(wk, wk2) and torch.equal(acck, acck2)),
+                "logw_mean": float(wk.mean()), "accept": float(acck.mean())}
+        ais_cmp[f"n{n}"] = case
+        _require(bool(torch.isfinite(wk).all()), f"vae_ais bf16 {n}: non-finite log w")
+        _require(case["repeats_bit_for_bit"], f"vae_ais bf16 {n}: two launches differ")
+        _require(case["flipped_chains"] <= max(VAE_FLIPS, BF16_FLIP_SHARE * n)
+                 and case["median_share_of_bf16_f32_gap"] <= BF16_GAP_SHARE
+                 and case["rms_share_of_bf16_f32_gap_one_step"] <= BF16_GAP_SHARE
+                 and case["kernel_bf16_vs_f32_logw"] > 0, f"vae_ais bf16 {n}: {case}")
+    report["bf16_vae_ais_vs_plain"] = ais_cmp
+    print(f"# bf16 AIS kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(ais_cmp), flush=True)
+
+    # (d) bf16 training, fused against its plain route on one seed: at each
+    # of the plain run's 20 states the fused losses on the same batch and
+    # draws, at phase 7c's bar
+    t_phase = time.perf_counter()
+    n_tr = cfg.batch_size
+    x_train = data_lib.binarize(np.random.default_rng(1), dataset.train)
+    batches = [torch.as_tensor(x_train[(i * n_tr) % (len(x_train) - n_tr):][:n_tr], device=dev)
+               for i in range(20)]
+    bf_cfg = dataclasses.replace(cfg, fused_train=True, fused_compute_dtype=BF)
+    fused_losses = vae.make_train_step(vae.VaeModel.build(bf_cfg), 8).losses
+    plain_model = vae.VaeModel.build(cfg)
+    state = vae.init_state(plain_model, 8, device=dev)
+    plain_step = vae.make_train_step(dataclasses.replace(
+        plain_model, dynamics=_plain_vae_dynamics(fv, plain_model.dynamics, BF)), 8)
+    rows, at_plain_states = [], []
+    for b in batches:
+        draws = torch.Generator()
+        draws.set_state(state.generator.get_state())
+        with torch.no_grad():
+            at_plain_states.append([float(t) for t in fused_losses(state.params, b, draws)[:3]])
+        state, metrics = plain_step(state, b)
+        rows.append([float(metrics[k]) for k in ("elbo", "sampler_loss", "log_prob")])
+    fused, plain = np.asarray(at_plain_states), np.asarray(rows)
+    same_params = _over_tolerance(fused, plain)
+    sampler_rel = np.abs(fused[:, 1] - plain[:, 1]) / (1e-2 + np.abs(plain[:, 1]))
+    report["bf16_vae_train_fused_vs_plain"] = {
+        "steps": len(batches), "batch": n_tr,
+        "elbo_sampler_loss_log_prob_plain": rows,
+        "elbo_sampler_loss_log_prob_fused_at_plain_states": at_plain_states,
+        "same_params_elbo_log_prob_max_gap_over_tolerance": float(same_params[:, [0, 2]].max()),
+        "same_params_sampler_loss_max_gap_over_tolerance": float(same_params[:, 1].max()),
+        "same_params_sampler_loss_max_rel_gap": float(sampler_rel.max()),
+        "same_params_sampler_loss_max_rel_gap_step": int(np.argmax(sampler_rel)) + 1}
+    print(f"# bf16 fused vs plain VAE training ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(report["bf16_vae_train_fused_vs_plain"]), flush=True)
+    _require(bool(np.isfinite(rows).all() and np.isfinite(at_plain_states).all()),
+             "non-finite bf16 VAE training history")
+    _require(float(same_params[:, [0, 2]].max()) <= 1.0
+             and float(sampler_rel.max()) <= BF16_SAMPLER_LOSS_RTOL,
+             "bf16 fused and plain VAE losses from the same parameters differ: "
+             + json.dumps(report["bf16_vae_train_fused_vs_plain"]))
+
+    # (e) the bf16 path: train -> checkpoint -> restore -> the restored
+    # model's posterior through the bf16 sampler and its likelihood through
+    # bf16 AIS, beside the float32 AIS of the same protocol
+    fd.reset_launch_counts()
+    t_phase = time.perf_counter()
+    tcfg = dataclasses.replace(bf_cfg, epochs=BF16_TRAIN_EPOCHS,
+                               eval_samples_every=BF16_TRAIN_EPOCHS - 1)
+    _, state, last = vae.train(tcfg, logdir=logdir, log_every=4, verbose=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t_phase
+    steps = state.step
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    elbos = [row["elbo"] for row in logged]
+    t_eval = time.perf_counter()
+    r_model, r_state = vae.restore(os.path.join(logdir, "ckpt"))
+    same = all(bool(torch.equal(a, b)) for a, b in
+               zip(tree_leaves(r_state.params), tree_leaves(state.params)))
+    acfg = eval_vae.EvalVaeConfig()
+    x_ll = data_lib.binarize(np.random.default_rng(0), dataset.test)[:100]
+    ll_bf16 = _bf16_ais_log_likelihood(fv, r_state.params, x_ll, acfg.chains_per_datapoint,
+                                       r_model.cfg.latent_dim, acfg, 0, dev)
+    scfg = eval_sampler.EvalSamplerConfig()
+    with torch.no_grad():
+        x0, emb, z0 = eval_sampler.protocol_inputs(r_model, r_state.params, scfg, dataset, 0, dev)
+    zs, acc_s = fv.FusedVaeSampler(r_model.dynamics, compute_dtype=BF).run(
+        r_state.params["smp"], r_state.params["dec"], x0, emb, z0, seed=13,
+        n_mh_steps=BF16_SAMPLER_STEPS, max_composition=scfg.max_composition, comp_key=_gen(1))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t_eval
+    launches = dict(fd.LAUNCHES)
+    ll_f32 = eval_vae.run(r_model, r_state.params, acfg, dataset, seed=0, max_datapoints=100)
+    f32_path = report.get("vae_training_path", {})
+    report["bf16_vae_training_path"] = {
+        "batch": n_tr, "mh_steps": cfg.mh_steps, "steps": steps, "epochs": BF16_TRAIN_EPOCHS,
+        "data_source": dataset.source, "train_s": train_s,
+        "ms_per_step_fused_bf16": 1e3 * train_s / steps,
+        "ms_per_step_fused_f32_phase_7d": f32_path.get("ms_per_step_fused"),
+        "elbo_first_last_logged": [elbos[0], elbos[-1]],
+        "elbo_first_last_logged_f32_phase_7d": f32_path.get("elbo_first_last_logged"),
+        "final": last, "final_f32_phase_7d": f32_path.get("final"),
+        "restored_step": r_state.step, "restored_params_equal": same,
+        "log_likelihood_restored_bf16_ais": ll_bf16,
+        "log_likelihood_restored_f32_ais": ll_f32,
+        "sampler_accept_bf16": float(acc_s.mean()), "sampler_steps": BF16_SAMPLER_STEPS,
+        "eval_s": eval_s, "launches": launches,
+    }
+    print(f"# bf16 VAE training path ({train_s:.1f} s, restore, sampler and AIS "
+          f"{eval_s:.1f} s): " + json.dumps(report["bf16_vae_training_path"]), flush=True)
+    _require(all(np.isfinite(list(row.values())).all() for row in logged),
+             "non-finite bf16 VAE training metric")
+    _require(elbos[-1] < elbos[0], f"bf16 ELBO did not fall: {elbos[0]} -> {elbos[-1]}")
+    _require(0.0 < last["p_accept"] <= 1.0, f"bf16 sampler acceptance {last['p_accept']}")
+    _require(r_state.step == steps and same, "restored bf16 state differs from the trained one")
+    _require(np.isfinite(ll_bf16) and bool(torch.isfinite(zs).all()),
+             "non-finite bf16 evaluation of the restored VAE")
+    for name in ("vae_traj", "vae_traj_bwd"):
+        _require(launches[f"{name}:bf16"] == launches[name] == 2 * cfg.mh_steps * steps,
+                 f"kernel {name}: {launches[f'{name}:bf16']} bf16 launches in {steps} steps")
+    for name in ("vae_chain", "vae_ais"):
+        _require(launches[f"{name}:bf16"] > 0, f"kernel {name} bf16 not launched on the path")
+
+    # (f) each bf16 launch at its protocol shape, the plain bf16 versions,
+    # ptxas's registers and spills, the reckoned L2 weight bytes, both bounds
+    t_phase = time.perf_counter()
+    inp, inp32, xr, z, v, dZ, dV, dld = inputs(n_tr)
+    H, H2 = inp.dims[1], inp.dims[2]
+    dims = (D, H, H2, T, E, P)
+    traj_ms = _cuda_time(lambda: fv.vae_trajectory(inp, xr, z, v, False), 10)
+    bwd_ms = _cuda_time(lambda: fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, False), 10)
+    traj_plain_ms = _cuda_time(lambda: fv.vae_trajectory_plain(inp, z, v, False), 3)
+    bwd_plain_ms = _cuda_time(
+        lambda: fv.vae_trajectory_vjp_plain(inp, z, v, dZ, dV, dld, False), 3)
+    with torch.no_grad():
+        x0, emb, z0 = eval_sampler.protocol_inputs(model, params, scfg, dataset, 0, dev)
+    x0T, z0T = x0.T.contiguous(), z0.T.contiguous()
+    cinp = fv.prepare_vae(dyn, params["smp"], params["dec"], x0T, emb.T.contiguous(),
+                          compute_dtype=BF)
+    nb_path = fv.composition_counts(_gen(1), scfg.n_steps, scfg.max_composition)
+    plain_steps = 20
+    chain_ms = _cuda_time(lambda: fv.vae_chain(cinp, x0T, z0T, 13, scfg.n_steps, True, nb_path),
+                          1, warmup=False)
+    chain_plain_ms = _cuda_time(
+        lambda: fv.vae_chain_plain(cinp, z0T, 13, plain_steps, True, nb_path[:plain_steps]), 1)
+    n_ais = acfg.chains_per_datapoint * acfg.num_splits
+    xa, _, za = batch(n_ais)
+    akw = dict(seed=3, anneal_steps=acfg.anneal_steps, step_size=acfg.step_size,
+               leapfrogs=acfg.leapfrogs, compute_dtype=BF)
+    ais_ms = _cuda_time(lambda: fv.vae_ais(dec, xa, za, **akw), 2)
+    ais_plain_ms = _cuda_time(lambda: fv.vae_ais_plain(dec, xa, za, **akw), 1)
+    wb16, wb32 = _weight_bytes(fv, inp), _weight_bytes(fv, inp32)
+    dec_bytes16 = 2 * (D * E + E * E + E * P) + 4 * (2 * E + P)
+    n_grads = sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D
+    ct = fv.CLUSTER[0]
+    bounds = {
+        "vae_traj": _bf16_bounds(*vae_traj_work(D, H, H2, T, E, P, n_tr, wb16)),
+        "vae_traj_bwd": _bf16_bounds(*vae_traj_bwd_work(D, H, H2, T, E, P, n_tr, wb16,
+                                                        n_grads, -(-n_tr // ct), 2 * T)),
+        "vae_chain": _bf16_bounds(*vae_chain_work(D, H, H2, T, E, P, scfg.n_chains, scfg.n_steps,
+                                                  int(nb_path.sum()), wb16, True)),
+        "vae_ais": _bf16_bounds(*vae_ais_work(D, E, P, n_ais, acfg.anneal_steps,
+                                              acfg.leapfrogs, dec_bytes16)),
+    }
+    dec_l2, net_l2 = fv.weight_l2_bytes(ct, n_tr, *dims, item=2)
+    # the backward kernel: the pass forward's T + 1 sweeps, then a sweep
+    # with a tangent per gradient call, 2 T (csrc/vae_traj_bwd.cu)
+    l2 = {"vae_traj": [dec_l2, net_l2],
+          "vae_traj_bwd": [dec_l2 * (3 * T + 1) // (T + 1), 2 * net_l2],
+          "vae_chain": vae_chain_l2_bytes(scfg.n_chains, fv.CHAIN_CLUSTER[0],
+                                          int(nb_path.sum()), *dims, item=2),
+          "vae_ais": fv.ais_l2_bytes(D, E, P, n_ais, acfg.anneal_steps, acfg.leapfrogs, item=2)}
+    ptxas = {name: [line for line in _ptxas_of(_cuda.build_info.get("ptxas", ""),
+                                               f"{name}_kernel") if "bfloat16" in line]
+             for name in bounds}
+    ms = {"vae_traj": traj_ms, "vae_traj_bwd": bwd_ms, "vae_chain": chain_ms, "vae_ais": ais_ms}
+    plain_ms = {"vae_traj": traj_plain_ms, "vae_traj_bwd": bwd_plain_ms,
+                "vae_chain": chain_plain_ms, "vae_ais": ais_plain_ms}
+    report["bf16_vae_kernel_times"] = {
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms_by": {k: list(b[:2]) for k, b in bounds.items()},
+        "f32_pipe_bound_ms": {k: b[2] for k, b in bounds.items()},
+        "share_of_bound": {k: bounds[k][0] / ms[k] for k in ms},
+        "l2_weight_bytes_reckoned": l2, "weight_bytes_bf16_f32": [wb16, wb32],
+        "ptxas": ptxas, "vae_chain_ops": int(nb_path.sum()),
+    }
+    print(f"# bf16 VAE kernel times ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(report["bf16_vae_kernel_times"]), flush=True)
+
+    src = "l2hmc_tpu_torch/csrc/"
+    replaces = {"vae_traj": 1622, "vae_traj_bwd": 1649, "vae_chain": 1399, "vae_ais": 2083}
+    errs = {"vae_traj": max(c["max_abs_err"] for c in traj_cmp.values()),
+            "vae_traj_bwd": max(c["max_abs_err"] for c in bwd_cmp.values()),
+            "vae_chain": max(c["max_abs_dz_unflipped"] for c in chain_cmp.values()),
+            "vae_ais": max(ais_cmp[k]["max_abs_dlogw_unflipped"] for k in ("n1000", "n203"))}
+    shapes = {
+        "vae_traj": f"{n_tr} chains, one direction (the training batch)",
+        "vae_traj_bwd": f"{n_tr} chains, one direction (the training batch)",
+        "vae_chain": (f"{scfg.n_chains} chains x {scfg.n_steps} recorded steps "
+                      f"({int(nb_path.sum())} MH ops), traced; plain_ms over the first "
+                      f"{plain_steps} steps"),
+        "vae_ais": (f"{n_ais} chains x {acfg.anneal_steps} anneal steps x {acfg.leapfrogs} "
+                    f"leapfrogs (one AIS batch)"),
+    }
+    return [{"name": f"{k}_bf16", "route": "cuda", "source": src + f"{k}.cu",
+             "replaces": f"l2hmc_tpu/ops/fused_dynamics.py:{replaces[k]}",
+             "launches": launches[f"{k}:bf16"], "max_abs_err": errs[k], "ms": ms[k],
+             "plain_ms": plain_ms[k], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+             "library_ms": None,
+             "shape": (f"bfloat16 operands, float32 accumulation; VAE latent {D}, decoder {E}, "
+                       f"nets {H}/{H2}, T={T}, {shapes[k]}; bound on the float32 pipe the "
+                       f"kernel runs on: {bounds[k][2]:.4f} ms; L2 weight bytes reckoned: "
+                       f"{l2[k]}")}
+            for k in ms]
 
 
 # -- 10. the distribution suite ---------------------------------------------------
@@ -2327,6 +3103,10 @@ def main() -> int:
     # -- 7. VAE training -------------------------------------------------------------
     with tempfile.TemporaryDirectory() as logdir:
         vae_rows += vae_train_phases(dev, report, logdir)
+
+    # -- 12. bfloat16 operands in the VAE kernels -------------------------------------
+    with tempfile.TemporaryDirectory() as logdir:
+        vae_rows += bf16_vae_phases(dev, report, logdir)
 
     # -- 9. the bench protocol at a cut depth ---------------------------------------
     # l2hmc_tpu_torch.bench on seed 0 only, 1000 training steps per arm, the

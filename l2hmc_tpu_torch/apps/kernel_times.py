@@ -12,7 +12,8 @@ traced steps and 8192 x 500 untraced, each in L2HMC and in HMC mode at eps
 kernels at the training batch (512 chains), the AIS kernel (1000 chains x
 100 anneal steps x 10 leapfrogs) and the VAE sampler (200 chains x 200
 recorded steps of 1-3 ops), all at the reference widths with seeded
-weights; and the chain kernel's site-parallel configuration at its rows'
+weights, each VAE kernel also with bfloat16 operands (rows 4b-7b, keys
+ending ``_bf16``; null for a tree without them); and the chain kernel's site-parallel configuration at its rows'
 shapes (3e-3g: the phi^4 lattice at L = 8, 16, 32, 1000 traced steps; 3h:
 L = 64 at the A_control shape and at the shipped recipe's, 1000 traced
 steps; 3i: icg at hidden 100, 2000 traced steps; a tree whose caps refuse
@@ -128,9 +129,9 @@ def vae_times(dev) -> dict:
     params = model.init_params(_gen(0), device=dev)
     dyn = model.dynamics
     D = dyn.dim
-    rng = np.random.default_rng(0)
 
-    def batch(n):
+    def batch(n, cd):
+        rng = np.random.default_rng(n)
         x = torch.as_tensor((rng.random((n, 784)) < 0.3).astype(np.float32), device=dev)
         with torch.no_grad():
             emb = model.aux_encoder.apply(params["smp"]["aux_enc"], x)
@@ -138,28 +139,39 @@ def vae_times(dev) -> dict:
         g = _gen(n)
         z, v, dZ, dV = (torch.randn((D, n), generator=g).to(dev) for _ in range(4))
         dld = torch.randn((1, n), generator=g).to(dev)
-        inp = fv.prepare_vae(dyn, params["smp"], params["dec"], xr, emb.T.contiguous())
+        kw = {} if cd is None else {"compute_dtype": cd}
+        inp = fv.prepare_vae(dyn, params["smp"], params["dec"], xr, emb.T.contiguous(), **kw)
         return inp, xr, z, v, dZ, dV, dld
 
     out = {}
-    with torch.no_grad():
-        inp, xr, z, v, dZ, dV, dld = batch(512)
-        out["vae_traj_512"] = _cuda_ms(lambda: fv.vae_trajectory(inp, xr, z, v, False), 20)
-        out["vae_traj_bwd_512"] = _cuda_ms(
-            lambda: fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, False), 20)
-        acfg = eval_vae.EvalVaeConfig()
-        _, xa, za, *_ = batch(acfg.chains_per_datapoint * acfg.num_splits)
-        dec = fv.decoder_arrays(params["dec"])
-        out["vae_ais_1000"] = _cuda_ms(
-            lambda: fv.vae_ais(dec, xa, za, seed=3, anneal_steps=acfg.anneal_steps,
-                               step_size=acfg.step_size, leapfrogs=acfg.leapfrogs), 2)
-        scfg = eval_sampler.EvalSamplerConfig()
-        inp, xr, z, *_ = batch(scfg.n_chains)
-        nb = fv.composition_counts(_gen(1), 200, scfg.max_composition)
-        out["vae_chain_200x200"] = _cuda_ms(
-            lambda: fv.vae_chain(inp, xr, z, seed=13, n_mh_steps=200, collect_trace=True,
-                                 nb=nb), 1)
-        out["vae_chain_200x200_ops"] = int(nb.sum())
+    acfg = eval_vae.EvalVaeConfig()
+    scfg = eval_sampler.EvalSamplerConfig()
+    dec = fv.decoder_arrays(params["dec"])
+    nb = fv.composition_counts(_gen(1), 200, scfg.max_composition)
+    out["vae_chain_200x200_ops"] = int(nb.sum())
+    for cd, suffix in ((None, ""), ("bfloat16", "_bf16")):
+        keys = [f"{k}{suffix}" for k in ("vae_traj_512", "vae_traj_bwd_512", "vae_ais_1000",
+                                         "vae_chain_200x200")]
+        akw = {} if cd is None else {"compute_dtype": cd}
+        try:
+            with torch.no_grad():
+                inp, xr, z, v, dZ, dV, dld = batch(512, cd)
+                out[keys[0]] = _cuda_ms(lambda: fv.vae_trajectory(inp, xr, z, v, False), 20)
+                out[keys[1]] = _cuda_ms(
+                    lambda: fv.vae_trajectory_vjp(inp, xr, z, v, dZ, dV, dld, False), 20)
+                _, xa, za, *_ = batch(acfg.chains_per_datapoint * acfg.num_splits, cd)
+                out[keys[2]] = _cuda_ms(
+                    lambda: fv.vae_ais(dec, xa, za, seed=3, anneal_steps=acfg.anneal_steps,
+                                       step_size=acfg.step_size, leapfrogs=acfg.leapfrogs,
+                                       **akw), 2)
+                inp, xr, z, *_ = batch(scfg.n_chains, cd)
+                out[keys[3]] = _cuda_ms(
+                    lambda: fv.vae_chain(inp, xr, z, seed=13, n_mh_steps=200,
+                                         collect_trace=True, nb=nb), 1)
+        except (TypeError, NotImplementedError):  # a tree without bfloat16 operands
+            if cd is None:
+                raise
+            out.update(dict.fromkeys(keys))
     return out
 
 

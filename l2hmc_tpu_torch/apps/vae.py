@@ -43,7 +43,7 @@ import torch.nn.functional as F
 
 from l2hmc_tpu_torch import mcmc
 from l2hmc_tpu_torch.apps import data as data_lib
-from l2hmc_tpu_torch.config import resolve_device
+from l2hmc_tpu_torch.config import resolve_compute_dtype, resolve_device
 from l2hmc_tpu_torch.dynamics import Dynamics
 from l2hmc_tpu_torch.evals.metrics import normal_kl
 from l2hmc_tpu_torch.io import (
@@ -99,11 +99,12 @@ class VaeConfig:
     # their hand-written VJP (ops.DifferentiableFusedVae)
     fused_train: bool = False
     fused_tile: int = 256
-    fused_compute_dtype: str = ""  # bf16 kernel operands: not ported yet
+    # "bfloat16" lowers the fused trajectories' product operands (f32
+    # accumulation); read only with fused_train and not hmc, as in JAX
+    fused_compute_dtype: str = ""
 
     def __post_init__(self):
-        if self.fused_compute_dtype:
-            raise NotImplementedError("VaeConfig.fused_compute_dtype is not ported yet")
+        resolve_compute_dtype(self.fused_compute_dtype or None)
 
 
 # -- model builders ------------------------------------------------------------

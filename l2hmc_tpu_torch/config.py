@@ -6,13 +6,17 @@ precision matrix ([[5.005, 4.995], ...]) is near-singular at reduced
 precision, so every contraction runs in true float32. On an NVIDIA card
 PyTorch would otherwise route float32 convolutions (and, where a user flips
 the matmul flag, matmuls) through TF32, which keeps about three decimal
-digits. Importing this module turns both off.
+digits. Importing this module turns both off. bfloat16 enters only as an
+opt-in operand dtype of matrix products that accumulate in float32
+(``Precision``, ``resolve_compute_dtype``), as in the JAX package.
 
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``;
 without a card and without that request they raise (``resolve_device``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -25,18 +29,52 @@ _DTYPES = {
 }
 
 
+@dataclasses.dataclass(frozen=True)
+class Precision:
+    """Dtype policy for mixed precision (the JAX package's
+    ``config.Precision``). Params, accumulation (logdet, energy,
+    Hamiltonian, loss) and chain state stay float32; ``compute_dtype``
+    bfloat16 lowers only the operands of the nets' and the decoder's matrix
+    products, which then accumulate in float32. The augmented leapfrog stays
+    invertible: forward and backward recompute the same nets on the same
+    inputs, so they see the same S/T/Q values whatever the operands, except
+    where a state carried back with float32 rounding lands on the other
+    side of a bfloat16 rounding boundary (a few chains in a hundred at the
+    VAE's full width). Ported consumers: the VAE kernels' classes (``ops.fused_vae``) and
+    ``VaeConfig.fused_compute_dtype``; the others refuse bfloat16
+    (``require_float32``)."""
+
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.float32
+    accum_dtype: torch.dtype = torch.float32
+
+
+DEFAULT_PRECISION = Precision()
+BF16_PRECISION = Precision(compute_dtype=torch.bfloat16)
+
+
 def resolve_compute_dtype(spec) -> "torch.dtype | None":
-    """'float32'/'bfloat16'/None/torch dtype -> matmul operand dtype
-    (None = float32 passthrough). Only float32 is implemented by the port's
-    nets and kernels so far; anything else raises."""
+    """'float32'/'bfloat16'/None/torch dtype/``Precision`` -> the matrix
+    products' operand dtype (None = float32 passthrough). The string form
+    keeps dataclass configs JSON-serializable."""
     if spec is None:
         return None
-    dt = _DTYPES[spec] if isinstance(spec, str) else spec
-    if dt != torch.float32:
+    if isinstance(spec, Precision):
+        spec = spec.compute_dtype
+    dt = _DTYPES.get(spec) if isinstance(spec, str) else spec
+    if dt not in _DTYPES.values():
+        raise ValueError(f"compute dtype {spec!r}: float32 or bfloat16")
+    return None if dt == torch.float32 else dt
+
+
+def require_float32(spec, what: str) -> None:
+    """Raises for a bfloat16 ``spec`` where ``what`` has no bfloat16
+    operands yet: only the four VAE kernels and their plain versions do."""
+    if resolve_compute_dtype(spec) is not None:
         raise NotImplementedError(
-            f"compute dtype {dt} is not ported yet; only float32 is supported"
-        )
-    return None
+            f"{what}: bfloat16 operands are not ported yet (ROADMAP B3: kernels 1-3, "
+            "the plain dense and conv nets and ScgConfig.compute_dtype are still to "
+            "port; the VAE kernels take them)")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -36,6 +36,12 @@
 // step, so a step costs L decoder sweeps where the TPU kernel makes 2 L
 // gradients and three energies. Sums over pixels are taken in a fixed
 // order (no atomics), so a launch repeats itself bit for bit.
+//
+// bfloat16 operands (compute_dtype="bfloat16"): the instantiation with TW =
+// __nv_bfloat16 streams the decoder's matrices in bfloat16 (half the L2
+// bytes: 0.48 TB at the protocol's 1000 chains) and rounds each product's
+// activations (vae_stream.cuh); energies, the weights' update and the
+// accept stay float32.
 #include "vae_stream.cuh"
 
 namespace l2hmc {
@@ -43,10 +49,11 @@ namespace vae {
 
 using stream::kC;
 
+template <class TW>
 struct AisArgs {
   Dims d;  // H, H2, T unused (0)
-  Decoder dec;
-  stream::Sweep sweep;
+  Decoder<TW> dec;
+  stream::Sweep<TW> sweep;
   const float* beta;  // (K)
   const float* xraw;  // (P, N)
   const float* zin;   // (D, N)
@@ -65,8 +72,9 @@ inline size_t ais_smem_bytes(const Dims& d) {
          sizeof(float) * (work_floats<kC>(d) + kC * (5 * d.D + 5));
 }
 
+template <class TW>
 __global__ void __launch_bounds__(stream::kBlock, 1)
-    vae_ais_kernel(const __grid_constant__ AisArgs a) {
+    vae_ais_kernel(const __grid_constant__ AisArgs<TW> a) {
   using stream::csync;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* sp = smem;
@@ -176,37 +184,24 @@ inline int ais_ctas(int N) {
 
 // 0 if the kernel takes these widths: every product's rows fit a slot and
 // a CTA's shared memory fits.
+template <class TW>
 inline bool ais_fits(const Dims& d) {
   const int widths[3] = {d.D, d.E, d.P};
   for (int M : widths)
-    if (M <= 0 || stream::chunk_rows(M) == 0) return false;
+    if (M <= 0 || stream::chunk_rows<TW>(M) == 0) return false;
   return ais_smem_bytes(d) <= kMaxSmem;
 }
 
-}  // namespace vae
-}  // namespace l2hmc
-
-// Plain C entry points (loaded with ctypes).
-//
-// l2hmc_vae_ais: device pointers to float32: params, the packed decoder in
-// the order of carve_decoder, each array padded to a multiple of 4 floats
-// and the block 16-byte aligned; beta (K); xraw (P, N); z (D, N); logw and
-// acc (N). eps is the leapfrog step size, beta_diff the weight update's
-// factor, L the leapfrog steps per anneal step. Returns a cudaError_t as
-// int (a refused cluster launch included).
-extern "C" int l2hmc_vae_ais(const float* params, int D, int E, int P,
-                             const float* beta, const float* xraw,
-                             const float* z, float* logw, float* acc,
-                             float eps, float beta_diff, int N, int K, int L,
-                             unsigned long long seed, void* stream) {
-  using namespace l2hmc::vae;
-  AisArgs a;
-  a.d = Dims{D, 0, 0, 0, E, P};
-  if (N <= 0 || K <= 0 || L <= 0 || !ais_fits(a.d) ||
-      reinterpret_cast<uintptr_t>(params) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const float* p = params;
-  a.dec = carve_decoder(p, a.d);
+template <class TW>
+int launch_ais(const unsigned char* params, const Dims& d, const float* beta,
+               const float* xraw, const float* z, float* logw, float* acc,
+               float eps, float beta_diff, int N, int K, int L,
+               unsigned long long seed, cudaStream_t stream) {
+  if (!ais_fits<TW>(d)) return static_cast<int>(cudaErrorInvalidValue);
+  AisArgs<TW> a;
+  a.d = d;
+  const unsigned char* p = params;
+  a.dec = carve_decoder<TW>(p, a.d);
   a.sweep = stream::make_sweep(a.dec, a.d);
   a.beta = beta;
   a.xraw = xraw;
@@ -221,8 +216,38 @@ extern "C" int l2hmc_vae_ais(const float* params, int D, int E, int P,
   a.key = make_uint2(static_cast<uint32_t>(seed & 0xFFFFFFFFull),
                      static_cast<uint32_t>(seed >> 32));
   return static_cast<int>(l2hmc::launch_clusters(
-      vae_ais_kernel, stream::kG, ais_ctas(N) / stream::kG, stream::kBlock,
-      ais_smem_bytes(a.d), static_cast<cudaStream_t>(stream), a));
+      vae_ais_kernel<TW>, stream::kG, ais_ctas(N) / stream::kG, stream::kBlock,
+      ais_smem_bytes(a.d), stream, a));
+}
+
+}  // namespace vae
+}  // namespace l2hmc
+
+// Plain C entry points (loaded with ctypes).
+//
+// l2hmc_vae_ais: device pointers: params, the packed decoder in the order of
+// carve_decoder (the weight matrices float32, or bfloat16 when bf16 is set,
+// the biases float32), each array padded to whole 16 bytes and the block
+// 16-byte aligned; beta (K); xraw (P, N); z (D, N); logw and acc (N), all
+// float32. eps is the leapfrog step size, beta_diff the weight update's
+// factor, L the leapfrog steps per anneal step, bf16 picks the
+// instantiation with bfloat16 operands. Returns a cudaError_t as int (a
+// refused cluster launch included).
+extern "C" int l2hmc_vae_ais(const void* params, int D, int E, int P,
+                             const float* beta, const float* xraw,
+                             const float* z, float* logw, float* acc,
+                             float eps, float beta_diff, int N, int K, int L,
+                             unsigned long long seed, int bf16, void* stream) {
+  using namespace l2hmc::vae;
+  const Dims d{D, 0, 0, 0, E, P};
+  if (N <= 0 || K <= 0 || L <= 0 || reinterpret_cast<uintptr_t>(params) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned char* p = static_cast<const unsigned char*>(params);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_ais<__nv_bfloat16>(p, d, beta, xraw, z, logw, acc, eps, beta_diff,
+                                          N, K, L, seed, s)
+              : launch_ais<float>(p, d, beta, xraw, z, logw, acc, eps, beta_diff, N, K,
+                                  L, seed, s);
 }
 
 // What the host allocates and checks for N chains at widths (D, E, P):
@@ -240,7 +265,7 @@ extern "C" int l2hmc_vae_ais_sizes(int D, int E, int P, int N,
   out[3] = stream::kSlots;
   out[4] = stream::kSlotFloats;
   out[5] = ais_ctas(N);
-  return ais_fits(d) ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return ais_fits<float>(d) ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // How many clusters the card holds at once at widths (D, E, P) (CUDA's
@@ -248,6 +273,6 @@ extern "C" int l2hmc_vae_ais_sizes(int D, int E, int P, int N,
 extern "C" int l2hmc_vae_ais_clusters(int D, int E, int P) {
   using namespace l2hmc::vae;
   const Dims d{D, 0, 0, 0, E, P};
-  return l2hmc::max_clusters(vae_ais_kernel, stream::kG, stream::kBlock,
+  return l2hmc::max_clusters(vae_ais_kernel<float>, stream::kG, stream::kBlock,
                              ais_smem_bytes(d));
 }

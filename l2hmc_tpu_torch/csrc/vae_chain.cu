@@ -49,6 +49,11 @@
 //  - No net activations are kept: one slot of the cluster's scratch,
 //    reused.
 //
+// bfloat16 operands (compute_dtype="bfloat16"): the instantiation with TW =
+// __nv_bfloat16 reads the weights as bfloat16 and rounds each product's
+// activations (vae_cluster.cuh); energies, Hamiltonians and the accept stay
+// float32, as in the TPU kernel's bf16 recipe.
+//
 // Differences from the TPU kernel, by design:
 //  - Random numbers are Philox4x32-10 keyed by the 64-bit seed, counter
 //    (global chain, recorded step, slot, inner op): the draws do not depend
@@ -80,9 +85,10 @@ constexpr int kChainCt = 16, kChainG = 8;
 // direction and the decision (int)
 constexpr int kChainVecs = 8;
 
+template <class TW>
 struct ChainArgs {
   Dims d;
-  Weights w;
+  Weights<TW> w;
   const float* xraw;  // (P, N)
   const float* emb;   // (H, N)
   const float* zin;   // (D, N)
@@ -148,8 +154,8 @@ __device__ __forceinline__ float rows_sum(const float* a, int rows, int c,
   return sq ? 0.5f * s : s;
 }
 
-template <int Ct, int G>
-__global__ void __launch_bounds__(kThreads, 1) vae_chain_kernel(ChainArgs a) {
+template <int Ct, int G, class TW>
+__global__ void __launch_bounds__(kThreads, 1) vae_chain_kernel(ChainArgs<TW> a) {
   extern __shared__ float4 smem4[];
   float* p = reinterpret_cast<float*>(smem4);
   const Dims d = a.d;
@@ -252,28 +258,14 @@ __global__ void __launch_bounds__(kThreads, 1) vae_chain_kernel(ChainArgs a) {
   // before its cluster barrier: a CTA may leave now
 }
 
-}  // namespace vaec
-}  // namespace l2hmc
-
-// Plain C entry points (loaded with ctypes). ptrs is a host array of
-// kPtrs device pointers to float32 (carve_weights' order: eps (D), masks
-// (D, T), the decoder's W1, b1, W2, b2, W3, b3 with W (in, out), then each
-// net's 13 arrays as _extract_net gives them); xraw (P, N), emb (H, N), z
-// and zo (D, N), acc (N), trace (K, D, N) or null, all float32; nb (K)
-// int32 or null; act a scratch of l2hmc_vae_chain_sizes' floats. Returns a
-// cudaError_t as int.
-extern "C" int l2hmc_vae_chain(const float* const* ptrs, int D, int H, int H2,
-                               int T, int E, int P, const float* xraw,
-                               const float* emb, const float* z,
-                               const int* nb, float* zo, float* acc,
-                               float* trace, float* act, int N, int K,
-                               unsigned long long seed, void* stream) {
-  using namespace l2hmc::vaec;
-  if (N <= 0 || K <= 0 || D <= 0 || T <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  ChainArgs a;
-  a.d = Dims{D, H, H2, T, E, P};
-  a.w = carve_weights(ptrs);
+template <class TW>
+int launch_chain(const void* const* ptrs, const Dims& d, const float* xraw,
+                 const float* emb, const float* z, const int* nb, float* zo,
+                 float* acc, float* trace, float* act, int N, int K,
+                 unsigned long long seed, cudaStream_t stream) {
+  ChainArgs<TW> a;
+  a.d = d;
+  a.w = carve_weights<TW>(ptrs);
   a.xraw = xraw;
   a.emb = emb;
   a.zin = z;
@@ -288,9 +280,37 @@ extern "C" int l2hmc_vae_chain(const float* const* ptrs, int D, int H, int H2,
                      static_cast<uint32_t>(seed >> 32));
   const size_t smem =
       static_cast<size_t>(chain_floats<kChainCt, kChainG>(a.d)) * sizeof(float);
-  return l2hmc::launch_clusters(vae_chain_kernel<kChainCt, kChainG>, kChainG,
+  return l2hmc::launch_clusters(vae_chain_kernel<kChainCt, kChainG, TW>, kChainG,
                                 (N + kChainCt - 1) / kChainCt, kThreads, smem,
-                                static_cast<cudaStream_t>(stream), a);
+                                stream, a);
+}
+
+}  // namespace vaec
+}  // namespace l2hmc
+
+// Plain C entry points (loaded with ctypes). ptrs is a host array of
+// kPtrs device pointers (carve_weights' order: eps (D), masks (D, T), the
+// decoder's W1, b1, W2, b2, W3, b3 with W (in, out), then each net's 13
+// arrays as _extract_net gives them), float32 but for the weight matrices,
+// which are bfloat16 when bf16 is set; xraw (P, N), emb (H, N), z and zo
+// (D, N), acc (N), trace (K, D, N) or null, all float32; nb (K) int32 or
+// null; act a scratch of l2hmc_vae_chain_sizes' floats; bf16 picks the
+// instantiation with bfloat16 operands. Returns a cudaError_t as int.
+extern "C" int l2hmc_vae_chain(const void* const* ptrs, int D, int H, int H2,
+                               int T, int E, int P, const float* xraw,
+                               const float* emb, const float* z,
+                               const int* nb, float* zo, float* acc,
+                               float* trace, float* act, int N, int K,
+                               unsigned long long seed, int bf16, void* stream) {
+  using namespace l2hmc::vaec;
+  if (N <= 0 || K <= 0 || D <= 0 || T <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dims d{D, H, H2, T, E, P};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_chain<__nv_bfloat16>(ptrs, d, xraw, emb, z, nb, zo, acc, trace,
+                                            act, N, K, seed, s)
+              : launch_chain<float>(ptrs, d, xraw, emb, z, nb, zo, acc, trace, act, N,
+                                    K, seed, s);
 }
 
 // What the host allocates for N chains at these widths: out[0] = Ct,
@@ -318,6 +338,6 @@ extern "C" int l2hmc_vae_chain_clusters(int D, int H, int H2, int T, int E,
   const Dims d{D, H, H2, T, E, P};
   const size_t smem =
       static_cast<size_t>(chain_floats<kChainCt, kChainG>(d)) * sizeof(float);
-  return l2hmc::max_clusters(vae_chain_kernel<kChainCt, kChainG>, kChainG,
+  return l2hmc::max_clusters(vae_chain_kernel<kChainCt, kChainG, float>, kChainG,
                              kThreads, smem);
 }

@@ -33,15 +33,28 @@
 // kernel only after a last barrier, so no CTA reads the shared memory of one
 // that has exited.
 //
+// Operands. Every kernel here has two instantiations, by the type TW of
+// the products' weights: float, or __nv_bfloat16 (the JAX package's
+// compute_dtype="bfloat16", its _dot_in). In the second the host hands the
+// weight matrices over in bfloat16, a product stages them as they are and
+// widens each to float where it multiplies (__bfloat162float), and every
+// activation that a product reads is rounded to bfloat16 where it is
+// written for that product (rnd<TW>), so each product multiplies two
+// bfloat16 values exactly and sums in float32, as JAX's does. Biases, eps,
+// the state, energies and log-det stay float32, and so does every local
+// copy an epilogue reads back (a softplus layer for its sigmoid).
+//
 // vae_common.cuh keeps the per-CTA layout of the AIS kernel (vae_ais.cu).
 #pragma once
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "cluster_launch.cuh"
+#include "vae_operand.cuh"
 
 namespace l2hmc {
 namespace vaec {
@@ -62,37 +75,56 @@ struct Dims {
 };
 
 // The decoder in the params tree's layout: W (in, out) row-major, b (out).
+template <class TW>
 struct Decoder {
-  const float *W1, *b1, *W2, *b2, *W3, *b3;
+  const TW* W1;
+  const float* b1;
+  const TW* W2;
+  const float* b2;
+  const TW* W3;
+  const float* b3;
 };
 
 // One S/T/Q net as _extract_net gives it: w1, w2 (D, H), wh (H, H2), bh
 // (H2), ws (H2, D), bs, ls (D), wt (H2, D), bt (D), wq (H2, D), bq, lq (D),
-// te (H, T) with the embed biases folded in.
+// te (H, T) with the embed biases folded in. The six matrices are TW.
+template <class TW>
 struct Net {
-  const float *w1, *w2, *wh, *bh, *ws, *bs, *ls, *wt, *bt, *wq, *bq, *lq, *te;
+  const TW *w1, *w2, *wh;
+  const float* bh;
+  const TW* ws;
+  const float *bs, *ls;
+  const TW* wt;
+  const float* bt;
+  const TW* wq;
+  const float *bq, *lq, *te;
 };
 
 constexpr int kPtrs = 2 + 6 + 2 * 13;  // eps, masks, decoder, xnet, vnet
 
+template <class TW>
 struct Weights {
   const float* eps;    // (D)
   const float* masks;  // (D, T)
-  Decoder dec;
-  Net xnet, vnet;
+  Decoder<TW> dec;
+  Net<TW> xnet, vnet;
 };
 
-// From the host's array of kPtrs device pointers, in the order above.
-inline Weights carve_weights(const float* const* p) {
-  Weights w;
-  w.eps = p[0];
-  w.masks = p[1];
-  w.dec = Decoder{p[2], p[3], p[4], p[5], p[6], p[7]};
-  Net* nets[2] = {&w.xnet, &w.vnet};
+// From the host's array of kPtrs device pointers, in the order above: the
+// matrices TW, the rest float.
+template <class TW>
+inline Weights<TW> carve_weights(const void* const* p) {
+  auto f = [&](int i) { return static_cast<const float*>(p[i]); };
+  auto m = [&](int i) { return static_cast<const TW*>(p[i]); };
+  Weights<TW> w;
+  w.eps = f(0);
+  w.masks = f(1);
+  w.dec = Decoder<TW>{m(2), f(3), m(4), f(5), m(6), f(7)};
+  Net<TW>* nets[2] = {&w.xnet, &w.vnet};
   for (int n = 0; n < 2; ++n) {
-    const float* const* q = p + 8 + 13 * n;
-    *nets[n] = Net{q[0], q[1], q[2], q[3], q[4], q[5], q[6],
-                   q[7], q[8], q[9], q[10], q[11], q[12]};
+    const int q = 8 + 13 * n;
+    *nets[n] = Net<TW>{m(q), m(q + 1), m(q + 2), f(q + 3), m(q + 4), f(q + 5), f(q + 6),
+                       m(q + 7), f(q + 8), m(q + 9), f(q + 10), f(q + 11), f(q + 12)};
   }
   return w;
 }
@@ -138,13 +170,15 @@ __device__ inline Part make_part(const Dims& d, int G, int Ct) {
   return q;
 }
 
-// Whether the decoder's products may stage their weights 16 bytes at a
-// time: both widths multiples of 4 and the matrices 16-byte aligned.
-__device__ inline bool decoder_vec(const Dims& d, const Decoder& w) {
+// Whether the decoder's products may stage their weights four at a time
+// (16 bytes of float, 8 of bfloat16): both widths multiples of 4 and the
+// matrices aligned to four weights.
+template <class TW>
+__device__ inline bool decoder_vec(const Dims& d, const Decoder<TW>& w) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(w.W1) |
                       reinterpret_cast<uintptr_t>(w.W2) |
                       reinterpret_cast<uintptr_t>(w.W3);
-  return d.E % 4 == 0 && d.P % 4 == 0 && (a & 15) == 0;
+  return d.E % 4 == 0 && d.P % 4 == 0 && (a & (4 * sizeof(TW) - 1)) == 0;
 }
 
 __device__ __forceinline__ void csync() { cg::this_cluster().sync(); }
@@ -179,14 +213,16 @@ __device__ __forceinline__ float dget(const float* p, int sl, int ld, int k,
   return q[(k - r * sl) * ld + c];
 }
 
-// Copies all M rows of a row-split array into dst [M][ld] (local). The
-// caller synchronises.
+// Copies all M rows of a row-split array into dst [M][ld] (local), each
+// value as a product's operand of type TW reads it. The caller
+// synchronises.
+template <class TW = float>
 __device__ __forceinline__ void gather(const float* p, int sl, int M, int ld,
                                        float* dst) {
 #pragma unroll 4
   for (int e = threadIdx.x; e < M * ld; e += kThreads) {
     const int k = e / ld;
-    dst[e] = dget(p, sl, ld, k, e - k * ld);
+    dst[e] = rnd<TW>(dget(p, sl, ld, k, e - k * ld));
   }
 }
 
@@ -265,6 +301,34 @@ __device__ __forceinline__ void lds(const float* p, float (&a)[R]) {
   }
 }
 
+// R bfloat16 weights from shared memory, widened to float: 8 bytes at a
+// time when R is a multiple of 4 (p 8-byte aligned), 4 when of 2.
+template <int R>
+__device__ __forceinline__ void lds(const __nv_bfloat16* p, float (&a)[R]) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < R / 4; ++q) {
+      const uint2 t = reinterpret_cast<const uint2*>(p)[q];
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+      a[4 * q] = lo.x;
+      a[4 * q + 1] = lo.y;
+      a[4 * q + 2] = hi.x;
+      a[4 * q + 3] = hi.y;
+    }
+  } else if constexpr (R % 2 == 0) {
+#pragma unroll
+    for (int q = 0; q < R / 2; ++q) {
+      const float2 t = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[q]);
+      a[2 * q] = t.x;
+      a[2 * q + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < R; ++q) a[q] = __bfloat162float(p[q]);
+  }
+}
+
 // 4-byte asynchronous copy global -> shared, zero-filled when !valid.
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool valid) {
@@ -284,6 +348,15 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 8-byte asynchronous copy global -> shared (four bfloat16 weights),
+// zero-filled when !valid.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 8 : 0));
 }
 
 template <int N>
@@ -309,16 +382,21 @@ __device__ __forceinline__ void load_all(const float* src, int n, float* dst) {
 // Issues the copies of weight chunk k0 .. k0 + KC - 1 for rows m0 .. m0 + MT
 // - 1 into the slot W (zeros outside K x M). With vec, lw(k, j) .. lw(k, j +
 // 3) (forward) or lw(k, j) .. lw(k + 3, j) (transposed) are consecutive and
-// 16-byte aligned for j (k) a multiple of 4, and M (K) is a multiple of 4:
-// one 16-byte copy moves four weights.
-template <int MT, bool WT, class LW>
-__device__ __forceinline__ void stage_w(float* W, int k0, int m0, int K,
+// aligned to four weights for j (k) a multiple of 4, and M (K) is a
+// multiple of 4: one copy moves four weights (16 bytes of float, 8 of
+// bfloat16). A bfloat16 weight alone is 2 bytes, under the 4 of the
+// smallest cp.async, so without vec bfloat16 weights are staged through
+// registers (the nets' small products); the slot is free when they are
+// stored, and read after the barrier that follows the wait.
+template <int MT, bool WT, class TW, class LW>
+__device__ __forceinline__ void stage_w(TW* W, int k0, int m0, int K,
                                         int M, bool vec, LW lw,
-                                        const float* dummy) {
+                                        const TW* dummy) {
+  constexpr bool kF32 = std::is_same<TW, float>::value;
   const int tid = threadIdx.x;
   if (vec) {
     constexpr int NV = KC * MT / 4;
-    static_assert(NV % kThreads == 0, "16-byte staging");
+    static_assert(NV % kThreads == 0, "four-weight staging");
 #pragma unroll
     for (int e = 0; e < NV / kThreads; ++e) {
       const int idx = tid + e * kThreads;
@@ -326,8 +404,12 @@ __device__ __forceinline__ void stage_w(float* W, int k0, int m0, int K,
       const int jj = WT ? idx / (KC / 4) : 4 * (idx % (MT / 4));
       const int k = k0 + kk, j = m0 + jj;
       const bool ok = k < K && j < M;
-      float* dst = WT ? W + jj * (KC + 4) + kk : W + kk * (MT + 4) + jj;
-      cp_async16(dst, ok ? lw(k, j) : dummy, ok);
+      TW* dst = WT ? W + jj * (KC + 4) + kk : W + kk * (MT + 4) + jj;
+      if constexpr (kF32) {
+        cp_async16(dst, ok ? lw(k, j) : dummy, ok);
+      } else {
+        cp_async8(dst, ok ? lw(k, j) : dummy, ok);
+      }
     }
   } else {
 #pragma unroll
@@ -337,8 +419,12 @@ __device__ __forceinline__ void stage_w(float* W, int k0, int m0, int K,
       const int jj = WT ? idx / KC : idx % MT;
       const int k = k0 + kk, j = m0 + jj;
       const bool ok = k < K && j < M;
-      float* dst = WT ? W + jj * (KC + 4) + kk : W + kk * (MT + 4) + jj;
-      cp_async4(dst, ok ? lw(k, j) : dummy, ok);
+      TW* dst = WT ? W + jj * (KC + 4) + kk : W + kk * (MT + 4) + jj;
+      if constexpr (kF32) {
+        cp_async4(dst, ok ? lw(k, j) : dummy, ok);
+      } else {
+        *dst = ok ? *lw(k, j) : __float2bfloat16_rn(0.f);
+      }
     }
   }
 }
@@ -346,9 +432,9 @@ __device__ __forceinline__ void stage_w(float* W, int k0, int m0, int K,
 // acc[r][c] += sum over this thread's group's KH rows k of the chunk of
 // W(k, row r) A(k, column c) for its RM rows and RC columns, in the order of
 // k.
-template <int CT, int MT, bool WT>
+template <int CT, int MT, bool WT, class TW>
 __device__ __forceinline__ void chunk_fma(
-    const float* W, const float* A,
+    const TW* W, const float* A,
     float (&acc)[Tile<CT, MT>::RM][Tile<CT, MT>::RC]) {
   using P = Tile<CT, MT>;
   const int kg = threadIdx.x / P::GT, lt = threadIdx.x % P::GT;
@@ -356,7 +442,7 @@ __device__ __forceinline__ void chunk_fma(
   const int k0 = kg * P::KH;
   const float* a0 = A + tc * P::RC;
   if constexpr (!WT) {
-    const float* w0 = W + tm * P::RM;
+    const TW* w0 = W + tm * P::RM;
 #pragma unroll 4
     for (int kk = k0; kk < k0 + P::KH; ++kk) {
       float w[P::RM], a[P::RC];
@@ -369,7 +455,7 @@ __device__ __forceinline__ void chunk_fma(
     }
   } else {
     constexpr int KW = P::KW;
-    const float* w0 = W + tm * (KC + 4);
+    const TW* w0 = W + tm * (KC + 4);
 #pragma unroll 2
     for (int kq = k0; kq < k0 + P::KH; kq += KW) {
       float wq[P::RM][KW];
@@ -426,8 +512,9 @@ __device__ __forceinline__ void finish_pass(
 // out[j][c] = sum_k W(k, j) A(k, c) for this CTA's output rows j < M and the
 // CT columns, handed to epi(j, c0, acc) for the RC columns c0 .. c0 + RC - 1
 // of each row a thread computes. lw(k, j) is the address of W(k, j) in
-// global memory (vec: see stage_w); WT says that W's memory has k fastest
-// for a fixed j (a transposed product). stage_a(t, dst) issues or makes the
+// global memory, a float or a bfloat16 (vec: see stage_w; a slot holds
+// either in its first bytes); WT says that W's memory has k fastest for a
+// fixed j (a transposed product). stage_a(t, dst) issues or makes the
 // copy of input chunk t (rows t KC .. t KC + KC - 1 of A, [KC][CT], zeros
 // past K) into dst; with async_a it issues cp.async copies, else it stores
 // through registers. If every chunk of a pass fits in the ring (stage,
@@ -441,12 +528,15 @@ __device__ __forceinline__ void product_core(int K, int M, float* stage,
                                              bool vec, LW lw, SA stage_a,
                                              Epi epi) {
   using P = Tile<CT, MT>;
+  using TW = std::remove_cv_t<std::remove_pointer_t<decltype(lw(0, 0))>>;
   constexpr int WS = wslot_floats<MT>();
   constexpr int AS = KC * CT;
   constexpr int kAll = ring_floats<CT>() / (WS + AS);  // chunks that fit at once
   const int nk = (K + KC - 1) / KC;
   if (M <= 0) return;
-  const float* const dummy = lw(0, 0);
+  const TW* const dummy = lw(0, 0);
+  // weight slot t of the ring
+  auto slot = [&](int t, int ws) { return reinterpret_cast<TW*>(stage + t * ws); };
   for (int m0 = 0; m0 < M; m0 += MT) {
     float acc[P::RM][P::RC];
 #pragma unroll
@@ -456,20 +546,20 @@ __device__ __forceinline__ void product_core(int K, int M, float* stage,
     if (nk <= kAll) {
       float* const A0 = stage + nk * WS;
       for (int t = 0; t < nk; ++t) {
-        stage_w<MT, WT>(stage + t * WS, t * KC, m0, K, M, vec, lw, dummy);
+        stage_w<MT, WT>(slot(t, WS), t * KC, m0, K, M, vec, lw, dummy);
         stage_a(t, A0 + t * AS);
       }
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
       for (int t = 0; t < nk; ++t)
-        chunk_fma<CT, MT, WT>(stage + t * WS, A0 + t * AS, acc);
+        chunk_fma<CT, MT, WT>(slot(t, WS), A0 + t * AS, acc);
     } else {
       constexpr int WSR = wslot_floats<kWide>();
       float* const A0 = stage + kStages * WSR;
       auto issue = [&](int t) {
         if (t < nk) {
-          stage_w<MT, WT>(stage + (t % kStages) * WSR, t * KC, m0, K, M, vec, lw, dummy);
+          stage_w<MT, WT>(slot(t % kStages, WSR), t * KC, m0, K, M, vec, lw, dummy);
           if (async_a) stage_a(t, A0 + (t % kStages) * AS);
         }
         cp_async_commit();
@@ -482,7 +572,7 @@ __device__ __forceinline__ void product_core(int K, int M, float* stage,
         __syncthreads();  // chunk t landed; chunk t - 1's slots are free
         issue(t + kStages - 1);
         if (!async_a && t + 1 < nk) stage_a(t + 1, A0 + ((t + 1) % kStages) * AS);
-        chunk_fma<CT, MT, WT>(stage + (t % kStages) * WSR, A0 + (t % kStages) * AS, acc);
+        chunk_fma<CT, MT, WT>(slot(t % kStages, WSR), A0 + (t % kStages) * AS, acc);
       }
     }
     cp_async_wait<0>();
@@ -599,9 +689,11 @@ struct State {
 // U's value goes there: the BCE terms of its pixel rows and 0.5 z^2 of its
 // latent rows, each summed in a fixed order; the caller adds the ranks'
 // shares in rank order. The training kernels pass none and U is not formed.
-// Ends with a cluster barrier.
-template <int CT, class En = std::nullptr_t>
-__device__ __noinline__ void decoder_grad(const Dims& d, const Part& q, const Decoder& w,
+// The global copies, which only the next product reads, hold each value as
+// that product's operand (rnd<TW>); h1, h2 keep theirs. Ends with a cluster
+// barrier.
+template <int CT, class TW, class En = std::nullptr_t>
+__device__ __noinline__ void decoder_grad(const Dims& d, const Part& q, const Decoder<TW>& w,
                              const float* __restrict__ xraw, int N,
                              const float* z, float* g, const Work& s,
                              En energy = nullptr) {
@@ -617,14 +709,14 @@ __device__ __noinline__ void decoder_grad(const Dims& d, const Part& q, const De
   product<CT, kWide, false>(
       d.D, q.En, s.stage, vec,
       [&](int k, int j) { return w.W1 + static_cast<size_t>(k) * d.E + e0 + j; },
-      [&](int k, int c) { return dget(z, q.Dg, CT, k, c); },
+      [&](int k, int c) { return rnd<TW>(dget(z, q.Dg, CT, k, c)); },
       [&](int j, int c0, const float (&acc)[RC]) {
         const float b = w.b1[e0 + j];
 #pragma unroll
         for (int u = 0; u < RC; ++u) {
           const float h = softplus(acc[u] + b);
           h1[j * CT + c0 + u] = h;
-          h1g[j * CT + c0 + u] = h;
+          h1g[j * CT + c0 + u] = rnd<TW>(h);
         }
       });
   csync();
@@ -638,7 +730,7 @@ __device__ __noinline__ void decoder_grad(const Dims& d, const Part& q, const De
         for (int u = 0; u < RC; ++u) {
           const float h = softplus(acc[u] + b);
           h2[j * CT + c0 + u] = h;
-          h2g[j * CT + c0 + u] = h;
+          h2g[j * CT + c0 + u] = rnd<TW>(h);
         }
       });
   csync();
@@ -659,10 +751,10 @@ __device__ __noinline__ void decoder_grad(const Dims& d, const Part& q, const De
           const float x = n < N ? xraw[static_cast<size_t>(p0 + j) * N + n] : 0.f;
           if constexpr (kEnergy) {
             const float l = acc[u] + b;
-            d3g[j * CT + c0 + u] = 1.f / (1.f + expf(-l)) - x;
+            d3g[j * CT + c0 + u] = rnd<TW>(1.f / (1.f + expf(-l)) - x);
             part[u] += fmaxf(l, 0.f) - l * x + log1pf(expf(-fabsf(l)));
           } else {
-            d3g[j * CT + c0 + u] = 1.f / (1.f + expf(-(acc[u] + b))) - x;
+            d3g[j * CT + c0 + u] = rnd<TW>(1.f / (1.f + expf(-(acc[u] + b))) - x);
           }
         }
       });
@@ -694,7 +786,7 @@ __device__ __noinline__ void decoder_grad(const Dims& d, const Part& q, const De
         for (int u = 0; u < RC; ++u) {
           float* h = h2 + j * CT + c0 + u;
           *h = acc[u] * sigmoid_of_softplus(*h);
-          h2g[j * CT + c0 + u] = *h;
+          h2g[j * CT + c0 + u] = rnd<TW>(*h);
         }
       });
   csync();
@@ -707,7 +799,7 @@ __device__ __noinline__ void decoder_grad(const Dims& d, const Part& q, const De
         for (int u = 0; u < RC; ++u) {
           float* h = h1 + j * CT + c0 + u;
           *h = acc[u] * sigmoid_of_softplus(*h);
-          h1g[j * CT + c0 + u] = *h;
+          h1g[j * CT + c0 + u] = rnd<TW>(*h);
         }
       });
   csync();
@@ -724,11 +816,12 @@ __device__ __noinline__ void decoder_grad(const Dims& d, const Part& q, const De
 
 // The S/T/Q net on the row-split [Dg][Ct] inputs a, b, each chain c at its
 // step step_of(d, it, fw, c): S, T, Q [Dg][Ct] (this CTA's
-// latent rows). emb is the (H, N) aux embedding in global memory.
+// latent rows). emb is the (H, N) aux embedding in global memory. The
+// hidden layers' global copies hold the next product's operands (rnd<TW>).
 // Synchronised within the CTA on return; S, T, Q are read only by their own
 // CTA.
-template <int CT>
-__device__ __noinline__ void apply_net(const Dims& d, const Part& q, const Net& w,
+template <int CT, class TW>
+__device__ __noinline__ void apply_net(const Dims& d, const Part& q, const Net<TW>& w,
                           const float* __restrict__ emb, int N, int it, uint64_t fw,
                           const float* a, const float* b, float* S, float* T, float* Q,
                           const Work& s) {
@@ -745,7 +838,7 @@ __device__ __noinline__ void apply_net(const Dims& d, const Part& q, const Net& 
                        : w.w2 + (k - d.D) * d.H + h0 + j;
       },
       [&](int k, int c) {
-        return k < d.D ? dget(a, q.Dg, CT, k, c) : dget(b, q.Dg, CT, k - d.D, c);
+        return rnd<TW>(k < d.D ? dget(a, q.Dg, CT, k, c) : dget(b, q.Dg, CT, k - d.D, c));
       },
       [&](int j, int c0, const float (&acc)[RC]) {
         // the time-embedding column of each chain, read before the stores
@@ -758,7 +851,7 @@ __device__ __noinline__ void apply_net(const Dims& d, const Part& q, const Net& 
           const float e = n < N ? emb[static_cast<size_t>(h0 + j) * N + n] : 0.f;
           const float h = fmaxf(acc[u] + t[u] + e, 0.f);
           ha[j * CT + c0 + u] = h;
-          hag[j * CT + c0 + u] = h;
+          hag[j * CT + c0 + u] = rnd<TW>(h);
         }
       });
   csync();
@@ -772,7 +865,7 @@ __device__ __noinline__ void apply_net(const Dims& d, const Part& q, const Net& 
         for (int u = 0; u < RC; ++u) {
           const float h = fmaxf(acc[u] + bias, 0.f);
           hb[j * CT + c0 + u] = h;
-          hbg[j * CT + c0 + u] = h;
+          hbg[j * CT + c0 + u] = rnd<TW>(h);
         }
       });
   csync();
@@ -782,7 +875,7 @@ __device__ __noinline__ void apply_net(const Dims& d, const Part& q, const Net& 
       d.H2, 3 * Dn, s.stage, false,
       [&](int k, int j) {
         const int head = j / Dn;
-        const float* W = head == 0 ? w.ws : (head == 1 ? w.wt : w.wq);
+        const TW* W = head == 0 ? w.ws : (head == 1 ? w.wt : w.wq);
         return W + k * d.D + i0 + j - head * Dn;
       },
       s.hbg,
@@ -876,8 +969,8 @@ __device__ __forceinline__ void position_update(const Dims& d, const Part& q,
 // entry and on return. tap(0) runs when t.v holds the half-updated
 // momentum, tap(1) when t.z holds the position between the two updates.
 // Ends with a cluster barrier.
-template <int CT, class Tap, class En = std::nullptr_t>
-__device__ __noinline__ void leapfrog_step(const Dims& d, const Part& q, const Weights& w,
+template <int CT, class TW, class Tap, class En = std::nullptr_t>
+__device__ __noinline__ void leapfrog_step(const Dims& d, const Part& q, const Weights<TW>& w,
                               const float* __restrict__ xraw,
                               const float* __restrict__ emb, int N, int it,
                               uint64_t fw, const State& t, const Work& s, Tap tap,

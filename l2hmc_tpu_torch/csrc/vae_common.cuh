@@ -15,11 +15,17 @@
 //
 // Nothing crosses clusters: chains are independent, so a kernel loops over
 // all its anneal steps inside the launch and needs no grid sync.
+//
+// The weight matrices are of type TW: float, or __nv_bfloat16 for the
+// bfloat16 operands of the JAX package's compute_dtype; the biases are
+// float either way.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "vae_operand.cuh"
 
 namespace l2hmc {
 namespace vae {
@@ -34,36 +40,43 @@ struct Dims {
 };
 
 // Decoder weights: W* are (in, out) row-major, W*t their transposes.
+template <class TW>
 struct Decoder {
-  const float *W1, *b1, *W2, *b2, *W3, *b3, *W1t, *W2t, *W3t;
+  const TW* W1;
+  const float* b1;
+  const TW* W2;
+  const float* b2;
+  const TW* W3;
+  const float* b3;
+  const TW *W1t, *W2t, *W3t;
 };
 
-inline const float* take(const float*& p, size_t n) {
-  const float* q = p;
-  p += n;
+// An array of n elements of type A from the packed block at p, which
+// advances past it and its padding to whole 16 bytes.
+template <class A>
+inline const A* take16(const unsigned char*& p, size_t n) {
+  const A* q = reinterpret_cast<const A*>(p);
+  p += (n * sizeof(A) + 15) / 16 * 16;
   return q;
 }
 
 // The decoder's slice of the packed parameter block, in the order
-// ops/fused_vae.py packs it (_pack_decoder): each array padded to a
-// multiple of 4 floats, so that each starts on 16 bytes of a 16-byte
-// aligned block (the AIS kernel's bulk copies need it).
-inline const float* take4(const float*& p, size_t n) {
-  return take(p, (n + 3) / 4 * 4);
-}
-
-inline Decoder carve_decoder(const float*& p, const Dims& d) {
-  Decoder w;
+// ops/fused_vae.py packs it (_pack_decoder): each array padded to whole 16
+// bytes, so that each starts on 16 bytes of a 16-byte aligned block (the
+// AIS kernel's bulk copies need it).
+template <class TW>
+inline Decoder<TW> carve_decoder(const unsigned char*& p, const Dims& d) {
+  Decoder<TW> w;
   const size_t D = d.D, E = d.E, P = d.P;
-  w.W1 = take4(p, D * E);
-  w.b1 = take4(p, E);
-  w.W2 = take4(p, E * E);
-  w.b2 = take4(p, E);
-  w.W3 = take4(p, E * P);
-  w.b3 = take4(p, P);
-  w.W1t = take4(p, E * D);
-  w.W2t = take4(p, E * E);
-  w.W3t = take4(p, P * E);
+  w.W1 = take16<TW>(p, D * E);
+  w.b1 = take16<float>(p, E);
+  w.W2 = take16<TW>(p, E * E);
+  w.b2 = take16<float>(p, E);
+  w.W3 = take16<TW>(p, E * P);
+  w.b3 = take16<float>(p, P);
+  w.W1t = take16<TW>(p, E * D);
+  w.W2t = take16<TW>(p, E * E);
+  w.W3t = take16<TW>(p, P * E);
   return w;
 }
 

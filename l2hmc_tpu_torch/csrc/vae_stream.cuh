@@ -37,11 +37,18 @@
 // before any CTA exits, so no copy or remote arrive reaches an exited CTA.
 //
 // Alignment: cp.async.bulk needs 16-byte addresses and sizes. The host pads
-// every array of the packed decoder to a multiple of 4 floats
-// (ops/fused_vae.py, _pack_decoder), chunk_rows keeps kc M a multiple of 4,
-// and the last chunk of a product rounds its bytes up into the array's pad.
-// The host mirrors this plan in ops/fused_vae.py (ais_chunk_plan), where
-// the CPU tests hold it to these rules.
+// every array of the packed decoder to whole 16 bytes (ops/fused_vae.py,
+// _pack_decoder), chunk_rows keeps kc M weights whole 16 bytes, and the
+// last chunk of a product rounds its bytes up into the array's pad. The
+// host mirrors this plan in ops/fused_vae.py (ais_chunk_plan), where the CPU
+// tests hold it to these rules.
+//
+// bfloat16 operands (TW = __nv_bfloat16, the JAX package's
+// compute_dtype="bfloat16"): the stream carries the decoder's matrices in
+// bfloat16, half the bytes of a sweep, and a slot of the same 64 KB holds
+// twice the rows; the consumers widen each weight to float and round each
+// activation they read to bfloat16 (rnd), so each product multiplies two
+// bfloat16 values exactly and sums in float32.
 #pragma once
 #include "cluster_launch.cuh"
 #include "vae_common.cuh"
@@ -67,37 +74,48 @@ constexpr int kSlotStride = kSlotFloats + kSlotPad;
 constexpr int kProducts = 6;  // per decoder sweep
 
 // One product: out[m][c] = sum_k W[k][m] in[k][c], W k-major (K rows of M
-// floats, contiguous, 16-byte aligned), streamed in chunks of kc rows.
+// weights of type TW, contiguous, 16-byte aligned), streamed in chunks of
+// kc rows.
+template <class TW>
 struct Prod {
-  const float* W;
+  const TW* W;
   int K, M, kc;
 };
 
 // The six products of a decoder sweep in the order decoder_grad runs them.
+template <class TW>
 struct Sweep {
-  Prod p[kProducts];
+  Prod<TW> p[kProducts];
 };
 
-// Rows per chunk: as many as a slot holds, with kc M a multiple of 4 floats
-// so that every chunk starts on 16 bytes; 0 if M is too wide for a slot.
+// Rows per chunk: as many as a slot's bytes hold, with kc M weights whole
+// 16 bytes so that every chunk starts on 16 bytes; 0 if M is too wide for
+// a slot.
+template <class TW>
 __host__ __device__ inline int chunk_rows(int M) {
-  const int step = (M % 4 == 0) ? 1 : (M % 2 == 0) ? 2 : 4;
-  return (kSlotFloats / M) / step * step;
+  constexpr int per = 16 / sizeof(TW);  // weights in 16 bytes
+  int g = per;                          // gcd(M, per), per a power of 2
+  while (M % g != 0) g /= 2;
+  const int step = per / g;
+  return (kSlotFloats * 4 / static_cast<int>(sizeof(TW)) / M) / step * step;
 }
 
 // Bytes of a chunk of `rows` rows, rounded up to 16 (into the array's pad).
+template <class TW>
 __host__ __device__ inline uint32_t chunk_bytes(int rows, int M) {
-  return ((static_cast<uint32_t>(rows) * static_cast<uint32_t>(M) + 3u) &
-          ~3u) * 4u;
+  const uint32_t b = static_cast<uint32_t>(rows) * static_cast<uint32_t>(M) *
+                     static_cast<uint32_t>(sizeof(TW));
+  return (b + 15u) & ~15u;
 }
 
-inline Sweep make_sweep(const Decoder& w, const Dims& d) {
+template <class TW>
+inline Sweep<TW> make_sweep(const Decoder<TW>& w, const Dims& d) {
   const int in[kProducts] = {d.D, d.E, d.E, d.P, d.E, d.E};
   const int out[kProducts] = {d.E, d.E, d.P, d.E, d.E, d.D};
-  const float* W[kProducts] = {w.W1, w.W2, w.W3, w.W3t, w.W2t, w.W1t};
-  Sweep s;
+  const TW* W[kProducts] = {w.W1, w.W2, w.W3, w.W3t, w.W2t, w.W1t};
+  Sweep<TW> s;
   for (int q = 0; q < kProducts; ++q)
-    s.p[q] = Prod{W[q], in[q], out[q], chunk_rows(out[q])};
+    s.p[q] = Prod<TW>{W[q], in[q], out[q], chunk_rows<TW>(out[q])};
   return s;
 }
 
@@ -155,7 +173,7 @@ __device__ __forceinline__ void mbar_arrive_at(uint32_t bar, uint32_t rank) {
 // One bulk copy of `bytes` from global memory into the slot at CTA-local
 // address `dst` of every CTA in `mask`, completing on each one's mbarrier
 // at CTA-local address `bar`.
-__device__ __forceinline__ void bulk_multicast(uint32_t dst, const float* src,
+__device__ __forceinline__ void bulk_multicast(uint32_t dst, const void* src,
                                                uint32_t bytes, uint32_t bar,
                                                uint16_t mask) {
   asm volatile(
@@ -220,16 +238,17 @@ __device__ inline void init_ring(const Ring& r) {
 // previous chunk has landed there; rank 0 (leader) also waits until every
 // consumer warp of the cluster has released the slot and then issues the
 // one multicast copy.
-__device__ inline void produce(const Sweep& sw, int sweeps, const Ring& r,
+template <class TW>
+__device__ inline void produce(const Sweep<TW>& sw, int sweeps, const Ring& r,
                                bool leader) {
   uint32_t it = 0;
   for (int s = 0; s < sweeps; ++s) {
     for (int q = 0; q < kProducts; ++q) {
-      const Prod pr = sw.p[q];
+      const Prod<TW> pr = sw.p[q];
       for (int k0 = 0; k0 < pr.K; k0 += pr.kc, ++it) {
         const uint32_t slot = it % kSlots, use = it / kSlots;
         const uint32_t full = r.full + 8 * slot;
-        const uint32_t bytes = chunk_bytes(min(pr.kc, pr.K - k0), pr.M);
+        const uint32_t bytes = chunk_bytes<TW>(min(pr.kc, pr.K - k0), pr.M);
         if (leader) {
           if (use > 0) mbar_wait(r.empty + 8 * slot, (use - 1) & 1);
           mbar_expect_tx(full, bytes);
@@ -245,36 +264,67 @@ __device__ inline void produce(const Sweep& sw, int sweeps, const Ring& r,
   }
 }
 
-// acc[i][c] += sum over the chunk's rows r = r0, r0 + S, ... of
-// w[r][4 g + i] in[r][c]; V is the width of the weight loads (4 when M is
-// a multiple of 4, so every row group starts on 16 bytes; else 2 or 1).
+// The four weights w[0..3] at q, widened to float: V at a time (4 when M
+// is a multiple of 4, so every row group starts on four weights' bytes;
+// else 2 or 1).
 template <int V>
-__device__ __forceinline__ void chunk_fma(const float* w, int M, int rows,
+__device__ __forceinline__ void load4(const float* q, float (&wv)[4]) {
+  if (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(q);
+    wv[0] = t.x;
+    wv[1] = t.y;
+    wv[2] = t.z;
+    wv[3] = t.w;
+  } else if (V == 2) {
+    const float2 t0 = reinterpret_cast<const float2*>(q)[0];
+    const float2 t1 = reinterpret_cast<const float2*>(q)[1];
+    wv[0] = t0.x;
+    wv[1] = t0.y;
+    wv[2] = t1.x;
+    wv[3] = t1.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wv[i] = q[i];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load4(const __nv_bfloat16* q, float (&wv)[4]) {
+  if (V == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(q);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+    wv[0] = lo.x;
+    wv[1] = lo.y;
+    wv[2] = hi.x;
+    wv[3] = hi.y;
+  } else if (V == 2) {
+    const float2 t0 = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(q)[0]);
+    const float2 t1 = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(q)[1]);
+    wv[0] = t0.x;
+    wv[1] = t0.y;
+    wv[2] = t1.x;
+    wv[3] = t1.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wv[i] = __bfloat162float(q[i]);
+  }
+}
+
+// acc[i][c] += sum over the chunk's rows r = r0, r0 + S, ... of
+// w[r][4 g + i] in[r][c], each in[r][c] as an operand of type TW reads it.
+template <int V, class TW>
+__device__ __forceinline__ void chunk_fma(const TW* w, int M, int rows,
                                           int r0, int S, const float* in,
                                           int g, float (&acc)[4][kC]) {
 #pragma unroll 4
   for (int r = r0; r < rows; r += S) {
-    const float* q = w + r * M + 4 * g;
     float wv[4];
-    if (V == 4) {
-      const float4 t = *reinterpret_cast<const float4*>(q);
-      wv[0] = t.x;
-      wv[1] = t.y;
-      wv[2] = t.z;
-      wv[3] = t.w;
-    } else if (V == 2) {
-      const float2 t0 = reinterpret_cast<const float2*>(q)[0];
-      const float2 t1 = reinterpret_cast<const float2*>(q)[1];
-      wv[0] = t0.x;
-      wv[1] = t0.y;
-      wv[2] = t1.x;
-      wv[3] = t1.y;
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) wv[i] = q[i];
-    }
+    load4<V>(w + r * M + 4 * g, wv);
     float a[kC];
     load_row<kC>(in + r * kC, a);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) a[c] = rnd<TW>(a[c]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -289,8 +339,8 @@ __device__ __forceinline__ void chunk_fma(const float* w, int M, int rows,
 // split_floats floats) a narrow product spreads its rows over S slices of
 // threads and sums the slices in slice order. Every consumer thread calls
 // it; the caller synchronises before the outputs are read.
-template <class Epi>
-__device__ __forceinline__ void product(Ring& r, const Prod& pr,
+template <class TW, class Epi>
+__device__ __forceinline__ void product(Ring& r, const Prod<TW>& pr,
                                         const float* in, float* split,
                                         int split_floats, Epi epi) {
   const int t = threadIdx.x;
@@ -310,7 +360,7 @@ __device__ __forceinline__ void product(Ring& r, const Prod& pr,
     const uint32_t slot = r.it % kSlots;
     mbar_wait(r.full + 8 * slot, (r.it / kSlots) & 1);
     if (s < S) {
-      const float* w = r.slots + slot * kSlotStride;
+      const TW* w = reinterpret_cast<const TW*>(r.slots + slot * kSlotStride);
       const int rows = min(pr.kc, pr.K - k0);
       const float* a = in + k0 * kC;
       if (V == 4)
@@ -382,8 +432,9 @@ __device__ __forceinline__ void consumer_sum(float (&part)[kC], float* red,
 // two softplus layers in place; the last product (W1t, M = D) sums its
 // slices through s.h2, free by then. Every consumer thread calls it;
 // synchronised on return.
-__device__ inline void decoder_grad(Ring& r, const Dims& d, const Decoder& w,
-                                    const Sweep& sw,
+template <class TW>
+__device__ inline void decoder_grad(Ring& r, const Dims& d, const Decoder<TW>& w,
+                                    const Sweep<TW>& sw,
                                     const float* __restrict__ xraw, int N,
                                     int n0, const float* z, float* g,
                                     float* energy, const Work<kC>& s) {

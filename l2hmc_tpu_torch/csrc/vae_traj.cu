@@ -33,6 +33,12 @@
 // the CTA's issue of shared loads and multiply-adds on 104 of 132 SMs: one
 // configuration (kCt, kG in vae_cluster.cuh), 13 clusters at 512 chains.
 //
+// bfloat16 operands (compute_dtype="bfloat16"): the instantiation with TW =
+// __nv_bfloat16 reads the weights as bfloat16, half the L2 bytes, and
+// rounds each product's activations (vae_cluster.cuh); it still multiplies
+// and adds in float32 on the CUDA cores, so its bound is the float32 one,
+// and the tensor cores' 989 TFLOP/s are the target of a later wgmma design.
+//
 // Differences from the TPU kernel, by design: the gradient at the end of
 // one leapfrog step is the gradient at the start of the next (the same
 // point), so a trajectory costs T + 1 decoder sweeps where the TPU kernel
@@ -43,9 +49,10 @@
 namespace l2hmc {
 namespace vaec {
 
+template <class TW>
 struct TrajArgs {
   Dims d;
-  Weights w;
+  Weights<TW> w;
   const float* xraw;  // (P, N)
   const float* emb;   // (H, N)
   const float* zin;   // (D, N)
@@ -67,8 +74,8 @@ __host__ __device__ inline int traj_floats(const Dims& d) {
          ring_floats<Ct>();
 }
 
-template <int Ct, int G>
-__global__ void __launch_bounds__(kThreads, 1) vae_traj_kernel(TrajArgs a) {
+template <int Ct, int G, class TW>
+__global__ void __launch_bounds__(kThreads, 1) vae_traj_kernel(TrajArgs<TW> a) {
   extern __shared__ float4 smem4[];
   float* p = reinterpret_cast<float*>(smem4);
   const Dims d = a.d;
@@ -120,26 +127,14 @@ __global__ void __launch_bounds__(kThreads, 1) vae_traj_kernel(TrajArgs a) {
   csync();  // no CTA leaves while rank 0 reads its shared memory
 }
 
-}  // namespace vaec
-}  // namespace l2hmc
-
-// Plain C entry points (loaded with ctypes). ptrs is a host array of
-// kPtrs device pointers to float32 (carve_weights' order: eps (D), masks
-// (D, T), the decoder's W1, b1, W2, b2, W3, b3 with W (in, out), then each
-// net's 13 arrays as _extract_net gives them); xraw (P, N), emb (H, N), z,
-// v, zo and vo (D, N), ld (N); act a scratch of l2hmc_vae_traj_sizes' floats.
-// reverse picks the inverse map. Returns a cudaError_t as int.
-extern "C" int l2hmc_vae_traj(const float* const* ptrs, int D, int H, int H2,
-                              int T, int E, int P, const float* xraw,
-                              const float* emb, const float* z,
-                              const float* v, float* zo, float* vo, float* ld,
-                              float* act, int N, int reverse, void* stream) {
-  using namespace l2hmc::vaec;
-  if (N <= 0 || D <= 0 || T <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  TrajArgs a;
-  a.d = Dims{D, H, H2, T, E, P};
-  a.w = carve_weights(ptrs);
+template <class TW>
+int launch_traj(const void* const* ptrs, const Dims& d, const float* xraw,
+                const float* emb, const float* z, const float* v, float* zo,
+                float* vo, float* ld, float* act, int N, int reverse,
+                cudaStream_t stream) {
+  TrajArgs<TW> a;
+  a.d = d;
+  a.w = carve_weights<TW>(ptrs);
   a.xraw = xraw;
   a.emb = emb;
   a.zin = z;
@@ -151,9 +146,36 @@ extern "C" int l2hmc_vae_traj(const float* const* ptrs, int D, int H, int H2,
   a.N = N;
   a.reverse = reverse;
   const size_t smem = static_cast<size_t>(traj_floats<kCt, kG>(a.d)) * sizeof(float);
-  return l2hmc::launch_clusters(vae_traj_kernel<kCt, kG>, kG,
-                                (N + kCt - 1) / kCt, kThreads, smem,
-                                static_cast<cudaStream_t>(stream), a);
+  return l2hmc::launch_clusters(vae_traj_kernel<kCt, kG, TW>, kG,
+                                (N + kCt - 1) / kCt, kThreads, smem, stream, a);
+}
+
+}  // namespace vaec
+}  // namespace l2hmc
+
+// Plain C entry points (loaded with ctypes). ptrs is a host array of
+// kPtrs device pointers (carve_weights' order: eps (D), masks (D, T), the
+// decoder's W1, b1, W2, b2, W3, b3 with W (in, out), then each net's 13
+// arrays as _extract_net gives them), all float32 but for the weight
+// matrices, which are bfloat16 when bf16 is set; xraw (P, N), emb (H, N),
+// z, v, zo and vo (D, N), ld (N); act a scratch of l2hmc_vae_traj_sizes'
+// floats. reverse picks the inverse map, bf16 the instantiation with
+// bfloat16 operands. Returns a cudaError_t as int.
+extern "C" int l2hmc_vae_traj(const void* const* ptrs, int D, int H, int H2,
+                              int T, int E, int P, const float* xraw,
+                              const float* emb, const float* z,
+                              const float* v, float* zo, float* vo, float* ld,
+                              float* act, int N, int reverse, int bf16,
+                              void* stream) {
+  using namespace l2hmc::vaec;
+  if (N <= 0 || D <= 0 || T <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dims d{D, H, H2, T, E, P};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_traj<__nv_bfloat16>(ptrs, d, xraw, emb, z, v, zo, vo, ld, act,
+                                           N, reverse, s)
+              : launch_traj<float>(ptrs, d, xraw, emb, z, v, zo, vo, ld, act, N,
+                                   reverse, s);
 }
 
 // What the host allocates for N chains at these widths: out[0] = Ct,
@@ -177,5 +199,5 @@ extern "C" int l2hmc_vae_traj_clusters(int D, int H, int H2, int T, int E,
   using namespace l2hmc::vaec;
   const Dims d{D, H, H2, T, E, P};
   const size_t smem = static_cast<size_t>(traj_floats<kCt, kG>(d)) * sizeof(float);
-  return l2hmc::max_clusters(vae_traj_kernel<kCt, kG>, kG, kThreads, smem);
+  return l2hmc::max_clusters(vae_traj_kernel<kCt, kG, float>, kG, kThreads, smem);
 }

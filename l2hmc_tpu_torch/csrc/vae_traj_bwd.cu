@@ -59,6 +59,16 @@
 //    measured (no profiler runs on the card's machine). What bounds it, as
 //    vae_traj.cu: the CTAs' issue of shared loads and multiply-adds.
 //
+// bfloat16 operands (compute_dtype="bfloat16"; TW = __nv_bfloat16): the
+// pass forward rounds as vae_traj.cu does, and the way back follows JAX's
+// VJP of a lowered product (ops/operands.py). The cotangent of an
+// activation through a product is rounded to bfloat16 (its input, a
+// cotangent, is not): the tangent columns of the sweeps with a tangent,
+// dz2 (the three heads' cotangents each rounded apart, then added, as JAX
+// adds three products'), dz1, da and db. The weights' cotangents stay
+// float32 (ROADMAP C), over the lowered activations, which the kept slots
+// hold and which the gathers round.
+//
 // State layout (D, N): element i of chain n at i * N + n. N need not divide
 // the tile: chains >= N read zeros, carry zero cotangents and add nothing.
 #include "vae_cluster.cuh"
@@ -94,9 +104,10 @@ __device__ inline NetGrad carve_grad(float*& p, const Dims& d) {
   return g;
 }
 
+template <class TW>
 struct BwdArgs {
   Dims d;
-  Weights w;
+  Weights<TW> w;
   const float* xraw;  // (P, N)
   const float* emb;   // (H, N)
   const float* zin;   // (D, N)
@@ -208,9 +219,12 @@ struct Dual {
 // Gradient and Hessian-vector product of U(z | x) for the cluster's Ct
 // chains: zu is a row-split [Dg][2 Ct] array with z in the even columns and
 // the vector u in the odd ones; gh gets the gradient and H u in the same
-// layout. Ends with a cluster barrier.
-template <int Ct>
-__device__ __noinline__ void decoder_hvp(const Dims& d, const Part& q, const Decoder& w,
+// layout. The global copies hold the primal columns as the next product's
+// operands (rnd<TW>) and the tangent columns, cotangents, as they are; each
+// product's tangent column is a rounded activation cotangent. Ends with a
+// cluster barrier.
+template <int Ct, class TW>
+__device__ __noinline__ void decoder_hvp(const Dims& d, const Part& q, const Decoder<TW>& w,
                             const float* __restrict__ xraw, int N,
                             const float* zu, float* gh, const Dual& x,
                             float* stage) {
@@ -226,14 +240,18 @@ __device__ __noinline__ void decoder_hvp(const Dims& d, const Part& q, const Dec
   product<CC, kWide, false>(
       d.D, q.En, stage, vec,
       [&](int k, int j) { return w.W1 + static_cast<size_t>(k) * d.E + e0 + j; },
-      [&](int k, int c) { return dget(zu, q.Dg, CC, k, c); },
+      [&](int k, int c) {
+        const float x = dget(zu, q.Dg, CC, k, c);
+        return c & 1 ? x : rnd<TW>(x);
+      },
       [&](int j, int c0, const float (&acc)[RC]) {
         const float b = w.b1[e0 + j];
 #pragma unroll
         for (int u = 0; u < RC; u += 2) {
           const float h = softplus(acc[u] + b);
-          const float t = sigmoid_of_softplus(h) * acc[u + 1];
-          h1[j * CC + c0 + u] = h1g[j * CC + c0 + u] = h;
+          const float t = sigmoid_of_softplus(h) * rnd<TW>(acc[u + 1]);
+          h1[j * CC + c0 + u] = h;
+          h1g[j * CC + c0 + u] = rnd<TW>(h);
           h1[j * CC + c0 + u + 1] = h1g[j * CC + c0 + u + 1] = t;
         }
       });
@@ -247,8 +265,9 @@ __device__ __noinline__ void decoder_hvp(const Dims& d, const Part& q, const Dec
 #pragma unroll
         for (int u = 0; u < RC; u += 2) {
           const float h = softplus(acc[u] + b);
-          const float t = sigmoid_of_softplus(h) * acc[u + 1];
-          h2[j * CC + c0 + u] = h2g[j * CC + c0 + u] = h;
+          const float t = sigmoid_of_softplus(h) * rnd<TW>(acc[u + 1]);
+          h2[j * CC + c0 + u] = h;
+          h2g[j * CC + c0 + u] = rnd<TW>(h);
           h2[j * CC + c0 + u + 1] = h2g[j * CC + c0 + u + 1] = t;
         }
       });
@@ -264,8 +283,8 @@ __device__ __noinline__ void decoder_hvp(const Dims& d, const Part& q, const Dec
           const int n = q.n0 + (c0 + u) / 2;
           const float xv = n < N ? xraw[static_cast<size_t>(p0 + j) * N + n] : 0.f;
           const float sg = 1.f / (1.f + expf(-(acc[u] + b)));
-          d3g[j * CC + c0 + u] = sg - xv;
-          d3g[j * CC + c0 + u + 1] = sg * (1.f - sg) * acc[u + 1];
+          d3g[j * CC + c0 + u] = rnd<TW>(sg - xv);
+          d3g[j * CC + c0 + u + 1] = sg * (1.f - sg) * rnd<TW>(acc[u + 1]);
         }
       });
   csync();
@@ -279,8 +298,10 @@ __device__ __noinline__ void decoder_hvp(const Dims& d, const Part& q, const Dec
           float* h = h2 + j * CC + c0 + u;
           const float sg = sigmoid_of_softplus(h[0]);
           const float t = h[1];
-          h[0] = h2g[j * CC + c0 + u] = acc[u] * sg;
-          h[1] = h2g[j * CC + c0 + u + 1] = acc[u + 1] * sg + acc[u] * (1.f - sg) * t;
+          h[0] = acc[u] * sg;
+          h2g[j * CC + c0 + u] = rnd<TW>(h[0]);
+          h[1] = h2g[j * CC + c0 + u + 1] =
+              rnd<TW>(acc[u + 1]) * sg + acc[u] * (1.f - sg) * t;
         }
       });
   csync();
@@ -294,8 +315,10 @@ __device__ __noinline__ void decoder_hvp(const Dims& d, const Part& q, const Dec
           float* h = h1 + j * CC + c0 + u;
           const float sg = sigmoid_of_softplus(h[0]);
           const float t = h[1];
-          h[0] = h1g[j * CC + c0 + u] = acc[u] * sg;
-          h[1] = h1g[j * CC + c0 + u + 1] = acc[u + 1] * sg + acc[u] * (1.f - sg) * t;
+          h[0] = acc[u] * sg;
+          h1g[j * CC + c0 + u] = rnd<TW>(h[0]);
+          h[1] = h1g[j * CC + c0 + u + 1] =
+              rnd<TW>(acc[u + 1]) * sg + acc[u] * (1.f - sg) * t;
         }
       });
   csync();
@@ -305,7 +328,10 @@ __device__ __noinline__ void decoder_hvp(const Dims& d, const Part& q, const Dec
       x.h1g,
       [&](int j, int c0, const float (&acc)[RC]) {
 #pragma unroll
-        for (int u = 0; u < RC; ++u) gh[j * CC + c0 + u] = acc[u] + zu[j * CC + c0 + u];
+        for (int u = 0; u < RC; ++u) {
+          const float a = u & 1 ? rnd<TW>(acc[u]) : acc[u];  // c0 is even
+          gh[j * CC + c0 + u] = a + zu[j * CC + c0 + u];
+        }
       });
   csync();
 }
@@ -323,10 +349,11 @@ struct VjpWork {
 // same inputs (s.ha, s.hb its hidden layers on this CTA's rows, s.hag,
 // s.hbg their whole copies, S and Q its outputs): adds
 // this CTA's slice of the weights' cotangents into Gr, the hidden
-// pre-activation's into demb [Hg][Ct], and gives da, db [Dg][Ct]. Ends with
-// a cluster barrier.
-template <int Ct>
-__device__ __noinline__ void net_vjp(const Dims& d, const Part& q, const Net& w,
+// pre-activation's into demb [Hg][Ct], and gives da, db [Dg][Ct]. With
+// bfloat16 operands dz2, dz1, da and db are rounded activation cotangents,
+// dz2 the sum of the three heads' apart. Ends with a cluster barrier.
+template <int Ct, class TW>
+__device__ __noinline__ void net_vjp(const Dims& d, const Part& q, const Net<TW>& w,
                         const NetGrad& Gr, int step, const float* a,
                         const float* b, const float* S, const float* Q,
                         const float* ds, const float* dt, const float* dq,
@@ -390,20 +417,41 @@ __device__ __noinline__ void net_vjp(const Dims& d, const Part& q, const Net& w,
       [&](int j) { return (j / Dn) * d.D + i0 + j % Dn; });
   __syncthreads();
   // dz2 = (wo du) * [hb > 0] on this CTA's H2 rows; k = head * D + i
-  product_g<Ct, kNarrow, true>(
-      3 * d.D, q.H2n, stage, false,
-      [&](int k, int j) {
-        const int head = k / d.D;
-        const float* W = head == 0 ? w.ws : (head == 1 ? w.wt : w.wq);
-        return W + (g0 + j) * d.D + k - head * d.D;
-      },
-      x.dug,
-      [&](int j, int c0, const float (&acc)[RC]) {
+  if constexpr (std::is_same<TW, float>::value) {
+    product_g<Ct, kNarrow, true>(
+        3 * d.D, q.H2n, stage, false,
+        [&](int k, int j) {
+          const int head = k / d.D;
+          const TW* W = head == 0 ? w.ws : (head == 1 ? w.wt : w.wq);
+          return W + (g0 + j) * d.D + k - head * d.D;
+        },
+        x.dug,
+        [&](int j, int c0, const float (&acc)[RC]) {
 #pragma unroll
-        for (int u = 0; u < RC; ++u)
-          dz2[j * L + c0 + u] = x.dz2g[(g0 + j) * Ct + c0 + u] =
-              hb[j * Ct + c0 + u] > 0.f ? acc[u] : 0.f;
-      });
+          for (int u = 0; u < RC; ++u)
+            dz2[j * L + c0 + u] = x.dz2g[(g0 + j) * Ct + c0 + u] =
+                hb[j * Ct + c0 + u] > 0.f ? acc[u] : 0.f;
+        });
+  } else {
+    // one product a head, each rounded, added in head order
+    for (int head = 0; head < 3; ++head) {
+      const TW* W = head == 0 ? w.ws : (head == 1 ? w.wt : w.wq);
+      product_g<Ct, kNarrow, true>(
+          d.D, q.H2n, stage, false,
+          [&](int k, int j) { return W + (g0 + j) * d.D + k; },
+          x.dug + static_cast<size_t>(head) * d.D * Ct,
+          [&](int j, int c0, const float (&acc)[RC]) {
+#pragma unroll
+            for (int u = 0; u < RC; ++u) {
+              float* o = dz2 + j * L + c0 + u;
+              const float sum = (head == 0 ? 0.f : *o) + rnd<TW>(acc[u]);
+              *o = sum;
+              if (head == 2)
+                *o = x.dz2g[(g0 + j) * Ct + c0 + u] = hb[j * Ct + c0 + u] > 0.f ? sum : 0.f;
+            }
+          });
+    }
+  }
   __syncthreads();
   for (int m = threadIdx.x; m < q.H2n; m += kThreads) {
     float sum = 0.f;
@@ -425,7 +473,7 @@ __device__ __noinline__ void net_vjp(const Dims& d, const Part& q, const Net& w,
 #pragma unroll
         for (int u = 0; u < RC; ++u)
           dz1[j * L + c0 + u] = x.dz1g[(h0 + j) * Ct + c0 + u] =
-              ha[j * Ct + c0 + u] > 0.f ? acc[u] : 0.f;
+              ha[j * Ct + c0 + u] > 0.f ? rnd<TW>(acc[u]) : 0.f;
       });
   __syncthreads();
   for (int e = threadIdx.x; e < q.Hn * Ct; e += kThreads) {
@@ -437,13 +485,13 @@ __device__ __noinline__ void net_vjp(const Dims& d, const Part& q, const Net& w,
     for (int c = 0; c < Ct; ++c) sum += dz1[m * L + c];
     Gr.te[(h0 + m) * d.T + step] += sum;
   }
-  gather(a, Dg, d.D, Ct, stage);
+  gather<TW>(a, Dg, d.D, Ct, stage);
   csync();  // dz1 complete, a gathered
   outer_add<Ct>(
       Gr.w1, d.H, stage, d.D, q.Hn, [&](int j) { return dz1 + j * L; },
       [&](int j) { return h0 + j; });
   __syncthreads();
-  gather(b, Dg, d.D, Ct, stage);
+  gather<TW>(b, Dg, d.D, Ct, stage);
   __syncthreads();
   outer_add<Ct>(
       Gr.w2, d.H, stage, d.D, q.Hn, [&](int j) { return dz1 + j * L; },
@@ -460,13 +508,13 @@ __device__ __noinline__ void net_vjp(const Dims& d, const Part& q, const Net& w,
       [&](int j, int c0, const float (&acc)[RC]) {
         float* out = j < Dn ? da + j * Ct : db + (j - Dn) * Ct;
 #pragma unroll
-        for (int u = 0; u < RC; ++u) out[c0 + u] = acc[u];
+        for (int u = 0; u < RC; ++u) out[c0 + u] = rnd<TW>(acc[u]);
       });
   csync();
 }
 
-template <int Ct, int G>
-__global__ void __launch_bounds__(kThreads, 1) vae_traj_bwd_kernel(BwdArgs a) {
+template <int Ct, int G, class TW>
+__global__ void __launch_bounds__(kThreads, 1) vae_traj_bwd_kernel(BwdArgs<TW> a) {
   constexpr int CC = 2 * Ct;
   extern __shared__ float4 smem4[];
   float* p = reinterpret_cast<float*>(smem4);
@@ -536,6 +584,11 @@ __global__ void __launch_bounds__(kThreads, 1) vae_traj_bwd_kernel(BwdArgs a) {
   float* demb = p; p += q.Hg * Ct;
   float* dl = p; p += Ct;
   float* const pend = t.ldp;
+  // with bfloat16 operands the cotangent of the gradient at x_{k+1} that
+  // step k's last net and momentum update give (t.bin, free at app 3)
+  // takes a sweep of its own (below)
+  constexpr bool kF32 = std::is_same<TW, float>::value;
+  float* const pend_last = kF32 ? pend : t.bin;
 
   // this cluster's slice of the cotangent scratch, zeroed a share per CTA
   const int nf = net_floats(d);
@@ -653,7 +706,7 @@ __global__ void __launch_bounds__(kThreads, 1) vae_traj_bwd_kernel(BwdArgs a) {
             ds[e] = dsv * hf;
             dt[e] = dvo * hf;
             dq[e] = dQ * Qe * ep;
-            pend[e] += -dvo * hf * Qe;
+            pend_last[e] = (kF32 ? pend_last[e] : 0.f) - dvo * hf * Qe;
           } else {
             const float E = expf(-hf * sv_);
             const float A = vh[e] - hf * (-Qe * g2[e] + tt);
@@ -666,7 +719,7 @@ __global__ void __launch_bounds__(kThreads, 1) vae_traj_bwd_kernel(BwdArgs a) {
             ds[e] = -hf * dsv;
             dt[e] = -dvhv * hf;
             dq[e] = dQ * Qe * ep;
-            pend[e] += dvhv * hf * Qe;
+            pend_last[e] = (kF32 ? pend_last[e] : 0.f) + dvhv * hf * Qe;
           }
         } else if (app == 2) {
           // x' from y: the second position update; the Hessian-vector
@@ -770,17 +823,30 @@ __global__ void __launch_bounds__(kThreads, 1) vae_traj_bwd_kernel(BwdArgs a) {
       net_vjp<Ct>(d, q, vnet ? a.w.vnet : a.w.xnet, vnet ? gvn : gxn, st,
                       in_a, in_b, t.S, t.Q, ds, dt, dq, da, db, demb, sw, xw);
       if (app == 3) {
-        // one sweep for both cotangents of the gradient at x_{k+1}: this
-        // step's (through its last net and momentum update) and the next
-        // step's, which waited in pend
+        // in float32 one sweep for both cotangents of the gradient at
+        // x_{k+1}: this step's (through its last net and momentum update)
+        // and the next step's, which waited in pend. With bfloat16 operands
+        // the sweep's rounded tangent products are not linear in the
+        // cotangent, so each of the two gradient calls that the trajectory
+        // makes at x_{k+1} (its plain version's, and JAX's) gets its own
+        // sweep, this step's first
         for (int e = tid; e < Dn * Ct; e += kThreads) {
           const int il = e / Ct, c = e - il * Ct;
           dx[e] += da[e];
           zu[il * CC + 2 * c] = xo[e];
-          zu[il * CC + 2 * c + 1] = pend[e] + db[e];
+          zu[il * CC + 2 * c + 1] = pend_last[e] + db[e];
         }
         csync();
         decoder_hvp<Ct>(d, q, a.w.dec, a.xraw, N, zu, gh, dual, s.stage);
+        if (!kF32 && k + 1 < d.T) {
+          for (int e = tid; e < Dn * Ct; e += kThreads) {
+            const int il = e / Ct, c = e - il * Ct;
+            dx[e] += gh[il * CC + 2 * c + 1];
+            zu[il * CC + 2 * c + 1] = pend[e];
+          }
+          csync();
+          decoder_hvp<Ct>(d, q, a.w.dec, a.xraw, N, zu, gh, dual, s.stage);
+        }
       } else if (app == 0) {
         for (int e = tid; e < Dn * Ct; e += kThreads) {
           dx[e] += da[e];
@@ -827,28 +893,15 @@ __global__ void sum_clusters_kernel(const float* __restrict__ partial,
   out[r] = s;
 }
 
-}  // namespace vaec
-}  // namespace l2hmc
-
-// Plain C entry points (loaded with ctypes). ptrs is a host array of
-// kPtrs device pointers to float32 in carve_weights' order (as for
-// l2hmc_vae_traj); xraw (P, N), emb and demb (H, N); z, v, dZ, dV, dz, dv
-// (D, N); dld (N); grads (n_grads) with n_grads = 2 * net_floats + D in the
-// order xnet | vnet | eps, each net as carve_grad; partial, bnd and act
-// scratches of l2hmc_vae_traj_bwd_sizes' floats. Returns a cudaError_t as
-// int; 0 means both launches were accepted.
-extern "C" int l2hmc_vae_traj_bwd(
-    const float* const* ptrs, int D, int H, int H2, int T, int E, int P,
-    const float* xraw, const float* emb, const float* z, const float* v,
-    const float* dZ, const float* dV, const float* dld, float* dz, float* dv,
-    float* demb, float* grads, float* partial, float* bnd, float* act, int N,
-    int reverse, void* stream) {
-  using namespace l2hmc::vaec;
-  if (N <= 0 || D <= 0 || T <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  BwdArgs a;
-  a.d = Dims{D, H, H2, T, E, P};
-  a.w = carve_weights(ptrs);
+template <class TW>
+int launch_bwd(const void* const* ptrs, const Dims& d, const float* xraw,
+               const float* emb, const float* z, const float* v,
+               const float* dZ, const float* dV, const float* dld, float* dz,
+               float* dv, float* demb, float* grads, float* partial, float* bnd,
+               float* act, int N, int reverse, cudaStream_t s) {
+  BwdArgs<TW> a;
+  a.d = d;
+  a.w = carve_weights<TW>(ptrs);
   a.xraw = xraw;
   a.emb = emb;
   a.zin = z;
@@ -864,16 +917,44 @@ extern "C" int l2hmc_vae_traj_bwd(
   a.act = act;
   a.N = N;
   a.reverse = reverse;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = static_cast<size_t>(bwd_floats<kCt, kG>(a.d)) * sizeof(float);
   const int clusters = (N + kCt - 1) / kCt;
-  cudaError_t e = l2hmc::launch_clusters(vae_traj_bwd_kernel<kCt, kG>, kG,
+  cudaError_t e = l2hmc::launch_clusters(vae_traj_bwd_kernel<kCt, kG, TW>, kG,
                                          clusters, kThreads, smem, s, a);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_grads = 2 * net_floats(a.d) + D;
+  const int n_grads = 2 * net_floats(a.d) + d.D;
   sum_clusters_kernel<<<(n_grads + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       partial, clusters, n_grads, grads);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace vaec
+}  // namespace l2hmc
+
+// Plain C entry points (loaded with ctypes). ptrs is a host array of
+// kPtrs device pointers in carve_weights' order (as for l2hmc_vae_traj:
+// float32, the weight matrices bfloat16 when bf16 is set); xraw (P, N), emb
+// and demb (H, N); z, v, dZ, dV, dz, dv (D, N); dld (N); grads (n_grads)
+// with n_grads = 2 * net_floats + D in the order xnet | vnet | eps, each net
+// as carve_grad; partial, bnd and act scratches of
+// l2hmc_vae_traj_bwd_sizes' floats; bf16 picks the instantiation with
+// bfloat16 operands. Returns a cudaError_t as int; 0 means both launches
+// were accepted.
+extern "C" int l2hmc_vae_traj_bwd(
+    const void* const* ptrs, int D, int H, int H2, int T, int E, int P,
+    const float* xraw, const float* emb, const float* z, const float* v,
+    const float* dZ, const float* dV, const float* dld, float* dz, float* dv,
+    float* demb, float* grads, float* partial, float* bnd, float* act, int N,
+    int reverse, int bf16, void* stream) {
+  using namespace l2hmc::vaec;
+  if (N <= 0 || D <= 0 || T <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Dims d{D, H, H2, T, E, P};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_bwd<__nv_bfloat16>(ptrs, d, xraw, emb, z, v, dZ, dV, dld, dz, dv,
+                                          demb, grads, partial, bnd, act, N, reverse, s)
+              : launch_bwd<float>(ptrs, d, xraw, emb, z, v, dZ, dV, dld, dz, dv, demb,
+                                  grads, partial, bnd, act, N, reverse, s);
 }
 
 // What the host allocates for N chains at these widths: out[0] = Ct,
@@ -901,5 +982,5 @@ extern "C" int l2hmc_vae_traj_bwd_clusters(int D, int H, int H2, int T, int E,
   using namespace l2hmc::vaec;
   const Dims d{D, H, H2, T, E, P};
   const size_t smem = static_cast<size_t>(bwd_floats<kCt, kG>(d)) * sizeof(float);
-  return l2hmc::max_clusters(vae_traj_bwd_kernel<kCt, kG>, kG, kThreads, smem);
+  return l2hmc::max_clusters(vae_traj_bwd_kernel<kCt, kG, float>, kG, kThreads, smem);
 }

@@ -17,7 +17,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from l2hmc_tpu_torch.config import resolve_compute_dtype
+from l2hmc_tpu_torch.config import require_float32
 
 Params = Any
 
@@ -47,7 +47,7 @@ def linear(
 ) -> Module:
     """Dense layer with the reference's variance-scaling init: truncated
     normal, scale ``2 * factor``, fan-in mode, zero bias."""
-    resolve_compute_dtype(compute_dtype)  # float32 only for now
+    require_float32(compute_dtype, "nets.core.linear")
     std = (2.0 * factor / in_dim) ** 0.5 / _TRUNC_STD
 
     def init(generator: torch.Generator, device) -> Params:

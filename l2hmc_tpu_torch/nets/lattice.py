@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from l2hmc_tpu_torch.config import resolve_compute_dtype
+from l2hmc_tpu_torch.config import require_float32
 from l2hmc_tpu_torch.nets.core import _TRUNC_STD, Module, Params, scale_tanh
 
 
@@ -45,7 +45,7 @@ def conv2d(in_ch: int, out_ch: int, kernel: int = 3, factor: float = 1.0,
     truncated-normal init of ``nets.core.linear`` (fan_in = kernel^2 in_ch).
 
     apply: (n, L, L, in_ch) -> (n, L, L, out_ch), as the JAX module."""
-    resolve_compute_dtype(compute_dtype)  # float32 only for now
+    require_float32(compute_dtype, "nets.lattice.conv2d")
     std = (2.0 * factor / (kernel * kernel * in_ch)) ** 0.5 / _TRUNC_STD
     pad = kernel // 2
 

@@ -43,23 +43,23 @@ SIGNATURES = {
         "l2hmc_chain_site_smem_bytes": [_I, _I, _I],
     },
     "vae_chain": {
-        "l2hmc_vae_chain": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 8), _I, _I, _U64, _P],
+        "l2hmc_vae_chain": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 8), _I, _I, _U64, _I, _P],
         "l2hmc_vae_chain_sizes": [*([_I] * 7), _P],
         "l2hmc_vae_chain_clusters": [_I] * 6,
     },
     "vae_ais": {
         "l2hmc_vae_ais": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I,
-                          _U64, _P],
+                          _U64, _I, _P],
         "l2hmc_vae_ais_sizes": [_I, _I, _I, _I, _P],
         "l2hmc_vae_ais_clusters": [_I, _I, _I],
     },
     "vae_traj": {
-        "l2hmc_vae_traj": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 8), _I, _I, _P],
+        "l2hmc_vae_traj": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 8), _I, _I, _I, _P],
         "l2hmc_vae_traj_sizes": [*([_I] * 7), _P],
         "l2hmc_vae_traj_clusters": [_I] * 6,
     },
     "vae_traj_bwd": {
-        "l2hmc_vae_traj_bwd": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 14), _I, _I, _P],
+        "l2hmc_vae_traj_bwd": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 14), _I, _I, _I, _P],
         "l2hmc_vae_traj_bwd_sizes": [*([_I] * 7), _P],
         "l2hmc_vae_traj_bwd_clusters": [_I] * 6,
     },

@@ -61,6 +61,7 @@ import torch
 
 from l2hmc_tpu_torch.dynamics.core import Dynamics
 from l2hmc_tpu_torch.ops import _cuda
+from l2hmc_tpu_torch.ops.operands import dot, dot_ct, lower
 from l2hmc_tpu_torch.ops.philox import chain_draws
 
 # weight bundle order produced by _extract_net (one per net):
@@ -538,6 +539,8 @@ class KernelInputs:
     grad_vjp: Optional[Callable]  # (x, d) -> the cotangent of x through grad_energy
     emb: Optional[torch.Tensor] = None  # (H, N) aux embedding added to the nets' hidden layer
     kind: int = QuadraticGaussianEnergy.KIND  # the energy spec's, for the kernels
+    # the products' operand dtype (None: float32; bfloat16 in the VAE kernels)
+    cd: Optional[torch.dtype] = None
 
     @property
     def dims(self) -> tuple[int, int, int, int]:
@@ -671,25 +674,26 @@ def _check_state(inp: KernelInputs, *states: torch.Tensor) -> None:
 # -- plain versions ------------------------------------------------------------
 
 
-def _apply_stq(w: list, a, b, step: int, hmc: bool, emb=None, seen=None):
+def _apply_stq(w: list, a, b, step: int, hmc: bool, emb=None, seen=None, cd=None):
     """S/T/Q net on transposed activations: a, b are (D, N). ``emb`` is the
     optional per-chain aux embedding (H, N), the VAE sampler's fourth Zip
     input, added to the hidden pre-activation. ``seen``, a list, collects
-    the two hidden pre-activations."""
+    the two hidden pre-activations. ``cd`` lowers every product's operands
+    (``ops.operands``)."""
     if hmc:
         z = torch.zeros_like(a)
         return z, z, z
     w1, w2, wh, bh, ws, bs, ls, wt, bt, wq, bq, lq, te = w
-    h = w1.T @ a + w2.T @ b + te[:, step : step + 1]
+    h = dot(w1.T, a, cd) + dot(w2.T, b, cd) + te[:, step : step + 1]
     if emb is not None:
         h = h + emb
-    pre2 = wh.T @ torch.relu(h) + bh
+    pre2 = dot(wh.T, torch.relu(h), cd) + bh
     if seen is not None:
         seen += [h, pre2]
     h2 = torch.relu(pre2)
-    s = torch.exp(ls) * torch.tanh(ws.T @ h2 + bs)
-    t = wt.T @ h2 + bt
-    q = torch.exp(lq) * torch.tanh(wq.T @ h2 + bq)
+    s = torch.exp(ls) * torch.tanh(dot(ws.T, h2, cd) + bs)
+    t = dot(wt.T, h2, cd) + bt
+    q = torch.exp(lq) * torch.tanh(dot(wq.T, h2, cd) + bq)
     return s, t, q
 
 
@@ -700,7 +704,7 @@ def _trajectory_step(inp: KernelInputs, reverse: bool, step: int, x, v, seen=Non
     eps, grad_energy, hmc = inp.eps, inp.grad_energy, inp.hmc
 
     def stq(w, a, b):
-        return _apply_stq(w, a, b, step, hmc, inp.emb, seen)
+        return _apply_stq(w, a, b, step, hmc, inp.emb, seen, inp.cd)
 
     if not reverse:
         grad1 = grad_energy(x)
@@ -767,27 +771,31 @@ def relu_margins(inp: KernelInputs, x, v, reverse: bool) -> torch.Tensor:
     return margin
 
 
-def _stq_vjp(w: list, a, b, step: int, ds, dt, dq, gw: list, emb=None, demb=None):
+def _stq_vjp(w: list, a, b, step: int, ds, dt, dq, gw: list, emb=None, demb=None, cd=None):
     """VJP of ``_apply_stq`` at inputs (a, b) for output cotangents
     (ds, dt, dq): adds the 13 weight cotangents (summed over chains) into
     ``gw`` and returns (da, db). With ``emb`` the cotangent of the hidden
     pre-activation, which is also ``emb``'s, is added into ``demb``.
-    Recomputes the net's activations; relu'(0) = 0."""
+    Recomputes the net's activations; relu'(0) = 0. With ``cd`` each
+    product's activation cotangent is rounded, each separately, and the
+    weight cotangents take the lowered activations and stay float32
+    (``ops.operands``)."""
     w1, w2, wh, bh, ws, bs, ls, wt, bt, wq, bq, lq, te = w
-    z1 = w1.T @ a + w2.T @ b + te[:, step : step + 1]
+    z1 = dot(w1.T, a, cd) + dot(w2.T, b, cd) + te[:, step : step + 1]
     if emb is not None:
         z1 = z1 + emb
     h = torch.relu(z1)
-    z2 = wh.T @ h + bh
+    z2 = dot(wh.T, h, cd) + bh
     h2 = torch.relu(z2)
-    ts = torch.tanh(ws.T @ h2 + bs)
-    tq = torch.tanh(wq.T @ h2 + bq)
+    ts = torch.tanh(dot(ws.T, h2, cd) + bs)
+    tq = torch.tanh(dot(wq.T, h2, cd) + bq)
     ds_ = ds * torch.exp(ls)
     dq_ = dq * torch.exp(lq)
     dus = ds_ * (1.0 - ts * ts)
     duq = dq_ * (1.0 - tq * tq)
-    dz2 = (ws @ dus + wt @ dt + wq @ duq) * (z2 > 0)
-    dz1 = (wh @ dz2) * (z1 > 0)
+    dz2 = (dot_ct(ws, dus, cd) + dot_ct(wt, dt, cd) + dot_ct(wq, duq, cd)) * (z2 > 0)
+    dz1 = dot_ct(wh, dz2, cd) * (z1 > 0)
+    a, b, h, h2 = (lower(x, cd) for x in (a, b, h, h2))
     for i, g in enumerate((
         a @ dz1.T, b @ dz1.T,
         h @ dz2.T, dz2.sum(1, keepdim=True),
@@ -799,7 +807,7 @@ def _stq_vjp(w: list, a, b, step: int, ds, dt, dq, gw: list, emb=None, demb=None
     gw[12][:, step] += dz1.sum(1)
     if demb is not None:
         demb += dz1
-    return w1 @ dz1, w2 @ dz1
+    return dot_ct(w1, dz1, cd), dot_ct(w2, dz1, cd)
 
 
 def _step_vjp(inp: KernelInputs, reverse: bool, step: int, x, v, dxo, dvo, dld, gx, gv,
@@ -815,12 +823,12 @@ def _step_vjp(inp: KernelInputs, reverse: bool, step: int, x, v, dxo, dvo, dld, 
     e, ge, gvjp, hmc = inp.eps, inp.grad_energy, inp.grad_vjp, inp.hmc
 
     def stq(w, a, b):
-        return _apply_stq(w, a, b, step, hmc, inp.emb)
+        return _apply_stq(w, a, b, step, hmc, inp.emb, cd=inp.cd)
 
     def stq_vjp(w, a, b, ds, dt, dq, gw):
         if hmc:
             return 0.0, 0.0
-        return _stq_vjp(w, a, b, step, ds, dt, dq, gw, inp.emb, demb)
+        return _stq_vjp(w, a, b, step, ds, dt, dq, gw, inp.emb, demb, inp.cd)
 
     half = 0.5 * e
     if not reverse:

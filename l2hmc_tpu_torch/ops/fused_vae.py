@@ -35,8 +35,18 @@ Beside each is its plain PyTorch version (``vae_chain_plain``,
 on the same (D, N) layout, with injectable draws where it draws. A wrapper
 takes the plain version only for a CPU tensor; for a CUDA tensor it
 launches the kernel or raises. Each launch adds one to
-``fused_dynamics.LAUNCHES[name]``. Only float32 operands are ported: a
-``compute_dtype`` other than float32 raises.
+``fused_dynamics.LAUNCHES[name]``, and a launch of a bfloat16 instantiation
+also to ``LAUNCHES[name:bf16]``.
+
+Operands: float32, or with ``compute_dtype="bfloat16"`` (``prepare_vae``,
+the three classes) the JAX package's bf16 recipe: every S/T/Q and decoder
+product rounds both operands to bfloat16 and sums in float32, and
+everything else (params, biases, eps, energies, logdet, the accept) stays
+float32. The plain versions round through ``ops.operands``; each kernel has
+a bfloat16 instantiation that reads the weights as bfloat16 (cast once per
+launch by the wrapper) and rounds each product's activations where they are
+written for a product to read. The VJP rounds every activation cotangent of
+a product, and keeps the weight cotangents in float32 (``ops.operands``).
 
 Host prep follows the JAX package: the decoder enters transposed
 (A = W.T, (out, in), biases as columns), the nets as ``_extract_net``'s 13
@@ -52,6 +62,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -73,6 +84,7 @@ from l2hmc_tpu_torch.ops.fused_dynamics import (
     mh_op,
     trajectory_plain,
 )
+from l2hmc_tpu_torch.ops.operands import dot, dot_ct
 from l2hmc_tpu_torch.ops.philox import chain_draws
 
 _THREADS = 256  # threads per CTA of the VAE kernels (csrc/vae_common.cuh)
@@ -104,23 +116,24 @@ def decoder_arrays(dec_params) -> list[torch.Tensor]:
     return out
 
 
-def _vae_decoder_closures(dec_vals, x_raw):
+def _vae_decoder_closures(dec_vals, x_raw, cd=None):
     """(energy, grad_energy) of the decoder posterior on the transposed
     (D, N) layout; ``x_raw`` is (P, N). The gradient is one forward and one
-    transposed sweep: dU/dz = J_dec(z)^T (sigmoid(logits) - x) + z."""
+    transposed sweep: dU/dz = J_dec(z)^T (sigmoid(logits) - x) + z. ``cd``
+    lowers the six products' operands (``ops.operands``)."""
     A1, B1, A2, B2, A3, B3 = dec_vals
 
     def decoder(z):
-        p1 = A1 @ z + B1
-        p2 = A2 @ F.softplus(p1) + B2
-        return p1, p2, A3 @ F.softplus(p2) + B3
+        p1 = dot(A1, z, cd) + B1
+        p2 = dot(A2, F.softplus(p1), cd) + B2
+        return p1, p2, dot(A3, F.softplus(p2), cd) + B3
 
     def grad_energy(z):
         p1, p2, logits = decoder(z)
         d3 = torch.sigmoid(logits) - x_raw
-        d2 = (A3.T @ d3) * torch.sigmoid(p2)
-        d1 = (A2.T @ d2) * torch.sigmoid(p1)
-        return A1.T @ d1 + z
+        d2 = dot(A3.T, d3, cd) * torch.sigmoid(p2)
+        d1 = dot(A2.T, d2, cd) * torch.sigmoid(p1)
+        return dot(A1.T, d1, cd) + z
 
     def energy(z):
         logits = decoder(z)[2]
@@ -134,39 +147,44 @@ def _vae_decoder_closures(dec_vals, x_raw):
     return energy, grad_energy
 
 
-def build_grad_vjp(dec_vals, x_raw):
+def build_grad_vjp(dec_vals, x_raw, cd=None):
     """VJP of the decoder posterior's ``grad_energy``: (z, u) -> H(z) u with
     H the Hessian of the energy, which is symmetric. The forward sweep of
     the decoder carries the tangent of u beside the primal, the transposed
-    sweep the tangent of the gradient (softplus'' = sigmoid (1 - sigmoid))."""
+    sweep the tangent of the gradient (softplus'' = sigmoid (1 - sigmoid)).
+    With ``cd`` the primal products lower their operands and each tangent
+    product is the cotangent of a lowered product's activation, rounded
+    (``ops.operands``): the VJP of ``grad_energy``'s own rounding."""
     A1, B1, A2, B2, A3, B3 = dec_vals
 
     def grad_vjp(z, u):
-        p1 = A1 @ z + B1
+        p1 = dot(A1, z, cd) + B1
         s1 = torch.sigmoid(p1)
-        t1 = s1 * (A1 @ u)  # tangent of softplus(p1)
-        p2 = A2 @ F.softplus(p1) + B2
+        t1 = s1 * dot_ct(A1, u, cd)  # tangent of softplus(p1)
+        p2 = dot(A2, F.softplus(p1), cd) + B2
         s2 = torch.sigmoid(p2)
-        t2 = s2 * (A2 @ t1)
-        sl = torch.sigmoid(A3 @ F.softplus(p2) + B3)
-        a2 = A3.T @ (sl - x_raw)
-        a1 = A2.T @ (a2 * s2)
-        dd3 = sl * (1.0 - sl) * (A3 @ t2)
-        dd2 = (A3.T @ dd3) * s2 + a2 * (1.0 - s2) * t2
-        dd1 = (A2.T @ dd2) * s1 + a1 * (1.0 - s1) * t1
-        return A1.T @ dd1 + u
+        t2 = s2 * dot_ct(A2, t1, cd)
+        sl = torch.sigmoid(dot(A3, F.softplus(p2), cd) + B3)
+        a2 = dot(A3.T, sl - x_raw, cd)
+        a1 = dot(A2.T, a2 * s2, cd)
+        dd3 = sl * (1.0 - sl) * dot_ct(A3, t2, cd)
+        dd2 = dot_ct(A3.T, dd3, cd) * s2 + a2 * (1.0 - s2) * t2
+        dd1 = dot_ct(A2.T, dd2, cd) * s1 + a1 * (1.0 - s1) * t1
+        return dot_ct(A1.T, dd1, cd) + u
 
     return grad_vjp
 
 
 def prepare_vae(dyn: Dynamics, smp_params, dec_params, x_raw, emb, *,
-                differentiable: bool = False) -> KernelInputs:
+                differentiable: bool = False, compute_dtype=None) -> KernelInputs:
     """Everything the VAE kernels and their plain versions read besides the
     chain state. ``x_raw`` is the (P, N) conditioning batch, ``emb`` its
     (H, N) aux embedding, both already transposed. The nets, eps and the
     embedding are detached unless ``differentiable`` (the training path,
     where they keep their autograd history back to the params tree); the
-    decoder and ``x_raw`` are always detached."""
+    decoder and ``x_raw`` are always detached. ``compute_dtype`` (as
+    ``config.resolve_compute_dtype`` takes it) is the products' operand
+    dtype; the params stay float32."""
     if dyn.hmc:
         raise ValueError("the fused VAE sampler needs the S/T/Q nets (hmc=False)")
     if dyn.eps_step or dyn.eps_mat or dyn.net_input_fn is not None or dyn.input_scale is not None:
@@ -175,8 +193,9 @@ def prepare_vae(dyn: Dynamics, smp_params, dec_params, x_raw, emb, *,
             "or input_scale")
     device = x_raw.device
     x_raw = x_raw.detach()
+    cd = resolve_compute_dtype(compute_dtype)
     dec = decoder_arrays(dec_params)
-    energy, grad_energy = _vae_decoder_closures(dec, x_raw)
+    energy, grad_energy = _vae_decoder_closures(dec, x_raw, cd)
     eps = _eps_col(dyn.eps(smp_params), dyn.dim).to(device)
     xnet_w = _extract_net(smp_params["xnet"], dyn.times)
     vnet_w = _extract_net(smp_params["vnet"], dyn.times)
@@ -193,66 +212,81 @@ def prepare_vae(dyn: Dynamics, smp_params, dec_params, x_raw, emb, *,
         hmc=False,
         energy=energy,
         grad_energy=grad_energy,
-        grad_vjp=build_grad_vjp(dec, x_raw),
+        grad_vjp=build_grad_vjp(dec, x_raw, cd),
         emb=emb,
+        cd=cd,
     )
 
 
-def _flat(parts) -> torch.Tensor:
-    return torch.cat([p.reshape(-1) for p in parts]).contiguous()
+def _pad16(n: int, item: int) -> int:
+    """``n`` elements of ``item`` bytes rounded up to whole 16 bytes."""
+    per = 16 // item
+    return -(-n // per) * per
 
 
-def _pad4(n: int) -> int:
-    return -(-n // 4) * 4
-
-
-def _pack_decoder(dec_vals) -> list[torch.Tensor]:
+def _pack_decoder(dec_vals, cd=None) -> list[torch.Tensor]:
     """The decoder in the kernels' order (csrc/vae_common.cuh,
     ``carve_decoder``): W (in, out) and bias per layer, then the three
-    transposes (out, in), each flattened and padded with zeros to a multiple
-    of 4 floats, so that every array starts on 16 bytes of the block (the
-    AIS kernel streams them with bulk copies)."""
+    transposes (out, in), each flattened and padded with zeros to whole 16
+    bytes, so that every array starts on 16 bytes of the block (the AIS
+    kernel streams them with bulk copies). With ``cd`` the six matrices are
+    cast to it; the biases stay float32."""
     A1, B1, A2, B2, A3, B3 = dec_vals
     out = []
-    for a in (A1.T, B1, A2.T, B2, A3.T, B3, A1, A2, A3):
+    for i, a in enumerate((A1.T, B1, A2.T, B2, A3.T, B3, A1, A2, A3)):
         flat = a.reshape(-1)
-        out.append(F.pad(flat, (0, _pad4(flat.numel()) - flat.numel())))
+        if cd is not None and (i % 2 == 0 or i > 5):
+            flat = flat.to(cd)
+        out.append(F.pad(flat, (0, _pad16(flat.numel(), flat.element_size()) - flat.numel())))
     return out
+
+
+def _byte_block(parts) -> torch.Tensor:
+    """Arrays of mixed dtypes, each a whole number of 16 bytes, as one fresh
+    (16-byte aligned) block of bytes."""
+    return torch.cat([p.contiguous().view(torch.uint8) for p in parts])
 
 
 # The AIS kernel's weight stream (csrc/vae_stream.cuh), mirrored for the
 # tests on the CPU; the wrapper takes the source's own figures
-# (``ais_sizes``), and the card tests hold the two equal.
+# (``ais_sizes``), and the card tests hold the two equal. ``item`` is the
+# bytes of a streamed weight: 4 (float32) or 2 (bfloat16).
 
 
-def _chunk_rows(M: int) -> int:
+def _chunk_rows(M: int, item: int = 4) -> int:
     """Rows of an M-wide k-major matrix per chunk (``chunk_rows``): as many
-    as a slot holds, with rows x M a multiple of 4 floats."""
-    step = 1 if M % 4 == 0 else 2 if M % 2 == 0 else 4
-    return (_AIS_SLOT_FLOATS // M) // step * step
+    as a slot's bytes hold, with rows x M whole 16 bytes."""
+    per = 16 // item
+    step = per // math.gcd(M, per)
+    return (4 * _AIS_SLOT_FLOATS // item // M) // step * step
 
 
-def ais_chunk_plan(D: int, E: int, P: int) -> list[dict]:
+def ais_chunk_plan(D: int, E: int, P: int, item: int = 4) -> list[dict]:
     """One decoder sweep of the AIS kernel's weight stream as the source
     plans it: per product, in the order ``decoder_grad`` runs them, its
-    matrix's float offset in the packed decoder block (``_pack_decoder``)
-    and padded extent, K rows of M floats, the rows per chunk ``kc``, and
-    its chunks as (first row, rows, byte offset in the block, bytes), each
-    one bulk copy from the L2."""
+    matrix's offset in the packed decoder block (``_pack_decoder``; in
+    weights of ``item`` bytes, the block's float32 biases counted by their
+    bytes) and padded extent, K rows of M weights, the rows per chunk
+    ``kc``, and its chunks as (first row, rows, byte offset in the block,
+    bytes), each one bulk copy from the L2."""
     sizes = [D * E, E, E * E, E, E * P, P, E * D, E * E, P * E]
-    offsets = np.concatenate([[0], np.cumsum([_pad4(n) for n in sizes])])
+    nbytes = [4 * _pad16(n, 4) if i in (1, 3, 5) else item * _pad16(n, item)
+              for i, n in enumerate(sizes)]
+    offsets = np.concatenate([[0], np.cumsum(nbytes)]) // item
     plan = []
     # (name, index in the packed block, K, M): W1, W2, W3 forward, then
     # the transposes of the sweep back
     for name, idx, K, M in (("W1", 0, D, E), ("W2", 2, E, E), ("W3", 4, E, P),
                             ("W3t", 8, P, E), ("W2t", 7, E, E), ("W1t", 6, E, D)):
-        kc = _chunk_rows(M)
+        kc = _chunk_rows(M, item)
         chunks = []
         for k0 in range(0, K, kc) if kc > 0 else ():
             rows = min(kc, K - k0)
-            chunks.append((k0, rows, 4 * (int(offsets[idx]) + k0 * M), 4 * _pad4(rows * M)))
-        plan.append({"name": name, "offset": int(offsets[idx]), "extent": _pad4(sizes[idx]),
-                     "K": K, "M": M, "kc": kc, "chunks": chunks})
+            chunks.append((k0, rows, item * (int(offsets[idx]) + k0 * M),
+                           item * _pad16(rows * M, item)))
+        plan.append({"name": name, "offset": int(offsets[idx]),
+                     "extent": _pad16(sizes[idx], item), "K": K, "M": M, "kc": kc,
+                     "chunks": chunks})
     return plan
 
 
@@ -284,13 +318,14 @@ def ais_max_clusters(dims) -> int:
     return _cuda.library("vae_ais").l2hmc_vae_ais_clusters(*dims)
 
 
-def ais_l2_bytes(D: int, E: int, P: int, n: int, anneal_steps: int, leapfrogs: int) -> int:
+def ais_l2_bytes(D: int, E: int, P: int, n: int, anneal_steps: int, leapfrogs: int,
+                 item: int = 4) -> int:
     """Weight bytes one AIS launch reads from the L2, reckoned: every
-    cluster streams the decoder's chunks (both layouts) once per sweep, K L
-    + 1 sweeps."""
+    cluster streams the decoder's chunks (both layouts, weights of ``item``
+    bytes) once per sweep, K L + 1 sweeps."""
     C, G = AIS_TILE
     clusters = _slice(_slice(n, C), G)
-    sweep = sum(b for prod in ais_chunk_plan(D, E, P) for _, _, _, b in prod["chunks"])
+    sweep = sum(b for prod in ais_chunk_plan(D, E, P, item) for _, _, _, b in prod["chunks"])
     return clusters * (anneal_steps * leapfrogs + 1) * sweep
 
 
@@ -371,16 +406,16 @@ def chain_max_clusters(dims) -> int:
     return _cuda.library("vae_chain").l2hmc_vae_chain_clusters(*dims)
 
 
-def weight_l2_bytes(ct, N, D, H, H2, T, E, P) -> tuple[int, int]:
+def weight_l2_bytes(ct, N, D, H, H2, T, E, P, item: int = 4) -> tuple[int, int]:
     """Weight bytes one trajectory launch reads from the L2 (the decoder,
-    the nets): every cluster reads each weight once per product, the
-    decoder's three matrices twice per gradient (forward and transposed),
-    T + 1 gradients and 4 T net applications. The backward kernel reads
-    twice as much: the pass forward, then the sweeps with a tangent and the
-    nets' transposed products."""
+    the nets; weights of ``item`` bytes): every cluster reads each weight
+    once per product, the decoder's three matrices twice per gradient
+    (forward and transposed), T + 1 gradients and 4 T net applications. The
+    backward kernel reads twice as much: the pass forward, then the sweeps
+    with a tangent and the nets' transposed products."""
     clusters = -(-N // ct)
-    dec = 4 * 2 * (D * E + E * E + E * P) * (T + 1)
-    net = 4 * (2 * D * H + H * H2 + 3 * H2 * D) * 4 * T
+    dec = item * 2 * (D * E + E * E + E * P) * (T + 1)
+    net = item * (2 * D * H + H * H2 + 3 * H2 * D) * 4 * T
     return clusters * dec, clusters * net
 
 
@@ -458,21 +493,22 @@ def vae_chain_plain(
 
 def vae_ais_plain(
     dec_vals, x_raw, z0, seed: int, anneal_steps: int, step_size: float,
-    leapfrogs: int, draws: Optional[Callable] = None,
+    leapfrogs: int, draws: Optional[Callable] = None, compute_dtype=None,
 ):
     """Plain version of the AIS kernel on (D, N) state: per anneal step the
     weight update before the transition, fresh momentum, ``leapfrogs``
     plain leapfrog steps at the interpolated energy, an MH accept (a
     select). ``draws(step)`` gives (v (D, N), accept uniforms (N,)); by
-    default the kernel's own Philox draws. Returns (log_w (1, N), mean
-    acceptance probability (1, N))."""
+    default the kernel's own Philox draws. ``compute_dtype`` lowers the
+    decoder products' operands. Returns (log_w (1, N), mean acceptance
+    probability (1, N))."""
     D, N = z0.shape
     if draws is None:
         def draws(step):
             v, _, u = chain_draws(seed, N, D, step, z0.device)
             return v, u
 
-    e1, grad_e1 = _vae_decoder_closures(dec_vals, x_raw)
+    e1, grad_e1 = _vae_decoder_closures(dec_vals, x_raw, resolve_compute_dtype(compute_dtype))
 
     def half_sq(a):
         return 0.5 * torch.sum(a * a, dim=0, keepdim=True)
@@ -526,6 +562,26 @@ def vae_trajectory_vjp_plain(inp: KernelInputs, z, v, dZ, dV, dld, reverse: bool
 # -- wrappers ----------------------------------------------------------------------
 
 
+LAUNCHES.update({f"{k}:bf16": 0 for k in ("vae_chain", "vae_ais", "vae_traj", "vae_traj_bwd")})
+
+
+def _count(name: str, cd) -> None:
+    LAUNCHES[name] += 1
+    if cd is not None:
+        LAUNCHES[f"{name}:bf16"] += 1
+
+
+# the arrays of ``_weight_ptrs`` that are products' weights: the decoder's
+# three W, each net's w1, w2, wh, ws, wt, wq (``_extract_net``'s 0, 1, 2, 4,
+# 7, 9)
+_MATRICES = frozenset([2, 4, 6, *(8 + n * 13 + i for n in (0, 1) for i in (0, 1, 2, 4, 7, 9))])
+
+
+def _bf16(cd) -> int:
+    """The entry points' operand flag: 1 for bfloat16, 0 for float32."""
+    return int(cd is not None)
+
+
 def vae_chain(
     inp: KernelInputs, x_raw, z, seed: int, n_mh_steps: int,
     collect_trace: bool = False, nb: Optional[Sequence[int]] = None,
@@ -533,7 +589,8 @@ def vae_chain(
     """K MH steps of the VAE posterior sampler on (D, N) float32 state;
     returns what ``vae_chain_plain`` returns. CPU tensors take the plain
     version; CUDA tensors launch ``csrc/vae_chain.cu`` (clusters of
-    ``CHAIN_CLUSTER[1]`` CTAs sharing ``CHAIN_CLUSTER[0]`` chains)."""
+    ``CHAIN_CLUSTER[1]`` CTAs sharing ``CHAIN_CLUSTER[0]`` chains), its
+    bfloat16 instantiation where ``inp.cd`` is bfloat16."""
     D, H, H2, T = inp.dims
     E, P = inp.consts[0].shape[0], inp.consts[4].shape[0]
     N = z.shape[1] if z.dim() == 2 else -1
@@ -569,22 +626,24 @@ def vae_chain(
             z.data_ptr(), None if nb_dev is None else nb_dev.data_ptr(),
             zo.data_ptr(), acc.data_ptr(),
             None if trace is None else trace.data_ptr(), act.data_ptr(),
-            N, n_mh_steps, int(seed) & 0xFFFFFFFFFFFFFFFF,
+            N, n_mh_steps, int(seed) & 0xFFFFFFFFFFFFFFFF, _bf16(inp.cd),
             torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, "vae_chain")
-    LAUNCHES["vae_chain"] += 1
+    _count("vae_chain", inp.cd)
     return zo, acc, trace
 
 
 def vae_ais(
     dec_vals, x_raw, z0, seed: int, anneal_steps: int, step_size: float,
-    leapfrogs: int,
+    leapfrogs: int, compute_dtype=None,
 ):
     """A whole AIS chain on (D, N) float32 state; returns what
     ``vae_ais_plain`` returns. CPU tensors take the plain version; CUDA
     tensors launch ``csrc/vae_ais.cu`` (clusters of ``AIS_TILE[1]`` CTAs
-    with ``AIS_TILE[0]`` chains each, sharing one weight stream)."""
+    with ``AIS_TILE[0]`` chains each, sharing one weight stream), its
+    bfloat16 instantiation for a bfloat16 ``compute_dtype``, whose stream
+    carries the decoder's matrices in bfloat16."""
     E, D = dec_vals[0].shape
     P = dec_vals[4].shape[0]
     N = z0.shape[1] if z0.dim() == 2 else -1
@@ -593,12 +652,14 @@ def vae_ais(
     _check("x_raw", x_raw, (P, N), dev)
     if anneal_steps <= 0 or leapfrogs <= 0:
         raise ValueError("anneal_steps and leapfrogs must be positive")
+    cd = resolve_compute_dtype(compute_dtype)
     if z0.device.type == "cpu":
-        return vae_ais_plain(dec_vals, x_raw, z0, seed, anneal_steps, step_size, leapfrogs)
+        return vae_ais_plain(dec_vals, x_raw, z0, seed, anneal_steps, step_size, leapfrogs,
+                             compute_dtype=cd)
     if z0.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {z0.device}")
     _check_smem(ais_sizes((D, E, P), N)["smem_bytes"] // 4)
-    block = _flat(_pack_decoder(dec_vals))  # a fresh allocation: 16-byte aligned
+    block = _byte_block(_pack_decoder(dec_vals, cd))  # a fresh allocation: 16-byte aligned
     beta = anneal_schedule(anneal_steps)
     beta_diff = float(beta[1] - beta[0] if anneal_steps > 1 else beta[0])
     beta_dev = torch.as_tensor(beta, device=dev)
@@ -610,10 +671,10 @@ def vae_ais(
             block.data_ptr(), D, E, P, beta_dev.data_ptr(), x_raw.data_ptr(),
             z0.data_ptr(), log_w.data_ptr(), acc.data_ptr(),
             float(step_size), beta_diff, N, anneal_steps, leapfrogs,
-            int(seed) & 0xFFFFFFFFFFFFFFFF, torch.cuda.current_stream().cuda_stream,
+            int(seed) & 0xFFFFFFFFFFFFFFFF, _bf16(cd), torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, "vae_ais")
-    LAUNCHES["vae_ais"] += 1
+    _count("vae_ais", cd)
     return log_w, acc
 
 
@@ -652,25 +713,30 @@ def _traj_args(inp: KernelInputs, x_raw, z, v):
 
 
 def _weight_ptrs(inp: KernelInputs, dev):
-    """The training kernels' weights as a host array of device pointers
+    """The cluster kernels' weights as a host array of device pointers
     (``carve_weights`` in csrc/vae_cluster.cuh): eps, masks, the decoder's
     W (in, out) and bias per layer, then each net's 13 arrays. W is A.T, the
     params tree's own tensor, and the other arrays are already contiguous,
     so ``contiguous`` copies nothing but eps (a broadcast column of D
-    floats). Returns the array and the tensors it points into."""
+    floats). With ``inp.cd`` the products' weight matrices are cast to it,
+    once per launch; the params stay float32. Returns the array and the
+    tensors it points into."""
     A1, B1, A2, B2, A3, B3 = inp.consts
     arrays = [inp.eps, inp.masks, A1.T, B1, A2.T, B2, A3.T, B3,
               *inp.xnet_w, *inp.vnet_w]
     arrays = [a.detach().contiguous() for a in arrays]
     for a in arrays:
         _check("weight", a, a.shape, dev)
+    if inp.cd is not None:
+        arrays = [a.to(inp.cd) if i in _MATRICES else a for i, a in enumerate(arrays)]
     return (ctypes.c_void_p * len(arrays))(*(a.data_ptr() for a in arrays)), arrays
 
 
 def vae_trajectory(inp: KernelInputs, x_raw, z, v, reverse: bool):
     """One T-step trajectory on the decoder posterior on (D, N) float32
     state; returns what ``vae_trajectory_plain`` returns. CPU tensors take
-    the plain version; CUDA tensors launch ``csrc/vae_traj.cu``."""
+    the plain version; CUDA tensors launch ``csrc/vae_traj.cu``, its
+    bfloat16 instantiation where ``inp.cd`` is bfloat16."""
     D, H, H2, T, E, P, N = _traj_args(inp, x_raw, z, v)
     if z.device.type == "cpu":
         return vae_trajectory_plain(inp, z, v, reverse)
@@ -688,10 +754,11 @@ def vae_trajectory(inp: KernelInputs, x_raw, z, v, reverse: bool):
         err = lib.l2hmc_vae_traj(
             ptrs, D, H, H2, T, E, P, x_raw.data_ptr(), inp.emb.data_ptr(),
             z.data_ptr(), v.data_ptr(), zo.data_ptr(), vo.data_ptr(), ld.data_ptr(),
-            act.data_ptr(), N, int(reverse), torch.cuda.current_stream().cuda_stream,
+            act.data_ptr(), N, int(reverse), _bf16(inp.cd),
+            torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, "vae_traj")
-    LAUNCHES["vae_traj"] += 1
+    _count("vae_traj", inp.cd)
     return zo, vo, ld
 
 
@@ -699,10 +766,10 @@ def vae_trajectory_vjp(inp: KernelInputs, x_raw, z, v, dZ, dV, dld, reverse: boo
     """VJP of the fused VAE trajectory at (D, N) float32 (z, v) for the
     cotangents dZ, dV (D, N) and dld (1, N); returns what
     ``vae_trajectory_vjp_plain`` returns. CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/vae_traj_bwd.cu``: each cluster
-    adds its chains' weight and eps cotangents into its own slice of a
-    per-cluster scratch, and a second kernel sums the slices in a fixed
-    order."""
+    version; CUDA tensors launch ``csrc/vae_traj_bwd.cu`` (its bfloat16
+    instantiation where ``inp.cd`` is bfloat16): each cluster adds its
+    chains' weight and eps cotangents into its own slice of a per-cluster
+    scratch, and a second kernel sums the slices in a fixed order."""
     D, H, H2, T, E, P, N = _traj_args(inp, x_raw, z, v)
     dev = inp.eps.device
     _check("dZ", dZ, (D, N), dev)
@@ -728,10 +795,10 @@ def vae_trajectory_vjp(inp: KernelInputs, x_raw, z, v, dZ, dV, dld, reverse: boo
             z.data_ptr(), v.data_ptr(), dZ.data_ptr(), dV.data_ptr(), dld.data_ptr(),
             dz.data_ptr(), dv.data_ptr(), demb.data_ptr(), grads.data_ptr(),
             partial.data_ptr(), bnd.data_ptr(), act.data_ptr(), N, int(reverse),
-            torch.cuda.current_stream().cuda_stream,
+            _bf16(inp.cd), torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, "vae_traj_bwd")
-    LAUNCHES["vae_traj_bwd"] += 1
+    _count("vae_traj_bwd", inp.cd)
     gx = _unpack_net_grads(grads[:nf], D, H, H2, T)
     gv = _unpack_net_grads(grads[nf:2 * nf], D, H, H2, T)
     return gx, gv, grads[2 * nf:].view(D, 1), demb, dz, dv
@@ -760,7 +827,8 @@ def composition_counts(comp_key, n_mh_steps: int, max_composition: int) -> np.nd
 @dataclasses.dataclass(frozen=True)
 class FusedVaeSampler:
     """Whole-chain fused sampler for the VAE posterior: one launch per
-    ``run``, decoder energy and gradient in the kernel."""
+    ``run``, decoder energy and gradient in the kernel. ``compute_dtype``
+    "bfloat16" lowers the nets' and the decoder's product operands."""
 
     dynamics: Dynamics  # the VAE sampler dynamics (apps/vae.py build_dynamics)
     compute_dtype: str = ""
@@ -786,7 +854,7 @@ class FusedVaeSampler:
             nb = composition_counts(comp_key, n_mh_steps, max_composition)
         xr = x_raw.detach().T.contiguous()
         inp = prepare_vae(self.dynamics, smp_params, dec_params, xr,
-                          emb.detach().T.contiguous())
+                          emb.detach().T.contiguous(), compute_dtype=self.compute_dtype or None)
         zo, acc, trace = vae_chain(
             inp, xr, z.detach().T.contiguous(), seed, n_mh_steps, collect_trace, nb,
         )
@@ -799,7 +867,8 @@ class FusedVaeSampler:
 class FusedVaeAis:
     """Single-launch AIS for the VAE decoder log-likelihood protocol:
     ``run`` returns (log_w per chain, mean acceptance probability per
-    chain); the caller applies the per-datapoint logmeanexp."""
+    chain); the caller applies the per-datapoint logmeanexp.
+    ``compute_dtype`` "bfloat16" lowers the decoder products' operands."""
 
     latent_dim: int
     compute_dtype: str = ""
@@ -816,6 +885,7 @@ class FusedVaeAis:
         w, acc = vae_ais(
             decoder_arrays(dec_params), x_raw.detach().T.contiguous(),
             z0.detach().T.contiguous(), seed, anneal_steps, step_size, leapfrogs,
+            self.compute_dtype or None,
         )
         return w[0], acc[0]
 
@@ -858,7 +928,9 @@ class DifferentiableFusedVae:
     ``eps = exp(alpha)``) and the aux encoder (through ``emb``) by ordinary
     autograd outside the boundary; the decoder and the raw batch are
     detached, as the sampler loss stops their gradient. ``p_accept`` and
-    ``energy`` stay on the plain ``Dynamics``."""
+    ``energy`` stay on the plain ``Dynamics`` (float32, as in the JAX
+    package). ``compute_dtype`` "bfloat16" lowers the trajectories' product
+    operands, forward and backward."""
 
     dynamics: Dynamics  # apps/vae.py build_dynamics
     compute_dtype: str = ""
@@ -888,7 +960,8 @@ class DifferentiableFusedVae:
     def _run(self, params, z, v, aux, reverse: bool):
         x_raw = aux["raw"].detach().T.contiguous()
         inp = prepare_vae(self.dynamics, params, aux["dec"], x_raw,
-                          aux["emb"].T.contiguous(), differentiable=True)
+                          aux["emb"].T.contiguous(), differentiable=True,
+                          compute_dtype=self.compute_dtype or None)
         Z, V, ld = _VaeTrajectory.apply(
             inp, x_raw, reverse, inp.eps, inp.emb, z.T.contiguous(), v.T.contiguous(),
             *inp.xnet_w, *inp.vnet_w,

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from l2hmc_tpu_torch import mcmc, nets, targets
-from l2hmc_tpu_torch.config import resolve_device
+from l2hmc_tpu_torch.config import resolve_compute_dtype, resolve_device
 from l2hmc_tpu_torch.dynamics import Dynamics
 from l2hmc_tpu_torch.evals import acl_spectrum, ess
 from l2hmc_tpu_torch.mcmc.sampler import normal_like, propose_draws
@@ -117,7 +117,8 @@ class ScgConfig:
         for name, ok in _UNPORTED.items():
             if not ok(getattr(self, name)):
                 raise NotImplementedError(
-                    f"ScgConfig.{name}={getattr(self, name)!r} is not ported yet"
+                    f"ScgConfig.{name}={getattr(self, name)!r} is not ported yet "
+                    f"(ROADMAP {_QUEUED[name]})"
                 )
 
 
@@ -125,8 +126,11 @@ class ScgConfig:
 _UNPORTED = {
     "eps_step": lambda v: not v,
     "pt_train_rungs": lambda v: v <= 1,
-    "compute_dtype": lambda v: v == "float32",
+    "compute_dtype": lambda v: resolve_compute_dtype(v) is None,
 }
+# where each stands in ROADMAP's queues
+_QUEUED = {"eps_step": "A7", "pt_train_rungs": "A1",
+           "compute_dtype": "B3: kernels 1-3 and the plain nets in bfloat16"}
 
 
 def build_dynamics(config: ScgConfig, target=None) -> tuple[Dynamics, Any]:

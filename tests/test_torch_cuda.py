@@ -812,6 +812,153 @@ def test_vae_traj_sizes_match_the_host_reckoning(cuda, dims):
     assert fv.max_clusters(dims, False) > 0 and fv.max_clusters(dims, True) > 0
 
 
+# -- bfloat16 operands in the VAE kernels -----------------------------------------
+#
+# Each kernel's bf16 instantiation against its plain version with the same
+# operands (ops/operands.py): both round at the same sites, so they differ
+# only where float32 sums in another order cross a bf16 rounding boundary,
+# and each comparison is held to a share of the gap between the plain bf16
+# and plain float32 results on the same inputs, chip_smoke's phase 12 bars
+# (BF16_GAP_SHARE; the VJP at the full width BF16_VJP_GAP_SHARE and its
+# signal shares, chip_smoke's own check; at most a fifth of the chains may
+# flip, BF16_FLIP_SHARE).
+
+BF16_SHARE = 0.5
+BF16_FLIPS = 0.2
+
+
+def _gap(a, b, mask=None):
+    d = (a - b).abs()
+    if mask is not None:
+        d = d[..., mask]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def _rms(a, b, mask=None):
+    d = (a - b).double()
+    if mask is not None:
+        d = d[..., mask]
+    return float(d.pow(2).mean().sqrt()) if d.numel() else 0.0
+
+
+def _bf16_inputs(model, params, xr, emb):
+    return fv.prepare_vae(model.dynamics, params["smp"], params["dec"], xr, emb,
+                          compute_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("full,n", [(True, 41), (True, 203), (False, 77)],
+                         ids=["full-n41", "full-n203", "small-n77"])
+def test_vae_bf16_training_kernels_match_plain(cuda, full, n, reverse):
+    """The bf16 trajectory and VJP kernels against their plain bf16
+    versions: the trajectory within half the plain bf16-float32 gap in RMS
+    and in max-norm (at the full width, where a flipped rounding moves a
+    chain, within the gap), apart from the float32 kernel's, inverting as
+    the plain version does (at most a fifth of the chains miss by more than
+    1e-4, none by more than 2e-2), twice bit for bit; the VJP at chip_smoke's
+    bars (``_vjp_bars_hold``: every leaf within its bf16-float32 gap in RMS
+    at the full width, half of it at the small one, and carrying the plain
+    version's bf16 signals, which the float32 kernel and a VJP without the
+    cotangents' rounding miss), twice bit for bit; each launch counted as a
+    bf16 one."""
+    model, params, inp32, xr, z, v, dZ, dV, dld = _vae_traj_inputs(cuda, full, n)
+    inp = _bf16_inputs(model, params, xr, inp32.emb)
+    before = dict(fd.LAUNCHES)
+    got = fv.vae_trajectory(inp, xr, z, v, reverse)
+    assert fd.LAUNCHES["vae_traj:bf16"] == before["vae_traj:bf16"] + 1
+    again = fv.vae_trajectory(inp, xr, z, v, reverse)
+    for a, b in zip(got, again):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    ref = fv.vae_trajectory_plain(inp, z, v, reverse)
+    ref32 = fv.vae_trajectory_plain(inp32, z, v, reverse)
+    k32 = fv.vae_trajectory(inp32, xr, z, v, reverse)
+    full_share = 1.0 if full else BF16_SHARE
+    for a, b, c, d in zip(got, ref, ref32, k32):
+        assert torch.isfinite(a).all()
+        assert _gap(a, b) <= full_share * _gap(b, c)
+        assert _rms(a, b) <= BF16_SHARE * _rms(b, c)
+        assert _gap(a, d) > 0
+    z2, v2, _ = fv.vae_trajectory(inp, xr, got[0], got[1], not reverse)
+    miss = torch.maximum((z2 - z).abs().amax(0), (v2 - v).abs().amax(0))
+    assert int((miss > 1e-4).sum()) <= BF16_FLIPS * n and float(miss.max()) <= 2e-2
+
+    from chip_smoke import BF16_VJP_GAP_SHARE, _bf16_vjp_compare, _vjp_bars_hold
+
+    before = fd.LAUNCHES["vae_traj_bwd:bf16"]
+    case = _bf16_vjp_compare(fv, inp, inp32, xr, z, v, dZ, dV, dld, reverse)
+    assert fd.LAUNCHES["vae_traj_bwd:bf16"] == before + 2
+    assert case["repeats_bit_for_bit"]
+    assert _vjp_bars_hold(case, BF16_VJP_GAP_SHARE if full else BF16_SHARE), case
+
+
+@pytest.mark.parametrize("composed", [False, True], ids=["single", "composed"])
+@pytest.mark.parametrize("full,n", [(True, 9), (True, 203), (False, 77)],
+                         ids=["full-n9", "full-n203", "small-n77"])
+def test_vae_bf16_chain_kernel_matches_plain_on_same_bits(cuda, full, n, composed):
+    """The bf16 sampler on the same Philox bits as its plain bf16 version,
+    3 recorded steps: at most a fifth of the chains (or 2) flip an accept or
+    a step's move or part by 0.1, and the chains that flipped in neither
+    comparison agree within half the plain bf16-float32 gap in RMS; apart
+    from the float32 kernel; twice bit for bit."""
+    model, params, x_raw, emb, z0 = _vae_setup(cuda, full, n)
+    xr, embT, zT = x_raw.T.contiguous(), emb.T.contiguous(), z0.T.contiguous()
+    inp = _bf16_inputs(model, params, xr, embT)
+    inp32 = fv.prepare_vae(model.dynamics, params["smp"], params["dec"], xr, embT)
+    kw = dict(seed=4, n_mh_steps=3, collect_trace=True, nb=[2, 1, 3] if composed else None)
+    before = fd.LAUNCHES["vae_chain:bf16"]
+    zk, acck, trk = fv.vae_chain(inp, xr, zT, **kw)
+    assert fd.LAUNCHES["vae_chain:bf16"] == before + 1
+    for a, b in zip((zk, acck, trk), fv.vae_chain(inp, xr, zT, **kw)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    _, accp, trp = fv.vae_chain_plain(inp, zT, **kw)
+    _, acc3, tr3 = fv.vae_chain_plain(inp32, zT, **kw)
+    ops = 6 if composed else 3
+
+    def moved(tr):
+        return (tr != torch.cat([zT[None], tr[:-1]])).any(dim=1)
+
+    def flips(tr_a, acc_a, tr_b, acc_b):
+        return (((acc_a - acc_b).abs()[0] * ops > 0.5) | (moved(tr_a) != moved(tr_b)).any(0)
+                | ((tr_a - tr_b).abs().amax(dim=(0, 1)) > 0.1))
+
+    flipped, flip32 = flips(trk, acck, trp, accp), flips(trp, accp, tr3, acc3)
+    clean = ~(flipped | flip32)
+    assert int(flipped.sum()) <= max(2, BF16_FLIPS * n)
+    assert _rms(trk, trp, clean) <= BF16_SHARE * _rms(trp, tr3, clean)
+    assert _gap(zk, fv.vae_chain(inp32, xr, zT, **kw)[0]) > 0
+    assert torch.isfinite(trk).all() and float((zk - zT).abs().max()) > 0.05
+
+
+@pytest.mark.parametrize("n", [1000, 203])
+@pytest.mark.parametrize("full", [True, False], ids=["full", "small"])
+def test_vae_bf16_ais_kernel_matches_plain_on_same_bits(cuda, full, n):
+    """The bf16 AIS kernel (its stream in bfloat16) on the same bits as its
+    plain bf16 version, 20 anneal steps: at most a fifth of the chains (or
+    2) with log w apart by 0.5 or more (a flipped accept), log w within half
+    the plain bf16-float32 gap in median over 20 steps and in RMS over one;
+    apart from the float32 kernel; twice bit for bit."""
+    model, params, x_raw, _, z0 = _vae_setup(cuda, full, n)
+    dec = fv.decoder_arrays(params["dec"])
+    xr, zT = x_raw.T.contiguous(), z0.T.contiguous()
+    kw = dict(seed=6, anneal_steps=20, step_size=0.05, leapfrogs=10)
+    before = fd.LAUNCHES["vae_ais:bf16"]
+    wk, acck = fv.vae_ais(dec, xr, zT, **kw, compute_dtype="bfloat16")
+    assert fd.LAUNCHES["vae_ais:bf16"] == before + 1
+    wk2, acck2 = fv.vae_ais(dec, xr, zT, **kw, compute_dtype="bfloat16")
+    assert torch.equal(wk, wk2) and torch.equal(acck, acck2)
+    wp, _ = fv.vae_ais_plain(dec, xr, zT, **kw, compute_dtype="bfloat16")
+    w3, _ = fv.vae_ais_plain(dec, xr, zT, **kw)
+    assert int(((wk - wp).abs()[0] >= 0.5).sum()) <= max(2, BF16_FLIPS * n)
+    assert float((wk - wp).abs().median()) <= BF16_SHARE * float((wp - w3).abs().median())
+    kw1 = dict(kw, anneal_steps=1)
+    w1k, _ = fv.vae_ais(dec, xr, zT, **kw1, compute_dtype="bfloat16")
+    w1p, _ = fv.vae_ais_plain(dec, xr, zT, **kw1, compute_dtype="bfloat16")
+    w13, _ = fv.vae_ais_plain(dec, xr, zT, **kw1)
+    assert _rms(w1k, w1p) <= BF16_SHARE * _rms(w1p, w13)
+    assert _gap(wk, fv.vae_ais(dec, xr, zT, **kw)[0]) > 0
+    assert torch.isfinite(wk).all()
+
+
 # -- captured steps against eager on the card ------------------------------------
 
 # the reference architecture plain and fused, and bench's best recipe (plain)

@@ -261,8 +261,10 @@ def test_fused_dynamics_surface():
     dyn = DifferentiableFusedVae(tm.dynamics)
     assert dyn.hmc is False and dyn.energy is tm.dynamics.energy
     assert float(dyn.eps(tp["smp"])) == pytest.approx(0.1, rel=1e-6)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        DifferentiableFusedVae(tm.dynamics, compute_dtype="bfloat16")
+    bf16 = DifferentiableFusedVae(tm.dynamics, compute_dtype="bfloat16")
+    assert bf16.hmc is False and bf16.energy is tm.dynamics.energy
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        DifferentiableFusedVae(tm.dynamics, compute_dtype="float16")
     hmc = tvae.VaeModel.build(tvae.VaeConfig(**SMALL, hmc=True))
     with pytest.raises(ValueError, match="hmc=False"):
         DifferentiableFusedVae(hmc.dynamics)

@@ -42,14 +42,19 @@ def test_config_has_every_field_with_the_same_default():
 
 @pytest.mark.parametrize("kw", [{"fused_train": True}, {"fused_compute_dtype": "bfloat16"}])
 def test_config_raises_for_what_is_not_ported(kw):
-    """bf16 kernel operands are not ported and raise; fused training is, and
-    its config builds a model whose train step takes the fused dynamics."""
+    """Fused training and its bf16 kernel operands are both ported: each
+    config builds a model whose train step takes the fused dynamics (with
+    the dtype, tests/test_torch_bf16_vae.py runs it); an operand dtype
+    without a kernel instantiation raises."""
     if "fused_train" in kw:
         cfg = tvae.VaeConfig(**SMALL, **kw, fused_tile=64)
         assert cfg.fused_train and tvae.make_train_step(tvae.VaeModel.build(cfg), 1)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tvae.VaeConfig(**kw)
+    cfg = tvae.VaeConfig(**SMALL, **kw, fused_train=True)
+    assert cfg.fused_compute_dtype == "bfloat16"
+    assert tvae.make_train_step(tvae.VaeModel.build(cfg), 1)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tvae.VaeConfig(fused_compute_dtype="float16")
 
 
 @pytest.mark.parametrize("hmc", [False, True])

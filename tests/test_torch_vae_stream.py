@@ -77,9 +77,9 @@ def test_packed_decoder_holds_each_matrix_at_its_planned_offset(dims):
     dec = [torch.tensor(rng.standard_normal(s), dtype=torch.float32)
            for s in ((E, D), (E, 1), (E, E), (E, 1), (P, E), (P, 1))]
     A1, _, A2, _, A3, _ = dec
-    block = fv._flat(fv._pack_decoder(dec))
     parts = fv._pack_decoder(dec)
-    assert all(p.numel() % 4 == 0 for p in parts)
+    block = fv._byte_block(parts).view(torch.float32)
+    assert all(p.dtype == torch.float32 and p.numel() % 4 == 0 for p in parts)
     assert block.numel() == sum(p.numel() for p in parts)
     want = {"W1": A1.T, "W2": A2.T, "W3": A3.T, "W3t": A3, "W2t": A2, "W1t": A1}
     for prod in fv.ais_chunk_plan(D, E, P):
@@ -114,3 +114,61 @@ def test_ais_l2_bytes_at_the_protocol():
     got = fv.ais_l2_bytes(D, E, P, 1000, 100, 10)
     assert got == 63 * 1001 * sweep
     assert got == pytest.approx(0.96e12, rel=0.01)
+
+
+@pytest.mark.parametrize("dims", WIDTHS, ids=IDS)
+def test_bf16_chunk_plan_keeps_the_bulk_copy_rules(dims):
+    """With the decoder's matrices in bfloat16 (the kernel's bf16
+    instantiation) a slot's 64 KB hold as many rows as fit, at least twice
+    float32's, where whole rows are 16 bytes; every copy still starts on 16
+    bytes, moves a multiple of 16 and fits a slot, each product's chunks
+    cover its rows once, the last row group (4 weights, 8 bytes) reads
+    inside the slot's pad, and a sweep streams half float32's bytes."""
+    plan16, plan32 = fv.ais_chunk_plan(*dims, item=2), fv.ais_chunk_plan(*dims)
+    slot_bytes = 4 * fv._AIS_SLOT_FLOATS
+    for prod, prod32 in zip(plan16, plan32):
+        K, M, kc = prod["K"], prod["M"], prod["kc"]
+        assert kc > 0 and (2 * kc * M) % 16 == 0 and 2 * kc * M <= slot_bytes
+        if M % 8 == 0:
+            assert kc == slot_bytes // (2 * M) >= 2 * prod32["kc"]
+        rows_seen = []
+        for k0, rows, off, nbytes in prod["chunks"]:
+            assert off % 16 == 0 and nbytes % 16 == 0 and 0 < nbytes <= slot_bytes
+            assert rows * M * 2 <= nbytes < rows * M * 2 + 16
+            assert off + nbytes <= 2 * (prod["offset"] + prod["extent"])
+            assert off == 2 * (prod["offset"] + k0 * M)
+            assert 2 * ((rows - 1) * M + 4 * (-(-M // 4))) <= 4 * (
+                fv._AIS_SLOT_FLOATS + fv._AIS_SLOT_PAD)
+            rows_seen += range(k0, k0 + rows)
+        assert rows_seen == list(range(K))
+    D, E, P = dims
+    assert fv.ais_l2_bytes(D, E, P, 1000, 100, 10, item=2) == pytest.approx(
+        fv.ais_l2_bytes(D, E, P, 1000, 100, 10) / 2, rel=1e-3)
+
+
+@pytest.mark.parametrize("dims", WIDTHS, ids=IDS)
+def test_bf16_packed_decoder_holds_each_matrix_at_its_planned_offset(dims):
+    """``_pack_decoder(dec, torch.bfloat16)`` casts the six matrices and
+    keeps the biases float32, each padded with zeros to whole 16 bytes; in
+    the byte block the plan's offsets (in bfloat16 weights) find each
+    product's k-major matrix, rounded to bfloat16, and the biases sit where
+    the kernel's carve takes them."""
+    D, E, P = dims
+    rng = np.random.default_rng(0)
+    dec = [torch.tensor(rng.standard_normal(s), dtype=torch.float32)
+           for s in ((E, D), (E, 1), (E, E), (E, 1), (P, E), (P, 1))]
+    A1, B1, A2, B2, A3, B3 = dec
+    parts = fv._pack_decoder(dec, torch.bfloat16)
+    assert [p.dtype for p in parts] == [torch.bfloat16, torch.float32] * 3 + [torch.bfloat16] * 3
+    assert all((p.numel() * p.element_size()) % 16 == 0 for p in parts)
+    block = fv._byte_block(parts)
+    as16 = block.view(torch.bfloat16)
+    want = {"W1": A1.T, "W2": A2.T, "W3": A3.T, "W3t": A3, "W2t": A2, "W1t": A1}
+    for prod in fv.ais_chunk_plan(D, E, P, item=2):
+        K, M, off = prod["K"], prod["M"], prod["offset"]
+        got = as16[off:off + K * M].view(K, M)
+        torch.testing.assert_close(got, want[prod["name"]].to(torch.bfloat16), rtol=0, atol=0)
+        assert float(as16[off + K * M:off + prod["extent"]].float().abs().sum()) == 0.0
+    b1_at = parts[0].numel() * 2
+    torch.testing.assert_close(block[b1_at:b1_at + 4 * E].view(torch.float32), B1[:, 0],
+                               rtol=0, atol=0)
