@@ -54,8 +54,8 @@ then:
      launch twice, bit for bit; its cluster configuration, the clusters
      the card holds at once and the L2 weight bytes of a protocol launch);
      (c) the sampling
-     path: ``apps.eval_sampler.run`` with the default protocol cut to 1000
-     recorded steps of 1-3 ops and a burn-in of 500 (200 chains, the
+     path: ``apps.eval_sampler.run`` with the default protocol cut to 600
+     recorded steps of 1-3 ops and a burn-in of 300 (200 chains, the
      seven-eps plain HMC baseline grid; VAE_SAMPLING_CUT), its posterior
      moments held against a plain
      ``vae_chain_plain`` run with its own
@@ -99,7 +99,7 @@ then:
      bit (phase 3's limits; icg's flips at PHI4_FLIPS); (c)
      the suite path: ``run_target`` on the rough well (its recipe: 2048
      chains, T=5, hidden 20, hard mode),
-     the ring at 2048 chains, the funnel and icg at 2048 chains, cut to 250
+     the ring at 2048 chains, the funnel and icg at 2048 chains, cut to 150
      training steps (icg 20) and
      one training seed, with a 1000-step eval, the fused cross-check
      (its ESS within 0.30 of the plain eval's) and the HMC grid through the
@@ -156,13 +156,32 @@ then:
      training against its plain route (``vae_trajectory_plain`` under
      autograd) at the plain run's 20 states; (e) the bf16 path:
      ``apps.vae.train`` with ``fused_train=True,
-     fused_compute_dtype="bfloat16"`` at 7d's depth, ``restore``, the
+     fused_compute_dtype="bfloat16"`` cut to BF16_TRAIN_EPOCHS, ``restore``, the
      restored model's posterior through the bf16 sampler and its
      log-likelihood through bf16 AIS beside float32 AIS; (f) each bf16
      launch timed at its protocol shape with its plain version, both bounds
      (the bf16 tensor-core peak and the float32 pipe), ptxas's registers and
      spills and the reckoned L2 weight bytes. Launch counts are reset before
-     (e) and read after it.
+     (e) and read after it;
+ 13. bfloat16 operands in kernels 1 and 3 (``compute_dtype="bfloat16"``),
+     each bf16 instantiation against its plain bf16 version, held to shares
+     of the plain bf16-float32 gap as phase 12: (a) the trajectory kernel on
+     SCG at 2048 and 203 chains, the rough well (D = 10, H = 20, T = 5) and
+     phi^4 at L = 8, both directions, inverting, twice bit for bit; (b) the
+     chain kernel on the same Philox bits, 20 traced MH steps, twice bit for
+     bit: SCG at 1024 and 203 chains, the rough well, phi^4 at L = 16 and
+     L = 64 (dim 4096, hidden 32, T = 10; sites) and icg at hidden 100
+     (sites, 128 hidden units); (c) the bf16 SCG path: ``train`` with
+     ``ScgConfig(compute_dtype="bfloat16")`` at 1024 chains, the 2000-step
+     traced eval through ``fused_chain_sampler(..., compute_dtype=
+     "bfloat16")`` and HMC (ESS ratio, ESS gap to a plain bf16 eval), the
+     bf16 parity gate against the bf16 nets, the bf16 sampler on the lattice
+     at L = 16 and 64, fused bf16 training equal to fused float32 training;
+     (d) the JAX package's bf16 conv recipe at L = 32 through
+     ``apps.phi4.run``, cut in depth, with its peak memory; (e) the bf16
+     rows 1-bf16, 3-bf16, 3f-bf16 and 3h-bf16 timed beside their float32
+     rows, both bounds, ptxas. Launch counts are reset before (c) and read
+     after it.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -208,10 +227,11 @@ VAE_AIS_TOL = 5e-3
 # VAE_MEAN_TOL posterior standard deviations, variances within a factor
 # 1 +- VAE_VAR_TOL.
 VAE_PLAIN_STEPS, VAE_PLAIN_BURN_IN = 240, 80
-# 6c's sampling path cut to half the protocol's recorded steps and burn-in
-# (its plain seven-eps HMC grid is ~95% of the run), to keep the script under
-# 1000 s; (e) times the kernel's launch at the protocol's 2000 steps.
-VAE_SAMPLING_CUT = dict(n_steps=1000, burn_in=500)
+# 6c's sampling path cut to 0.3 of the protocol's recorded steps and burn-in
+# (its plain seven-eps HMC grid is ~95% of the run), to keep the script near
+# 1100 s with phase 13; (e) times the kernel's launch at the protocol's 2000
+# steps.
+VAE_SAMPLING_CUT = dict(n_steps=600, burn_in=300)
 VAE_MEAN_TOL = 0.1
 VAE_VAR_TOL = 0.15
 # eval_vae.run through the AIS kernel against the ais_estimate loop on the
@@ -245,7 +265,7 @@ VAE_RELU_MARGIN = 1e-5
 # 512 chains, so the two runs' parameters, once apart by rounding, give
 # sampler losses apart by more; the later gap is reported and not held.
 VAE_SAMPLER_FREE_STEPS = 3
-VAE_TRAIN_EPOCHS = 38  # 8 batches of 512 each on the 4096 synthetic images
+VAE_TRAIN_EPOCHS = 20  # 8 batches of 512 each on the 4096 synthetic images
 
 
 def _nvidia_smi() -> str:
@@ -324,10 +344,26 @@ def _substep_ops(D, H, H2, hmc, ops):
     return nets + grads + updates
 
 
-def traj_bound(D, H, H2, T, N, hmc, block_floats, ops):
+def _stq_weights(D, H, H2):
+    """The S/T/Q net's products' weights: w1, w2, wh and the three heads."""
+    return 2 * D * H + H * H2 + 3 * H2 * D
+
+
+def _stq_products(D, H, H2):
+    """The operations of one S/T/Q net application's matrix products (an
+    FMA 2): the products that bfloat16 operands lower."""
+    return 2 * _stq_weights(D, H, H2)
+
+
+def traj_work(D, H, H2, T, N, hmc, block_floats, ops):
+    """(operations, bytes) of one trajectory launch."""
     work = N * T * _substep_ops(D, H, H2, hmc, ops)
     nbytes = 4 * (2 * D * N + 2 * D * N + N + block_floats)
-    return _bound(work, nbytes)
+    return work, nbytes
+
+
+def traj_bound(D, H, H2, T, N, hmc, block_floats, ops):
+    return _bound(*traj_work(D, H, H2, T, N, hmc, block_floats, ops))
 
 
 def traj_bwd_bound(D, H, H2, T, N, hmc, block_floats, n_grads, ops):
@@ -340,13 +376,18 @@ def traj_bwd_bound(D, H, H2, T, N, hmc, block_floats, n_grads, ops):
     return _bound(work, nbytes)
 
 
-def chain_bound(D, H, H2, T, N, K, hmc, block_floats, trace: bool, ops):
+def chain_work(D, H, H2, T, N, K, hmc, block_floats, trace: bool, ops):
+    """(operations, bytes) of one chain launch of K MH steps."""
     philox = (1 + (D + 1) // 2) * 10 * 8  # calls x rounds x integer ops
     per_step = (T * _substep_ops(D, H, H2, hmc, ops) + 2 * ops[0] + 4 * D
                 + philox + 6 * D + 8)
     work = N * K * per_step
     nbytes = 4 * (D * N + D * N + N + block_floats + (K * D * N if trace else 0))
-    return _bound(work, nbytes)
+    return work, nbytes
+
+
+def chain_bound(D, H, H2, T, N, K, hmc, block_floats, trace: bool, ops):
+    return _bound(*chain_work(D, H, H2, T, N, K, hmc, block_floats, trace, ops))
 
 
 def _decoder_grad_ops(D, E, P):
@@ -507,13 +548,14 @@ def _traj_launch_ms(fd, cuda_lib, inp, x, v, reps):
     N = x.shape[1]
     xo, vo = torch.empty_like(x), torch.empty_like(v)
     ld = torch.empty((1, N), dtype=torch.float32, device=x.device)
-    lib = cuda_lib.library("trajectory")
+    name = fd._lib_name("trajectory", inp)  # the bfloat16 library for inp.cd
+    entry = getattr(cuda_lib.library(name), f"l2hmc_{name}")
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
-        cuda_lib.check(lib.l2hmc_trajectory(
+        cuda_lib.check(entry(
             block.data_ptr(), D, H, H2, T, *inp.energy_args, 0, int(inp.hmc), x.data_ptr(),
-            v.data_ptr(), xo.data_ptr(), vo.data_ptr(), ld.data_ptr(), N, stream), "trajectory")
+            v.data_ptr(), xo.data_ptr(), vo.data_ptr(), ld.data_ptr(), N, stream), name)
 
     return _cuda_time(launch, reps)
 
@@ -1296,8 +1338,10 @@ BF16_RESOLUTION = 2e-2
 # (b): it is held at rtol BF16_SAMPLER_LOSS_RTOL (2.6e-3 at its worst step
 # on an H100).
 BF16_SAMPLER_LOSS_RTOL = 1e-2
-# (e): the training path at phase 7d's depth (8 batches of 512 an epoch)
-BF16_TRAIN_EPOCHS = VAE_TRAIN_EPOCHS
+# (e): the training path at 8 batches of 512 an epoch, cut to 6 epochs (48
+# steps; phase 7d's 20 epochs, 160 steps) to keep the script near 1100 s
+# with phase 13
+BF16_TRAIN_EPOCHS = 6
 # (e): the restored model's posterior through the bf16 sampler: the
 # sampling protocol's 200 chains cut to this many recorded steps
 BF16_SAMPLER_STEPS = 100
@@ -1936,6 +1980,469 @@ def bf16_vae_phases(dev, report, logdir, cfg=None):
             for k in ms]
 
 
+# -- 13. bfloat16 operands in kernels 1 and 3 -----------------------------------
+
+# The trajectory and chain kernels' bfloat16 instantiations
+# (csrc/trajectory_bf16.cu, csrc/chain_bf16.cu) against their plain versions
+# with the same operands (``KernelInputs.cd``), which round at the same
+# sites: the two differ where a float32 sum in another order rounds an
+# activation to another bfloat16 value, a relative 2^-8 of a net output. As
+# in phase 12, each comparison is held to a share of the plain bf16-float32
+# gap on the same inputs: (a) the trajectory at BF16_GAP_SHARE in max-norm and
+# RMS, inverting as 12a's; (b) the chain on the same Philox bits: at most
+# BF16_FLIP_SHARE of the chains with a decision that differs (a bf16 rounding
+# moves the Hamiltonians by ~1e-3, float32's sum order by ~1e-6: more flips
+# than phase 3's at most 5), BF16_GAP_SHARE in RMS on the chains that flipped
+# in neither comparison. (c) the bf16 SCG path at the notebook's width:
+# ``train(ScgConfig(compute_dtype="bfloat16"))``, BF16_SCG_STEPS captured
+# steps (the plain route: the JAX trainer hands the kernels no dtype, and
+# fused bf16 training is fused float32 training, held bit for bit over
+# BF16_FUSED_STEPS), the 2000-step traced eval through
+# ``fused_chain_sampler(..., compute_dtype="bfloat16")`` and HMC at eps 0.15
+# (ESS ratio above MIN_ESS_RATIO; the kernel's ESS within ESS_GAP of a plain
+# bf16 ``sample_chain`` eval of the same params from the same x0), the parity
+# gate of ``FusedDynamics(compute_dtype="bfloat16")`` against the plain bf16
+# ``Dynamics`` (two rounding programs: the kernel folds the time embedding
+# and the input scale in float32 before it rounds, the nets round the time
+# features and the scaled input) at BF16_RESOLUTION, the JAX package's bar
+# between the two, at its test's shape (tests/test_precision.py: T = 3, 64
+# chains, the initial params; 6e-5 to 6e-4 over five seeds on the CPU, 2.9e-4
+# on an H100), and at the trained sampler (2048 chains, T = 10, jumps up to
+# ~170), where the two programs part by up to 0.17-0.24 and the float32
+# kernel by 0.27-0.29 (the CPU; an H100): no absolute bar holds there, and
+# the bf16 kernel must only lie nearer the bf16 nets than the float32 kernel
+# does, in RMS (0.25-0.39 of its distance on the CPU, 0.53 on an H100; a
+# kernel that did not round would read 1); and the bf16 sampler on the
+# lattice through the
+# same entry point at L = 16 and L = 64 (the site-parallel configuration),
+# BF16_LATTICE_STEPS traced steps.
+BF16_SCG_STEPS = 500
+BF16_FUSED_STEPS = 20
+BF16_LATTICE_STEPS = 200
+# (d) the JAX package's bf16 protocol, the conv recipe of
+# tools/phi4_conv64_chunked.py:40-48 (its record phi4_conv64_r5.json is an
+# L = 32 run), through ``apps.phi4.run`` cut to BF16_CONV_STEPS training steps
+# (the record: 4000) and a BF16_CONV_EVAL-step eval (1000); the conv nets run
+# plain (the kernels take dense nets), so this drives the bf16 conv2d. On an
+# H100 a plain bf16 conv step there takes 1.40 s over 500 steps (2.3-2.5 s
+# over 10-30, cuDNN's first calls included) and 50 GB at peak (no
+# checkpointing needed), so the cut is BF16_CONV_STEPS steps and a
+# BF16_CONV_EVAL-step eval. The trained dynamics invert as the bf16 nets
+# can: a state carried back with float32 rounding lands on the other side of
+# a bfloat16 boundary in some of a chain's 32 x 1024 activations, so a third
+# to a half of the chains miss by more than 1e-4 (84 and 114 of 256, 3.1e-4
+# and 5.0e-4 at most, after 30 and 10 steps): held at BF16_RESOLUTION.
+BF16_CONV = dict(L=32, m2=-1.0, lam=0.5, n_chains=256, leapfrogs=10, eps=0.1, hmc_eps=0.1,
+                 net_type="conv", conv_channels=32, conv_depth=2, accept_penalty=20.0,
+                 grad_clip=1.0, learning_rate=1e-4, init_temperature=4.0,
+                 compute_dtype="bfloat16", remat=True)
+BF16_CONV_STEPS = 5
+BF16_CONV_EVAL = 20
+
+
+def _bf16_traj_compare(fd, inp, inp32, x, v, what):
+    """Kernel 1's bf16 instantiation against its plain bf16 version on (D, n)
+    x, v, both directions, each launch twice; the bars of 12a."""
+    import torch
+
+    def miss(back):
+        """Per chain, the largest miss of (x, v) after the inverse map."""
+        return torch.maximum((back[0] - x).abs().amax(0), (back[1] - v).abs().amax(0))
+
+    n = x.shape[1]
+    out = {}
+    for reverse in (False, True):
+        got = fd.trajectory(inp, x, v, reverse)
+        again = fd.trajectory(inp, x, v, reverse)
+        ref = fd.trajectory_plain(inp, x, v, reverse)
+        ref32 = fd.trajectory_plain(inp32, x, v, reverse)
+        k32 = fd.trajectory(inp32, x, v, reverse)
+        inv = fd.trajectory(inp, got[0], got[1], not reverse)
+        pinv = fd.trajectory_plain(inp, ref[0], ref[1], not reverse)
+        k_inv, p_inv = miss(inv), miss(pinv)
+        case = {
+            "max_abs_err": max(_gap(a, b) for a, b in zip(got, ref)),
+            "max_share_of_bf16_f32_gap": max(_share(_gap(a, b), _gap(b, c))
+                                             for a, b, c in zip(got, ref, ref32)),
+            "rms_share_of_bf16_f32_gap": max(_share(_rms(a, b), _rms(b, c))
+                                             for a, b, c in zip(got, ref, ref32)),
+            "plain_bf16_vs_f32": max(_gap(a, b) for a, b in zip(ref, ref32)),
+            "kernel_bf16_vs_f32": max(_gap(a, b) for a, b in zip(got, k32)),
+            "inverse_err": max(_gap(inv[0], x), _gap(inv[1], v), _gap(inv[2], -got[2])),
+            "inverse_err_plain": max(_gap(pinv[0], x), _gap(pinv[1], v), _gap(pinv[2], -ref[2])),
+            "inverse_chains_over_tol": int((k_inv > BF16_INVERSE_TOL).sum()),
+            "inverse_chains_over_tol_plain": int((p_inv > BF16_INVERSE_TOL).sum()),
+            "repeats_bit_for_bit": all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+        }
+        way = "backward" if reverse else "forward"
+        out[way] = case
+        _require(all(bool(torch.isfinite(a).all()) for a in got), f"{what} {way}: non-finite")
+        _require(case["repeats_bit_for_bit"], f"{what} {way}: two launches differ")
+        _require(case["max_share_of_bf16_f32_gap"] <= BF16_GAP_SHARE
+                 and case["rms_share_of_bf16_f32_gap"] <= BF16_GAP_SHARE
+                 and case["kernel_bf16_vs_f32"] > 0
+                 and case["inverse_chains_over_tol"] <= BF16_FLIP_SHARE * n
+                 and case["inverse_err"] <= BF16_RESOLUTION, f"{what} {way}: {case}")
+    return out
+
+
+def _bf16_chain_compare(fd, inp, inp32, xc, what):
+    """Kernel 3's bf16 instantiation against its plain bf16 version on the
+    same Philox bits from (D, n) xc, 20 traced MH steps, the kernel
+    launched twice: at most BF16_FLIP_SHARE of the chains with a decision
+    that differs, BF16_GAP_SHARE of the plain bf16-float32 gap in RMS on the
+    chains that flipped in neither comparison."""
+    import torch
+
+    xk, acck, trk = fd.chain(inp, xc, 9, 20, collect_trace=True)
+    again = fd.chain(inp, xc, 9, 20, collect_trace=True)
+    xk32, _, _ = fd.chain(inp32, xc, 9, 20, collect_trace=True)
+    _, _, trp = fd.chain_plain(inp, xc, 9, 20, collect_trace=True)
+    _, _, tr3 = fd.chain_plain(inp32, xc, 9, 20, collect_trace=True)
+
+    def moved(tr):
+        return (tr != torch.cat([xc[None], tr[:-1]])).any(dim=1)  # (K, N) accepted
+
+    flipped = (moved(trk) != moved(trp)).any(0)
+    flip32 = (moved(trp) != moved(tr3)).any(0)
+    clean = ~(flipped | flip32)
+    n = xc.shape[1]
+    case = {"n_chains": n, "flipped_chains": int(flipped.sum()),
+            "bf16_f32_flipped_chains": int(flip32.sum()),
+            "max_abs_dx_unflipped": _gap(trk, trp, ~flipped),
+            "rms_share_of_bf16_f32_gap_unflipped": _share(_rms(trk, trp, clean),
+                                                          _rms(trp, tr3, clean)),
+            "max_share_of_bf16_f32_gap_unflipped": _share(_gap(trk, trp, clean),
+                                                          _gap(trp, tr3, clean)),
+            "kernel_bf16_vs_f32": _gap(xk, xk32), "accept": float(moved(trk).float().mean()),
+            "repeats_bit_for_bit": all(bool(torch.equal(a, b))
+                                       for a, b in zip((xk, acck, trk), again))}
+    _require(bool(torch.isfinite(trk).all()) and bool(torch.equal(trk[-1], xk)),
+             f"{what}: non-finite trace or trace end != state")
+    _require(case["repeats_bit_for_bit"], f"{what}: two launches differ")
+    _require(case["flipped_chains"] <= BF16_FLIP_SHARE * n
+             and case["rms_share_of_bf16_f32_gap_unflipped"] <= BF16_GAP_SHARE
+             and case["kernel_bf16_vs_f32"] > 0 and 0.0 < case["accept"] < 1.0,
+             f"{what}: {case}")
+    return case
+
+
+# the lattice cases of (b), (c) and (e): L, hidden, T, eps, chains; L = 16 as
+# the phi^4 app's defaults (PHI4_RUN), L = 64 at the JAX package's A_control
+# shape (phi4_64_r3.json)
+BF16_LATTICE = {"L16": (16, 32, 10, 0.1, 512), "L64": (64, 32, 10, 0.03, 256)}
+
+
+def _phi4_case(dev, case, seed, compute_dtype=None):
+    """(dynamics with ``compute_dtype`` nets, target, params with the nets'
+    initial weights lifted by ``apps.phi4.PARITY_LIFT``, (n, D) hot-start
+    states) of a BF16_LATTICE case."""
+    from l2hmc_tpu_torch import targets
+    from l2hmc_tpu_torch.apps import phi4
+    from l2hmc_tpu_torch.train import ScgConfig, build_dynamics
+
+    L, hidden, T, eps, n = BF16_LATTICE[case]
+    tgt = targets.Phi4Lattice(L=L, m2=-1.0, lam=0.5)
+    dyn, _ = build_dynamics(ScgConfig(dim=tgt.dim, hidden=hidden, T=T,
+                                      compute_dtype=compute_dtype or "float32"), tgt)
+    params = dyn.init_params(_gen(seed), eps=eps, device=dev)
+    for net in ("xnet", "vnet"):
+        params[net] = _tree_map(lambda a: a + phi4.PARITY_LIFT, params[net])
+    return dyn, tgt, params, tgt.sample(_gen(seed + 1), n, device=dev)
+
+
+def _phi4_inputs(fd, dev, case, seed):
+    """Float32 kernel inputs and (D, n) states of a BF16_LATTICE case."""
+    dyn, tgt, params, x = _phi4_case(dev, case, seed)
+    return fd.prepare(dyn, fd.energy_spec_for_target(tgt), params, dev), x.T.contiguous()
+
+
+def bf16_scg_phases(dev, report):
+    """Phase 13: kernels 1 and 3's bfloat16 instantiations against their
+    plain versions (lane groups and sites), the bf16 SCG path, the bf16
+    conv recipe through ``apps.phi4.run`` and the bf16 kernels' times beside
+    their float32 rows; returns the bf16 rows of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from l2hmc_tpu_torch import targets
+    from l2hmc_tpu_torch.apps import phi4, suite
+    from l2hmc_tpu_torch.ops import _cuda
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+    from l2hmc_tpu_torch.train import (
+        ScgConfig, build_dynamics, evaluate_ess, sample_chain, train,
+    )
+    from l2hmc_tpu_torch.train.optim import tree_leaves
+
+    BF = "bfloat16"
+    t_all = time.perf_counter()
+    out = {}
+
+    def bf16(inp):
+        return dataclasses.replace(inp, cd=torch.bfloat16)
+
+    dyn, target = build_dynamics(ScgConfig())
+    params = dyn.init_params(_gen(0), eps=0.1, device=dev)
+    lifted = dict(params, **{k: _tree_map(lambda a: a + 0.03, params[k])
+                             for k in ("xnet", "vnet")})
+    inp_scg = fd.prepare(dyn, fd.energy_spec_for_target(target), lifted, dev)
+
+    # (a) kernel 1: SCG (ScgLanes) at 2048 and 203 chains, the rough well
+    # (WideLanes, D = 10, H = 20, T = 5), phi^4 at L = 8 (WideLanes)
+    t_phase = time.perf_counter()
+    traj = {}
+    for name, make in (
+            ("scg_n2048", lambda: (inp_scg, target.sample(_gen(21), 2048, device=dev).T)),
+            ("scg_n203", lambda: (inp_scg, target.sample(_gen(21), 203, device=dev).T)),
+            ("rough_well_easy_n2048",
+             lambda: suite.parity_inputs("rough_well_easy", 2048, dev, seed=20)),
+            ("phi4_L8_n512", lambda: phi4.parity_inputs("phi4_L8", 512, dev, seed=20))):
+        inp32, x = make()
+        x = x.contiguous()
+        v = torch.randn(x.shape, generator=_gen(22)).to(dev)
+        traj[name] = _bf16_traj_compare(fd, bf16(inp32), inp32, x, v, f"trajectory bf16 {name}")
+    out["trajectory_vs_plain"] = traj
+    print(f"# bf16 trajectory kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(traj), flush=True)
+
+    # (b) kernel 3 on the same Philox bits: SCG at 1024 and 203 chains, the
+    # rough well, phi^4 at L = 16 (sites, 64 hidden units) and L = 64 (dim
+    # 4096, A_control's shape), icg at hidden 100 (sites, 128 hidden units)
+    t_phase = time.perf_counter()
+    chain_cmp = {}
+    for name, make in (
+            ("scg_n1024", lambda: (inp_scg, target.sample(_gen(41), 1024, device=dev).T)),
+            ("scg_n203", lambda: (inp_scg, target.sample(_gen(41), 203, device=dev).T)),
+            ("rough_well_easy_n2048",
+             lambda: suite.parity_inputs("rough_well_easy", 2048, dev, seed=40)),
+            ("phi4_L16_n512", lambda: _phi4_inputs(fd, dev, "L16", 40)),
+            ("phi4_L64_n256", lambda: _phi4_inputs(fd, dev, "L64", 40)),
+            ("icg_n2048", lambda: suite.parity_inputs("icg", 2048, dev, seed=40))):
+        inp32, xc = make()
+        xc = xc.contiguous()
+        case = _bf16_chain_compare(fd, bf16(inp32), inp32, xc, f"chain bf16 {name}")
+        D, H, H2, _ = inp32.dims
+        case.update(dim=D, hidden=H, configuration="site-parallel" if fd.chain_on_sites(inp32)
+                    else f"{_cuda.library('chain').l2hmc_chain_lanes(D, H, H2)} lanes")
+        chain_cmp[name] = case
+    out["chain_vs_plain"] = chain_cmp
+    print(f"# bf16 chain kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(chain_cmp), flush=True)
+
+    # (c) the bf16 SCG path; the launch counts set to 0 just before it and
+    # read just after
+    t_phase = time.perf_counter()
+    n_tr, eval_steps = 1024, 2000
+    fd.reset_launch_counts()
+    cfg = ScgConfig(n_chains=n_tr, n_steps=BF16_SCG_STEPS, seed=0, compute_dtype=BF)
+    dynb, _ = build_dynamics(cfg, target)
+    state, hist = train(cfg, target)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t_phase
+    x0 = target.sample(_gen(1), n_tr, device=dev)
+    sampler = fd.fused_chain_sampler(dynb, target, compute_dtype=BF)
+    t = time.perf_counter()
+    _, acc_k, trace_k = sampler.run(state.params, x0, seed=2, n_mh_steps=eval_steps,
+                                    collect_trace=True)
+    torch.cuda.synchronize()
+    eval_k_s = time.perf_counter() - t
+    hmc_dyn, _ = build_dynamics(ScgConfig(hmc=True), target)
+    _, _, trace_h = fd.fused_chain_sampler(hmc_dyn, target).run(
+        hmc_dyn.init_params(_gen(0), eps=0.15, device=dev), x0, seed=3, n_mh_steps=eval_steps,
+        collect_trace=True)
+    t = time.perf_counter()
+    _, trace_p = sample_chain(dynb, state.params, x0, eval_steps, _gen(2))
+    torch.cuda.synchronize()
+    eval_p_s = time.perf_counter() - t
+    ess_k, ess_h, ess_p = (evaluate_ess(tr, target.sigma) for tr in (trace_k, trace_h, trace_p))
+    del trace_k, trace_h, trace_p
+    # the parity gate: the bf16 kernel against the bf16 nets (two rounding
+    # programs) at the JAX test's shape, and at the trained sampler beside
+    # the float32 kernel's distance to them
+    d3, _ = build_dynamics(ScgConfig(n_chains=64, T=3, compute_dtype=BF), target)
+    p3 = d3.init_params(_gen(3), eps=0.1, device=dev)
+    x3, v3 = (torch.randn((64, 2), generator=_gen(s)).to(dev) for s in (13, 14))
+    gate = {"jax_test_shape_max_abs_err": max(
+        float((a - b).abs().max()) for way in ("forward", "backward")
+        for a, b in zip(getattr(fd.fused_for_target(d3, target, compute_dtype=BF), way)(
+            p3, x3, v3), getattr(d3, way)(p3, x3, v3)))}
+    xg = target.sample(_gen(11), 2048, device=dev)
+    vg = torch.randn(xg.shape, generator=_gen(12)).to(dev)
+    fb, f3 = (fd.fused_for_target(dynb, target, compute_dtype=c) for c in (BF, None))
+    shares, errs, errs32 = [], [], []
+    for way in ("forward", "backward"):
+        ref = getattr(dynb, way)(state.params, xg, vg)
+        for a, c, b in zip(getattr(fb, way)(state.params, xg, vg),
+                           getattr(f3, way)(state.params, xg, vg), ref):
+            shares.append(_share(_rms(a, b), _rms(c, b)))
+            errs.append(_gap(a, b))
+            errs32.append(_gap(c, b))
+    gate.update(trained_max_abs_err=max(errs), trained_f32_kernel_max_abs_err=max(errs32),
+                trained_rms_share_of_f32_kernel=max(shares))
+    # the bf16 sampler on the lattice through the same entry point
+    scg_chain_launches = fd.LAUNCHES["chain:bf16"]
+    lattice = {}
+    for label in BF16_LATTICE:
+        dl, tl, pl, xl = _phi4_case(dev, label, 50, BF)
+        before = fd.LAUNCHES["chain:sites"]
+        _, acc_l, tr_l = fd.fused_chain_sampler(dl, tl, compute_dtype=BF).run(
+            pl, xl, seed=5, n_mh_steps=BF16_LATTICE_STEPS, collect_trace=True)
+        m = tr_l.mean(dim=2).cpu().numpy()
+        lattice[label] = {"accept": float(acc_l.mean()), "tunneling_rate": phi4.tunneling_rate(m),
+                          "site_launches": fd.LAUNCHES["chain:sites"] - before}
+        _require(bool(torch.isfinite(tr_l).all()) and 0.0 < lattice[label]["accept"] < 1.0
+                 and lattice[label]["site_launches"] == 1, f"bf16 lattice {label}: "
+                 f"{lattice[label]}")
+        del tr_l
+    launches = dict(fd.LAUNCHES)
+    # fused bf16 training is fused float32 training (the kernels get no
+    # dtype from ScgConfig), bit for bit
+    runs = [train(ScgConfig(n_chains=n_tr, n_steps=BF16_FUSED_STEPS, seed=0, fused_train=True,
+                            compute_dtype=c), target) for c in (BF, "float32")]
+    fused_same = all(np.array_equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1]) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(runs[0][0].params),
+                                          tree_leaves(runs[1][0].params)))
+    out["scg_path"] = {
+        "n_chains": n_tr, "steps": BF16_SCG_STEPS, "train_s": train_s,
+        "ms_per_step": 1e3 * train_s / BF16_SCG_STEPS, "final_loss": float(hist["loss"][-1]),
+        "final_accept": float(np.mean(hist["p_accept"][-100:])),
+        "eval_steps": eval_steps, "ess_kernel_bf16": ess_k, "ess_plain_bf16": ess_p,
+        "ess_hmc": ess_h, "ess_ratio": ess_k / max(ess_h, 1e-12),
+        "ess_rel_gap": abs(ess_k - ess_p) / max(ess_p, 1e-12),
+        "eval_accept": float(acc_k.mean()), "eval_kernel_s": eval_k_s,
+        "eval_plain_sample_chain_s": eval_p_s, "parity_gate_max_abs_err": gate,
+        "lattice": lattice, "fused_bf16_equals_fused_f32": fused_same, "launches": launches,
+        "wall_s": time.perf_counter() - t_phase}
+    print(f"# bf16 SCG path ({out['scg_path']['wall_s']:.1f} s): "
+          + json.dumps(out["scg_path"]), flush=True)
+    _require(bool(np.isfinite(hist["loss"]).all()), "bf16 SCG training: non-finite loss")
+    _require(out["scg_path"]["ess_ratio"] > MIN_ESS_RATIO, f"bf16 SCG ESS ratio: {out['scg_path']}")
+    _require(out["scg_path"]["ess_rel_gap"] < ESS_GAP, f"bf16 SCG ESS gap: {out['scg_path']}")
+    _require(gate["jax_test_shape_max_abs_err"] <= BF16_RESOLUTION
+             and gate["trained_rms_share_of_f32_kernel"] < 1.0, f"bf16 parity gate: {gate}")
+    _require(fused_same, "fused bf16 training differs from fused float32 training")
+    for name in ("trajectory:bf16", "chain:bf16"):
+        _require(launches[name] > 0, f"{name} not launched on the bf16 SCG path")
+
+    # (d) the bf16 conv recipe at L = 32, cut in depth, with its peak memory
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    row, cstate = phi4.run(**BF16_CONV, n_steps=BF16_CONV_STEPS, eval_steps=BF16_CONV_EVAL,
+                           device=dev, return_state=True)
+    peak = torch.cuda.max_memory_allocated()
+    tc = targets.Phi4Lattice(L=BF16_CONV["L"], m2=BF16_CONV["m2"], lam=BF16_CONV["lam"])
+    dc, _ = build_dynamics(ScgConfig(dim=tc.dim, T=BF16_CONV["leapfrogs"], net_type="conv",
+                                     conv_channels=BF16_CONV["conv_channels"],
+                                     conv_depth=BF16_CONV["conv_depth"], compute_dtype=BF), tc)
+    xc = tc.sample(_gen(7), BF16_CONV["n_chains"], device=dev)
+    vc = torch.randn(xc.shape, generator=_gen(8)).to(dev)
+    with torch.no_grad():
+        X, V, ld = dc.forward(cstate.params, xc, vc)
+        x2, v2, ld2 = dc.backward(cstate.params, X, V)
+    miss = torch.maximum((x2 - xc).abs().amax(1), (v2 - vc).abs().amax(1))
+    out["conv_recipe"] = {
+        "row": row, "train_steps": BF16_CONV_STEPS,
+        "ms_per_train_step": 1e3 * row["train_time_s"] / BF16_CONV_STEPS,
+        "peak_memory_bytes": peak, "inverse_err": float(miss.max()),
+        "inverse_chains_over_tol": int((miss > BF16_INVERSE_TOL).sum()),
+        "inverse_logdet_err": float((ld + ld2).abs().max()),
+        "wall_s": time.perf_counter() - t_phase}
+    print(f"# bf16 conv recipe L=32 ({out['conv_recipe']['wall_s']:.1f} s): "
+          + json.dumps(out["conv_recipe"]), flush=True)
+    c = out["conv_recipe"]
+    _require(np.isfinite(row["final_loss"]) and 0.0 < row["final_accept"] < 1.0
+             and all(np.isfinite(v) for k, v in row.items() if k.startswith(("tunn", "ess"))),
+             f"bf16 conv recipe: {row}")
+    _require(c["inverse_err"] <= BF16_RESOLUTION and c["inverse_logdet_err"] <= BF16_RESOLUTION,
+             f"bf16 conv recipe inverse: {c}")
+
+    # (e) each bf16 launch at its row's shape beside its float32 row, both
+    # bounds, ptxas
+    t_phase = time.perf_counter()
+    x2048 = target.sample(_gen(31), 2048, device=dev).T.contiguous()
+    v2048 = torch.randn(x2048.shape, generator=_gen(32)).to(dev)
+    inp_eval = fd.prepare(dyn, fd.energy_spec_for_target(target), params, dev)
+    x0t = target.sample(_gen(1), n_tr, device=dev).T.contiguous()
+    times, bounds = {}, {}
+    D, H, H2, T = inp_eval.dims
+    ops = _ops_of(inp_eval)
+    for label, cd in (("f32", None), ("bf16", torch.bfloat16)):
+        ie = dataclasses.replace(inp_eval, cd=cd)
+        times[f"1_{label}"] = _traj_launch_ms(fd, _cuda, ie, x2048, v2048, 200)
+        times[f"3_{label}"] = _cuda_time(lambda: fd.chain(ie, x0t, 2, eval_steps, True), 5)
+    work1, bytes1 = traj_work(D, H, H2, T, 2048, False, inp_eval.block().numel(), ops)
+    work3, bytes3 = chain_work(D, H, H2, T, n_tr, eval_steps, False, inp_eval.block().numel(),
+                               True, ops)
+    # the products' weights as bfloat16 save 2 bytes each, both nets
+    saved = 2 * 2 * _stq_weights(D, H, H2)
+    bounds["1"] = _bf16_bounds(work1, 2048 * T * 4 * _stq_products(D, H, H2), bytes1 - saved)
+    bounds["3"] = _bf16_bounds(work3, n_tr * eval_steps * T * 4 * _stq_products(D, H, H2),
+                               bytes3 - saved)
+    plain = {"1": _cuda_time(lambda: fd.trajectory_plain(bf16(inp_eval), x2048, v2048, False), 5),
+             "3": _cuda_time(lambda: fd.chain_plain(bf16(inp_eval), x0t, 2, 20,
+                                                    collect_trace=True), 1, warmup=False)}
+    site_rows = {}
+    for label, case in (("3f", "L16"), ("3h", "L64")):
+        inp32, xc = _phi4_inputs(fd, dev, case, 32)
+        Dc, Hc, H2c, Tc = inp32.dims
+        n = xc.shape[1]
+        for tag, ie in (("f32", inp32), ("bf16", bf16(inp32))):
+            # the 1000-step launches at L = 64 run once, warmed up by (b)
+            times[f"{label}_{tag}"] = _cuda_time(lambda: fd.chain(ie, xc, 2, 1000, True), 1,
+                                                 warmup=Dc <= 1024)
+        plain[label] = _cuda_time(lambda: fd.chain_plain(bf16(inp32), xc, 2, 20,
+                                                         collect_trace=True), 1, warmup=False)
+        w, nb = chain_work(Dc, Hc, H2c, Tc, n, 1000, False, inp32.block().numel(), True,
+                           _ops_of(inp32))
+        bounds[label] = _bf16_bounds(w, n * 1000 * Tc * 4 * _stq_products(Dc, Hc, H2c),
+                                     nb - 2 * 2 * _stq_weights(Dc, Hc, H2c))
+        site_rows[label] = {"dim": Dc, "hidden": Hc, "T": Tc, "n_chains": n,
+                            "l2_weight_bytes_f32": phi4_l2_weight_bytes(
+                                Dc, Hc, H2c, Tc, n, 1000, fd.site_tile(Dc, Hc, H2c)[0])}
+    ptxas = _cuda.build_info.get("ptxas", "")
+    ptx = {k: [l for l in _ptxas_of(ptxas, entry) if "bfloat16" in l]
+           for k, entry in (("trajectory", "17trajectory_kernel"), ("chain", "12chain_kernel"),
+                            ("site_chain", "17site_chain_kernel"))}
+    out["kernel_times"] = {"ms": times, "bounds": bounds, "plain_ms": plain, "sites": site_rows,
+                           "ptxas": ptx}
+    print(f"# bf16 SCG kernel times ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(out["kernel_times"]), flush=True)
+
+    src = "l2hmc_tpu_torch/csrc/"
+    err1 = max(c["max_abs_err"] for t in traj.values() for c in t.values())
+    err3 = max(c["max_abs_dx_unflipped"] for c in chain_cmp.values())
+    rows = []
+    for label, name, source, replaces, launches_n, err, shape in (
+            ("1", "trajectory_bf16", "trajectory_bf16.cu", ":645", launches["trajectory:bf16"],
+             err1, "SCG D=2 H=10 T=10, 2048 chains, one direction, the launch alone; plain_ms "
+             "the plain bf16 version"),
+            ("3", "chain_bf16", "chain_bf16.cu", ":1103", scg_chain_launches, err3,
+             f"SCG D=2 H=10 T=10, {n_tr} chains x {eval_steps} MH steps, traced; plain_ms "
+             "over 20 MH steps"),
+            ("3f", "chain[phi4]_bf16", "chain_bf16.cu", ":1103",
+             lattice["L16"]["site_launches"], err3,
+             "phi4 L=16 D=256 H=32 T=10, 512 chains x 1000 MH steps, traced, site-parallel; "
+             "plain_ms over 20 MH steps"),
+            ("3h", "chain[phi4]_bf16", "chain_bf16.cu", ":1103",
+             lattice["L64"]["site_launches"], err3,
+             "phi4 L=64 D=4096 H=32 T=10 (A_control's shape), 256 chains x 1000 MH steps, "
+             "traced, site-parallel; plain_ms over 20 MH steps")):
+        b = bounds[label]
+        rows.append({"name": name, "route": "cuda", "source": src + source,
+                     "replaces": "l2hmc_tpu/ops/fused_dynamics.py" + replaces,
+                     "launches": launches_n, "max_abs_err": err, "ms": times[f"{label}_bf16"],
+                     "plain_ms": plain.get(label), "bound_ms": b[0], "bound_by": b[1],
+                     "library_ms": None, "row": label + "-bf16",
+                     "shape": (f"{shape}; float32 row in the same run: "
+                               f"{times[label + '_f32']:.4f} ms; all operations on the f32 "
+                               f"pipe: {b[2]:.4g} ms")})
+    report["bf16_scg"] = out
+    report["bf16_scg_wall_s"] = time.perf_counter() - t_all
+    print(f"# bf16 SCG phase: {report['bf16_scg_wall_s']:.1f} s", flush=True)
+    return rows
+
+
 # -- 10. the distribution suite ---------------------------------------------------
 
 # The kernels' parity cases are ``apps.suite.PARITY_CASES``; (a) runs each at
@@ -1944,7 +2451,7 @@ SUITE_TRAJ_CHAINS = {"rough_well_easy": (2048, 203), "ring": (1024,), "funnel": 
                      "mog2_hmc": (1024,)}
 SPEC_OF_CASE = {"rough_well_easy": "rough_well", "ring": "gmm", "funnel": "funnel",
                 "mog2_hmc": "gmm", "icg": "gauss"}
-# The suite path cut in depth: 250 training steps and one training seed a
+# The suite path cut in depth: 150 training steps and one training seed a
 # row (the recipes: 5000 and up to 4), a 1000-step eval (the recipes: 2000),
 # the HMC grid's eight step sizes (through the chain kernel) and the widths
 # and chain counts as the recipes have them. icg (2048 chains, the JAX
@@ -1952,7 +2459,7 @@ SPEC_OF_CASE = {"rough_well_easy": "rough_well", "ring": "gmm", "funnel": "funne
 # kernel it runs the 50-d Gaussian on WideLanes in HMC mode, where every lane
 # of a warp repeats the chain's dense gradient (ROADMAP P7), ~22 s an eps at
 # 2000 steps on an H100. The row shows the cross-check's path, not a ratio.
-SUITE_CUT = dict(n_steps=250, n_train_seeds=1, fused_hmc=True, eval_steps=1000)
+SUITE_CUT = dict(n_steps=150, n_train_seeds=1, fused_hmc=True, eval_steps=1000)
 SUITE_ROWS = (("rough_well", {}), ("ring", dict(n_chains=2048)), ("funnel", {}),
               ("icg", dict(n_chains=2048, n_steps=20, fused_hmc=False)))
 # Fused against plain training on the suite's targets (no annealing, no
@@ -2322,6 +2829,9 @@ PHI4_RUNS_MORE = (dict(L=8, n_chains=512, n_steps=50, eval_steps=500),
 PHI4_RUN_L64 = dict(L=64, m2=-1.0, lam=0.5, n_chains=256, hidden=32, leapfrogs=10,
                     n_steps=100, eval_steps=1000, eps=0.03, hmc_eps=0.03)
 PHI4_SEEDS_L64 = 3
+# (e) times the shipped L = 64 recipe's shape (hidden 64, T = 24; 26 s at
+# 1000 steps on an H100) over this many MH steps, for the script's clock
+PHI4_RECIPE_STEPS = 300
 
 
 def phi4_l2_weight_bytes(D, H, H2, T, N, K, chains_per_block):
@@ -2625,20 +3135,22 @@ def phi4_phases(dev, report):
                    phi4.parity_inputs(case, phi4.PARITY_CASES[case].n_chains, dev, seed=32))
         Dc, Hc, H2c, Tc = inp.dims
         n = xc.shape[1]
-        # the 1000-step launches at L = 64 run once, their instantiations
-        # warmed up by (b)
+        # the launches at L = 64 run once, their instantiations warmed up by
+        # (b); the recipe's shape at PHI4_RECIPE_STEPS (the script's clock)
         wide = Dc > 1024
-        ms = _cuda_time(lambda: fd.chain(inp, xc, 2, steps, True), 1, warmup=not wide)
+        k = PHI4_RECIPE_STEPS if label == "3h_recipe" else steps
+        ms = _cuda_time(lambda: fd.chain(inp, xc, 2, k, True), 1, warmup=not wide)
         ms20 = _cuda_time(lambda: fd.chain(inp, xc, 2, plain_steps, True), 3)
         plain = (_cuda_time(lambda: fd.chain_plain(inp, xc, 2, plain_steps, collect_trace=True),
                             1) if label != "3h_recipe" else None)
-        bound = chain_bound(Dc, Hc, H2c, Tc, n, steps, False, inp.block().numel(), True,
+        bound = chain_bound(Dc, Hc, H2c, Tc, n, k, False, inp.block().numel(), True,
                             _ops_of(inp))
         site = fd.chain_on_sites(inp)
         chains_a_block = fd.site_tile(Dc, Hc, H2c)[0]
-        l2 = (phi4_l2_weight_bytes(Dc, Hc, H2c, Tc, n, steps, chains_a_block) if site
+        l2 = (phi4_l2_weight_bytes(Dc, Hc, H2c, Tc, n, k, chains_a_block) if site
               else None)
         chain_rows[label] = {"case": case, "dim": Dc, "hidden": Hc, "T": Tc, "n_chains": n,
+                             "steps": k,
                              "site": site, "chains_a_block": chains_a_block, "ms": ms,
                              f"ms_{plain_steps}": ms20, f"plain_ms_{plain_steps}": plain,
                              "bound_ms": bound, "l2_weight_bytes": l2,
@@ -2684,7 +3196,8 @@ def phi4_phases(dev, report):
                    f"{c[f'ms_{plain_steps}']:.4f} ms)")
         if label == "3h":
             shape += (f"; at the L = 64 run's trained params (A_control's shape); the shipped "
-                      f"recipe's shape (H={recipe['hidden']} T={recipe['T']}): "
+                      f"recipe's shape (H={recipe['hidden']} T={recipe['T']}), "
+                      f"{recipe['steps']} MH steps: "
                       f"{recipe['ms']:.2f} ms, {recipe['l2_weight_bytes']:.4g} L2 weight bytes "
                       f"reckoned, bound {recipe['bound_ms'][0]:.4g} ms; the app's plain "
                       f"sample_chain eval: {out['run_L64']['plain_eval_s'][0]:.2f} s")
@@ -3056,7 +3569,7 @@ def main() -> int:
     # one seed each way, bit for bit, for the three step kinds the bench
     # trains (the reference architecture plain and fused, the best recipe)
     # and 50 MH steps of sample_chain; ms per step each way, the captured
-    # one at steady state (a 220- less a 20-step run, so the capture cancels)
+    # one at steady state (a 100- less a 20-step run, so the capture cancels)
     t_phase = time.perf_counter()
     cap = {}
     for name, kw in (("reference_plain", {}), ("reference_fused", dict(fused_train=True)),
@@ -3077,7 +3590,7 @@ def main() -> int:
         cap[name] = {"bit_for_bit": same, "ms_per_step_eager": eager_ms,
                      "ms_per_step_captured": steady_ms(
                          lambda n, kw=kw: train(ScgConfig(n_chains=n_tr, n_steps=n, **kw)),
-                         20, 220)}
+                         20, 100)}
         _require(same, f"captured {name} training differs from eager")
     for name, d_, p_ in (("sample_chain", dyn, params), ("sample_chain_hmc", hmc_dyn, hmc_params)):
         runs = [sample_chain(d_, p_, x0, 50, _gen(cfg.seed + 2), capture=c) for c in (False, True)]
@@ -3090,7 +3603,7 @@ def main() -> int:
                      "ms_per_step_eager": 1e3 * (time.perf_counter() - t) / 50,
                      "ms_per_step_captured": steady_ms(
                          lambda n, d_=d_, p_=p_: sample_chain(d_, p_, x0, n, _gen(cfg.seed + 2)),
-                         50, 550)}
+                         50, 300)}
         _require(same, f"captured {name} differs from eager")
     report["captured_vs_eager"] = cap
     print(f"# captured vs eager ({time.perf_counter() - t_phase:.1f} s): "
@@ -3137,6 +3650,9 @@ def main() -> int:
     # -- 11. the phi^4 lattice --------------------------------------------------
     phi4_rows = phi4_phases(dev, report)
 
+    # -- 13. bfloat16 operands in kernels 1 and 3 ----------------------------------
+    bf16_scg_rows = bf16_scg_phases(dev, report)
+
     # -- 8. the kernels line -------------------------------------------------------
     src = "l2hmc_tpu_torch/csrc/"
     kernels = [
@@ -3175,6 +3691,7 @@ def main() -> int:
         *vae_rows,
         *suite_rows,
         *phi4_rows,
+        *bf16_scg_rows,
     ]
     report["kernels"] = kernels
     print("# report: " + json.dumps(report))

@@ -17,8 +17,10 @@ ending ``_bf16``; null for a tree without them); and the chain kernel's site-par
 shapes (3e-3g: the phi^4 lattice at L = 8, 16, 32, 1000 traced steps; 3h:
 L = 64 at the A_control shape and at the shipped recipe's, 1000 traced
 steps; 3i: icg at hidden 100, 2000 traced steps; a tree whose caps refuse
-a row gives null); kernel times by CUDA events, the training step by the
-host clock.
+a row gives null); the trajectory and chain kernels with bfloat16 operands
+at rows 1, 3, 3f and 3h's shapes (keys ending ``_bf16``; null for a tree
+without them); kernel times by CUDA events, the training step by the host
+clock.
 
 With ``--trees``, each directory must hold an ``l2hmc_tpu_torch`` package
 (a checkout, or an unpacked ``git archive``). Every tree's kernels are built
@@ -61,7 +63,17 @@ def _gen(seed):
     return torch.Generator().manual_seed(seed)
 
 
+def _has_bf16_scg() -> bool:
+    """Whether the timed tree has the trajectory and chain kernels'
+    bfloat16 instantiations."""
+    from l2hmc_tpu_torch.ops import _cuda
+
+    return "chain_bf16" in _cuda.SIGNATURES
+
+
 def scg_times(dev) -> dict:
+    import dataclasses
+
     import torch
 
     from l2hmc_tpu_torch.ops import _cuda
@@ -85,6 +97,14 @@ def scg_times(dev) -> dict:
         out[f"trajectory_launch_{n}"] = _cuda_ms(lambda: _cuda.check(lib.l2hmc_trajectory(
             block.data_ptr(), D, H, H2, T, *inp.energy_args, 0, 0, x.data_ptr(), v.data_ptr(),
             xo.data_ptr(), vo.data_ptr(), ld.data_ptr(), n, stream), "trajectory"), 200)
+        if n == 2048:
+            blib = _cuda.library("trajectory_bf16") if _has_bf16_scg() else None
+            bblock = dataclasses.replace(inp, cd=torch.bfloat16).block()
+            out["trajectory_launch_2048_bf16"] = None if blib is None else _cuda_ms(
+                lambda: _cuda.check(blib.l2hmc_trajectory_bf16(
+                    bblock.data_ptr(), D, H, H2, T, *inp.energy_args, 0, 0, x.data_ptr(),
+                    v.data_ptr(), xo.data_ptr(), vo.data_ptr(), ld.data_ptr(), n, stream),
+                    "trajectory_bf16"), 200)
         if n == 1024:
             dX, dV = (torch.randn(x.shape, generator=_gen(3 + i)).to(dev) for i in range(2))
             dld = torch.ones((1, n), device=dev)
@@ -105,6 +125,9 @@ def scg_times(dev) -> dict:
     x0 = target.sample(_gen(4), 1024, device=dev).T.contiguous()
     x1 = target.sample(_gen(5), 8192, device=dev).T.contiguous()
     out["chain_1024x2000"] = _cuda_ms(lambda: fd.chain(inp, x0, 2, 2000, True), 3)
+    inp_bf = dataclasses.replace(inp, cd=torch.bfloat16)
+    out["chain_1024x2000_bf16"] = (_cuda_ms(lambda: fd.chain(inp_bf, x0, 2, 2000, True), 3)
+                                   if _has_bf16_scg() else None)
     out["chain_hmc_1024x2000"] = _cuda_ms(lambda: fd.chain(inp_hmc, x0, 3, 2000, True), 3)
     out["chain_8192x500"] = _cuda_ms(lambda: fd.chain(inp, x1, 2, 500, False), 3)
     out["chain_hmc_8192x500"] = _cuda_ms(lambda: fd.chain(inp_hmc, x1, 3, 500, False), 3)
@@ -176,6 +199,8 @@ def vae_times(dev) -> dict:
 
 
 def site_times(dev) -> dict:
+    import dataclasses
+
     import torch
 
     from l2hmc_tpu_torch import targets
@@ -214,6 +239,10 @@ def site_times(dev) -> dict:
             out[key] = None
             continue
         out[key] = _cuda_ms(lambda: fd.chain(inp, x, 2, steps, True), 1, warmup=False)
+        if label in ("3f", "3h"):
+            ib = dataclasses.replace(inp, cd=torch.bfloat16)
+            out[f"{key}_bf16"] = (_cuda_ms(lambda: fd.chain(ib, x, 2, steps, True), 1)
+                                  if _has_bf16_scg() else None)
         del inp, x
         torch.cuda.empty_cache()
     return out

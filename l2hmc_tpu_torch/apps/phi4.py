@@ -12,6 +12,11 @@ Usage:
     python -m l2hmc_tpu_torch.apps.phi4 --L 16 --n_chains 512 --n_steps 2000
     python -m l2hmc_tpu_torch.apps.phi4 --device cpu --L 4 --n_chains 16 \\
         --n_steps 30 --leapfrogs 3 --hidden 8 --eval_steps 30
+    # the JAX package's bf16 conv recipe (phi4_conv64_r5.json, an L = 32 run)
+    python -m l2hmc_tpu_torch.apps.phi4 --L 32 --net_type conv --conv_channels 32 \\
+        --conv_depth 2 --n_chains 256 --leapfrogs 10 --eps 0.1 --accept_penalty 20 \\
+        --grad_clip 1 --learning_rate 1e-4 --init_temperature 4 \\
+        --compute_dtype bfloat16 --remat --n_steps 4000 --eval_steps 1000
 
 Everything runs on ``--device`` (default ``cuda``). On the card a dense
 net's eval is one traced launch of the chain kernel
@@ -169,7 +174,11 @@ def run(
     budget shared by the rungs) for the trained sampler, rebuilt with
     ``use_temperature``, and for the HMC baseline. Returns the JAX runner's
     keys with ``fused_eval`` ("ran" or the refusal), and with
-    ``return_state`` also the final ``TrainState``."""
+    ``return_state`` also the final ``TrainState``. ``compute_dtype``
+    "bfloat16" lowers the plain S/T/Q nets' products (training and the plain
+    evals); the kernel eval is built with no operand dtype, as the JAX
+    runner builds it (``fused_chain_sampler(dynamics, target)``), so it
+    runs float32 operands."""
     dev = resolve_device(device)
     target = Phi4Lattice(L=L, m2=m2, lam=lam)
     cfg = ScgConfig(
@@ -222,6 +231,7 @@ def run(
         "ess_m_hmc": magnetization_ess(m_hmc),
         "susceptibility_l2hmc": float(target.susceptibility(torch.as_tensor(m_l2hmc))),
         "final_accept": float(np.mean(history["p_accept"][-100:])),
+        "final_loss": float(history["loss"][-1]),
         "train_time_s": train_time,
         "fused_eval": refusal or "ran",
         **result_fused,
@@ -297,7 +307,8 @@ def main(argv=None):
                    help="accepted for the JAX runner's command line; changes no number")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="S/T/Q net operand dtype (only float32 is ported)")
+                   help="S/T/Q net operand dtype (config.Precision; the plain nets' "
+                        "products, not the kernel eval's, as in the JAX runner)")
     p.add_argument("--accept_penalty", type=float, default=0.0)
     p.add_argument("--grad_clip", type=float, default=0.0)
     p.add_argument("--learning_rate", type=float, default=1e-3)

@@ -40,9 +40,16 @@ class Precision:
     inputs, so they see the same S/T/Q values whatever the operands, except
     where a state carried back with float32 rounding lands on the other
     side of a bfloat16 rounding boundary (a few chains in a hundred at the
-    VAE's full width). Ported consumers: the VAE kernels' classes (``ops.fused_vae``) and
-    ``VaeConfig.fused_compute_dtype``; the others refuse bfloat16
-    (``require_float32``)."""
+    VAE's full width). Consumers that take bfloat16: the plain dense and conv
+    nets (``nets.core.linear``, ``nets.lattice.conv2d``, through
+    ``stq_net``, ``lattice_stq_net`` and ``ScgConfig.compute_dtype``), the
+    classes of kernels 1 and 3 (``ops.fused_dynamics``: ``FusedDynamics``,
+    ``FusedChainSampler`` and their factories; ``differentiable_fused``,
+    whose backward is the float32 VJP, as in the JAX package) and the VAE
+    kernels' classes (``ops.fused_vae``, ``VaeConfig.fused_compute_dtype``).
+    As in the JAX package, the training and eval entry points hand no
+    operand dtype to a kernel: ``ScgConfig.compute_dtype`` reaches the plain
+    nets only."""
 
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
@@ -65,16 +72,6 @@ def resolve_compute_dtype(spec) -> "torch.dtype | None":
     if dt not in _DTYPES.values():
         raise ValueError(f"compute dtype {spec!r}: float32 or bfloat16")
     return None if dt == torch.float32 else dt
-
-
-def require_float32(spec, what: str) -> None:
-    """Raises for a bfloat16 ``spec`` where ``what`` has no bfloat16
-    operands yet: only the four VAE kernels and their plain versions do."""
-    if resolve_compute_dtype(spec) is not None:
-        raise NotImplementedError(
-            f"{what}: bfloat16 operands are not ported yet (ROADMAP B3: kernels 1-3, "
-            "the plain dense and conv nets and ScgConfig.compute_dtype are still to "
-            "port; the VAE kernels take them)")
 
 
 def resolve_device(device=None) -> torch.device:

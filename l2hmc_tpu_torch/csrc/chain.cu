@@ -50,6 +50,11 @@
 //    rejected proposal cannot leak into the state.
 //  - The trace goes straight to device memory; the TPU kernel's VMEM ring
 //    and DMA existed only for Mosaic.
+//
+// Operands: TW, float here; chain_bf16.cu compiles this file again for
+// TW = __nv_bfloat16 (the JAX kernel's cd = bfloat16), lane groups and the
+// site-parallel configuration alike, in a translation unit of its own with
+// its own entry point, l2hmc_chain_bf16.
 #include "l2hmc_lanes.cuh"
 #include "l2hmc_sites.cuh"
 #include "philox.cuh"
@@ -59,7 +64,7 @@ namespace l2hmc {
 // The SCG widths (D = 2, H = H2 = 10) on a whole warp.
 typedef LaneCfg<2, 32, 1, 1, 10> ScgChainLanes;
 
-template <class C, class En>
+template <class C, class En, class TW>
 __global__ void __launch_bounds__(kLaneThreads) chain_kernel(
     const float* __restrict__ params, Dims din, int hmc,
     const float* __restrict__ xin, float* __restrict__ xo,
@@ -108,7 +113,7 @@ __global__ void __launch_bounds__(kLaneThreads) chain_kernel(
     float lj = 0.f;
     for (int t = 0; t < d.T; ++t) {
       const int step = reverse ? d.T - 1 - t : t;
-      lj += lane_traj_step<C, En>(B, d, hmc != 0, reverse, step, xp, v, lane);
+      lj += lane_traj_step<C, En, TW>(B, d, hmc != 0, reverse, step, xp, v, lane);
     }
     const float h1 = En::template energy<C>(B, d, xp) + kinetic<C>(d, v);
     // exp(min(a, 0)) with NaN kept NaN (fminf would turn it into 0), then
@@ -141,23 +146,50 @@ __global__ void __launch_bounds__(kLaneThreads) chain_kernel(
   acc_out[n] = accepted * (1.0f / static_cast<float>(K));
 }
 
-template <class C, class En>
+template <class C, class En, class TW>
 static int launch_chain(const float* params, Dims d, int hmc,
                                 const float* x, float* xo, float* acc,
                                 float* trace, int N, int K, uint2 key,
                                 cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(block_floats(d)) * sizeof(float);
-  cudaError_t e = allow_smem(chain_kernel<C, En>, smem);
+  cudaError_t e = allow_smem(chain_kernel<C, En, TW>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long lanes = static_cast<long long>(N) * C::L;
   const int blocks = static_cast<int>((lanes + kLaneThreads - 1) / kLaneThreads);
-  chain_kernel<C, En><<<blocks, kLaneThreads, smem, stream>>>(
+  chain_kernel<C, En, TW><<<blocks, kLaneThreads, smem, stream>>>(
       params, d, hmc, x, xo, acc, trace, N, K, key);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Every energy spec on the lane groups (Phi4 on the sites only) and the
+// site-parallel configuration's specs, with TW operands.
+template <class TW>
+static int chain_entry(const float* params, Dims d, int kind, int hmc,
+                       const float* x, float* xo, float* acc, float* trace,
+                       float* scratch, int N, int K, unsigned long long seed,
+                       void* stream) {
+  if (N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const uint2 key = make_uint2(static_cast<uint32_t>(seed & 0xFFFFFFFFull),
+                               static_cast<uint32_t>(seed >> 32));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (site_chain(d, kind)) {
+    return with_site_energy(d, kind, [&](auto e) {
+      return launch_site_chain<decltype(e), TW>(params, d, hmc, x, xo, acc,
+                                                trace, scratch, N, K, key, s);
+    });
+  }
+  return dispatch<ScgChainLanes>(d, kind, [&](auto c, auto e) {
+    if constexpr (std::is_same_v<decltype(e), Phi4>)
+      return static_cast<int>(cudaErrorInvalidValue);  // site_chain's
+    else
+      return launch_chain<decltype(c), decltype(e), TW>(
+          params, d, hmc, x, xo, acc, trace, N, K, key, s);
+  });
+}
+
 }  // namespace l2hmc
 
+#ifndef L2HMC_BF16_UNIT
 // Plain C entry points (loaded with ctypes). Device pointers to float32:
 // params (the packed block, with nc floats of the energy spec's constants;
 // kind as in l2hmc_trajectory), x and xo as (D, N), acc as (N,), trace as
@@ -170,25 +202,9 @@ extern "C" int l2hmc_chain(const float* params, int D, int H, int H2, int T,
                            float* xo, float* acc, float* trace, float* scratch,
                            int N, int K, unsigned long long seed,
                            void* stream) {
-  using namespace l2hmc;
-  const Dims d{D, H, H2, T, nc};
-  if (N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const uint2 key = make_uint2(static_cast<uint32_t>(seed & 0xFFFFFFFFull),
-                               static_cast<uint32_t>(seed >> 32));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (site_chain(d, kind)) {
-    return with_site_energy(d, kind, [&](auto e) {
-      return launch_site_chain<decltype(e)>(params, d, hmc, x, xo, acc, trace,
-                                            scratch, N, K, key, s);
-    });
-  }
-  return dispatch<ScgChainLanes>(d, kind, [&](auto c, auto e) {
-    if constexpr (std::is_same_v<decltype(e), Phi4>)
-      return static_cast<int>(cudaErrorInvalidValue);  // site_chain's
-    else
-      return launch_chain<decltype(c), decltype(e)>(params, d, hmc, x, xo, acc,
-                                                    trace, N, K, key, s);
-  });
+  return l2hmc::chain_entry<float>(params, l2hmc::Dims{D, H, H2, T, nc}, kind,
+                                   hmc, x, xo, acc, trace, scratch, N, K, seed,
+                                   stream);
 }
 
 // Lanes a chain at these widths (the instantiation l2hmc_chain launches for
@@ -224,3 +240,4 @@ extern "C" int l2hmc_chain_site_smem_bytes(int D, int H, int H2) {
   const int hm = site_hm(Dims{D, H, H2, 1});
   return site_smem_floats(D, hm) * static_cast<int>(sizeof(float));
 }
+#endif

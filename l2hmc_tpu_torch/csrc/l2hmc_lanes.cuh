@@ -20,10 +20,22 @@
 // log-scales) of its own head outputs. te's cotangent is the one exception:
 // a substep touches only its own step's column, each step is visited once,
 // so each lane writes its column once at the end of the substep.
+//
+// Operands. The forward functions (lane_hidden, lane_stq, lane_traj_step)
+// take the products' operand type TW: float, or __nv_bfloat16 for the
+// bfloat16 instantiations of the trajectory and chain kernels
+// (trajectory_bf16.cu, chain_bf16.cu; the JAX kernels' cd). Their weights
+// arrive rounded to bfloat16 in the float32 block (KernelInputs.block), and
+// each activation is rounded where it becomes a product's operand (rnd<TW>,
+// operand.cuh): the inputs a, b as the first layer reads them, the hidden
+// units h and h2 as they are written; the sums, the biases, te and every
+// elementwise step stay float32. The VJP (trajectory_bwd.cu) is float32
+// only, as the JAX package's backward kernel is.
 #pragma once
 #include <type_traits>
 
 #include "l2hmc_common.cuh"
+#include "operand.cuh"
 
 namespace l2hmc {
 
@@ -127,10 +139,11 @@ __device__ inline float gather(int lane, const float (&a)[S], int j) {
 }
 
 // The S/T/Q net's two hidden layers on this lane's units: h[u] of unit
-// lane + u L of the first, h2[u] of the second (0 past H, H2). A lane past
-// the last unit runs the last unit's arithmetic and drops it, so the group
-// runs one instruction stream, without branches.
-template <class C>
+// lane + u L of the first, h2[u] of the second (0 past H, H2), each as the
+// next product reads it (rounded to TW). A lane past the last unit runs the
+// last unit's arithmetic and drops it, so the group runs one instruction
+// stream, without branches.
+template <class C, class TW = float>
 __device__ inline void lane_hidden(const Net& w, Dims d, int step,
                                    const float* a, const float* b,
                                    int lane, float (&h)[C::U],
@@ -142,14 +155,14 @@ __device__ inline void lane_hidden(const Net& w, Dims d, int step,
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
       if (i >= d.D) break;
-      acc = fmaf(w.w1[i * d.H + jj], a[i], acc);
+      acc = fmaf(w.w1[i * d.H + jj], rnd<TW>(a[i]), acc);
     }
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
       if (i >= d.D) break;
-      acc = fmaf(w.w2[i * d.H + jj], b[i], acc);
+      acc = fmaf(w.w2[i * d.H + jj], rnd<TW>(b[i]), acc);
     }
-    h[u] = j < d.H ? fmaxf(acc + w.te[jj * d.T + step], 0.f) : 0.f;
+    h[u] = j < d.H ? rnd<TW>(fmaxf(acc + w.te[jj * d.T + step], 0.f)) : 0.f;
   }
   float acc2[C::U];
 #pragma unroll
@@ -167,7 +180,7 @@ __device__ inline void lane_hidden(const Net& w, Dims d, int step,
 #pragma unroll
   for (int u = 0; u < C::U; ++u) {
     const int k = lane + u * C::L, kk = min(k, d.H2 - 1);
-    h2[u] = k < d.H2 ? fmaxf(acc2[u] + w.bh[kk], 0.f) : 0.f;
+    h2[u] = k < d.H2 ? rnd<TW>(fmaxf(acc2[u] + w.bh[kk], 0.f)) : 0.f;
   }
 }
 
@@ -212,8 +225,9 @@ __device__ inline float head_ls(const Net& w, int head, int i) {
 
 // The S/T/Q net on a lane group (plain version: _apply_stq in
 // ops/fused_dynamics.py), each sum over units in index order; s, t, q in
-// every lane, what the VJP needs in sv. Zero nets in HMC mode.
-template <class C>
+// every lane, what the VJP needs in sv. Zero nets in HMC mode. TW: the
+// products' operands (lane_hidden).
+template <class C, class TW = float>
 __device__ inline void lane_stq(bool hmc, const Net& w, Dims d, int step,
                                 const float* a, const float* b, float* s,
                                 float* t, float* q, StqSave<C>& sv,
@@ -228,7 +242,7 @@ __device__ inline void lane_stq(bool hmc, const Net& w, Dims d, int step,
     }
     return;
   }
-  lane_hidden<C>(w, d, step, a, b, lane, sv.h, sv.h2);
+  lane_hidden<C, TW>(w, d, step, a, b, lane, sv.h, sv.h2);
   const Owned<C> ow = owned<C>(d, lane);
   const float* col[C::OS];
 #pragma unroll
@@ -263,8 +277,9 @@ __device__ inline void lane_stq(bool hmc, const Net& w, Dims d, int step,
 
 // One augmented leapfrog substep in place on (x, v) on a lane group, with
 // _trajectory_step's expressions (ops/fused_dynamics.py) and the energy
-// spec En's gradient; returns the logdet increment, the same in every lane.
-template <class C, class En>
+// spec En's gradient, the nets' products on TW operands; returns the logdet
+// increment, the same in every lane.
+template <class C, class En, class TW = float>
 __device__ inline float lane_traj_step(const Block& B, Dims d, bool hmc,
                                        bool reverse, int step, float* x,
                                        float* v, int lane) {
@@ -279,7 +294,7 @@ __device__ inline float lane_traj_step(const Block& B, Dims d, bool hmc,
   }
   if (!reverse) {
     En::template grad<C>(B, d, x, g);
-    lane_stq<C>(hmc, B.vnet, d, step, x, g, s, t, q, sv, lane);
+    lane_stq<C, TW>(hmc, B.vnet, d, step, x, g, s, t, q, sv, lane);
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
       if (i >= d.D) break;
@@ -289,7 +304,7 @@ __device__ inline float lane_traj_step(const Block& B, Dims d, bool hmc,
       ld += sv1;
       in[i] = m[i] * x[i];
     }
-    lane_stq<C>(hmc, B.xnet, d, step, vh, in, s, t, q, sv, lane);
+    lane_stq<C, TW>(hmc, B.xnet, d, step, vh, in, s, t, q, sv, lane);
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
       if (i >= d.D) break;
@@ -300,7 +315,7 @@ __device__ inline float lane_traj_step(const Block& B, Dims d, bool hmc,
       ld += mb * sx1;
       in[i] = mb * y[i];
     }
-    lane_stq<C>(hmc, B.xnet, d, step, vh, in, s, t, q, sv, lane);
+    lane_stq<C, TW>(hmc, B.xnet, d, step, vh, in, s, t, q, sv, lane);
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
       if (i >= d.D) break;
@@ -311,7 +326,7 @@ __device__ inline float lane_traj_step(const Block& B, Dims d, bool hmc,
       ld += m[i] * sx2;
     }
     En::template grad<C>(B, d, x, g);
-    lane_stq<C>(hmc, B.vnet, d, step, x, g, s, t, q, sv, lane);
+    lane_stq<C, TW>(hmc, B.vnet, d, step, x, g, s, t, q, sv, lane);
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
       if (i >= d.D) break;
@@ -322,7 +337,7 @@ __device__ inline float lane_traj_step(const Block& B, Dims d, bool hmc,
     }
   } else {
     En::template grad<C>(B, d, x, g);
-    lane_stq<C>(hmc, B.vnet, d, step, x, g, s, t, q, sv, lane);
+    lane_stq<C, TW>(hmc, B.vnet, d, step, x, g, s, t, q, sv, lane);
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
       if (i >= d.D) break;
@@ -332,7 +347,7 @@ __device__ inline float lane_traj_step(const Block& B, Dims d, bool hmc,
       ld += sv2;
       in[i] = (1.f - m[i]) * x[i];
     }
-    lane_stq<C>(hmc, B.xnet, d, step, vh, in, s, t, q, sv, lane);
+    lane_stq<C, TW>(hmc, B.xnet, d, step, vh, in, s, t, q, sv, lane);
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
       if (i >= d.D) break;
@@ -343,7 +358,7 @@ __device__ inline float lane_traj_step(const Block& B, Dims d, bool hmc,
       ld += m[i] * sx2;
       in[i] = m[i] * y[i];
     }
-    lane_stq<C>(hmc, B.xnet, d, step, vh, in, s, t, q, sv, lane);
+    lane_stq<C, TW>(hmc, B.xnet, d, step, vh, in, s, t, q, sv, lane);
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
       if (i >= d.D) break;
@@ -354,7 +369,7 @@ __device__ inline float lane_traj_step(const Block& B, Dims d, bool hmc,
       ld += mb * sx1;
     }
     En::template grad<C>(B, d, x, g);
-    lane_stq<C>(hmc, B.vnet, d, step, x, g, s, t, q, sv, lane);
+    lane_stq<C, TW>(hmc, B.vnet, d, step, x, g, s, t, q, sv, lane);
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
       if (i >= d.D) break;

@@ -38,7 +38,11 @@
 //     applies the substep's update to them there (so S, T, Q are never
 //     stored).
 // HM, the hidden units the buffers hold, is a template parameter: 64 (two
-// first-layer units a lane) or 128 (four).
+// first-layer units a lane) or 128 (four). So is TW, the products' operand
+// type (float, or __nv_bfloat16 in chain_bf16.cu): the weights arrive
+// rounded in the block, the first layer rounds its inputs as it reads them
+// and the hidden layers are stored rounded (rnd<TW>, as in
+// l2hmc_lanes.cuh); the sums and everything else stay float32.
 //
 // The widest tile. Four arrays of 4 chains at D = 4096 are 256 KB, past
 // shared memory. One chain a block would fit, but a weight load would then
@@ -156,8 +160,9 @@ __device__ inline void site_sums(float (&v)[V], const SiteSmem<HM>& s) {
 }
 
 // The two hidden layers of net w at inputs a, b ((C, D) in shared memory)
-// for the tile's chains, chain c at its own step: h2 into s.h2.
-template <int HM>
+// for the tile's chains, chain c at its own step: h2 into s.h2, each layer
+// stored as the next product reads it (rounded to TW).
+template <class TW, int HM>
 __device__ inline void site_hidden(const Net& w, Dims d, const float* a,
                                    const float* b,
                                    const int (&step)[kSiteChains],
@@ -179,8 +184,8 @@ __device__ inline void site_hidden(const Net& w, Dims d, const float* a,
       const float w1 = w.w1[i * d.H + jj[u]], w2 = w.w2[i * d.H + jj[u]];
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        acc[c][u] = fmaf(w1, a[c * d.D + i], acc[c][u]);
-        acc[c][u] = fmaf(w2, b[c * d.D + i], acc[c][u]);
+        acc[c][u] = fmaf(w1, rnd<TW>(a[c * d.D + i]), acc[c][u]);
+        acc[c][u] = fmaf(w2, rnd<TW>(b[c * d.D + i]), acc[c][u]);
       }
     }
   }
@@ -197,14 +202,14 @@ __device__ inline void site_hidden(const Net& w, Dims d, const float* a,
     const int c = p / d.H, j = p - c * d.H;
     float t = 0.f;
     for (int wv = 0; wv < kSiteWarps; ++wv) t += s.red[(wv * C + c) * HM + j];
-    s.h[c * HM + j] = fmaxf(t + w.te[j * d.T + step[c]], 0.f);
+    s.h[c * HM + j] = rnd<TW>(fmaxf(t + w.te[j * d.T + step[c]], 0.f));
   }
   __syncthreads();
   for (int p = threadIdx.x; p < C * d.H2; p += kSiteThreads) {
     const int c = p / d.H2, k = p - c * d.H2;
     float t = 0.f;
     for (int j = 0; j < d.H; ++j) t = fmaf(w.wh[j * d.H2 + k], s.h[c * HM + j], t);
-    s.h2[c * HM + k] = fmaxf(t + w.bh[k], 0.f);
+    s.h2[c * HM + k] = rnd<TW>(fmaxf(t + w.bh[k], 0.f));
   }
   __syncthreads();
 }
@@ -322,7 +327,7 @@ __device__ inline void site_hamiltonian_parts(const Block& B, Dims d,
 }
 
 // xs: the accepted states, (gridDim.x C, D) floats of global scratch.
-template <class En, int HM>
+template <class En, int HM, class TW>
 __global__ void __launch_bounds__(kSiteThreads) site_chain_kernel(
     const float* __restrict__ params, Dims d, int hmc,
     const float* __restrict__ xin, float* __restrict__ xo,
@@ -393,14 +398,14 @@ __global__ void __launch_bounds__(kSiteThreads) site_chain_kernel(
       int step[C];
 #pragma unroll
       for (int c = 0; c < C; ++c) step[c] = rev[c] ? d.T - 1 - t : t;
-      if (!hmc) site_hidden(B.vnet, d, s.xp, s.g, step, s);
+      if (!hmc) site_hidden<TW>(B.vnet, d, s.xp, s.g, step, s);
       site_heads<1>(B, B.vnet, d, hmc, rev, step, s, ld);
-      if (!hmc) site_hidden(B.xnet, d, s.v, s.g, step, s);
+      if (!hmc) site_hidden<TW>(B.xnet, d, s.v, s.g, step, s);
       site_heads<2>(B, B.xnet, d, hmc, rev, step, s, ld);
-      if (!hmc) site_hidden(B.xnet, d, s.v, s.g, step, s);
+      if (!hmc) site_hidden<TW>(B.xnet, d, s.v, s.g, step, s);
       site_heads<3>(B, B.xnet, d, hmc, rev, step, s, ld);
       site_grad<En>(B, d, s);
-      if (!hmc) site_hidden(B.vnet, d, s.xp, s.g, step, s);
+      if (!hmc) site_hidden<TW>(B.vnet, d, s.xp, s.g, step, s);
       site_heads<4>(B, B.vnet, d, hmc, rev, step, s, ld);
     }
 
@@ -463,30 +468,30 @@ inline int with_site_energy(Dims d, int kind, F&& f) {
   }
 }
 
-template <class En, int HM>
+template <class En, int HM, class TW>
 static int launch_site_chain_hm(const float* params, Dims d, int hmc,
                                 const float* x, float* xo, float* acc,
                                 float* trace, float* xs, int N, int K,
                                 uint2 key, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(site_smem_floats(d.D, HM)) * sizeof(float);
-  cudaError_t e = allow_smem(site_chain_kernel<En, HM>, smem);
+  cudaError_t e = allow_smem(site_chain_kernel<En, HM, TW>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (N + kSiteChains - 1) / kSiteChains;
-  site_chain_kernel<En, HM><<<blocks, kSiteThreads, smem, stream>>>(
+  site_chain_kernel<En, HM, TW><<<blocks, kSiteThreads, smem, stream>>>(
       params, d, hmc, x, xo, acc, trace, xs, N, K, key);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class En>
+template <class En, class TW>
 static int launch_site_chain(const float* params, Dims d, int hmc,
                              const float* x, float* xo, float* acc,
                              float* trace, float* xs, int N, int K, uint2 key,
                              cudaStream_t stream) {
   if (xs == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (site_hm(d) == WideLanes::HM)
-    return launch_site_chain_hm<En, WideLanes::HM>(params, d, hmc, x, xo, acc,
+    return launch_site_chain_hm<En, WideLanes::HM, TW>(params, d, hmc, x, xo, acc,
                                                    trace, xs, N, K, key, stream);
-  return launch_site_chain_hm<En, kSiteMaxHidden>(params, d, hmc, x, xo, acc,
+  return launch_site_chain_hm<En, kSiteMaxHidden, TW>(params, d, hmc, x, xo, acc,
                                                   trace, xs, N, K, key, stream);
 }
 

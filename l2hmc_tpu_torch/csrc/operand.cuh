@@ -1,7 +1,9 @@
 // The rounding of a product's activation operand, shared by the four VAE
-// kernels (vae_cluster.cuh, vae_common.cuh): a forward and a backward pass
-// must round alike for the trajectory to invert, and the kernels alike to
-// agree with their plain versions (ops/operands.py).
+// kernels (vae_cluster.cuh, vae_common.cuh) and by the bfloat16
+// instantiations of the S/T/Q nets of the trajectory and chain kernels
+// (l2hmc_lanes.cuh, l2hmc_sites.cuh): a forward and a backward pass must
+// round alike for the trajectory to invert, and the kernels alike to agree
+// with their plain versions (ops/operands.py).
 #pragma once
 #include <cuda_bf16.h>
 

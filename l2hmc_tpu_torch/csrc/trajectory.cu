@@ -30,11 +30,16 @@
 //
 // State layout (D, N): element i of chain n at i * N + n. N need not divide
 // the block.
+//
+// Operands: TW, float here; trajectory_bf16.cu compiles this file again for
+// TW = __nv_bfloat16 (the JAX kernel's cd = bfloat16) in a translation unit
+// of its own, with its own entry point, l2hmc_trajectory_bf16, so that the
+// two builds run side by side.
 #include "l2hmc_lanes.cuh"
 
 namespace l2hmc {
 
-template <class C, class En>
+template <class C, class En, class TW>
 __global__ void __launch_bounds__(kLaneThreads) trajectory_kernel(
     const float* __restrict__ params, Dims din, int reverse, int hmc,
     const float* __restrict__ xin, const float* __restrict__ vin,
@@ -58,7 +63,7 @@ __global__ void __launch_bounds__(kLaneThreads) trajectory_kernel(
   float l = 0.f;
   for (int k = 0; k < d.T; ++k) {
     const int step = reverse ? d.T - 1 - k : k;
-    l += lane_traj_step<C, En>(B, d, hmc != 0, reverse != 0, step, x, v, lane);
+    l += lane_traj_step<C, En, TW>(B, d, hmc != 0, reverse != 0, step, x, v, lane);
   }
   if (!live || lane != 0) return;
 #pragma unroll (C::UD)
@@ -70,23 +75,37 @@ __global__ void __launch_bounds__(kLaneThreads) trajectory_kernel(
   ld[n] = l;
 }
 
-template <class C, class En>
+template <class C, class En, class TW>
 static int launch_trajectory(const float* params, Dims d, int reverse,
                                      int hmc, const float* x, const float* v,
                                      float* xo, float* vo, float* ld, int N,
                                      cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(block_floats(d)) * sizeof(float);
-  cudaError_t e = allow_smem(trajectory_kernel<C, En>, smem);
+  cudaError_t e = allow_smem(trajectory_kernel<C, En, TW>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long lanes = static_cast<long long>(N) * C::L;
   const int blocks = static_cast<int>((lanes + kLaneThreads - 1) / kLaneThreads);
-  trajectory_kernel<C, En><<<blocks, kLaneThreads, smem, stream>>>(
+  trajectory_kernel<C, En, TW><<<blocks, kLaneThreads, smem, stream>>>(
       params, d, reverse, hmc, x, v, xo, vo, ld, N);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Every energy spec on both lane configurations, with TW operands.
+template <class TW>
+static int trajectory_entry(const float* params, Dims d, int kind, int reverse,
+                            int hmc, const float* x, const float* v, float* xo,
+                            float* vo, float* ld, int N, void* stream) {
+  if (N <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dispatch<ScgLanes>(d, kind, [&](auto c, auto e) {
+    return launch_trajectory<decltype(c), decltype(e), TW>(
+        params, d, reverse, hmc, x, v, xo, vo, ld, N, s);
+  });
+}
+
 }  // namespace l2hmc
 
+#ifndef L2HMC_BF16_UNIT
 // Plain C entry point (loaded with ctypes). Pointers are device pointers to
 // float32: params (the packed block, with nc floats of the energy spec's
 // constants), x, v, xo, vo as (D, N), ld as (N,). kind is the energy spec's
@@ -96,12 +115,8 @@ extern "C" int l2hmc_trajectory(const float* params, int D, int H, int H2,
                                 int T, int kind, int nc, int reverse, int hmc,
                                 const float* x, const float* v, float* xo,
                                 float* vo, float* ld, int N, void* stream) {
-  using namespace l2hmc;
-  const Dims d{D, H, H2, T, nc};
-  if (N <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch<ScgLanes>(d, kind, [&](auto c, auto e) {
-    return launch_trajectory<decltype(c), decltype(e)>(params, d, reverse, hmc,
-                                                       x, v, xo, vo, ld, N, s);
-  });
+  return l2hmc::trajectory_entry<float>(params, l2hmc::Dims{D, H, H2, T, nc},
+                                       kind, reverse, hmc, x, v, xo, vo, ld, N,
+                                       stream);
 }
+#endif

@@ -54,7 +54,7 @@
 #include <type_traits>
 
 #include "cluster_launch.cuh"
-#include "vae_operand.cuh"
+#include "operand.cuh"
 
 namespace l2hmc {
 namespace vaec {

@@ -25,7 +25,7 @@
 #include <stdint.h>
 
 #include "philox.cuh"
-#include "vae_operand.cuh"
+#include "operand.cuh"
 
 namespace l2hmc {
 namespace vae {

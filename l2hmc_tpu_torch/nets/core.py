@@ -17,9 +17,18 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from l2hmc_tpu_torch.config import require_float32
+from l2hmc_tpu_torch.config import resolve_compute_dtype
 
 Params = Any
+
+
+def lowered(t: torch.Tensor, cd) -> torch.Tensor:
+    """``t`` as a product's operand of dtype ``cd``: rounded to ``cd`` (to
+    nearest, ties to even) and back to float32, so the product sums exact
+    float32 terms; ``t`` itself for ``cd`` None. Autograd rounds the
+    cotangent the same way, as the JAX package's VJP of ``astype`` does."""
+    return t if cd is None else t.to(cd).to(t.dtype)
+
 
 # Standard deviation of a unit normal truncated to [-2, 2]; the variance
 # scaling initializer divides by it so the truncated draw keeps the target
@@ -46,8 +55,14 @@ def linear(
     in_dim: int, out_dim: int, factor: float = 1.0, compute_dtype=None
 ) -> Module:
     """Dense layer with the reference's variance-scaling init: truncated
-    normal, scale ``2 * factor``, fan-in mode, zero bias."""
-    require_float32(compute_dtype, "nets.core.linear")
+    normal, scale ``2 * factor``, fan-in mode, zero bias.
+
+    ``compute_dtype`` (``config.Precision.compute_dtype``; bfloat16) lowers
+    the product's operands only, as the JAX layer does: x and w rounded to
+    bfloat16, the product summed in float32, the bias added in float32; the
+    params stay float32. The gradients are the VJP of that rounding: the
+    cotangents of x and of w are each rounded to bfloat16 per product."""
+    cd = resolve_compute_dtype(compute_dtype)
     std = (2.0 * factor / in_dim) ** 0.5 / _TRUNC_STD
 
     def init(generator: torch.Generator, device) -> Params:
@@ -59,7 +74,7 @@ def linear(
         }
 
     def apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-        return x @ params["w"] + params["b"]
+        return lowered(x, cd) @ lowered(params["w"], cd) + params["b"]
 
     return Module(init, apply)
 

@@ -13,6 +13,17 @@ The params tree keeps the JAX package's HWIO kernels (``(k, k, in, out)``),
 so ``convert.params_from_jax`` carries it across as it is; ``apply``
 permutes them to PyTorch's (out, in, k, k). The convolutions go through
 cuDNN on the card, with TF32 off (``config``).
+
+bfloat16 operands (``compute_dtype``): the JAX ``conv2d`` keeps float32
+operands and asks for ``precision=DEFAULT``, on a TPU one bfloat16 pass
+with float32 accumulation (on the CPU plain float32). Here the input and
+the kernel are rounded to bfloat16 and the convolution runs in float32, so
+the output is not rounded (a bfloat16 cuDNN convolution would round it,
+which JAX's ``preferred_element_type=float32`` does not). The gradient is
+the VJP of that rounding (the input's and the kernel's cotangents rounded);
+a TPU's DEFAULT-precision transposed convolutions round the incoming
+cotangent and the kernel instead (ROADMAP C). The time embedding's dense
+map stays float32, as JAX's is.
 """
 
 from __future__ import annotations
@@ -20,8 +31,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from l2hmc_tpu_torch.config import require_float32
-from l2hmc_tpu_torch.nets.core import _TRUNC_STD, Module, Params, scale_tanh
+from l2hmc_tpu_torch.config import resolve_compute_dtype
+from l2hmc_tpu_torch.nets.core import _TRUNC_STD, Module, Params, lowered, scale_tanh
 
 
 def _trunc_normal(generator: torch.Generator, shape, std: float, device) -> torch.Tensor:
@@ -30,11 +41,11 @@ def _trunc_normal(generator: torch.Generator, shape, std: float, device) -> torc
     return w.to(device)
 
 
-def _conv_nchw(params: Params, x: torch.Tensor, pad: int) -> torch.Tensor:
+def _conv_nchw(params: Params, x: torch.Tensor, pad: int, cd=None) -> torch.Tensor:
     """Circular-padded 'valid' convolution of (n, in, L, L) x with the HWIO
-    kernel of ``params``; (n, out, L, L)."""
-    xp = F.pad(x, (pad, pad, pad, pad), mode="circular")
-    out = F.conv2d(xp, params["w"].permute(3, 2, 0, 1))
+    kernel of ``params``, both operands lowered to ``cd``; (n, out, L, L)."""
+    xp = F.pad(lowered(x, cd), (pad, pad, pad, pad), mode="circular")
+    out = F.conv2d(xp, lowered(params["w"], cd).permute(3, 2, 0, 1))
     return out + params["b"][None, :, None, None]
 
 
@@ -44,8 +55,9 @@ def conv2d(in_ch: int, out_ch: int, kernel: int = 3, factor: float = 1.0,
     conditions, Phi4Lattice's roll stencil), with the variance-scaling
     truncated-normal init of ``nets.core.linear`` (fan_in = kernel^2 in_ch).
 
-    apply: (n, L, L, in_ch) -> (n, L, L, out_ch), as the JAX module."""
-    require_float32(compute_dtype, "nets.lattice.conv2d")
+    apply: (n, L, L, in_ch) -> (n, L, L, out_ch), as the JAX module; with
+    ``compute_dtype`` bfloat16 both operands rounded, the sum in float32."""
+    cd = resolve_compute_dtype(compute_dtype)
     std = (2.0 * factor / (kernel * kernel * in_ch)) ** 0.5 / _TRUNC_STD
     pad = kernel // 2
 
@@ -56,7 +68,7 @@ def conv2d(in_ch: int, out_ch: int, kernel: int = 3, factor: float = 1.0,
         }
 
     def apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-        return _conv_nchw(params, x.permute(0, 3, 1, 2), pad).permute(0, 2, 3, 1)
+        return _conv_nchw(params, x.permute(0, 3, 1, 2), pad, cd).permute(0, 2, 3, 1)
 
     return Module(init, apply)
 
@@ -78,7 +90,7 @@ def lattice_stq_net(
     ``factor`` scales the secondary input's embed init as in ``stq_net``.
     The activations stay (n, channels, L, L) between layers."""
     dim = L * L
-    cd = compute_dtype
+    cd = resolve_compute_dtype(compute_dtype)
     embed_p = conv2d(1, channels, factor=embed_factor, compute_dtype=cd)
     embed_s = conv2d(1, channels, factor=factor * embed_factor, compute_dtype=cd)
     mids = [conv2d(channels, channels, compute_dtype=cd) for _ in range(depth)]
@@ -103,12 +115,12 @@ def lattice_stq_net(
     def apply(params: Params, xs) -> list:
         primary, secondary, t, _aux = xs
         n = primary.shape[0]
-        h = (_conv_nchw(params["embed_p"], primary.reshape(n, 1, L, L), 1)
-             + _conv_nchw(params["embed_s"], secondary.reshape(n, 1, L, L), 1))
+        h = (_conv_nchw(params["embed_p"], primary.reshape(n, 1, L, L), 1, cd)
+             + _conv_nchw(params["embed_s"], secondary.reshape(n, 1, L, L), 1, cd))
         h = torch.relu(h + (t @ params["time_w"])[:, :, None, None])
         for p in params["mids"]:
-            h = torch.relu(_conv_nchw(p, h, 1))
-        s, tt, q = (_conv_nchw(params[k], h, 1).reshape(n, dim)
+            h = torch.relu(_conv_nchw(p, h, 1, cd))
+        s, tt, q = (_conv_nchw(params[k], h, 1, cd).reshape(n, dim)
                     for k in ("head_s", "head_t", "head_q"))
         return [st_s.apply(params["st_s"], s), tt, st_q.apply(params["st_q"], q)]
 

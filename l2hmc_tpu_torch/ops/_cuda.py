@@ -32,6 +32,9 @@ SIGNATURES = {
     "trajectory": {
         "l2hmc_trajectory": [_P, *([_I] * 8), _P, _P, _P, _P, _P, _I, _P],
     },
+    "trajectory_bf16": {
+        "l2hmc_trajectory_bf16": [_P, *([_I] * 8), _P, _P, _P, _P, _P, _I, _P],
+    },
     "trajectory_bwd": {
         "l2hmc_trajectory_bwd": [_P, *([_I] * 8), *([_P] * 9), _I, _P],
     },
@@ -41,6 +44,9 @@ SIGNATURES = {
         "l2hmc_chain_site_chains": [_I, _I, _I],
         "l2hmc_chain_site_threads": [_I, _I, _I],
         "l2hmc_chain_site_smem_bytes": [_I, _I, _I],
+    },
+    "chain_bf16": {
+        "l2hmc_chain_bf16": [_P, *([_I] * 7), _P, _P, _P, _P, _P, _I, _I, _U64, _P],
     },
     "vae_chain": {
         "l2hmc_vae_chain": [_P, _I, _I, _I, _I, _I, _I, *([_P] * 8), _I, _I, _U64, _I, _P],

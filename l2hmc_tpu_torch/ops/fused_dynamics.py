@@ -21,8 +21,23 @@ Beside each kernel is its plain PyTorch version (``trajectory_plain``,
 A wrapper takes the plain version only for a CPU tensor; for a CUDA tensor
 it launches the kernel or raises. Each launch adds one to
 ``LAUNCHES[name]`` and to ``LAUNCHES[name:spec]`` (the energy spec's
-``NAME``), and a chain launch on the site-parallel configuration to
-``LAUNCHES["chain:sites"]``.
+``NAME``), a chain launch on the site-parallel configuration to
+``LAUNCHES["chain:sites"]``, and a launch of a bfloat16 instantiation to
+``LAUNCHES[name:bf16]``.
+
+Operands: float32, or with ``compute_dtype="bfloat16"`` (``prepare``,
+``FusedDynamics``, ``FusedChainSampler`` and their factories) bfloat16
+operands with float32 sums in the S/T/Q nets' products, as the JAX
+package's ``cd`` (``_dot_in``): the kernels' bfloat16 instantiations
+(``csrc/trajectory_bf16.cu``, ``csrc/chain_bf16.cu``) read the products'
+weights rounded once a launch (``KernelInputs.block``) and round each
+activation where a product reads it; the plain versions round through
+``ops.operands``. The time embedding ``te`` (folded in float32 outside the
+kernel), the biases, log-scales, eps, masks and energies stay float32. The
+backward kernel has no bfloat16 form, nor has the JAX package's:
+``differentiable_fused(compute_dtype="bfloat16")`` runs the forward in
+bfloat16 and its VJP in float32 at the unrounded weights, as JAX's custom
+VJP does.
 
 Host prep mirrors the JAX package: ``_extract_net`` flattens a ``stq_net``
 params tree into 13 arrays and folds the time embedding into an (H, T)
@@ -59,6 +74,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from l2hmc_tpu_torch.config import resolve_compute_dtype
 from l2hmc_tpu_torch.dynamics.core import Dynamics
 from l2hmc_tpu_torch.ops import _cuda
 from l2hmc_tpu_torch.ops.operands import dot, dot_ct, lower
@@ -68,6 +84,8 @@ from l2hmc_tpu_torch.ops.philox import chain_draws
 #   w1 (D,H) w2 (D,H) | wh (H,H2) bh (H2,1) | ws (H2,D) bs (D,1) ls (D,1)
 #   wt (H2,D) bt (D,1) | wq (H2,D) bq (D,1) lq (D,1) | te (H,T)
 _NET_ARRAYS = 13
+# the arrays of that list that are products' weights: w1, w2, wh, ws, wt, wq
+_PRODUCT_WEIGHTS = (0, 1, 2, 4, 7, 9)
 
 # kernel launches per kernel since the last reset_launch_counts()
 LAUNCHES = {"trajectory": 0, "trajectory_bwd": 0, "chain": 0, "vae_chain": 0, "vae_ais": 0,
@@ -483,11 +501,14 @@ _SITE_KINDS = (QuadraticGaussianEnergy.KIND, Phi4Energy.KIND)
 LAUNCHES.update({f"{k}:{n}": 0 for k in ("trajectory", "trajectory_bwd", "chain")
                  for n in _SPEC_NAMES.values()})
 LAUNCHES["chain:sites"] = 0  # the chain kernel's site-parallel launches
+LAUNCHES.update({"trajectory:bf16": 0, "chain:bf16": 0})  # bfloat16 instantiations
 
 
 def _count(name: str, inp) -> None:
     LAUNCHES[name] += 1
     LAUNCHES[f"{name}:{_SPEC_NAMES[inp.kind]}"] += 1
+    if inp.cd is not None:
+        LAUNCHES[f"{name}:bf16"] += 1
 
 
 def energy_spec_for_target(target):
@@ -539,7 +560,7 @@ class KernelInputs:
     grad_vjp: Optional[Callable]  # (x, d) -> the cotangent of x through grad_energy
     emb: Optional[torch.Tensor] = None  # (H, N) aux embedding added to the nets' hidden layer
     kind: int = QuadraticGaussianEnergy.KIND  # the energy spec's, for the kernels
-    # the products' operand dtype (None: float32; bfloat16 in the VAE kernels)
+    # the products' operand dtype (None: float32)
     cd: Optional[torch.dtype] = None
 
     @property
@@ -556,16 +577,23 @@ class KernelInputs:
 
     def block(self) -> torch.Tensor:
         """The packed float32 parameter block the CUDA kernels read
-        (layout in csrc/l2hmc_common.cuh)."""
-        parts = [self.eps, self.masks, *self.consts, *self.xnet_w, *self.vnet_w]
+        (layout in csrc/l2hmc_common.cuh), with ``cd`` the products'
+        weights rounded to it (the JAX kernel's ``_dot_in`` rounds them at
+        every product, after ``_net_scales``' fold)."""
+        nets = [[lower(w, self.cd) if i in _PRODUCT_WEIGHTS else w for i, w in enumerate(ws)]
+                for ws in (self.xnet_w, self.vnet_w)]
+        parts = [self.eps, self.masks, *self.consts, *nets[0], *nets[1]]
         return torch.cat([p.reshape(-1) for p in parts]).contiguous()
 
 
-def prepare(dyn: Dynamics, spec, params, device, *, differentiable: bool = False) -> KernelInputs:
+def prepare(dyn: Dynamics, spec, params, device, *, differentiable: bool = False,
+            compute_dtype=None) -> KernelInputs:
     """Host prep shared by the kernels and their plain versions. The weights
     and eps are detached unless ``differentiable``, where they keep their
     autograd history back to ``params`` (through ``_extract_net``'s folds
-    and ``eps = exp(alpha)``) for the training path. The constants come from
+    and ``eps = exp(alpha)``) for the training path. ``compute_dtype`` (as
+    ``config.resolve_compute_dtype`` takes it) is the products' operand
+    dtype; the weights stay float32 here. The constants come from
     per-device caches, so on a device that has them this copies nothing
     from the host and can be captured in a CUDA graph."""
     device = torch.device(device)
@@ -588,6 +616,7 @@ def prepare(dyn: Dynamics, spec, params, device, *, differentiable: bool = False
         grad_energy=grad_energy,
         grad_vjp=spec.build_grad_vjp(consts),
         kind=spec.KIND,
+        cd=resolve_compute_dtype(compute_dtype),
     )
 
 
@@ -1024,26 +1053,34 @@ def chain_plain(
 # -- wrappers ------------------------------------------------------------------
 
 
+def _lib_name(kernel: str, inp: KernelInputs) -> str:
+    """The library (and its entry point's suffix) that runs ``kernel`` at
+    ``inp``'s operand dtype: ``kernel`` or ``kernel_bf16``."""
+    return kernel if inp.cd is None else f"{kernel}_bf16"
+
+
 def trajectory(inp: KernelInputs, x, v, reverse: bool):
     """Fused T-step trajectory on (D, N) float32 state; returns
     (X, V, logdet (1, N)). CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/trajectory.cu``."""
+    launch ``csrc/trajectory.cu``, or its bfloat16 instantiation
+    (``csrc/trajectory_bf16.cu``) where ``inp.cd`` is bfloat16."""
     _check_state(inp, x, v)
     if x.device.type == "cpu":
         return trajectory_plain(inp, x, v, reverse)
     block = _kernel_block(inp, x, "trajectory")
     D, H, H2, T = inp.dims
     N = x.shape[1]
-    lib = _cuda.library("trajectory")
+    name = _lib_name("trajectory", inp)
+    entry = getattr(_cuda.library(name), f"l2hmc_{name}")
     xo, vo = torch.empty_like(x), torch.empty_like(v)
     ld = torch.empty((1, N), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.l2hmc_trajectory(
+        err = entry(
             block.data_ptr(), D, H, H2, T, *inp.energy_args, int(reverse), int(inp.hmc),
             x.data_ptr(), v.data_ptr(), xo.data_ptr(), vo.data_ptr(),
             ld.data_ptr(), N, torch.cuda.current_stream().cuda_stream,
         )
-    _cuda.check(err, "trajectory")
+    _cuda.check(err, name)
     _count("trajectory", inp)
     return xo, vo, ld
 
@@ -1054,7 +1091,11 @@ def trajectory_vjp(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
     ``trajectory_vjp_plain`` returns. CPU tensors take the plain version;
     CUDA tensors launch ``csrc/trajectory_bwd.cu`` (a lane group per chain,
     each lane writing its share of the chain's cotangents into an (N, P)
-    scratch once, then a fixed-order sum over chains)."""
+    scratch once, then a fixed-order sum over chains). float32 only: the
+    backward kernel has no bfloat16 form, nor has the JAX package's."""
+    if inp.cd is not None:
+        raise ValueError("trajectory_bwd kernel: float32 operands only (the JAX "
+                         "package's backward kernel takes no compute dtype either)")
     _check_state(inp, x, v, dX, dV)
     N = x.shape[1]
     if dld.shape != (1, N) or dld.dtype != torch.float32 or not dld.is_contiguous() \
@@ -1088,7 +1129,8 @@ def trajectory_vjp(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
 def chain(inp: KernelInputs, x, seed: int, n_mh_steps: int, collect_trace: bool = False):
     """K MH steps on (D, N) float32 state; returns (x (D, N), acceptance
     (1, N), trace (K, D, N) or None). CPU tensors take the plain version;
-    CUDA tensors launch ``csrc/chain.cu``."""
+    CUDA tensors launch ``csrc/chain.cu``, or its bfloat16 instantiation
+    (``csrc/chain_bf16.cu``) where ``inp.cd`` is bfloat16."""
     _check_state(inp, x)
     if n_mh_steps <= 0:
         raise ValueError("n_mh_steps must be positive")
@@ -1098,6 +1140,8 @@ def chain(inp: KernelInputs, x, seed: int, n_mh_steps: int, collect_trace: bool 
     D, H, H2, T = inp.dims
     N = x.shape[1]
     lib = _cuda.library("chain")
+    name = _lib_name("chain", inp)
+    entry = getattr(_cuda.library(name), f"l2hmc_{name}")
     xo = torch.empty_like(x)
     acc = torch.empty((1, N), dtype=torch.float32, device=x.device)
     trace = (
@@ -1111,7 +1155,7 @@ def chain(inp: KernelInputs, x, seed: int, n_mh_steps: int, collect_trace: bool 
         c = lib.l2hmc_chain_site_chains(D, H, H2)
         scratch = torch.empty(-(-N // c) * c * D, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.l2hmc_chain(
+        err = entry(
             block.data_ptr(), D, H, H2, T, *inp.energy_args, int(inp.hmc), x.data_ptr(),
             xo.data_ptr(), acc.data_ptr(),
             trace.data_ptr() if trace is not None else None,
@@ -1119,7 +1163,7 @@ def chain(inp: KernelInputs, x, seed: int, n_mh_steps: int, collect_trace: bool 
             N, n_mh_steps, int(seed) & 0xFFFFFFFFFFFFFFFF,
             torch.cuda.current_stream().cuda_stream,
         )
-    _cuda.check(err, "chain")
+    _cuda.check(err, name)
     _count("chain", inp)
     if scratch is not None:
         LAUNCHES["chain:sites"] += 1
@@ -1173,13 +1217,17 @@ def _no_aux(aux) -> None:
 class FusedDynamics:
     """Fused-trajectory path for a Dynamics on a spec'd target:
     ``forward(params, x, v)`` / ``backward(params, x, v)`` return
-    (X, V, logdet) as ``Dynamics.forward/backward`` do, on (N, D) state."""
+    (X, V, logdet) as ``Dynamics.forward/backward`` do, on (N, D) state.
+    ``compute_dtype`` is the S/T/Q products' operand dtype (float32 by
+    default; "bfloat16" runs the kernel's bfloat16 instantiation)."""
 
     dynamics: Dynamics
     spec: Any
+    compute_dtype: Any = None
 
     def _run(self, params, x, v, reverse: bool):
-        inp = prepare(self.dynamics, self.spec, params, x.device)
+        inp = prepare(self.dynamics, self.spec, params, x.device,
+                      compute_dtype=self.compute_dtype)
         xo, vo, ld = trajectory(
             inp, x.T.contiguous(), v.T.contiguous(), reverse
         )
@@ -1198,17 +1246,20 @@ class FusedDynamics:
         return self.dynamics.p_accept(params, x0, v0, x1, v1, log_jac)
 
 
-def fused_for_target(dynamics: Dynamics, target) -> FusedDynamics:
+def fused_for_target(dynamics: Dynamics, target, *, compute_dtype=None) -> FusedDynamics:
     """The fused-trajectory path for a spec-supported target (HMC mode runs
-    as exact leapfrog with the nets skipped)."""
+    as exact leapfrog with the nets skipped), with ``compute_dtype``
+    operands."""
     _check_supported(dynamics)
-    return FusedDynamics(dynamics, energy_spec_for_target(target))
+    return FusedDynamics(dynamics, energy_spec_for_target(target), compute_dtype)
 
 
 class _Trajectory(torch.autograd.Function):
     """The fused trajectory as one autograd node whose boundary is the
     kernels': eps (D, 1), x, v (D, N) and the 13 + 13 net weights. Forward
-    runs ``trajectory``, backward ``trajectory_vjp``."""
+    runs ``trajectory`` (with ``inp.cd``'s operands), backward
+    ``trajectory_vjp`` in float32 at the same, unrounded, weights: the JAX
+    package's custom VJP, whose backward kernel takes no compute dtype."""
 
     @staticmethod
     def forward(ctx, inp: KernelInputs, reverse: bool, eps, x, v, *weights):
@@ -1220,7 +1271,7 @@ class _Trajectory(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dX, dV, dld):
         eps, x, v, *weights = ctx.saved_tensors
-        inp = _with_tensors(ctx.inp, eps, weights)
+        inp = _with_tensors(dataclasses.replace(ctx.inp, cd=None), eps, weights)
         gx, gv, deps, dx, dv = trajectory_vjp(
             inp, x, v, dX.contiguous(), dV.contiguous(), dld.contiguous(), ctx.reverse
         )
@@ -1242,7 +1293,9 @@ class DifferentiableFusedDynamics:
     ``eps``, ``hmc``), on (N, D) state. The autograd boundary sits at the
     kernels' inputs; gradients reach the params tree through
     ``_extract_net``'s folds and ``eps = exp(alpha)`` by ordinary autograd.
-    HMC mode runs with zero nets, so only alpha, x and v get gradients."""
+    HMC mode runs with zero nets, so only alpha, x and v get gradients.
+    With a bfloat16 ``fused``, the forward runs in bfloat16 and the
+    backward in float32 (``_Trajectory``)."""
 
     fused: FusedDynamics
 
@@ -1274,7 +1327,8 @@ class DifferentiableFusedDynamics:
         return self._run(params, x, v, reverse=True)
 
     def _run(self, params, x, v, reverse: bool):
-        inp = prepare(self.dynamics, self.fused.spec, params, x.device, differentiable=True)
+        inp = prepare(self.dynamics, self.fused.spec, params, x.device, differentiable=True,
+                      compute_dtype=self.fused.compute_dtype)
         X, V, ld = _Trajectory.apply(
             inp, reverse, inp.eps, x.T.contiguous(), v.T.contiguous(),
             *inp.xnet_w, *inp.vnet_w,
@@ -1282,9 +1336,12 @@ class DifferentiableFusedDynamics:
         return X.T, V.T, ld[0]
 
 
-def differentiable_fused(dynamics: Dynamics, target) -> DifferentiableFusedDynamics:
-    """The training-path fused dynamics for a spec-supported target."""
-    return DifferentiableFusedDynamics(fused_for_target(dynamics, target))
+def differentiable_fused(dynamics: Dynamics, target, *,
+                         compute_dtype=None) -> DifferentiableFusedDynamics:
+    """The training-path fused dynamics for a spec-supported target, its
+    forward with ``compute_dtype`` operands."""
+    return DifferentiableFusedDynamics(
+        fused_for_target(dynamics, target, compute_dtype=compute_dtype))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1295,25 +1352,32 @@ class FusedChainSampler:
     ``n_mh_steps`` direction-randomized proposals and MH accepts; returns
     (x_final (N, D), mean acceptance per chain (N,)) and, with
     ``collect_trace``, the (n_mh_steps, N, D) post-MH history as a third
-    output (a transposed view of the kernel's (K, D, N) buffer)."""
+    output (a transposed view of the kernel's (K, D, N) buffer).
+    ``compute_dtype`` is the S/T/Q products' operand dtype, as in
+    ``FusedDynamics``; energies, Hamiltonians, the accept and the trace
+    stay float32."""
 
     dynamics: Dynamics
     spec: Any
+    compute_dtype: Any = None
 
     def run(self, params, x, seed: int, n_mh_steps: int, *, collect_trace: bool = False):
-        inp = prepare(self.dynamics, self.spec, params, x.device)
+        inp = prepare(self.dynamics, self.spec, params, x.device,
+                      compute_dtype=self.compute_dtype)
         xo, acc, trace = chain(inp, x.T.contiguous(), seed, n_mh_steps, collect_trace)
         if collect_trace:
             return xo.T, acc[0], trace.permute(0, 2, 1)
         return xo.T, acc[0]
 
 
-def fused_chain_sampler(dynamics: Dynamics, target) -> FusedChainSampler:
+def fused_chain_sampler(dynamics: Dynamics, target, *,
+                        compute_dtype=None) -> FusedChainSampler:
     """Whole-chain fused sampler for a spec-supported target (HMC mode runs
-    as exact leapfrog with the nets skipped). The JAX sampler's
+    as exact leapfrog with the nets skipped), with ``compute_dtype``
+    operands. The JAX sampler's
     ``loop_traj`` (a fori_loop trajectory, on by default at dim >= 2048,
     where T unrolled copies overflowed the TPU's scoped VMEM) has no
     counterpart here: the CUDA chain kernel loops over T at run time at
     every width, so there is nothing to switch."""
     _check_supported(dynamics)
-    return FusedChainSampler(dynamics, energy_spec_for_target(target))
+    return FusedChainSampler(dynamics, energy_spec_for_target(target), compute_dtype)

@@ -26,11 +26,7 @@ from typing import Optional
 
 import torch
 
-
-def lower(t: torch.Tensor, cd: Optional[torch.dtype]) -> torch.Tensor:
-    """``t`` rounded to ``cd`` and back to its own dtype (``t`` itself for
-    ``cd`` None)."""
-    return t if cd is None else t.to(cd).to(t.dtype)
+from l2hmc_tpu_torch.nets.core import lowered as lower
 
 
 class _Dot(torch.autograd.Function):

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from l2hmc_tpu_torch import mcmc, nets, targets
-from l2hmc_tpu_torch.config import resolve_compute_dtype, resolve_device
+from l2hmc_tpu_torch.config import resolve_device
 from l2hmc_tpu_torch.dynamics import Dynamics
 from l2hmc_tpu_torch.evals import acl_spectrum, ess
 from l2hmc_tpu_torch.mcmc.sampler import normal_like, propose_draws
@@ -61,8 +61,17 @@ class ScgConfig:
     Every field is read, except ``fused_tile`` (the CUDA kernels run a lane
     group per chain and need no tile) and ``remat`` (a memory knob of the
     JAX package that changes no number; autograd here keeps the
-    trajectories' activations). A knob that is not ported raises when set
-    (``_UNPORTED``).
+    trajectories' activations: the bf16 conv recipe that sets it, L = 32
+    at 256 chains, peaks at 50 GB of an H100's 80). A knob that is not
+    ported raises when set (``_UNPORTED``).
+
+    ``compute_dtype`` ("float32" or "bfloat16", ``config.Precision``) is the
+    operand dtype of the plain S/T/Q nets' products (``nets.core.linear``,
+    ``nets.lattice.conv2d``). As in the JAX package it reaches the nets and
+    no kernel: ``fused_train=True`` builds ``differentiable_fused(dynamics,
+    target)`` with no dtype, whose trajectories read the params and not the
+    nets, so fused bfloat16 training is fused float32 training, bit for
+    bit; the plain evals of the trained sampler run the bfloat16 nets.
     """
 
     dim: int = 2
@@ -126,11 +135,9 @@ class ScgConfig:
 _UNPORTED = {
     "eps_step": lambda v: not v,
     "pt_train_rungs": lambda v: v <= 1,
-    "compute_dtype": lambda v: resolve_compute_dtype(v) is None,
 }
 # where each stands in ROADMAP's queues
-_QUEUED = {"eps_step": "A7", "pt_train_rungs": "A1",
-           "compute_dtype": "B3: kernels 1-3 and the plain nets in bfloat16"}
+_QUEUED = {"eps_step": "A7", "pt_train_rungs": "A1"}
 
 
 def build_dynamics(config: ScgConfig, target=None) -> tuple[Dynamics, Any]:
@@ -158,10 +165,13 @@ def build_dynamics(config: ScgConfig, target=None) -> tuple[Dynamics, Any]:
         if L * L != config.dim:
             raise ValueError(f"net_type='conv' needs a square lattice dim, got {config.dim}")
         xnet, vnet = (nets.lattice_net_factory(L, factor=f, channels=config.conv_channels,
-                                               depth=config.conv_depth) for f in (2.0, 1.0))
+                                               depth=config.conv_depth,
+                                               compute_dtype=config.compute_dtype)
+                      for f in (2.0, 1.0))
     elif config.net_type == "dense":
-        xnet = nets.scg_net_factory(config.dim, factor=2.0, hidden=config.hidden)
-        vnet = nets.scg_net_factory(config.dim, factor=1.0, hidden=config.hidden)
+        xnet, vnet = (nets.scg_net_factory(config.dim, factor=f, hidden=config.hidden,
+                                           compute_dtype=config.compute_dtype)
+                      for f in (2.0, 1.0))
     else:
         raise ValueError(f"unknown net_type: {config.net_type!r}")
     input_scale = None
@@ -578,6 +588,7 @@ def train(
         state = init_state(config, dynamics, optimizer, eps_init=eps_init, device=device)
     else:
         state = state._replace(generator=_copy_generator(state.generator))
+    # no operand dtype for the kernels, as the JAX trainer passes none
     step_dynamics = differentiable_fused(dynamics, target) if config.fused_train else dynamics
     loss_sigmas = None
     if config.whiten_loss or config.whiten_full:

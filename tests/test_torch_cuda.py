@@ -2,6 +2,8 @@
 ``requires_cuda``; they skip where there is no CUDA device (run them with
 ``pytest -m requires_cuda`` on a machine with an H100 and nvcc)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -12,7 +14,7 @@ from l2hmc_tpu_torch.ops import _cuda
 from l2hmc_tpu_torch.ops import fused_dynamics as fd
 from l2hmc_tpu_torch.ops import fused_vae as fv
 from l2hmc_tpu_torch.train import ScgConfig, build_dynamics, hmc_sample_chain, sample_chain, train
-from l2hmc_tpu_torch.train.optim import tree_leaves
+from l2hmc_tpu_torch.train.optim import tree_leaves, tree_unflatten
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -1044,4 +1046,107 @@ def test_captured_sample_chain_equals_eager(cuda, hmc):
             runs.append(sample_chain(dyn, params, x0, 50, gen, capture=capture))
     for a, b in zip(*runs):
         assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# -- bfloat16 operands in kernels 1 and 3 -------------------------------------------
+#
+# The trajectory and chain kernels' bf16 instantiations against their plain
+# versions with the same operands (``KernelInputs.cd``), at chip_smoke's
+# phase 13 shapes and bars (``_bf16_traj_compare``, ``_bf16_chain_compare``:
+# shares of the plain bf16-float32 gap, at most a fifth of the chains
+# flipped or missing the inverse by more than 1e-4, twice bit for bit).
+
+
+def _bf16_case(cuda, case, n, seed):
+    """Float32 kernel inputs and (D, n) states of a phase-13 case."""
+    from chip_smoke import _phi4_inputs
+
+    if case == "scg":
+        dyn, tgt = build_dynamics(ScgConfig())
+        params = dyn.init_params(torch.Generator().manual_seed(seed), eps=0.1, device=cuda)
+        for net in ("xnet", "vnet"):
+            params[net] = _add(params[net], 0.03)
+        inp = fd.prepare(dyn, fd.energy_spec_for_target(tgt), params, cuda)
+        x = tgt.sample(torch.Generator().manual_seed(seed + 1), n, device=cuda).T
+    elif case in ("rough_well_easy", "icg"):
+        inp, x = suite.parity_inputs(case, n, cuda, seed=seed)
+    elif case == "phi4_L8":
+        inp, x = phi4.parity_inputs(case, n, cuda, seed=seed)
+    else:
+        inp, x = _phi4_inputs(fd, cuda, case, seed)
+    return inp, x.contiguous()
+
+
+def _bf16(inp):
+    return dataclasses.replace(inp, cd=torch.bfloat16)
+
+
+@pytest.mark.parametrize("case,n", [("scg", 2048), ("scg", 203), ("scg", 37),
+                                    ("rough_well_easy", 2048), ("rough_well_easy", 203),
+                                    ("phi4_L8", 512)])
+def test_bf16_trajectory_kernel_matches_plain(cuda, case, n):
+    """The bf16 trajectory kernel (SCG on ScgLanes, the rough well and phi^4
+    at L = 8 on WideLanes) against its plain bf16 version, both directions:
+    within half the plain bf16-float32 gap in max-norm and RMS, apart from
+    the float32 kernel, inverting as the plain version does, twice bit for
+    bit; three bf16 launches a direction."""
+    from chip_smoke import _bf16_traj_compare
+
+    inp32, x = _bf16_case(cuda, case, n, 20)
+    v = torch.randn(x.shape, generator=torch.Generator().manual_seed(22)).to(cuda)
+    before = fd.LAUNCHES["trajectory:bf16"]
+    _bf16_traj_compare(fd, _bf16(inp32), inp32, x, v, f"trajectory bf16 {case} {n}")
+    assert fd.LAUNCHES["trajectory:bf16"] == before + 6
+
+
+@pytest.mark.parametrize("case,n", [("scg", 1024), ("scg", 203), ("scg", 37),
+                                    ("rough_well_easy", 2048), ("L16", 512), ("L64", 256),
+                                    ("icg", 2048), ("icg", 203)])
+def test_bf16_chain_kernel_matches_plain_on_same_bits(cuda, case, n):
+    """The bf16 chain kernel on the same Philox bits as its plain bf16
+    version, 20 traced MH steps: lane groups (SCG, the rough well) and the
+    site-parallel configuration (phi^4 at L = 16 and at L = 64, dim 4096;
+    icg at hidden 100, 128 hidden units): at most a fifth of the chains with
+    a flipped decision, the others within half the plain bf16-float32 gap in
+    RMS, apart from the float32 kernel, twice bit for bit."""
+    from chip_smoke import _bf16_chain_compare
+
+    inp32, xc = _bf16_case(cuda, case, n, 40)
+    xc = xc[:, :n].contiguous()
+    before = fd.LAUNCHES["chain:bf16"]
+    _bf16_chain_compare(fd, _bf16(inp32), inp32, xc, f"chain bf16 {case} {n}")
+    assert fd.LAUNCHES["chain:bf16"] == before + 2
+
+
+def test_differentiable_fused_bf16_on_the_card(cuda):
+    """``differentiable_fused(compute_dtype="bfloat16")`` on the card: the
+    forward launches the bf16 trajectory kernel and equals it, the backward
+    launches the float32 backward kernel, and the gradients of a linear
+    projection of the outputs equal the float32 route's bit for bit (the
+    VJP reads the unrounded inputs, not the forward's outputs)."""
+    dyn, tgt = build_dynamics(ScgConfig())
+    params = dyn.init_params(torch.Generator().manual_seed(0), eps=0.1, device=cuda)
+    for net in ("xnet", "vnet"):
+        params[net] = _add(params[net], 0.03)
+    x = tgt.sample(torch.Generator().manual_seed(1), 333, device=cuda)
+    v = torch.randn(x.shape, generator=torch.Generator().manual_seed(2)).to(cuda)
+    cot = [torch.randn(s, generator=torch.Generator().manual_seed(3)).to(cuda)
+           for s in (x.shape, x.shape, (333,))]
+    grads = {}
+    for cd in ("bfloat16", None):
+        leaves = [l.clone().requires_grad_(True) for l in tree_leaves(params)]
+        p = tree_unflatten(params, leaves)
+        before = dict(fd.LAUNCHES)
+        out = fd.differentiable_fused(dyn, tgt, compute_dtype=cd).forward(p, x, v)
+        loss = sum((o * c).sum() for o, c in zip(out, cot))
+        grads[cd] = torch.autograd.grad(loss, leaves)
+        assert fd.LAUNCHES["trajectory:bf16"] - before["trajectory:bf16"] == (1 if cd else 0)
+        assert fd.LAUNCHES["trajectory_bwd"] - before["trajectory_bwd"] == 1
+        if cd:
+            inp = fd.prepare(dyn, fd.energy_spec_for_target(tgt), params, cuda, compute_dtype=cd)
+            ref = fd.trajectory(inp, x.T.contiguous(), v.T.contiguous(), False)
+            for a, b in zip(out, (ref[0].T, ref[1].T, ref[2][0])):
+                torch.testing.assert_close(a.detach(), b, rtol=0, atol=0)
+    for a, b in zip(grads["bfloat16"], grads[None]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -140,9 +140,9 @@ def test_hmc_reduction_is_plain_leapfrog():
 
 
 def test_unported_knobs_raise():
-    """eps_step and bf16 operands still raise; use_temperature,
-    net_input_fn (exclusive with input_scale, with JAX's error) and the
-    lattice conv nets are ported."""
+    """eps_step still raises; use_temperature, net_input_fn (exclusive with
+    input_scale, with JAX's error), the lattice conv nets and bf16 operands
+    are ported."""
     tgt = targets.scg_gaussian()
     with pytest.raises(NotImplementedError):
         dynamics.Dynamics(dim=2, energy=tgt.energy, T=2, hmc=True, eps_step=True)
@@ -152,8 +152,7 @@ def test_unported_knobs_raise():
         dynamics.Dynamics(dim=2, energy=tgt.energy, T=2, hmc=True, input_scale=(1.0, 2.0),
                           net_input_fn=lambda net, xs: xs)
     ScgConfig(dim=16, net_type="conv")  # ported now
-    with pytest.raises(NotImplementedError):
-        ScgConfig(compute_dtype="bfloat16")
+    ScgConfig(compute_dtype="bfloat16")  # ported now
 
 
 def _suite_pair(kw, jt, tt):

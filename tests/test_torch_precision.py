@@ -1,8 +1,8 @@
 """The port's dtype policy against the JAX package's ``config``: the
 ``Precision`` dataclass and ``resolve_compute_dtype`` case for case, and
-the consumers that have no bfloat16 operands yet (the plain dense and conv
-nets, ``ScgConfig`` and through it kernels 1-3) refusing them by
-themselves, each naming ROADMAP B3."""
+every consumer of ``compute_dtype`` taking bfloat16 and float32 (the plain
+dense and conv nets, ``ScgConfig``, kernels 1 and 3's classes and
+factories, ``prepare``)."""
 
 import jax.numpy as jnp
 import pytest
@@ -50,24 +50,41 @@ def test_precision_matches_jax_fields():
         config.resolve_compute_dtype("float16")
 
 
-def test_unported_consumers_refuse_bf16_naming_b3():
-    """The plain dense and conv layers and ``ScgConfig`` (the route to
-    kernels 1-3, fused or not) raise for bfloat16 operands, each pointing
-    at ROADMAP B3; float32 in any spelling goes through. Kernels 1-3's
-    classes take no operand dtype at all."""
-    for make in (lambda cd: core.linear(4, 3, compute_dtype=cd),
-                 lambda cd: lattice.conv2d(1, 2, compute_dtype=cd),
-                 lambda cd: ScgConfig(compute_dtype=cd),
-                 lambda cd: ScgConfig(compute_dtype=cd, fused_train=True)):
-        make("float32")
-        with pytest.raises(NotImplementedError, match="B3"):
-            make("bfloat16")
-        with pytest.raises(NotImplementedError, match="B3"):
-            make(config.BF16_PRECISION)
+def test_consumers_take_bf16_and_f32():
+    """Every consumer takes bfloat16 in each spelling and float32: the dense
+    and conv layers lower their operands (their bf16 output differs from
+    float32's, their params stay float32), ``ScgConfig`` (plain and fused)
+    builds nets that do, and kernels 1 and 3's classes and factories carry
+    the dtype into ``prepare`` (``KernelInputs.cd``), float32 by default;
+    an unknown dtype raises."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((8, 4), generator=gen)
+    lin = {cd: core.linear(4, 3, compute_dtype=cd) for cd in (None, "bfloat16")}
+    p = lin[None].init(torch.Generator().manual_seed(1), "cpu")
+    assert p["w"].dtype == torch.float32
+    assert not torch.equal(lin["bfloat16"].apply(p, x), lin[None].apply(p, x))
+    xi = torch.randn((2, 4, 4, 1), generator=gen)
+    conv = {cd: lattice.conv2d(1, 2, compute_dtype=cd) for cd in (None, "bfloat16")}
+    pc = conv[None].init(torch.Generator().manual_seed(2), "cpu")
+    assert not torch.equal(conv["bfloat16"].apply(pc, xi), conv[None].apply(pc, xi))
     tgt = targets.scg_gaussian()
-    dyn, _ = build_dynamics(ScgConfig(T=2), tgt)
     spec = fd.energy_spec_for_target(tgt)
-    for cls in (fd.FusedDynamics, fd.FusedChainSampler):
-        cls(dyn, spec)
-        with pytest.raises(TypeError, match="compute_dtype"):
-            cls(dyn, spec, compute_dtype="bfloat16")
+    for cd in ("float32", "bfloat16", config.BF16_PRECISION, torch.bfloat16):
+        core.linear(4, 3, compute_dtype=cd)
+        lattice.conv2d(1, 2, compute_dtype=cd)
+        want = config.resolve_compute_dtype(cd)
+        for fused in (False, True):
+            dyn, _ = build_dynamics(ScgConfig(T=2, compute_dtype=cd, fused_train=fused), tgt)
+        params = dyn.init_params(torch.Generator().manual_seed(0), device="cpu")
+        for obj in (fd.FusedDynamics(dyn, spec, compute_dtype=cd),
+                    fd.FusedChainSampler(dyn, spec, compute_dtype=cd),
+                    fd.fused_for_target(dyn, tgt, compute_dtype=cd),
+                    fd.fused_chain_sampler(dyn, tgt, compute_dtype=cd),
+                    fd.differentiable_fused(dyn, tgt, compute_dtype=cd).fused):
+            assert fd.prepare(dyn, spec, params, "cpu",
+                              compute_dtype=obj.compute_dtype).cd == want
+    dyn, _ = build_dynamics(ScgConfig(T=2), tgt)
+    for obj in (fd.FusedDynamics(dyn, spec), fd.fused_chain_sampler(dyn, tgt)):
+        assert obj.compute_dtype is None
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        core.linear(4, 3, compute_dtype="float16")
