@@ -82,7 +82,7 @@ then:
   8. kernel times, plain times and bounds (the ``kernels`` line, printed
      after phase 9);
   9. the bench protocol (``l2hmc_tpu_torch.bench.run``) cut to seed 0 and
-     1000 training steps per arm, with the full 2000-step eval and the
+     600 training steps per arm, with the full 2000-step eval and the
      throughputs at 8192 chains: its parity gate (5e-4) and fused-trace ESS
      gap (0.30) held, both arms' ESS ratios above 1.2, its JSON printed as a
      ``# bench:`` line. Launch counts are reset before and read after it;
@@ -99,7 +99,7 @@ then:
      bit (phase 3's limits; icg's flips at PHI4_FLIPS); (c)
      the suite path: ``run_target`` on the rough well (its recipe: 2048
      chains, T=5, hidden 20, hard mode),
-     the ring at 2048 chains, the funnel and icg at 2048 chains, cut to 150
+     the ring at 2048 chains, the funnel and icg at 2048 chains, cut to 100
      training steps (icg 20) and
      one training seed, with a 1000-step eval, the fused cross-check
      (its ESS within 0.30 of the plain eval's) and the HMC grid through the
@@ -109,7 +109,7 @@ then:
      over their first steps (``SUITE_TRAIN``), the ring's beside the same
      two runs on the CPU through the plain versions. Launch counts are reset
      before (c) and read after (d), per kernel and spec; (e)
-     captured vs eager, bit for bit: 20 steps of the annealed ring and of
+     captured vs eager, bit for bit: 10 steps of the annealed ring and of
      the funnel with its net-input features; (f) each spec's three kernels
      timed at its suite row's shapes, beside their plain versions and
      bounds, and the chain kernel on icg (row 3i: 2048 chains x 2000 traced
@@ -117,7 +117,7 @@ then:
  11. the phi^4 lattice (``apps.phi4``) on the ``Phi4`` spec: (a) the
      trajectory and backward kernels vs their plain versions at L = 8
      (D = 64, hidden 32, T = 10, 512 chains, both directions; phase 2's and
-     5a's bars), and both refusing L = 16 with their cap named, the chain
+     5a's bars), both refusing L = 128 with their caps named, the chain
      kernel refusing L = 128 and hidden 129 with its caps named; (b) the
      chain kernel vs its plain version on the same Philox bits, 20 MH
      steps, twice bit for bit: the site-parallel configuration at L = 16
@@ -127,18 +127,19 @@ then:
      and a dense 128-d Gaussian (203), at PHI4_FLIPS and phase 3's 1e-2 on
      the other chains; (c) the app's
      path: ``apps.phi4.run`` at L = 16 (m^2 = -1, lam = 0.5, 512 chains,
-     hidden 32, T = 10, 300 training steps, the 1000-step kernel eval, HMC,
+     hidden 32, T = 10, 150 training steps, the 1000-step kernel eval, HMC,
      a parallel-tempered eval at 8 rungs cut to PHI4_PT_STEPS), its kernel
      eval's tunnelling rate and magnetization ESS held against a plain
      ``sample_chain`` eval of the same params from the same x0, each the
      mean over PHI4_SEEDS random streams (PHI4_GAP), the same at L = 64
      (A_control's shape of the JAX package's 64 x 64 record: 256 chains,
-     hidden 32, T = 10, eps 0.03, training cut to 100 steps; PHI4_RUN_L64,
+     hidden 32, T = 10, eps 0.03, training cut to 100 steps and the eval to
+     600; PHI4_RUN_L64,
      PHI4_SEEDS_L64 streams), then at L = 8 and at L = 32 cut in training
      and eval; (d) captured training
      steps with conv nets at L = 16 against eager ones (cuDNN's TF32 off),
      and fused against plain training at L = 8: the fused step's loss at
-     each of a plain run's 20 states on the same draws (phase 5b's bar),
+     each of a plain run's 10 states on the same draws (phase 5b's bar),
      two free runs through ``train`` beside it (reported). Launch
      counts are reset before (c) and read after each of its runs, and reset
      before the fused training run of (d) and read after it; (e) the
@@ -181,7 +182,24 @@ then:
      ``apps.phi4.run``, cut in depth, with its peak memory; (e) the bf16
      rows 1-bf16, 3-bf16, 3f-bf16 and 3h-bf16 timed beside their float32
      rows, both bounds, ptxas. Launch counts are reset before (c) and read
-     after it.
+     after it;
+ 14. kernels 1-2 on sites (past 64 wide, ``csrc/l2hmc_sites.cuh``): (a) the
+     trajectory kernel vs its plain version at phi^4 L = 16 (1024 chains),
+     32 (256), 64 (256, A_control's shape) and icg (hidden 100, 2048), both
+     directions, twice bit for bit, inverting; (b) its backward kernel vs its
+     plain version at the same cases (at L = 64 its intermediates in its
+     global scratch); (c) fused vs plain training at L = 16 at the plain run's 20
+     states (phase 5b's bar), a fused step recorded as a CUDA graph against
+     the eager step and ``train``'s captured route against its eager one,
+     bit for bit; (d) the path: ``train`` on the phi^4
+     runner's L = 16 config with ``fused_train=True`` (1024 chains, cut to
+     300 steps), the chain kernel's traced eval and plain HMC (tunnelling,
+     ESS_m), ms per fused and plain step, short fused runs at L = 32 and 64
+     and on icg, the trajectory kernel as the trajectory gate at L = 64 and in bf16
+     at L = 16; (e) the bf16 site trajectory vs its plain bf16 version
+     (phase 13's shares); (f) rows 1f-1i, 2f-2i and 1f-bf16 timed beside
+     their plain versions, bounds and reckoned L2 bytes, ptxas. Launch counts
+     are reset before (d) and read after each of its runs.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -210,10 +228,10 @@ ESS_GAP = 0.30  # bench.py's fused-trace vs non-kernel ESS tolerance
 BWD_TOL = 1e-4  # per leaf, of the leaf's largest entry: sums over chains in another order
 TRAIN_STEPS = 5000  # the notebook's training length (SCGExperiment.ipynb cell 12)
 MIN_ESS_RATIO = 1.2  # the JAX package's short-run bar (tests/test_train_scg.py)
-# phase 9: the bench protocol cut to seed 0 and 1000 training steps per arm
+# phase 9: the bench protocol cut to seed 0 and 600 training steps per arm
 # (the full 2000-step eval and 8192-chain throughput); the 40x tripwire is
 # the full protocol's and is not applied at this depth
-BENCH_CUT = dict(seeds=(0,), n_steps=1000, tripwire=False)
+BENCH_CUT = dict(seeds=(0,), n_steps=600, tripwire=False)
 # VAE kernels against their plain versions on the same Philox bits. A flipped
 # accept needs |px - u| inside the float32 gap of two Hamiltonians near 1e3
 # (~1e-4), so at most VAE_FLIPS chains may differ in a decision; the others
@@ -521,8 +539,7 @@ def _bwd_launch_ms(fd, cuda_lib, inp, x, v, dX, dV, dld, reps):
     N = x.shape[1]
     n_grads = sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D
     grads = torch.empty(n_grads, dtype=torch.float32, device=x.device)
-    scratch = torch.empty(n_grads * N + 2 * (T + 1) * D * N, dtype=torch.float32,
-                          device=x.device)
+    scratch = torch.empty(fd.bwd_scratch_floats(inp, N), dtype=torch.float32, device=x.device)
     dx, dv = torch.empty_like(x), torch.empty_like(v)
     lib = cuda_lib.library("trajectory_bwd")
     stream = torch.cuda.current_stream().cuda_stream
@@ -2451,7 +2468,7 @@ SUITE_TRAJ_CHAINS = {"rough_well_easy": (2048, 203), "ring": (1024,), "funnel": 
                      "mog2_hmc": (1024,)}
 SPEC_OF_CASE = {"rough_well_easy": "rough_well", "ring": "gmm", "funnel": "funnel",
                 "mog2_hmc": "gmm", "icg": "gauss"}
-# The suite path cut in depth: 150 training steps and one training seed a
+# The suite path cut in depth: 100 training steps and one training seed a
 # row (the recipes: 5000 and up to 4), a 1000-step eval (the recipes: 2000),
 # the HMC grid's eight step sizes (through the chain kernel) and the widths
 # and chain counts as the recipes have them. icg (2048 chains, the JAX
@@ -2459,7 +2476,7 @@ SPEC_OF_CASE = {"rough_well_easy": "rough_well", "ring": "gmm", "funnel": "funne
 # kernel it runs the 50-d Gaussian on WideLanes in HMC mode, where every lane
 # of a warp repeats the chain's dense gradient (ROADMAP P7), ~22 s an eps at
 # 2000 steps on an H100. The row shows the cross-check's path, not a ratio.
-SUITE_CUT = dict(n_steps=150, n_train_seeds=1, fused_hmc=True, eval_steps=1000)
+SUITE_CUT = dict(n_steps=100, n_train_seeds=1, fused_hmc=True, eval_steps=1000)
 SUITE_ROWS = (("rough_well", {}), ("ring", dict(n_chains=2048)), ("funnel", {}),
               ("icg", dict(n_chains=2048, n_steps=20, fused_hmc=False)))
 # Fused against plain training on the suite's targets (no annealing, no
@@ -2680,7 +2697,7 @@ def suite_phases(dev, report):
             ("funnel_net_input", lambda: targets.GaussianFunnel(dim=10),
              dict(net_input_target_fn=True, hidden=20, grad_clip=5.0))):
         tgt = make()
-        cfg = ScgConfig(dim=tgt.dim, n_chains=1024, n_steps=20, **kw)
+        cfg = ScgConfig(dim=tgt.dim, n_chains=1024, n_steps=10, **kw)
         (se, he), (sc, hc) = (train(cfg, tgt, device=dev, capture=c) for c in (False, True))
         same = all(np.array_equal(he[k], hc[k]) for k in he) and all(
             torch.equal(a, b) for a, b in zip(
@@ -2797,8 +2814,9 @@ def suite_phases(dev, report):
 PHI4_FLIPS = 0.002
 PHI4_CHAIN_CASES = ("phi4_L16", "phi4_L32", "phi4_L64", "gauss_D128", "phi4_L16_hmc", "phi4_L8")
 # (c) the app's path at full width (L = 16, hidden 32, the JAX runner's
-# defaults) cut in depth: 300 training steps (the protocol: 2000), the
-# 1000-step eval, the parallel-tempered evals cut to PHI4_PT_STEPS at 8
+# defaults) cut in depth: 150 training steps (the protocol: 2000; phase 14
+# trains this shape fused for 300), the 1000-step eval, the
+# parallel-tempered evals cut to PHI4_PT_STEPS at 8
 # rungs (the protocol's m^2 = -4 row: 24 rungs, 1000 steps). The kernel's
 # eval and a plain sample_chain eval of the same params from the same x0
 # are chains of one sampler on two random streams: their tunnelling rates
@@ -2811,24 +2829,25 @@ PHI4_CHAIN_CASES = ("phi4_L16", "phi4_L32", "phi4_L64", "gauss_D128", "phi4_L16_
 # autocorrelation above 0.05, and its late lags average few products, so a
 # 1000-step ESS_m moves by tens of percent between streams (the per-stream
 # values are reported).
-PHI4_RUN = dict(L=16, m2=-1.0, lam=0.5, n_chains=512, hidden=32, leapfrogs=10, n_steps=300,
+PHI4_RUN = dict(L=16, m2=-1.0, lam=0.5, n_chains=512, hidden=32, leapfrogs=10, n_steps=150,
                 eval_steps=1000, pt_rungs=8, pt_t_max=16.0)
-PHI4_PT_STEPS = 100
+PHI4_PT_STEPS = 50
 PHI4_SEEDS = 3
 PHI4_GAP = 0.30
 # the other widths' runs of the app, cut in training and eval: L = 8 and
 # L = 32 at the JAX package's 256 chains
 # (phi4_results.json)
 PHI4_RUNS_MORE = (dict(L=8, n_chains=512, n_steps=50, eval_steps=500),
-                  dict(L=32, n_chains=256, n_steps=50, eval_steps=500))
+                  dict(L=32, n_chains=256, n_steps=20, eval_steps=500))
 # The 64 x 64 lattice at the JAX package's A_control shape (phi4_64_r3.json:
-# 256 chains, hidden 32, T = 10, eps = hmc_eps = 0.03, the 1000-step eval),
-# training cut to 100 steps (the protocol: 2000), its kernel eval held
+# 256 chains, hidden 32, T = 10, eps = hmc_eps = 0.03), training cut to 100
+# steps (the protocol: 2000) and the eval to 600 (1000), its kernel eval held
 # against a plain eval as L = 16's, each side the mean over PHI4_SEEDS_L64
-# streams.
+# streams (gaps 0.034 and 0.041 of the 0.30 bar over three streams of 1000
+# steps on an H100; a plain stream took 28-36 s).
 PHI4_RUN_L64 = dict(L=64, m2=-1.0, lam=0.5, n_chains=256, hidden=32, leapfrogs=10,
-                    n_steps=100, eval_steps=1000, eps=0.03, hmc_eps=0.03)
-PHI4_SEEDS_L64 = 3
+                    n_steps=100, eval_steps=600, eps=0.03, hmc_eps=0.03)
+PHI4_SEEDS_L64 = 2
 # (e) times the shipped L = 64 recipe's shape (hidden 64, T = 24; 26 s at
 # 1000 steps on an H100) over this many MH steps, for the script's clock
 PHI4_RECIPE_STEPS = 300
@@ -2867,8 +2886,8 @@ def phi4_phases(dev, report):
     t_all = time.perf_counter()
     out = {}
 
-    # (a) kernels 1-2 on Phi4 at L = 8 against their plain versions; past 64
-    # they refuse, naming the kernel and its cap
+    # (a) kernels 1-2 on Phi4 at L = 8 (their lane groups) against their
+    # plain versions; past 64 they run on sites (phase 14)
     t_phase = time.perf_counter()
     inp8, x8 = phi4.parity_inputs("phi4_L8", 512, dev, seed=20)
     g = _gen(61)
@@ -2887,19 +2906,26 @@ def phi4_phases(dev, report):
         bwd[way] = _spec_vjp_compare(fd, inp8, x8, v8, dX8, dV8, dld8, reverse)
         _require(traj[way] < TRAJ_TOL, f"phi4 trajectory {way}: {traj[way]}")
         _require(bwd[way]["max_rel_err"] <= BWD_TOL, f"phi4 trajectory_bwd {way}: {bwd[way]}")
-    inp16, x16 = phi4.parity_inputs("phi4_L16", 512, dev, seed=20)
+    # past their caps (dim 4096, hidden 128) both refuse, naming the kernel
+    # and its caps
     refusals = {}
-    for kernel, call in (("trajectory", lambda: fd.trajectory(inp16, x16, x16, False)),
-                         ("trajectory_bwd", lambda: fd.trajectory_vjp(
-                             inp16, x16, x16, x16, x16, torch.zeros((1, 512), device=dev),
-                             False))):
+    t128 = targets.Phi4Lattice(L=128)
+    d128, _ = build_dynamics(ScgConfig(dim=t128.dim, hidden=32), t128)
+    inp128 = fd.prepare(d128, fd.energy_spec_for_target(t128),
+                        d128.init_params(_gen(0), device=dev), dev)
+    x128 = t128.sample(_gen(1), 4, device=dev).T.contiguous()
+    cap = "dim 16384, hidden 32 (caps dim 4096, hidden 128)"
+    for kernel, call in (
+            ("trajectory", lambda: fd.trajectory(inp128, x128, x128, False)),
+            ("trajectory_bwd", lambda: fd.trajectory_vjp(
+                inp128, x128, x128, x128, x128, torch.zeros((1, 4), device=dev), False))):
         try:
             call()
             refusals[kernel] = None
         except ValueError as e:
             refusals[kernel] = str(e)
-        _require(refusals[kernel] is not None and kernel in refusals[kernel]
-                 and "dim 64" in refusals[kernel], f"{kernel} at L = 16: {refusals[kernel]}")
+        _require(refusals[kernel] == f"{kernel} kernel caps exceeded: {cap}",
+                 f"{kernel} past its caps: {refusals[kernel]}")
     # the chain kernel past its caps: L = 128 (dim 16384), hidden 129 at L = 16
     for key, L, hidden in (("chain_L128", 128, 32), ("chain_hidden129", 16, 129)):
         tl = targets.Phi4Lattice(L=L)
@@ -3059,13 +3085,13 @@ def phi4_phases(dev, report):
     _require(moved, "conv training: the params did not move")
     _require(conv_gap <= 1.0, f"conv training captured vs eager: {conv_gap} x tolerance")
     # fused against plain at L = 8, as 10d: the fused step's loss at each of
-    # the plain run's 20 states on the same draws, held at phase 5b's bar;
+    # the plain run's 10 states on the same draws, held at phase 5b's bar;
     # the two free runs through ``train`` reported and not held: on an H100
     # they agree to 3.5e-5 relative over steps 1-5 and then part, 10.8x the
     # bar by step 17, the ring's way in 10d (losses near -2000, and Adam's
     # sign-like step turns rounding into parameter gaps)
     t8 = targets.Phi4Lattice(L=8, m2=-1.0, lam=0.5)
-    fcfg = ScgConfig(dim=t8.dim, n_chains=512, n_steps=20, T=10, hidden=32, seed=0)
+    fcfg = ScgConfig(dim=t8.dim, n_chains=512, n_steps=10, T=10, hidden=32, seed=0)
     dyn8, _ = build_dynamics(fcfg, t8)
     opt8, _ = make_optimizer(fcfg)
     plain_step = make_train_step(fcfg, dyn8, opt8)
@@ -3094,7 +3120,8 @@ def phi4_phases(dev, report):
     out["fused_training_launches"] = launches
     print(f"# phi4 training ({time.perf_counter() - t_phase:.1f} s): " + json.dumps(
         {k: out[k] for k in ("conv_training_L16", "fused_vs_plain_training_L8")}), flush=True)
-    print("# phi4 fused training launches (L = 8, 20 steps): " + json.dumps(launches), flush=True)
+    print(f"# phi4 fused training launches (L = 8, {fcfg.n_steps} steps): " + json.dumps(launches),
+          flush=True)
     _require(fused_gap <= 1.0, f"phi4 fused vs plain training at the same states: {fused_gap} "
                                "x tolerance")
     for kernel in ("trajectory", "trajectory_bwd"):
@@ -3211,6 +3238,458 @@ def phi4_phases(dev, report):
     report["phi4"] = out
     report["phi4_wall_s"] = time.perf_counter() - t_all
     print(f"# phi4 phase: {report['phi4_wall_s']:.1f} s", flush=True)
+    return rows
+
+
+# -- 14. kernels 1-2 on sites ----------------------------------------------------------
+
+# The trajectory kernel and its backward kernel past 64 wide, on the
+# site-parallel configuration (csrc/l2hmc_sites.cuh): (a) row 1 against its
+# plain version, both directions, each launch twice bit for bit, at the
+# lattice at L = 16 (1024 chains), 32 (256), 64 (256, A_control's shape:
+# hidden 32, T = 10, eps 0.03) and icg (D = 50, hidden 100, eps_dim; 2048
+# chains): X and V at phase 2's TRAJ_TOL, the log-det, a sum over D sites and
+# 4 T net applications in another order than torch.sum, within TRAJ_TOL or
+# WIDE_LD_REL of its largest magnitude, whichever is larger (at L = 64 the
+# log-det reaches ~1.4e3, where float32 sums of 40,960 terms part by
+# ~4e-4: 2.6e-7 of it on an H100); forward then reverse returns x within
+# WIDE_INVERSE_TOL on at least WIDE_INVERSE_SHARE of the chains. (b) row 2
+# against its plain version at the same cases (at L = 64 its intermediates
+# in its global scratch), per leaf within BWD_TOL of its largest entry with
+# at most one chain set aside by ``relu_margins`` (``_spec_vjp_compare``),
+# twice bit for bit.
+WIDE_CASES = (("phi4_L16", 1024), ("phi4_L32", 256), ("icg", 2048), ("phi4_L64", 256))
+WIDE_LD_REL = 2e-6
+WIDE_INVERSE_TOL = 1e-4
+WIDE_INVERSE_SHARE = 0.8
+# (c) fused against plain training at L = 16, 1024 chains, WIDE_SAME_STEPS
+# steps: the fused step's loss at each of the plain run's states on the same
+# draws at phase 5b's bar; one fused step recorded as a CUDA graph (as the
+# captured route records it) against the eager step on the same state and
+# draws, bit for bit, at the initial state and after the plain run; and
+# ``train``'s captured route against its eager one over WIDE_CAPTURE_STEPS
+# fused steps, bit for bit (5d's comparison).
+WIDE_SAME_STEPS = 20
+WIDE_CAPTURE_STEPS = 10
+# (d) the path: ``train`` on the ScgConfig the phi^4 runner builds at L = 16
+# (m^2 = -1, lam = 0.5, hidden 32, T = 10, eps 0.1, 1024 chains) with
+# fused_train=True, cut to WIDE_TRAIN_STEPS of the protocol's 2000 steps;
+# the chain kernel's traced eval and plain HMC (the app's baseline, eps 0.1)
+# over WIDE_EVAL_STEPS; ms per fused and plain step at steady state
+# (``steady_ms`` over WIDE_STEADY); short fused runs at L = 32 and 64 (256
+# chains) and on icg (2048 chains); the trajectory kernel as the gate of the
+# sampler's trajectory at L = 64 (``FusedDynamics`` against
+# ``Dynamics.forward``/``backward``, A_control's shape) and, in bf16, at
+# L = 16 on the trained params (nearer the bf16 nets than the float32
+# kernel, in RMS, as 13c).
+WIDE_APP = dict(L=16, m2=-1.0, lam=0.5, n_chains=1024, hidden=32, T=10, eps=0.1)
+WIDE_TRAIN_STEPS = 300
+WIDE_EVAL_STEPS = 1000
+WIDE_STEADY = (10, 40)
+WIDE_SHORT_RUNS = (("L32", 20), ("icg", 10), ("L64", 4))
+
+
+def wide_l2_bytes(D, H, H2, T, N, kernel):
+    """Bytes a site-parallel launch of ``kernel`` reads and writes through
+    the L2, reckoned for the report: the weights of its 4 T net applications
+    a block (``phi4_l2_weight_bytes``, one trajectory), for the backward
+    kernel three times (the forward sweep, each substep's recompute, its
+    VJP) and its cotangent rows' read-modify-writes (each substep: the
+    heads' and first layer's weights of the four applications, wh and the
+    per-site arrays, 8 bytes each)."""
+    w = phi4_l2_weight_bytes(D, H, H2, T, N, 1, 4)
+    if kernel == "trajectory":
+        return w
+    rows = -(-N // 4) * T * 4 * (3 * H2 * D + 2 * D * H + H * H2 + 6 * D + H2 + H) * 8
+    return 3 * w + rows
+
+
+def _wide_inputs(fd, dev, name, n, seed):
+    """Float32 kernel inputs and (D, n) states of a phase 14 case."""
+    from l2hmc_tpu_torch.apps import phi4, suite
+
+    if name == "icg":
+        inp, x = suite.parity_inputs("icg", n, dev, seed=seed)
+    elif name == "phi4_L64":
+        inp, x = _phi4_inputs(fd, dev, "L64", seed)
+    else:
+        inp, x = phi4.parity_inputs(name, n, dev, seed=seed)
+    return inp, x.contiguous()
+
+
+def wide_traj_phases(dev, report):
+    """Phase 14: kernels 1 and 2 on sites against their plain versions, fused
+    against plain training at L = 16, the fused phi^4 training path, the bf16
+    site trajectory, the new rows' times; returns rows 1f-1i, 2f-2i and
+    1f-bf16 of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from l2hmc_tpu_torch import targets
+    from l2hmc_tpu_torch.apps import phi4, suite
+    from l2hmc_tpu_torch.ops import _cuda
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+    from l2hmc_tpu_torch.train import (
+        ScgConfig, StepDraws, TrainState, build_dynamics, draw_step, hmc_sample_chain,
+        init_state, make_optimizer, make_train_step, train,
+    )
+    from l2hmc_tpu_torch.train.optim import AdamState, tree_leaves, tree_unflatten
+    from l2hmc_tpu_torch.utils import capture, steady_ms
+
+    t_all = time.perf_counter()
+    out = {}
+    cases = WIDE_CASES
+
+    # (a), (b) the two kernels against their plain versions
+    t_phase = time.perf_counter()
+    traj, bwd, inputs = {}, {}, {}
+    for name, n in cases:
+        inp, x = _wide_inputs(fd, dev, name, n, 20)
+        D, H, H2, T = inp.dims
+        g = _gen(61)
+        v, dX, dV = (torch.randn(x.shape, generator=g).to(dev) for _ in range(3))
+        dld = torch.randn((1, n), generator=g).to(dev)
+        inputs[name] = (inp, x, v, dX, dV)
+        geom = fd.trajectory_site_tile("trajectory", D, H, H2)
+        _require(fd.trajectory_on_sites(inp)
+                 and geom == fd.trajectory_site_geometry("trajectory", D, H, H2, n)[:3],
+                 f"trajectory on sites {name}: geometry {geom}")
+        case = {"dim": D, "hidden": H, "T": T, "n_chains": n,
+                "chains_threads_smem_bytes_a_block": geom}
+        for reverse in (False, True):
+            way = "backward" if reverse else "forward"
+            got = fd.trajectory(inp, x, v, reverse)
+            again = fd.trajectory(inp, x, v, reverse)
+            ref = fd.trajectory_plain(inp, x, v, reverse)
+            back = fd.trajectory(inp, got[0], got[1], not reverse)
+            miss = (back[0] - x).abs().amax(0)
+            ld_bar = max(TRAJ_TOL, WIDE_LD_REL * float(ref[2].abs().max()))
+            c = {"max_abs_err_x_v": max(float((a - b).abs().max()) for a, b in zip(got[:2], ref[:2])),
+                 "max_abs_err_logdet": float((got[2] - ref[2]).abs().max()),
+                 "logdet_bar": ld_bar, "logdet_scale": float(ref[2].abs().max()),
+                 "inverse_share_within_tol": float((miss <= WIDE_INVERSE_TOL).float().mean()),
+                 "inverse_max_miss": float(miss.max()),
+                 "repeats_bit_for_bit": all(bool(torch.equal(a, b)) for a, b in zip(got, again))}
+            case[way] = c
+            _require(all(bool(torch.isfinite(a).all()) for a in got), f"trajectory {name} {way}")
+            _require(c["repeats_bit_for_bit"], f"trajectory {name} {way}: two launches differ")
+            _require(c["max_abs_err_x_v"] <= TRAJ_TOL and c["max_abs_err_logdet"] <= ld_bar
+                     and c["inverse_share_within_tol"] >= WIDE_INVERSE_SHARE,
+                     f"trajectory on sites {name} {way}: {c}")
+        traj[name] = case
+        bgeom = fd.trajectory_site_tile("trajectory_bwd", D, H, H2)
+        _require(bgeom == fd.trajectory_site_geometry("trajectory_bwd", D, H, H2, n)[:3],
+                 f"trajectory_bwd on sites {name}: geometry {bgeom}")
+        bcase = {"chains_threads_smem_bytes_a_block": bgeom,
+                 "scratch_bytes": 4 * fd.bwd_scratch_floats(inp, n)}
+        for reverse in (False, True):
+            way = "backward" if reverse else "forward"
+            c = _spec_vjp_compare(fd, inp, x, v, dX, dV, dld, reverse)
+            a1 = tree_leaves(list(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse)))
+            a2 = tree_leaves(list(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse)))
+            c["repeats_bit_for_bit"] = all(bool(torch.equal(p, q)) for p, q in zip(a1, a2))
+            bcase[way] = c
+            _require(c["repeats_bit_for_bit"], f"trajectory_bwd {name} {way}: two launches differ")
+            _require(c["max_rel_err"] <= BWD_TOL, f"trajectory_bwd on sites {name} {way}: {c}")
+        bwd[name] = bcase
+    out["trajectory_vs_plain"], out["trajectory_bwd_vs_plain"] = traj, bwd
+    print(f"# sites: trajectory kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(traj), flush=True)
+    print("# sites: backward kernel vs plain: " + json.dumps(bwd), flush=True)
+
+    # (c) fused against plain training at L = 16 at the plain run's states;
+    # one fused step recorded against the eager step
+    t_phase = time.perf_counter()
+    tgt = targets.Phi4Lattice(L=WIDE_APP["L"], m2=WIDE_APP["m2"], lam=WIDE_APP["lam"])
+    cfg = ScgConfig(dim=tgt.dim, n_chains=WIDE_APP["n_chains"], T=WIDE_APP["T"],
+                    hidden=WIDE_APP["hidden"], eps=WIDE_APP["eps"], n_steps=WIDE_TRAIN_STEPS,
+                    seed=0)
+    dyn, _ = build_dynamics(cfg, tgt)
+    opt, _ = make_optimizer(cfg)
+    plain_step = make_train_step(cfg, dyn, opt)
+    fused_step = make_train_step(cfg, fd.differentiable_fused(dyn, tgt), opt)
+    state = init_state(cfg, dyn, opt, device=dev)
+    state = state._replace(step=torch.as_tensor(0, dtype=torch.int32, device=dev))
+    gen = _gen(cfg.seed + 100)
+
+    def draws():
+        return StepDraws(*(None if a is None else a.to(dev) for a in draw_step(
+            gen, cfg.n_chains, cfg.dim, z_burn_in=cfg.z_burn_in_loss)))
+
+    def captured_vs_eager(st, d):
+        """The fused step eager and recorded (two warm-up calls on a side
+        stream, then the graph's replay) on static copies of ``st``: bit for
+        bit in the loss and every state tensor."""
+        def copy(s):
+            return TrainState(tree_unflatten(s.params, [t.detach().clone()
+                                                        for t in tree_leaves(s.params)]),
+                              AdamState(*(t.clone() for t in s.opt_state)), s.x.clone(), None,
+                              s.step.clone())
+
+        eager, me = fused_step(copy(st), d)
+        static, box = copy(st), {}
+
+        def body():
+            box["o"] = fused_step(static, d)
+
+        for _ in range(capture.WARMUP_CALLS):
+            capture.run_on_side_stream(body)
+        capture.Graph(body).replay()
+        torch.cuda.synchronize()
+        rep, mr = box["o"]
+
+        def tensors(s):
+            return [*tree_leaves(s.params), *s.opt_state, s.x, s.step]
+
+        return bool(torch.equal(me["loss"], mr["loss"])) and all(
+            torch.equal(a, b) for a, b in zip(tensors(eager), tensors(rep)))
+
+    bit_for_bit = [captured_vs_eager(state, draws())]
+    same, ms = [], {"fused": [], "plain": []}
+    for _ in range(WIDE_SAME_STEPS):
+        d = draws()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, mf = fused_step(state, d)
+        torch.cuda.synchronize()
+        ms["fused"].append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        state, mp = plain_step(state, d)
+        torch.cuda.synchronize()
+        ms["plain"].append(1e3 * (time.perf_counter() - t))
+        same.append((float(mf["loss"]), float(mp["loss"])))
+    bit_for_bit.append(captured_vs_eager(state, draws()))
+    routes = [train(dataclasses.replace(cfg, n_steps=WIDE_CAPTURE_STEPS, fused_train=True), tgt,
+                    device=dev, capture=c) for c in (False, True)]
+    (se, he), (sc, hc) = routes
+    route_same = all(np.array_equal(he[k], hc[k]) for k in he) and all(
+        torch.equal(a, b) for a, b in zip([*tree_leaves(se.params), *se.opt_state, se.x, se.step],
+                                          [*tree_leaves(sc.params), *sc.opt_state, sc.x, sc.step]))
+    gap = float(_over_tolerance(*zip(*same)).max())
+    out["fused_vs_plain_training_L16"] = {
+        "steps": WIDE_SAME_STEPS, "n_chains": cfg.n_chains,
+        "same_states_max_gap_over_tolerance": gap,
+        "loss_fused": [a for a, _ in same], "loss_plain": [b for _, b in same],
+        "eager_ms_per_step_median": {k: float(np.median(v)) for k, v in ms.items()},
+        "captured_step_equals_eager": bit_for_bit,
+        "captured_route_equals_eager": {"steps": WIDE_CAPTURE_STEPS, "bit_for_bit": route_same,
+                                        "loss_eager": he["loss"].tolist(),
+                                        "loss_captured": hc["loss"].tolist()}}
+    print(f"# sites: fused vs plain training L=16 ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(out["fused_vs_plain_training_L16"]), flush=True)
+    _require(gap <= 1.0, f"fused vs plain training at L = 16, same states: {gap} x tolerance")
+    _require(all(bit_for_bit), f"captured fused step differs from eager: {bit_for_bit}")
+    _require(route_same, "captured fused training at L = 16 differs from eager")
+
+    # (d) the path; launch counts set to 0 just before it and read just after
+    t_phase = time.perf_counter()
+    fd.reset_launch_counts()
+    fcfg = dataclasses.replace(cfg, fused_train=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    st, hist = train(fcfg, tgt, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    x0 = tgt.sample(_gen(1), cfg.n_chains, device=dev)
+    sampler = fd.fused_chain_sampler(dyn, tgt)
+    t = time.perf_counter()
+    _, acc, trace = sampler.run(st.params, x0, seed=2, n_mh_steps=WIDE_EVAL_STEPS,
+                                collect_trace=True)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    m = trace.mean(dim=2).cpu().numpy()
+    del trace
+    _, htrace = hmc_sample_chain(tgt, WIDE_APP["eps"], WIDE_APP["T"], x0, WIDE_EVAL_STEPS,
+                                 _gen(3))
+    mh = htrace.mean(dim=2).cpu().numpy()
+    del htrace
+    launches_train = dict(fd.LAUNCHES)
+    short = {}
+    for label, steps in WIDE_SHORT_RUNS:
+        if label == "icg":
+            ci = suite.PARITY_CASES["icg"]
+            t_s = ci.target()
+            scfg = ScgConfig(dim=t_s.dim, n_chains=ci.n_chains, T=ci.T, hidden=ci.hidden,
+                             eps_dim=ci.eps_dim, n_steps=steps, seed=0, fused_train=True)
+        else:  # L = 32 at its parity case's eps, L = 64 at A_control's
+            L = int(label[1:])
+            t_s = targets.Phi4Lattice(L=L, m2=WIDE_APP["m2"], lam=WIDE_APP["lam"])
+            scfg = ScgConfig(dim=t_s.dim, n_chains=256, T=10, hidden=32,
+                             eps=0.05 if L == 32 else 0.03, n_steps=steps, seed=0,
+                             fused_train=True)
+        before = dict(fd.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, h_s = train(scfg, t_s, device=dev)
+        torch.cuda.synchronize()
+        short[label] = {"steps": steps, "n_chains": scfg.n_chains,
+                        "ms_per_step_incl_capture": 1e3 * (time.perf_counter() - t) / steps,
+                        "loss": h_s["loss"].tolist(),
+                        "launches": {k: fd.LAUNCHES[k] - before[k]
+                                     for k in ("trajectory:sites", "trajectory_bwd:sites")}}
+        _require(bool(np.isfinite(h_s["loss"]).all())
+                 and min(short[label]["launches"].values()) > 0, f"fused {label}: {short[label]}")
+    # the trajectory kernel as the sampler's trajectory gate: at L = 64
+    # (A_control's shape) in float32, at L = 16 in bf16 on the trained params
+    t64 = targets.Phi4Lattice(L=64, m2=-1.0, lam=0.5)
+    d64, _ = build_dynamics(ScgConfig(dim=t64.dim, hidden=32, T=10), t64)
+    p64 = d64.init_params(_gen(4), eps=0.03, device=dev)
+    p64 = dict(p64, **{k: _tree_map(lambda a: a + phi4.PARITY_LIFT, p64[k])
+                       for k in ("xnet", "vnet")})
+    x64 = t64.sample(_gen(5), 256, device=dev)
+    v64 = torch.randn(x64.shape, generator=_gen(6)).to(dev)
+    before = fd.LAUNCHES["trajectory:sites"]
+    gate64 = max(float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+                 for way in ("forward", "backward")
+                 for a, b in zip(getattr(fd.fused_for_target(d64, t64), way)(p64, x64, v64),
+                                 getattr(d64, way)(p64, x64, v64)))
+    gate64_launches = fd.LAUNCHES["trajectory:sites"] - before
+    BF = "bfloat16"
+    dynb, _ = build_dynamics(dataclasses.replace(cfg, compute_dtype=BF), tgt)
+    xg = x0[:512]
+    vg = torch.randn(xg.shape, generator=_gen(12)).to(dev)
+    shares = []
+    before = fd.LAUNCHES["trajectory:bf16"]
+    for way in ("forward", "backward"):
+        refb = getattr(dynb, way)(st.params, xg, vg)
+        for a, c, b in zip(getattr(fd.fused_for_target(dynb, tgt, compute_dtype=BF), way)(
+                st.params, xg, vg), getattr(fd.fused_for_target(dyn, tgt), way)(
+                st.params, xg, vg), refb):
+            shares.append(_share(_rms(a, b), _rms(c, b)))
+    bf16_launches = fd.LAUNCHES["trajectory:bf16"] - before
+    launches = dict(fd.LAUNCHES)
+    steady = {}
+    for fused in (True, False):
+        steady["fused" if fused else "plain"] = steady_ms(
+            lambda n, f=fused: train(dataclasses.replace(cfg, n_steps=n, fused_train=f), tgt,
+                                     device=dev), *WIDE_STEADY)
+    path = {
+        "config": dict(WIDE_APP, steps=WIDE_TRAIN_STEPS, protocol_steps=2000),
+        "train_s": train_s, "ms_per_step_incl_capture": 1e3 * train_s / WIDE_TRAIN_STEPS,
+        "ms_per_step_steady": steady, "final_loss": float(hist["loss"][-1]),
+        "final_accept": float(np.mean(hist["p_accept"][-100:])),
+        "final_eps": float(hist["eps"][-1]), "eval_steps": WIDE_EVAL_STEPS,
+        "eval_kernel_s": eval_s, "eval_accept": float(acc.mean()),
+        "tunneling_rate_l2hmc": phi4.tunneling_rate(m), "tunneling_rate_hmc": phi4.tunneling_rate(mh),
+        "ess_m_l2hmc": phi4.magnetization_ess(m), "ess_m_hmc": phi4.magnetization_ess(mh),
+        "short_runs": short, "gate_L64_max_rel_err": gate64, "gate_L64_launches": gate64_launches,
+        "bf16_gate_L16_rms_share_of_f32_kernel": max(shares), "bf16_gate_launches": bf16_launches,
+        "launches_training": launches_train, "launches": launches,
+        "wall_s": time.perf_counter() - t_phase}
+    out["path"] = path
+    print(f"# sites: phi4 fused training path L=16 ({path['wall_s']:.1f} s): " + json.dumps(path),
+          flush=True)
+    _require(bool(np.isfinite(hist["loss"]).all()) and 0.0 < path["final_accept"] < 1.0,
+             f"fused phi4 training: {path['final_loss']}, {path['final_accept']}")
+    _require(all(np.isfinite(path[k]) for k in ("tunneling_rate_l2hmc", "ess_m_l2hmc",
+                                                 "tunneling_rate_hmc", "ess_m_hmc")),
+             f"fused phi4 path scores: {path}")
+    _require(gate64 <= TRAJ_TOL, f"trajectory gate at L = 64: {gate64}")
+    _require(max(shares) < 1.0, f"bf16 trajectory gate at L = 16: {shares}")
+    for k in ("trajectory:sites", "trajectory_bwd:sites"):
+        _require(launches_train[k] > 0, f"{k} not launched by fused phi4 training")
+    _require(gate64_launches > 0 and bf16_launches > 0,
+             f"the trajectory gates launched {gate64_launches}, {bf16_launches} times")
+
+    # (e) the bf16 site trajectory against its plain bf16 version (13a's bars)
+    t_phase = time.perf_counter()
+    inp16, x16, v16, _, _ = inputs["phi4_L16"]
+    out["bf16_trajectory_vs_plain_L16"] = _bf16_traj_compare(
+        fd, dataclasses.replace(inp16, cd=torch.bfloat16), inp16, x16, v16,
+        "trajectory bf16 on sites L16")
+    print(f"# sites: bf16 trajectory kernel vs plain L=16 ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(out["bf16_trajectory_vs_plain_L16"]), flush=True)
+
+    # (f) each new row's launch alone at its shape, its plain version, bound,
+    # reckoned L2 bytes, ptxas
+    t_phase = time.perf_counter()
+    times = {}
+    for name, n in cases:
+        inp, x, v, dX, dV = inputs[name]
+        D, H, H2, T = inp.dims
+        blk = inp.block().numel()
+        ops = _ops_of(inp)
+        dl1 = torch.ones((1, n), device=dev)
+        r = {"ms": _traj_launch_ms(fd, _cuda, inp, x, v, 20 if D <= 1024 else 5),
+             "plain_ms": _cuda_time(lambda: fd.trajectory_plain(inp, x, v, False), 2),
+             "bound": traj_bound(D, H, H2, T, n, False, blk, ops),
+             "l2_bytes": wide_l2_bytes(D, H, H2, T, n, "trajectory")}
+        if name == "phi4_L16":
+            ib = dataclasses.replace(inp, cd=torch.bfloat16)
+            w1, b1 = traj_work(D, H, H2, T, n, False, blk, ops)
+            r["bf16"] = {"ms": _traj_launch_ms(fd, _cuda, ib, x, v, 20),
+                         "plain_ms": _cuda_time(lambda: fd.trajectory_plain(ib, x, v, False), 2),
+                         "bound": _bf16_bounds(w1, n * T * 4 * _stq_products(D, H, H2),
+                                               b1 - 2 * 2 * _stq_weights(D, H, H2))}
+        n_grads = sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D
+        r["bwd"] = {"ms": _bwd_launch_ms(fd, _cuda, inp, x, v, dX, dV, dl1, 3),
+                    "plain_ms": _cuda_time(
+                        lambda: fd.trajectory_vjp_plain(inp, x, v, dX, dV, dl1, False), 1),
+                    "bound": traj_bwd_bound(D, H, H2, T, n, False, blk, n_grads, ops),
+                    "l2_bytes": wide_l2_bytes(D, H, H2, T, n, "trajectory_bwd")}
+        times[name] = r
+    ptxas = _cuda.build_info.get("ptxas", "")
+    ptx = {k: _ptxas_of(ptxas, entry) for k, entry in (("trajectory", "16site_traj_kernel"),
+                                                       ("trajectory_bwd", "20site_traj_bwd_kernel"))}
+    out["kernel_times"] = {"times": times, "ptxas": ptx}
+    print(f"# sites: kernel times ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(out["kernel_times"]), flush=True)
+
+    src = "l2hmc_tpu_torch/csrc/"
+    rows = []
+    launch_of = {"phi4_L16": {k: launches_train[k] for k in ("trajectory:sites",
+                                                              "trajectory_bwd:sites")},
+                 "phi4_L32": short["L32"]["launches"], "icg": short["icg"]["launches"],
+                 "phi4_L64": {"trajectory:sites": gate64_launches
+                              + short["L64"]["launches"]["trajectory:sites"],
+                              "trajectory_bwd:sites":
+                              short["L64"]["launches"]["trajectory_bwd:sites"]}}
+    labels = {"phi4_L16": "f", "phi4_L32": "g", "icg": "h", "phi4_L64": "i"}
+    for name, n in cases:
+        inp = inputs[name][0]
+        D, H, H2, T = inp.dims
+        r = times[name]
+        spec = "gauss" if name == "icg" else "phi4"
+        shape = (f"{name} D={D} H={H} T={T}, {n} chains, one direction, the launch alone; "
+                 f"site-parallel (4 chains a block of 256 threads)")
+        traj_launches = launch_of[name]["trajectory:sites"]
+        err = traj[name]
+        rows.append({"name": f"trajectory[{spec}]", "route": "cuda", "source": src + "trajectory.cu",
+                     "replaces": "l2hmc_tpu/ops/fused_dynamics.py:645", "launches": traj_launches,
+                     "max_abs_err": max(max(err[w]["max_abs_err_x_v"], err[w]["max_abs_err_logdet"])
+                                        for w in ("forward", "backward")),
+                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                     "bound_by": r["bound"][1], "library_ms": None, "row": "1" + labels[name],
+                     "shape": shape + f", {r['l2_bytes']:.4g} L2 weight bytes reckoned"})
+        if "bwd" in r:
+            b = r["bwd"]
+            bl = launch_of[name]["trajectory_bwd:sites"]
+            rows.append({"name": f"trajectory_bwd[{spec}]", "route": "cuda",
+                         "source": src + "trajectory_bwd.cu",
+                         "replaces": "l2hmc_tpu/ops/fused_dynamics.py:801", "launches": bl,
+                         "max_abs_err": max(bwd[name][w]["max_abs_err"]
+                                            for w in ("forward", "backward")),
+                         "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound"][0],
+                         "bound_by": b["bound"][1], "library_ms": None, "row": "2" + labels[name],
+                         "shape": (shape + f"; scratch {bwd[name]['scratch_bytes']:.4g} bytes; "
+                                   f"{b['l2_bytes']:.4g} L2 bytes reckoned (weights and the "
+                                   "cotangent rows)")})
+        if "bf16" in r:
+            bb = r["bf16"]
+            rows.append({"name": "trajectory[phi4]_bf16", "route": "cuda",
+                         "source": src + "trajectory_bf16.cu",
+                         "replaces": "l2hmc_tpu/ops/fused_dynamics.py:645",
+                         "launches": bf16_launches,
+                         "max_abs_err": max(c["max_abs_err"] for c in
+                                            out["bf16_trajectory_vs_plain_L16"].values()),
+                         "ms": bb["ms"], "plain_ms": bb["plain_ms"], "bound_ms": bb["bound"][0],
+                         "bound_by": bb["bound"][1], "library_ms": None, "row": "1f-bf16",
+                         "shape": (shape + f"; plain_ms the plain bf16 version; float32 row in "
+                                   f"the same run: {r['ms']:.4f} ms; all operations on the f32 "
+                                   f"pipe: {bb['bound'][2]:.4g} ms")})
+    report["wide_traj"] = out
+    report["wide_traj_wall_s"] = time.perf_counter() - t_all
+    print(f"# sites phase: {report['wide_traj_wall_s']:.1f} s", flush=True)
     return rows
 
 
@@ -3653,6 +4132,9 @@ def main() -> int:
     # -- 13. bfloat16 operands in kernels 1 and 3 ----------------------------------
     bf16_scg_rows = bf16_scg_phases(dev, report)
 
+    # -- 14. kernels 1-2 on sites ----------------------------------------------------
+    wide_rows = wide_traj_phases(dev, report)
+
     # -- 8. the kernels line -------------------------------------------------------
     src = "l2hmc_tpu_torch/csrc/"
     kernels = [
@@ -3692,6 +4174,7 @@ def main() -> int:
         *suite_rows,
         *phi4_rows,
         *bf16_scg_rows,
+        *wide_rows,
     ]
     report["kernels"] = kernels
     print("# report: " + json.dumps(report))

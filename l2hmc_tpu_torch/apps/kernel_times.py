@@ -19,8 +19,12 @@ L = 64 at the A_control shape and at the shipped recipe's, 1000 traced
 steps; 3i: icg at hidden 100, 2000 traced steps; a tree whose caps refuse
 a row gives null); the trajectory and chain kernels with bfloat16 operands
 at rows 1, 3, 3f and 3h's shapes (keys ending ``_bf16``; null for a tree
-without them); kernel times by CUDA events, the training step by the host
-clock.
+without them); the trajectory and backward kernels past 64 wide, on sites,
+through their wrappers (rows 1f/2f: the lattice at L = 16, 1024 chains;
+1g/2g: L = 32, 256; 1h/2h: icg at hidden 100, 2048; 1i: L = 64 at the
+A_control shape, 256; 1f_bf16; null where a tree's caps refuse them) and the
+fused training step at L = 16 (1024 chains, hidden 32, T = 10); kernel
+times by CUDA events, the training steps by the host clock.
 
 With ``--trees``, each directory must hold an ``l2hmc_tpu_torch`` package
 (a checkout, or an unpacked ``git archive``). Every tree's kernels are built
@@ -248,6 +252,65 @@ def site_times(dev) -> dict:
     return out
 
 
+def site_traj_times(dev) -> dict:
+    """Rows 1f-1i, 2f-2h and 1f_bf16: each launch through its wrapper, one
+    direction, and the fused L = 16 training step at steady state."""
+    import dataclasses
+
+    import torch
+
+    from l2hmc_tpu_torch import targets
+    from l2hmc_tpu_torch.apps import phi4, suite
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+    from l2hmc_tpu_torch.train import ScgConfig, build_dynamics, train
+
+    out = {}
+    for label, mod, name, n in (("f", phi4, "phi4_L16", 1024), ("g", phi4, "phi4_L32", 256),
+                                ("h", suite, "icg", 2048), ("i", phi4, "phi4_L64", 256)):
+        inp, x = mod.parity_inputs(name, n, dev, seed=32)
+        if label == "i":  # A_control's shape: hidden 32, T = 10 (the parity case: 64, 24)
+            t = targets.Phi4Lattice(L=64)
+            dyn, _ = build_dynamics(ScgConfig(dim=t.dim, hidden=32, T=10), t)
+            inp = fd.prepare(dyn, fd.energy_spec_for_target(t),
+                             dyn.init_params(_gen(0), eps=0.03, device=dev), dev)
+        x = x.contiguous()
+        g = _gen(7)
+        v, dX, dV = (torch.randn(x.shape, generator=g).to(dev) for _ in range(3))
+        dld = torch.ones((1, n), device=dev)
+        for key, fn, reps in (
+                (f"trajectory_1{label}", lambda: fd.trajectory(inp, x, v, False), 20),
+                (f"trajectory_bwd_2{label}",
+                 lambda: fd.trajectory_vjp(inp, x, v, dX, dV, dld, False), 5)):
+            if label == "i" and "bwd" in key:
+                continue
+            try:
+                out[key] = _cuda_ms(fn, reps)
+            except ValueError:  # a tree whose caps refuse the widths
+                out[key] = None
+        if label == "f":
+            ib = dataclasses.replace(inp, cd=torch.bfloat16)
+            try:
+                out["trajectory_1f_bf16"] = _cuda_ms(lambda: fd.trajectory(ib, x, v, False), 20)
+            except ValueError:
+                out["trajectory_1f_bf16"] = None
+        del inp, x
+        torch.cuda.empty_cache()
+    t = targets.Phi4Lattice(L=16, m2=-1.0, lam=0.5)
+    cfg = ScgConfig(dim=t.dim, n_chains=1024, T=10, hidden=32, seed=0, fused_train=True)
+    try:
+        times = []
+        for steps in (20, 80):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train(dataclasses.replace(cfg, n_steps=steps), t, device=dev)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out["fused_phi4_L16_step"] = 1e3 * (times[1] - times[0]) / 60
+    except ValueError:
+        out["fused_phi4_L16_step"] = None
+    return out
+
+
 def one(sites_only: bool = False) -> dict:
     import torch
 
@@ -261,6 +324,7 @@ def one(sites_only: bool = False) -> dict:
         out.update(scg_times(dev))
         out.update(vae_times(dev))
     out.update(site_times(dev))
+    out.update(site_traj_times(dev))
     return out
 
 
@@ -293,7 +357,7 @@ def main() -> int:
     ap.add_argument("--trees", nargs="+", help="directories holding l2hmc_tpu_torch")
     ap.add_argument("--build", action="store_true", help="only build the kernels")
     ap.add_argument("--sites", action="store_true",
-                    help="only the site-parallel chain kernel's rows (3e-3i)")
+                    help="only the site-parallel kernels' rows (3e-3i, 1f-1i, 2f-2h)")
     args = ap.parse_args()
     import torch
 

@@ -5,8 +5,8 @@
 // (QuadraticGaussianEnergy :391, RoughWellEnergy :422, GmmEnergy :446,
 // FunnelEnergy :501, Phi4Energy :548). The kernels (trajectory.cu,
 // trajectory_bwd.cu, chain.cu) run a chain on a lane group
-// (l2hmc_lanes.cuh), or, in the chain kernel past 64 wide, a tile of chains
-// on a block (l2hmc_sites.cuh); their S/T/Q net and substep have their
+// (l2hmc_lanes.cuh), or, past 64 wide, a tile of chains on a block
+// (l2hmc_sites.cuh); their S/T/Q net and substep have their
 // plain versions in ops/fused_dynamics.py (_apply_stq, _trajectory_step),
 // and they take the energy spec as a template parameter En.
 #pragma once
@@ -104,11 +104,12 @@ __device__ inline Block load_block(const float* __restrict__ g, float* s,
 // The arithmetic is the JAX closures' (l2hmc_tpu/ops/fused_dynamics.py
 // :391-597) and their plain versions' (the specs' build and build_grad_vjp
 // in ops/fused_dynamics.py), sums over i in index order. The specs the
-// site-parallel chain kernel takes (Gauss, Phi4) also give one
-// site i of one chain's D-vector x, which that kernel keeps in shared
-// memory, from the constants c:
-//   grad_at(c, D, x, i)         (grad E(x))_i
-//   energy_at(c, D, x, i)       site i's term of E(x)
+// site-parallel configuration takes (Gauss, Phi4) also give one site i of
+// one chain's D-vector x, which its kernels keep in shared memory, from the
+// constants c:
+//   grad_at(c, D, x, i)            (grad E(x))_i
+//   energy_at(c, D, x, i)          site i's term of E(x)
+//   grad_vjp_at(c, D, x, dg, i)    (J(x)^T dg)_i
 
 // 0.5 (x - mu)^T P (x - mu). Constants: P (D x D, row-major) | mu (D).
 struct Gauss {
@@ -176,6 +177,13 @@ struct Gauss {
   __device__ static float energy_at(const float* c, int D, const float* x,
                                    int i) {
     return 0.5f * ((x[i] - c[D * D + i]) * grad_at(c, D, x, i));
+  }
+  // (P^T dg)_i
+  __device__ static float grad_vjp_at(const float* c, int D, const float*,
+                                     const float* dg, int i) {
+    float acc = 0.f;
+    for (int j = 0; j < D; ++j) acc = fmaf(c[j * D + i], dg[j], acc);
+    return acc;
   }
 
   // dx += P^T dg
@@ -505,6 +513,16 @@ struct Phi4 {
     nbrs(static_cast<int>(c[2]), D, i, r, l, dn, up);
     const float xi = x[i], a = x[r] - xi, b = x[dn] - xi, x2 = xi * xi;
     return 0.5f * (a * a + b * b) + ((0.5f * c[0]) * x2 + c[1] * (x2 * x2));
+  }
+
+  // (4 + m2 + 12 lam x_i^2) dg_i - (the sum of dg over site i's neighbours)
+  __device__ static float grad_vjp_at(const float* c, int D, const float* x,
+                                     const float* dg, int i) {
+    int r, l, dn, up;
+    nbrs(static_cast<int>(c[2]), D, i, r, l, dn, up);
+    const float xi = x[i];
+    return (4.f + c[0] + (12.f * c[1]) * xi * xi) * dg[i] -
+           (dg[r] + dg[l] + dg[dn] + dg[up]);
   }
 
   template <class C>

@@ -31,11 +31,22 @@
 // State layout (D, N): element i of chain n at i * N + n. N need not divide
 // the block.
 //
+// Past 64 wide (states up to 4096, the 64 x 64 phi^4 lattice, or hidden
+// widths up to 128) a lane group cannot hold the state nor a block the
+// weights: site_traj_kernel runs those widths on the chain kernel's
+// site-parallel configuration (l2hmc_sites.cuh), a tile of 4 chains a block
+// of 256 threads, x', v and g in shared memory (the chain kernel's budget,
+// 212.4 KB at D = 4096 and hidden 128), the weights read through the L2,
+// the launch's one direction in every chain, and the log-det reduced by
+// fixed-order warp trees. The Gauss and Phi4 specs run there (the specs with
+// per-site versions), as in the chain kernel.
+//
 // Operands: TW, float here; trajectory_bf16.cu compiles this file again for
 // TW = __nv_bfloat16 (the JAX kernel's cd = bfloat16) in a translation unit
 // of its own, with its own entry point, l2hmc_trajectory_bf16, so that the
-// two builds run side by side.
+// two builds run side by side; the site-parallel form has both.
 #include "l2hmc_lanes.cuh"
+#include "l2hmc_sites.cuh"
 
 namespace l2hmc {
 
@@ -90,13 +101,87 @@ static int launch_trajectory(const float* params, Dims d, int reverse,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Every energy spec on both lane configurations, with TW operands.
+// One trajectory on sites: a tile of kSiteChains chains a block, every
+// chain in the launch's direction; past N a copy of the last chain, no
+// writes.
+template <class En, int HM, class TW>
+__global__ void __launch_bounds__(kSiteThreads) site_traj_kernel(
+    const float* __restrict__ params, Dims d, int reverse, int hmc,
+    const float* __restrict__ xin, const float* __restrict__ vin,
+    float* __restrict__ xo, float* __restrict__ vo, float* __restrict__ ld,
+    int N) {
+  constexpr int C = kSiteChains;
+  extern __shared__ float smem[];
+  const Block B = block_at(params, d);
+  const SiteSmem<HM> s = site_smem<HM>(smem, d.D);
+  const size_t sN = static_cast<size_t>(N);
+  int n[C];
+  bool live[C], rev[C];
+  float l[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int chain = blockIdx.x * C + c;
+    live[c] = chain < N;
+    n[c] = live[c] ? chain : N - 1;
+    rev[c] = reverse != 0;
+    l[c] = 0.f;
+  }
+  // (D, N) in device memory: (site, chain) pairs chain-fastest
+  for (int p = threadIdx.x; p < C * d.D; p += kSiteThreads) {
+    const int c = p % C, i = p / C;
+    s.xp[c * d.D + i] = xin[i * sN + n[c]];
+    s.v[c * d.D + i] = vin[i * sN + n[c]];
+  }
+  __syncthreads();
+  site_grad<En>(B, d, s.xp, s.g);
+  for (int t = 0; t < d.T; ++t) {
+    int step[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) step[c] = reverse ? d.T - 1 - t : t;
+    site_traj_step<En, HM, TW>(B, d, hmc != 0, rev, step, s, l);
+  }
+  site_sums(l, s);
+  for (int p = threadIdx.x; p < C * d.D; p += kSiteThreads) {
+    const int c = p % C, i = p / C;
+    if (live[c]) {
+      xo[i * sN + n[c]] = s.xp[c * d.D + i];
+      vo[i * sN + n[c]] = s.v[c * d.D + i];
+    }
+  }
+  if (threadIdx.x < C && live[threadIdx.x]) ld[n[threadIdx.x]] = s.tot[threadIdx.x];
+}
+
+template <class En, int HM, class TW>
+static int launch_site_traj_hm(const float* params, Dims d, int reverse, int hmc,
+                               const float* x, const float* v, float* xo,
+                               float* vo, float* ld, int N, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(site_smem_floats(d.D, HM)) * sizeof(float);
+  cudaError_t e = allow_smem(site_traj_kernel<En, HM, TW>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (N + kSiteChains - 1) / kSiteChains;
+  site_traj_kernel<En, HM, TW><<<blocks, kSiteThreads, smem, stream>>>(
+      params, d, reverse, hmc, x, v, xo, vo, ld, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Every energy spec on both lane configurations, and past them the
+// site-parallel configuration's specs, with TW operands.
 template <class TW>
 static int trajectory_entry(const float* params, Dims d, int kind, int reverse,
                             int hmc, const float* x, const float* v, float* xo,
                             float* vo, float* ld, int N, void* stream) {
   if (N <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pick_lanes(d) == 3) {
+    return with_site_energy(d, kind, [&](auto e) {
+      using En = decltype(e);
+      if (site_hm(d) == WideLanes::HM)
+        return launch_site_traj_hm<En, WideLanes::HM, TW>(params, d, reverse, hmc, x, v,
+                                                          xo, vo, ld, N, s);
+      return launch_site_traj_hm<En, kSiteMaxHidden, TW>(params, d, reverse, hmc, x, v,
+                                                         xo, vo, ld, N, s);
+    });
+  }
   return dispatch<ScgLanes>(d, kind, [&](auto c, auto e) {
     return launch_trajectory<decltype(c), decltype(e), TW>(
         params, d, reverse, hmc, x, v, xo, vo, ld, N, s);
@@ -109,8 +194,8 @@ static int trajectory_entry(const float* params, Dims d, int kind, int reverse,
 // Plain C entry point (loaded with ctypes). Pointers are device pointers to
 // float32: params (the packed block, with nc floats of the energy spec's
 // constants), x, v, xo, vo as (D, N), ld as (N,). kind is the energy spec's
-// (Gauss 0, RoughWell 1, Gmm 2, Funnel 3). Returns a cudaError_t as int; 0
-// means the launch was accepted.
+// (Gauss 0, RoughWell 1, Gmm 2, Funnel 3, Phi4 4). Returns a cudaError_t as
+// int; 0 means the launch was accepted.
 extern "C" int l2hmc_trajectory(const float* params, int D, int H, int H2,
                                 int T, int kind, int nc, int reverse, int hmc,
                                 const float* x, const float* v, float* xo,
@@ -118,5 +203,23 @@ extern "C" int l2hmc_trajectory(const float* params, int D, int H, int H2,
   return l2hmc::trajectory_entry<float>(params, l2hmc::Dims{D, H, H2, T, nc},
                                        kind, reverse, hmc, x, v, xo, vo, ld, N,
                                        stream);
+}
+
+// The site-parallel form's geometry at these widths, as l2hmc_trajectory
+// launches it: chains a block, threads a block, bytes of dynamic shared
+// memory a block; 0 where the widths are not past 64 or past its caps.
+static bool traj_on_sites(int D, int H, int H2) {
+  return l2hmc::pick_lanes(l2hmc::Dims{D, H, H2, 1}) == 3;
+}
+extern "C" int l2hmc_trajectory_site_chains(int D, int H, int H2) {
+  return traj_on_sites(D, H, H2) ? l2hmc::kSiteChains : 0;
+}
+extern "C" int l2hmc_trajectory_site_threads(int D, int H, int H2) {
+  return traj_on_sites(D, H, H2) ? l2hmc::kSiteThreads : 0;
+}
+extern "C" int l2hmc_trajectory_site_smem_bytes(int D, int H, int H2) {
+  using namespace l2hmc;
+  if (!traj_on_sites(D, H, H2)) return 0;
+  return site_smem_floats(D, site_hm(Dims{D, H, H2, 1})) * static_cast<int>(sizeof(float));
 }
 #endif

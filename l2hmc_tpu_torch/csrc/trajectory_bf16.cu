@@ -1,6 +1,7 @@
 // The trajectory kernel (trajectory.cu) with bfloat16 operands in the S/T/Q
 // nets' products: TW = __nv_bfloat16, every energy spec on both lane
-// configurations.
+// configurations, and past 64 wide the site-parallel configuration's specs
+// (site_traj_kernel).
 //
 // Replaces the Pallas kernel _make_kernel with cd = bfloat16
 // (l2hmc_tpu/ops/fused_dynamics.py:645, _dot_in :151 through _apply_stq

@@ -31,12 +31,18 @@ SIGNATURES = {
     # params, D, H, H2, T, energy kind, its constants' floats, ...
     "trajectory": {
         "l2hmc_trajectory": [_P, *([_I] * 8), _P, _P, _P, _P, _P, _I, _P],
+        "l2hmc_trajectory_site_chains": [_I, _I, _I],
+        "l2hmc_trajectory_site_threads": [_I, _I, _I],
+        "l2hmc_trajectory_site_smem_bytes": [_I, _I, _I],
     },
     "trajectory_bf16": {
         "l2hmc_trajectory_bf16": [_P, *([_I] * 8), _P, _P, _P, _P, _P, _I, _P],
     },
     "trajectory_bwd": {
         "l2hmc_trajectory_bwd": [_P, *([_I] * 8), *([_P] * 9), _I, _P],
+        "l2hmc_trajectory_bwd_site_chains": [_I, _I, _I],
+        "l2hmc_trajectory_bwd_site_threads": [_I, _I, _I],
+        "l2hmc_trajectory_bwd_site_smem_bytes": [_I, _I, _I],
     },
     "chain": {
         "l2hmc_chain": [_P, *([_I] * 7), _P, _P, _P, _P, _P, _I, _I, _U64, _P],

@@ -21,8 +21,8 @@ Beside each kernel is its plain PyTorch version (``trajectory_plain``,
 A wrapper takes the plain version only for a CPU tensor; for a CUDA tensor
 it launches the kernel or raises. Each launch adds one to
 ``LAUNCHES[name]`` and to ``LAUNCHES[name:spec]`` (the energy spec's
-``NAME``), a chain launch on the site-parallel configuration to
-``LAUNCHES["chain:sites"]``, and a launch of a bfloat16 instantiation to
+``NAME``), a launch on the site-parallel configuration to
+``LAUNCHES[name:sites]``, and a launch of a bfloat16 instantiation to
 ``LAUNCHES[name:bf16]``.
 
 Operands: float32, or with ``compute_dtype="bfloat16"`` (``prepare``,
@@ -56,13 +56,15 @@ constants (arrays and scalars) go into the kernels' parameter block, and its
 and gradient, its ``build_grad_vjp`` the gradient's hand-derived
 vector-Jacobian product.
 
-Widths: the trajectory kernels take states and hidden widths up to 64
-(lane groups, ``csrc/l2hmc_lanes.cuh``); the chain kernel states up to 4096
-wide (the 64 x 64 phi^4 lattice) and hidden widths up to 128, past 64 on its
-site-parallel configuration (``csrc/l2hmc_sites.cuh``, ``site_geometry``)
-for the specs that have per-site versions (Gaussian, phi^4), and the phi^4
-lattice there at every width (``chain_on_sites``). ``kernel_refusal`` and
-the wrappers name the kernel and the caps a request exceeds.
+Widths: up to 64 (states and hidden widths) the kernels run a chain on a
+lane group (``csrc/l2hmc_lanes.cuh``); past 64, on the site-parallel
+configuration (``csrc/l2hmc_sites.cuh``), a tile of chains a block, for the
+specs that have per-site versions (Gaussian, phi^4): states up to 4096
+wide (the 64 x 64 phi^4 lattice) and hidden widths up to 128
+(``trajectory_on_sites``, ``trajectory_site_geometry``; ``site_geometry``).
+The chain kernel runs the phi^4 lattice there at every width
+(``chain_on_sites``). ``kernel_refusal`` and the wrappers name the kernel and
+the caps a request exceeds.
 """
 
 from __future__ import annotations
@@ -91,14 +93,16 @@ _PRODUCT_WEIGHTS = (0, 1, 2, 4, 7, 9)
 LAUNCHES = {"trajectory": 0, "trajectory_bwd": 0, "chain": 0, "vae_chain": 0, "vae_ais": 0,
             "vae_traj": 0, "vae_traj_bwd": 0}
 
-# widths the kernels take: states and hidden widths up to 64 on the lane
-# groups (WideLanes in csrc/l2hmc_lanes.cuh), the trajectory kernels' only
-# form; states up to 4096 wide and hidden widths up to 128 on the chain
-# kernel's site-parallel configuration (csrc/l2hmc_sites.cuh; the caps
-# kSiteMaxDim, kSiteMaxHidden in csrc/l2hmc_lanes.cuh)
+# widths the kernels take, all three alike: states and hidden widths up to
+# 64 on the lane groups (WideLanes in csrc/l2hmc_lanes.cuh); past 64 on the
+# site-parallel configuration (csrc/l2hmc_sites.cuh), states up to 4096 wide
+# and hidden widths up to 128 (the caps kSiteMaxDim, kSiteMaxHidden in
+# csrc/l2hmc_lanes.cuh)
 _LANE_WIDTH = 64
-_MAX_DIM = {"trajectory": _LANE_WIDTH, "trajectory_bwd": _LANE_WIDTH, "chain": 4096}
-_MAX_HIDDEN = {"trajectory": _LANE_WIDTH, "trajectory_bwd": _LANE_WIDTH, "chain": 128}
+# the backward kernel's (C, D) intermediates lie in shared memory up to this
+# width, past it in its scratch (kSiteVjpSmemDim in csrc/l2hmc_sites.cuh)
+_SITE_VJP_SMEM_DIM = 1024
+_MAX_DIM, _MAX_HIDDEN = 4096, 128
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 # the site-parallel configuration's tile: chains and threads a block
 _SITE_CHAINS, _SITE_THREADS = 4, 256
@@ -500,13 +504,16 @@ _SPEC_NAMES = {c.KIND: c.NAME for c in (QuadraticGaussianEnergy, RoughWellEnergy
 _SITE_KINDS = (QuadraticGaussianEnergy.KIND, Phi4Energy.KIND)
 LAUNCHES.update({f"{k}:{n}": 0 for k in ("trajectory", "trajectory_bwd", "chain")
                  for n in _SPEC_NAMES.values()})
-LAUNCHES["chain:sites"] = 0  # the chain kernel's site-parallel launches
+# the site-parallel launches
+LAUNCHES.update({f"{k}:sites": 0 for k in ("trajectory", "trajectory_bwd", "chain")})
 LAUNCHES.update({"trajectory:bf16": 0, "chain:bf16": 0})  # bfloat16 instantiations
 
 
-def _count(name: str, inp) -> None:
+def _count(name: str, inp, sites: bool) -> None:
     LAUNCHES[name] += 1
     LAUNCHES[f"{name}:{_SPEC_NAMES[inp.kind]}"] += 1
+    if sites:
+        LAUNCHES[f"{name}:sites"] += 1
     if inp.cd is not None:
         LAUNCHES[f"{name}:bf16"] += 1
 
@@ -623,7 +630,7 @@ def prepare(dyn: Dynamics, spec, params, device, *, differentiable: bool = False
 def _caps_refusal(kernel: str, dim: int, hidden: int, kind: int) -> Optional[str]:
     """Why ``kernel`` cannot take a state ``dim`` wide with S/T/Q nets of
     ``hidden`` units on the energy spec ``kind``, or None where it can."""
-    cap, hcap = _MAX_DIM[kernel], _MAX_HIDDEN[kernel]
+    cap, hcap = _MAX_DIM, _MAX_HIDDEN
     if dim > cap or hidden > hcap:
         return (f"{kernel} kernel caps exceeded: dim {dim}, hidden {hidden} "
                 f"(caps dim {cap}, hidden {hcap})")
@@ -653,7 +660,7 @@ def site_geometry(dim: int, hidden: int, hidden2: int) -> tuple[int, int, int]:
     reason = _caps_refusal("chain", dim, max(hidden, hidden2), QuadraticGaussianEnergy.KIND)
     if reason is not None:
         raise ValueError(reason)
-    hm = _LANE_WIDTH if max(hidden, hidden2) <= _LANE_WIDTH else _MAX_HIDDEN["chain"]
+    hm = _LANE_WIDTH if max(hidden, hidden2) <= _LANE_WIDTH else _MAX_HIDDEN
     C, W = _SITE_CHAINS, _SITE_THREADS // 32
     floats = 3 * C * dim + W * C * hm + 2 * C * hm + W * 3 * C + 3 * C
     return C, _SITE_THREADS, 4 * floats
@@ -668,6 +675,63 @@ def site_tile(dim: int, hidden: int, hidden2: int) -> tuple[int, int, int]:
             lib.l2hmc_chain_site_smem_bytes(dim, hidden, hidden2))
 
 
+def trajectory_on_sites(inp: KernelInputs) -> bool:
+    """Whether the trajectory kernels run ``inp`` on the site-parallel
+    configuration (``pick_lanes`` in csrc/l2hmc_lanes.cuh gives 3): a state
+    or a hidden width past 64."""
+    return max(inp.dims[:3]) > _LANE_WIDTH
+
+
+def trajectory_site_geometry(kernel: str, dim: int, hidden: int, hidden2: int,
+                             n_chains: int) -> tuple[int, int, int, int]:
+    """(chains, threads, bytes of shared memory a block, scratch rows) of
+    ``kernel`` ("trajectory" or "trajectory_bwd") on the site-parallel
+    configuration at these widths and ``n_chains`` chains: a host mirror of
+    ``site_smem_floats`` and ``site_vjp_smem_floats`` in
+    csrc/l2hmc_sites.cuh. The trajectory kernel keeps x', v and g of its tile
+    in shared memory, as the chain kernel does, and no scratch; the backward
+    kernel keeps ten (C, D) arrays there up to dim 1024 (past it in its
+    scratch) and the four net applications' hidden layers, and one row of
+    weight and eps cotangents a block in the wrapper's scratch. Raises past
+    the caps or where the lane groups serve the widths."""
+    reason = _caps_refusal(kernel, dim, max(hidden, hidden2), QuadraticGaussianEnergy.KIND)
+    if reason is not None:
+        raise ValueError(reason)
+    if max(dim, hidden, hidden2) <= _LANE_WIDTH:
+        raise ValueError(f"{kernel} kernel runs dim {dim}, hidden {max(hidden, hidden2)} on "
+                         f"its lane groups, not on sites")
+    hm = _LANE_WIDTH if max(hidden, hidden2) <= _LANE_WIDTH else _MAX_HIDDEN
+    C, W = _SITE_CHAINS, _SITE_THREADS // 32
+    if kernel == "trajectory":
+        return (C, _SITE_THREADS,
+                4 * (3 * C * dim + W * C * hm + 2 * C * hm + W * 3 * C + 3 * C), 0)
+    arrays = 10 * C * dim if dim <= _SITE_VJP_SMEM_DIM else 0
+    return C, _SITE_THREADS, 4 * (arrays + W * C * hm + 10 * C * hm), -(-n_chains // C)
+
+
+def trajectory_site_tile(kernel: str, dim: int, hidden: int, hidden2: int) -> tuple[int, int, int]:
+    """``trajectory_site_geometry``'s first three as the built library reports
+    them (zeros where the widths are not past 64 or past the caps)."""
+    lib = _cuda.library(kernel)
+    return tuple(getattr(lib, f"l2hmc_{kernel}_site_{q}")(dim, hidden, hidden2)
+                 for q in ("chains", "threads", "smem_bytes"))
+
+
+def bwd_scratch_floats(inp: KernelInputs, n: int) -> int:
+    """Floats of scratch a backward launch on ``n`` chains takes: on the lane
+    groups a row of weight and eps cotangents a chain and the (T + 1, 2, D,
+    N) boundary states; on sites a row a block of ``_SITE_CHAINS`` chains,
+    each block's (T, 2, C, D) boundary states and, past dim 1024, its
+    (10, C, D) intermediates."""
+    D, _, _, T = inp.dims
+    P = sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D
+    if not trajectory_on_sites(inp):
+        return P * n + 2 * (T + 1) * D * n
+    rows = -(-n // _SITE_CHAINS)
+    arrays = 10 * _SITE_CHAINS * D if D > _SITE_VJP_SMEM_DIM else 0
+    return rows * (P + 2 * T * _SITE_CHAINS * D + arrays)
+
+
 def _kernel_block(inp: KernelInputs, x: torch.Tensor, kernel: str) -> torch.Tensor:
     """The packed parameter block for a launch of ``kernel`` on ``x``'s
     device, after checking what the kernel takes."""
@@ -679,8 +743,8 @@ def _kernel_block(inp: KernelInputs, x: torch.Tensor, kernel: str) -> torch.Tens
         raise ValueError(reason)
     block = inp.block()
     # the lane groups stage the block in shared memory; the site-parallel
-    # chain kernel reads it from the L2
-    on_sites = kernel == "chain" and chain_on_sites(inp)
+    # configuration reads it from the L2
+    on_sites = chain_on_sites(inp) if kernel == "chain" else trajectory_on_sites(inp)
     if not on_sites and 4 * block.numel() > _MAX_SMEM:
         raise ValueError(f"parameter block of {4 * block.numel()} bytes exceeds shared memory")
     return block
@@ -1062,7 +1126,8 @@ def _lib_name(kernel: str, inp: KernelInputs) -> str:
 def trajectory(inp: KernelInputs, x, v, reverse: bool):
     """Fused T-step trajectory on (D, N) float32 state; returns
     (X, V, logdet (1, N)). CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/trajectory.cu``, or its bfloat16 instantiation
+    launch ``csrc/trajectory.cu`` (a lane group a chain up to 64 wide, a
+    tile of chains a block past it), or its bfloat16 instantiation
     (``csrc/trajectory_bf16.cu``) where ``inp.cd`` is bfloat16."""
     _check_state(inp, x, v)
     if x.device.type == "cpu":
@@ -1081,7 +1146,7 @@ def trajectory(inp: KernelInputs, x, v, reverse: bool):
             ld.data_ptr(), N, torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, name)
-    _count("trajectory", inp)
+    _count("trajectory", inp, trajectory_on_sites(inp))
     return xo, vo, ld
 
 
@@ -1089,9 +1154,11 @@ def trajectory_vjp(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
     """VJP of the fused trajectory at (D, N) float32 (x, v) for the
     cotangents dX, dV (D, N) and dld (1, N); returns what
     ``trajectory_vjp_plain`` returns. CPU tensors take the plain version;
-    CUDA tensors launch ``csrc/trajectory_bwd.cu`` (a lane group per chain,
-    each lane writing its share of the chain's cotangents into an (N, P)
-    scratch once, then a fixed-order sum over chains). float32 only: the
+    CUDA tensors launch ``csrc/trajectory_bwd.cu`` (up to 64 wide a lane
+    group per chain, each lane writing its share of the chain's cotangents
+    into an (N, P) scratch once; past it a tile of chains a block, adding
+    each substep's cotangents into the block's row of a (ceil(N / C), P)
+    scratch), then a fixed-order sum over the rows. float32 only: the
     backward kernel has no bfloat16 form, nor has the JAX package's."""
     if inp.cd is not None:
         raise ValueError("trajectory_bwd kernel: float32 operands only (the JAX "
@@ -1108,8 +1175,7 @@ def trajectory_vjp(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
     weights = [*inp.xnet_w, *inp.vnet_w]
     n_grads = sum(w.numel() for w in weights) + D
     grads = torch.empty(n_grads, dtype=torch.float32, device=x.device)
-    scratch = torch.empty(n_grads * N + 2 * (T + 1) * D * N, dtype=torch.float32,
-                          device=x.device)
+    scratch = torch.empty(bwd_scratch_floats(inp, N), dtype=torch.float32, device=x.device)
     dx, dv = torch.empty_like(x), torch.empty_like(v)
     lib = _cuda.library("trajectory_bwd")
     with torch.cuda.device(x.device):
@@ -1120,7 +1186,7 @@ def trajectory_vjp(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
             torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, "trajectory_bwd")
-    _count("trajectory_bwd", inp)
+    _count("trajectory_bwd", inp, trajectory_on_sites(inp))
     parts = torch.split(grads, [w.numel() for w in weights] + [D])
     g = [p.view(w.shape) for p, w in zip(parts, weights)]
     return g[:_NET_ARRAYS], g[_NET_ARRAYS:], parts[-1].view(D, 1), dx, dv
@@ -1164,9 +1230,7 @@ def chain(inp: KernelInputs, x, seed: int, n_mh_steps: int, collect_trace: bool 
             torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, name)
-    _count("chain", inp)
-    if scratch is not None:
-        LAUNCHES["chain:sites"] += 1
+    _count("chain", inp, scratch is not None)
     return xo, acc, trace
 
 
@@ -1231,7 +1295,7 @@ class FusedDynamics:
         xo, vo, ld = trajectory(
             inp, x.T.contiguous(), v.T.contiguous(), reverse
         )
-        return xo.T, vo.T, ld[0]
+        return xo.T.contiguous(), vo.T.contiguous(), ld[0]
 
     def forward(self, params, x, v, aux=None):
         _no_aux(aux)
@@ -1333,7 +1397,10 @@ class DifferentiableFusedDynamics:
             inp, reverse, inp.eps, x.T.contiguous(), v.T.contiguous(),
             *inp.xnet_w, *inp.vnet_w,
         )
-        return X.T, V.T, ld[0]
+        # (N, D) rows, as Dynamics returns them: a transposed view would give
+        # the step's later sums over D another order than a state held in a
+        # contiguous buffer (the captured route's), and the routes would part
+        return X.T.contiguous(), V.T.contiguous(), ld[0]
 
 
 def differentiable_fused(dynamics: Dynamics, target, *,

@@ -415,16 +415,22 @@ def test_phi4_chain_kernel_matches_plain_on_same_bits(cuda, case, n):
 
 
 def test_kernels_refuse_past_their_caps(cuda):
-    """Kernels 1-2 take states and hidden widths up to 64, the chain kernel
-    states up to 4096 wide and hidden widths up to 128 (past 64 on the
-    Gaussian and phi^4 specs): past them each raises naming the kernel and
-    its caps; nothing falls back to a plain version."""
-    inp, x = phi4.parity_inputs("phi4_L16", 8, cuda)
-    with pytest.raises(ValueError, match="trajectory kernel caps exceeded: dim 256"):
+    """The trajectory kernels and the chain kernel take states up to 4096
+    wide and hidden widths up to 128 (past 64 on the Gaussian and phi^4
+    specs): past them each raises naming the kernel and its caps; nothing
+    falls back to a plain version."""
+    t128 = targets.Phi4Lattice(L=128)
+    d128, _ = build_dynamics(ScgConfig(dim=t128.dim, hidden=32), t128)
+    inp = fd.prepare(d128, fd.energy_spec_for_target(t128),
+                     d128.init_params(torch.Generator(), device=cuda), cuda)
+    x = t128.sample(torch.Generator(), 4, device=cuda).T.contiguous()
+    with pytest.raises(ValueError, match=r"trajectory kernel caps exceeded: dim 16384, "
+                                         r"hidden 32 \(caps dim 4096, hidden 128\)"):
         fd.trajectory(inp, x, x.clone(), False)
-    with pytest.raises(ValueError, match="trajectory_bwd kernel caps exceeded: dim 256"):
+    with pytest.raises(ValueError, match=r"trajectory_bwd kernel caps exceeded: dim 16384, "
+                                         r"hidden 32 \(caps dim 4096, hidden 128\)"):
         fd.trajectory_vjp(inp, x, x.clone(), x.clone(), x.clone(),
-                          torch.zeros((1, 8), device=cuda), False)
+                          torch.zeros((1, 4), device=cuda), False)
     for L, hidden, match in ((128, 32, "chain kernel caps exceeded: dim 16384"),
                              (16, 129, "chain kernel caps exceeded: dim 256, hidden 129")):
         t = targets.Phi4Lattice(L=L)
@@ -464,6 +470,192 @@ def test_chain_on_sites_and_site_geometry_match_the_library(cuda):
                              dyn.init_params(torch.Generator(), device="cpu"), "cpu")
             lanes = _cuda.library("chain").l2hmc_chain_lanes(dim, hidden, h2)
             assert fd.chain_on_sites(inp) == (lanes == 0), (dim, hidden, lanes)
+
+
+# -- kernels 1-2 on sites (past 64 wide) ---------------------------------------------
+
+SITE_TRAJ_CASES = [("phi4_L16", 1024), ("phi4_L16", 203), ("phi4_L32", 256), ("icg", 2048),
+                   ("icg", 37)]
+
+
+def _site_inputs(cuda, case, n):
+    maker = suite.parity_inputs if case == "icg" else phi4.parity_inputs
+    inp, x = maker(case, n, cuda, seed=20)
+    return inp, x.contiguous()
+
+
+@pytest.mark.parametrize("case,n", SITE_TRAJ_CASES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_site_trajectory_kernels_match_plain(cuda, case, n, reverse):
+    """Kernels 1-2 past 64 wide, on the site-parallel configuration, against
+    their plain versions at the lattice's L = 16 and 32 and at icg (hidden
+    100, eps_dim), at the protocols' chain counts and at ragged ones (a
+    tile's chains past N): the trajectory's X and V within 5e-4, its log-det
+    within 5e-4 or 2e-6 of its largest magnitude (a sum over D sites and 4 T
+    net applications in another order); the VJP per leaf within 1e-4 of
+    the leaf's largest entry with the ReLU rule of the L = 8 test; each
+    launch twice bit for bit and counted as a site launch."""
+    inp, x = _site_inputs(cuda, case, n)
+    assert fd.trajectory_on_sites(inp)
+    g = torch.Generator().manual_seed(3)
+    v, dX, dV = (torch.randn(x.shape, generator=g).to(cuda) for _ in range(3))
+    dld = torch.randn((1, n), generator=g).to(cuda)
+    before = fd.LAUNCHES["trajectory:sites"]
+    got = fd.trajectory(inp, x, v, reverse)
+    assert fd.LAUNCHES["trajectory:sites"] == before + 1
+    for a, b in zip(got, fd.trajectory(inp, x, v, reverse)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    ref = fd.trajectory_plain(inp, x, v, reverse)
+    for a, b in zip(got[:2], ref[:2]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=TOL)
+    torch.testing.assert_close(got[2], ref[2], rtol=0,
+                               atol=max(TOL, 2e-6 * float(ref[2].abs().max())))
+    before = fd.LAUNCHES["trajectory_bwd:sites"]
+    got = tree_leaves(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse))
+    assert fd.LAUNCHES["trajectory_bwd:sites"] == before + 1
+    for a, b in zip(got, tree_leaves(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse))):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    ref = tree_leaves(fd.trajectory_vjp_plain(inp, x, v, dX, dV, dld, reverse))
+    flipped = torch.zeros(n, dtype=torch.bool, device=cuda)
+    for a, b in zip(got[-2:], ref[-2:]):
+        flipped |= (a - b).abs().amax(dim=0) > 1e-4 * b.abs().max()
+    assert int(flipped.sum()) <= 1
+    if bool(flipped.any()):
+        assert float(fd.relu_margins(inp, x, v, reverse)[flipped].max()) < 1e-5
+        keep = (~flipped).float()[None, :]
+        got = tree_leaves(fd.trajectory_vjp(inp, x, v, dX * keep, dV * keep, dld * keep,
+                                            reverse))
+        ref = tree_leaves(fd.trajectory_vjp_plain(inp, x, v, dX * keep, dV * keep,
+                                                  dld * keep, reverse))
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-30)
+
+
+def test_site_trajectory_at_L64(cuda):
+    """Kernels 1-2 at the 64 x 64 lattice (dim 4096, A_control's shape:
+    hidden 32, T = 10, eps 0.03; the backward kernel's intermediates in its
+    global scratch) against their plain versions at a ragged 37 chains, both
+    directions: X and V within 5e-4, the log-det within 2e-6 of its largest
+    magnitude; the VJP per leaf within 1e-4 of the leaf's largest entry with
+    the ReLU rule; each launch twice bit for bit."""
+    t = targets.Phi4Lattice(L=64, m2=-1.0, lam=0.5)
+    dyn, _ = build_dynamics(ScgConfig(dim=t.dim, hidden=32, T=10), t)
+    params = dyn.init_params(torch.Generator().manual_seed(20), eps=0.03, device=cuda)
+    for net in ("xnet", "vnet"):
+        params[net] = _add(params[net], phi4.PARITY_LIFT)
+    inp = fd.prepare(dyn, fd.energy_spec_for_target(t), params, cuda)
+    x = t.sample(torch.Generator().manual_seed(21), 37, device=cuda).T.contiguous()
+    g = torch.Generator().manual_seed(22)
+    v, dX, dV = (torch.randn(x.shape, generator=g).to(cuda) for _ in range(3))
+    dld = torch.randn((1, 37), generator=g).to(cuda)
+    for reverse in (False, True):
+        got = fd.trajectory(inp, x, v, reverse)
+        for a, b in zip(got, fd.trajectory(inp, x, v, reverse)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        ref = fd.trajectory_plain(inp, x, v, reverse)
+        for a, b in zip(got[:2], ref[:2]):
+            torch.testing.assert_close(a, b, rtol=0, atol=TOL)
+        torch.testing.assert_close(got[2], ref[2], rtol=0,
+                                   atol=max(TOL, 2e-6 * float(ref[2].abs().max())))
+        got = tree_leaves(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse))
+        for a, b in zip(got, tree_leaves(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse))):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        ref = tree_leaves(fd.trajectory_vjp_plain(inp, x, v, dX, dV, dld, reverse))
+        flipped = torch.zeros(37, dtype=torch.bool, device=cuda)
+        for a, b in zip(got[-2:], ref[-2:]):
+            flipped |= (a - b).abs().amax(dim=0) > 1e-4 * b.abs().max()
+        assert int(flipped.sum()) <= 1
+        if bool(flipped.any()):
+            assert float(fd.relu_margins(inp, x, v, reverse)[flipped].max()) < 1e-5
+            keep = (~flipped).float()[None, :]
+            got = tree_leaves(fd.trajectory_vjp(inp, x, v, dX * keep, dV * keep, dld * keep,
+                                                reverse))
+            ref = tree_leaves(fd.trajectory_vjp_plain(inp, x, v, dX * keep, dV * keep,
+                                                      dld * keep, reverse))
+        for a, b in zip(got, ref):
+            assert torch.isfinite(a).all()
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-30)
+
+
+def test_trajectory_site_geometry_matches_the_library(cuda):
+    """Over a grid of widths the host mirror ``trajectory_site_geometry``
+    equals each library's chains, threads and shared memory a block (zeros
+    where the lane groups serve the widths or past the caps)."""
+    for kernel in ("trajectory", "trajectory_bwd"):
+        for dim in (2, 50, 64, 65, 256, 1024, 1025, 4096, 4097):
+            for hidden in (10, 32, 64, 65, 100, 128, 129):
+                try:
+                    host = fd.trajectory_site_geometry(kernel, dim, hidden, hidden, 8)[:3]
+                except ValueError:
+                    host = (0, 0, 0)
+                assert fd.trajectory_site_tile(kernel, dim, hidden, hidden) == host, (
+                    kernel, dim, hidden)
+
+
+def test_captured_fused_step_equals_eager_at_L16(cuda):
+    """One fused training step at L = 16 (hidden 32, T = 10, 256 chains) on
+    the site-parallel kernels, recorded as a CUDA graph after the captured
+    route's warm-up calls on a side stream, against the eager step on the
+    same state and draws: the loss and every state tensor bit for bit."""
+    from l2hmc_tpu_torch.train import (StepDraws, TrainState, draw_step, init_state,
+                                       make_optimizer, make_train_step)
+    from l2hmc_tpu_torch.train.optim import AdamState
+    from l2hmc_tpu_torch.utils import capture
+
+    t = targets.Phi4Lattice(L=16, m2=-1.0, lam=0.5)
+    cfg = ScgConfig(dim=t.dim, n_chains=256, T=10, hidden=32, seed=0)
+    dyn, _ = build_dynamics(cfg, t)
+    opt, _ = make_optimizer(cfg)
+    step = make_train_step(cfg, fd.differentiable_fused(dyn, t), opt)
+    state = init_state(cfg, dyn, opt, device=cuda)
+    state = state._replace(step=torch.as_tensor(0, dtype=torch.int32, device=cuda))
+    d = StepDraws(*(None if a is None else a.to(cuda) for a in draw_step(
+        torch.Generator().manual_seed(5), cfg.n_chains, cfg.dim, z_burn_in=True)))
+
+    def copy(s):
+        return TrainState(tree_unflatten(s.params, [a.detach().clone() for a in
+                                                    tree_leaves(s.params)]),
+                          AdamState(*(a.clone() for a in s.opt_state)), s.x.clone(), None,
+                          s.step.clone())
+
+    def tensors(s):
+        return [*tree_leaves(s.params), *s.opt_state, s.x, s.step]
+
+    before = fd.LAUNCHES["trajectory_bwd:sites"]
+    eager, me = step(copy(state), d)
+    assert fd.LAUNCHES["trajectory_bwd:sites"] == before + 4
+    static, box = copy(state), {}
+
+    def body():
+        box["out"] = step(static, d)
+
+    for _ in range(capture.WARMUP_CALLS):
+        capture.run_on_side_stream(body)
+    capture.Graph(body).replay()
+    torch.cuda.synchronize()
+    rep, mr = box["out"]
+    torch.testing.assert_close(mr["loss"], me["loss"], rtol=0, atol=0)
+    for a, b in zip(tensors(rep), tensors(eager)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_captured_fused_lattice_training_equals_eager(cuda):
+    """``train``'s captured route against its eager one over 10 fused steps
+    at L = 16 (256 chains, the site-parallel kernels): losses, params, Adam
+    state, chains and step bit for bit. The fused dynamics return (N, D)
+    rows, so the chains' layout, and with it the order of every later sum
+    over the sites, is the same on both routes."""
+    t = targets.Phi4Lattice(L=16, m2=-1.0, lam=0.5)
+    cfg = ScgConfig(dim=t.dim, n_chains=256, T=10, hidden=32, n_steps=10, seed=0,
+                    fused_train=True)
+    (se, he), (sc, hc) = (train(cfg, t, device=cuda, capture=c) for c in (False, True))
+    for k in he:
+        np.testing.assert_array_equal(hc[k], he[k], err_msg=k)
+    for a, b in zip([*tree_leaves(sc.params), *sc.opt_state, sc.x, sc.step],
+                    [*tree_leaves(se.params), *se.opt_state, se.x, se.step]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_suite_icg_runs_its_fused_cross_check(cuda):

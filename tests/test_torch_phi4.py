@@ -74,9 +74,9 @@ def test_main_with_conv_nets_on_the_cpu(capsys):
 def test_kernel_refusals_at_the_lattice_widths():
     """The pure check names the kernel and the caps: the chain kernel serves
     the dense nets at L = 16, 32 and 64 and hidden 100, refuses L = 128 and
-    hidden 129; the trajectory kernels stop at dim 64; conv nets, and a
-    mixture or a rough well past 64, are refused with their reason and the
-    width cap."""
+    hidden 129; the trajectory kernels stop at dim 4096 and hidden 128;
+    conv nets, and a mixture or a rough well past 64, are refused with their
+    reason and the width cap."""
     def dyn(L, hidden=32):
         t = targets.Phi4Lattice(L=L)
         return build_dynamics(ScgConfig(dim=t.dim, hidden=hidden), t)[0], t
@@ -85,12 +85,13 @@ def test_kernel_refusals_at_the_lattice_widths():
         assert fd.kernel_refusal(*dyn(L), 32) is None
     d16, t16 = dyn(16)
     kind = fd.Phi4Energy.KIND
-    assert fd._caps_refusal("trajectory", 256, 32, kind) == (
-        "trajectory kernel caps exceeded: dim 256, hidden 32 (caps dim 64, hidden 64)")
-    assert "trajectory_bwd kernel caps" in fd._caps_refusal("trajectory_bwd", 256, 32, kind)
-    assert fd._caps_refusal("trajectory", 64, 32, kind) is None
-    assert "trajectory kernel caps exceeded: dim 64, hidden 100" in fd._caps_refusal(
-        "trajectory", 64, 100, kind)
+    assert fd._caps_refusal("trajectory", 16384, 32, kind) == (
+        "trajectory kernel caps exceeded: dim 16384, hidden 32 (caps dim 4096, hidden 128)")
+    assert "trajectory_bwd kernel caps" in fd._caps_refusal("trajectory_bwd", 16384, 32, kind)
+    assert fd._caps_refusal("trajectory", 256, 32, kind) is None
+    assert fd._caps_refusal("trajectory_bwd", 4096, 100, kind) is None
+    assert "trajectory kernel caps exceeded: dim 64, hidden 129" in fd._caps_refusal(
+        "trajectory", 64, 129, kind)
     assert fd.kernel_refusal(*dyn(128), 32) == (
         "chain kernel caps exceeded: dim 16384, hidden 32 (caps dim 4096, hidden 128)")
     assert fd.kernel_refusal(*dyn(16, 100), 100) is None
