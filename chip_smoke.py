@@ -3,8 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``l2hmc_tpu_torch/csrc`` (nvcc, sm_90a),
-then:
+Builds the port's CUDA kernels from ``l2hmc_tpu_torch/csrc`` (nvcc, sm_90a)
+in the background, one process a source: phases 13d and 11d's conv nets
+(no kernel of the port) and then phases 6, 7 and 12 (the VAE kernels, whose
+sources end first) run while the rest compiles; then phases 1-5, 9, 10, 11,
+13, 14 and 15. A line ``# clock: ...`` marks each phase's start. The
+phases:
 
   1. main path: the SCG evaluation protocol at the notebook's full width
      (D=2, S/T/Q hidden 10, T=10) through the port's entry points — the
@@ -82,7 +86,7 @@ then:
   8. kernel times, plain times and bounds (the ``kernels`` line, printed
      after phase 9);
   9. the bench protocol (``l2hmc_tpu_torch.bench.run``) cut to seed 0 and
-     600 training steps per arm, with the full 2000-step eval and the
+     600 training steps per arm, with a 1000-step eval and the
      throughputs at 8192 chains: its parity gate (5e-4) and fused-trace ESS
      gap (0.30) held, both arms' ESS ratios above 1.2, its JSON printed as a
      ``# bench:`` line. Launch counts are reset before and read after it;
@@ -101,7 +105,7 @@ then:
      chains, T=5, hidden 20, hard mode),
      the ring at 2048 chains, the funnel and icg at 2048 chains, cut to 100
      training steps (icg 20) and
-     one training seed, with a 1000-step eval, the fused cross-check
+     one training seed, with a 500-step eval, the fused cross-check
      (its ESS within 0.30 of the plain eval's) and the HMC grid through the
      chain kernel (icg's plain); (d) fused vs plain training on the ring, the easy rough
      well and the funnel (rtol 2e-3, atol 1e-2): the fused step's loss at
@@ -133,7 +137,7 @@ then:
      ``sample_chain`` eval of the same params from the same x0, each the
      mean over PHI4_SEEDS random streams (PHI4_GAP), the same at L = 64
      (A_control's shape of the JAX package's 64 x 64 record: 256 chains,
-     hidden 32, T = 10, eps 0.03, training cut to 100 steps and the eval to
+     hidden 32, T = 10, eps 0.03, training cut to 50 steps and the eval to
      600; PHI4_RUN_L64,
      PHI4_SEEDS_L64 streams), then at L = 8 and at L = 32 cut in training
      and eval; (d) captured training
@@ -173,7 +177,7 @@ then:
      bit: SCG at 1024 and 203 chains, the rough well, phi^4 at L = 16 and
      L = 64 (dim 4096, hidden 32, T = 10; sites) and icg at hidden 100
      (sites, 128 hidden units); (c) the bf16 SCG path: ``train`` with
-     ``ScgConfig(compute_dtype="bfloat16")`` at 1024 chains, the 2000-step
+     ``ScgConfig(compute_dtype="bfloat16")`` at 1024 chains, the 1000-step
      traced eval through ``fused_chain_sampler(..., compute_dtype=
      "bfloat16")`` and HMC (ESS ratio, ESS gap to a plain bf16 eval), the
      bf16 parity gate against the bf16 nets, the bf16 sampler on the lattice
@@ -193,13 +197,30 @@ then:
      the eager step and ``train``'s captured route against its eager one,
      bit for bit; (d) the path: ``train`` on the phi^4
      runner's L = 16 config with ``fused_train=True`` (1024 chains, cut to
-     300 steps), the chain kernel's traced eval and plain HMC (tunnelling,
+     150 steps), the chain kernel's traced eval and plain HMC (tunnelling,
      ESS_m), ms per fused and plain step, short fused runs at L = 32 and 64
      and on icg, the trajectory kernel as the trajectory gate at L = 64 and in bf16
      at L = 16; (e) the bf16 site trajectory vs its plain bf16 version
      (phase 13's shares); (f) rows 1f-1i, 2f-2i and 1f-bf16 timed beside
      their plain versions, bounds and reckoned L2 bytes, ptxas. Launch counts
-     are reset before (d) and read after each of its runs.
+     are reset before (d) and read after each of its runs;
+ 15. kernels 1-3 on sites for the rough well, the mixtures and the funnel
+     (their prelude of per-chain block sums, ``csrc/l2hmc_sites.cuh``) at
+     the path's five configurations (``apps.suite.WIDE_CASES``: the rough
+     well and the ring at hidden 100, the rough well and the funnel at
+     D = 100, a two-component mixture at D = 80): (a) rows 1 and 2 vs their
+     plain versions, both directions, twice bit for bit (14a's bars; the
+     VJP per leaf at 1e-4 with the chains near a ReLU kink set aside,
+     WIDE_RELU_MARGIN); (b) row 3 vs its plain version on the same Philox
+     bits (0.2% of the decisions, 1e-2); (c) fused vs plain training at the
+     plain run's 20 states (5b's bar); (d) the path: ``run_target`` on the
+     ring and the rough well at hidden 100 cut as 10c (the fused
+     cross-check "ran", its ESS gap under 0.30), then ``train``
+     with fused_train=True on each configuration and, at D = 80-100, the
+     chain kernel's traced eval against a plain eval (ESS gap under 0.30);
+     (e) the bf16 site trajectory on the rough well at D = 100 (13a's bars);
+     (f) rows 1j-3j, 1k-3k and 1l-3l timed beside their plain versions and
+     bounds, ptxas. Launch counts are reset before (d) and read after it.
 
 Prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
@@ -228,10 +249,11 @@ ESS_GAP = 0.30  # bench.py's fused-trace vs non-kernel ESS tolerance
 BWD_TOL = 1e-4  # per leaf, of the leaf's largest entry: sums over chains in another order
 TRAIN_STEPS = 5000  # the notebook's training length (SCGExperiment.ipynb cell 12)
 MIN_ESS_RATIO = 1.2  # the JAX package's short-run bar (tests/test_train_scg.py)
-# phase 9: the bench protocol cut to seed 0 and 600 training steps per arm
-# (the full 2000-step eval and 8192-chain throughput); the 40x tripwire is
-# the full protocol's and is not applied at this depth
-BENCH_CUT = dict(seeds=(0,), n_steps=600, tripwire=False)
+# phase 9: the bench protocol cut to seed 0, 600 training steps per arm and
+# a 1000-step eval (the full 8192-chain throughput); the 40x tripwire is the
+# full protocol's and is not applied at this depth (at 400 steps the
+# reference arm's ratio fell to 0.71, on an H100)
+BENCH_CUT = dict(seeds=(0,), n_steps=600, eval_steps=1000, tripwire=False)
 # VAE kernels against their plain versions on the same Philox bits. A flipped
 # accept needs |px - u| inside the float32 gap of two Hamiltonians near 1e3
 # (~1e-4), so at most VAE_FLIPS chains may differ in a decision; the others
@@ -247,8 +269,9 @@ VAE_AIS_TOL = 5e-3
 VAE_PLAIN_STEPS, VAE_PLAIN_BURN_IN = 240, 80
 # 6c's sampling path cut to 0.3 of the protocol's recorded steps and burn-in
 # (its plain seven-eps HMC grid is ~95% of the run), to keep the script near
-# 1100 s with phase 13; (e) times the kernel's launch at the protocol's 2000
-# steps.
+# 1100 s with phase 13 (the autocovariance's 199 lags need more than the
+# 150 steps after a burn-in at 0.15); (e) times the kernel's launch at the
+# protocol's 2000 steps.
 VAE_SAMPLING_CUT = dict(n_steps=600, burn_in=300)
 VAE_MEAN_TOL = 0.1
 VAE_VAR_TOL = 0.15
@@ -283,7 +306,7 @@ VAE_RELU_MARGIN = 1e-5
 # 512 chains, so the two runs' parameters, once apart by rounding, give
 # sampler losses apart by more; the later gap is reported and not held.
 VAE_SAMPLER_FREE_STEPS = 3
-VAE_TRAIN_EPOCHS = 20  # 8 batches of 512 each on the 4096 synthetic images
+VAE_TRAIN_EPOCHS = 10  # 8 batches of 512 each on the 4096 synthetic images
 
 
 def _nvidia_smi() -> str:
@@ -541,15 +564,16 @@ def _bwd_launch_ms(fd, cuda_lib, inp, x, v, dX, dV, dld, reps):
     grads = torch.empty(n_grads, dtype=torch.float32, device=x.device)
     scratch = torch.empty(fd.bwd_scratch_floats(inp, N), dtype=torch.float32, device=x.device)
     dx, dv = torch.empty_like(x), torch.empty_like(v)
-    lib = cuda_lib.library("trajectory_bwd")
+    name = fd._lib_name("trajectory_bwd", inp)  # the specs' library on sites
+    entry = getattr(cuda_lib.library(name), f"l2hmc_{name}")
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
-        cuda_lib.check(lib.l2hmc_trajectory_bwd(
+        cuda_lib.check(entry(
             block.data_ptr(), D, H, H2, T, *inp.energy_args, 0, int(inp.hmc), x.data_ptr(),
             v.data_ptr(), dX.data_ptr(), dV.data_ptr(), dld.data_ptr(), dx.data_ptr(),
             dv.data_ptr(),
-            grads.data_ptr(), scratch.data_ptr(), N, stream), "trajectory_bwd")
+            grads.data_ptr(), scratch.data_ptr(), N, stream), name)
 
     return _cuda_time(launch, reps)
 
@@ -589,6 +613,14 @@ def _ptxas_of(log, entry):
     return lines
 
 
+_T0 = time.perf_counter()
+
+
+def _clock(label):
+    """Prints the seconds since the script started, at a phase's start."""
+    print(f"# clock: {label} at {time.perf_counter() - _T0:.1f} s", flush=True)
+
+
 def _gen(seed):
     import torch
 
@@ -602,6 +634,36 @@ def _over_tolerance(got, ref):
 
     got, ref = np.asarray(got), np.asarray(ref)
     return np.abs(got - ref) / (1e-2 + 2e-3 * np.abs(ref))
+
+
+def _same_state_losses(cfg, dyn, tgt, dev):
+    """The fused step's loss at each of the plain run's ``cfg.n_steps``
+    states, on the same draws (``draw_step`` from ``cfg.seed + 100``), as
+    [(fused, plain)]: both steps in one body that ``train``'s captured route
+    runs (two eager warm-up steps, then a CUDA graph replayed for every
+    other step), so the loop costs no host time a step. The captured route
+    repeats the eager one bit for bit (phase 5d)."""
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+    from l2hmc_tpu_torch.train import init_state, make_optimizer, make_train_step
+    from l2hmc_tpu_torch.train.scg import _TrainSteps
+
+    opt, _ = make_optimizer(cfg)
+    plain_step = make_train_step(cfg, dyn, opt)
+    fused_step = make_train_step(cfg, fd.differentiable_fused(dyn, tgt), opt)
+
+    def both(state, draws):
+        _, mf = fused_step(state, draws)
+        new, mp = plain_step(state, draws)
+        return new, {"loss": mp["loss"], "fused_loss": mf["loss"]}
+
+    class SameStates(_TrainSteps):
+        _METRICS = ("fused_loss", "loss")
+
+    steps = SameStates(both, init_state(cfg, dyn, opt, device=dev), cfg.n_steps, dyn.hmc,
+                       cfg.z_burn_in_loss)
+    steps.run(steps.draw(_gen(cfg.seed + 100), cfg.n_steps))
+    hist = steps.history(cfg.n_steps)
+    return list(zip(hist["fused_loss"].tolist(), hist["loss"].tolist()))
 
 
 def _chain_vs_plain(fd, inp, xc, what, max_flips):
@@ -884,7 +946,8 @@ def vae_phases(dev, report, logdir):
 
     plain_steps = 20
     chain_k20_ms = _cuda_time(lambda: chain_run(plain_steps), 2)
-    chain_ms = _cuda_time(lambda: chain_run(scfg.n_steps), 1)
+    # one protocol launch (~5 s), its instantiation warmed up by the line above
+    chain_ms = _cuda_time(lambda: chain_run(scfg.n_steps), 1, warmup=False)
     chain_plain_ms = _cuda_time(
         lambda: fv.vae_chain_plain(inp, z0T, seed=13, n_mh_steps=plain_steps,
                                    collect_trace=True, nb=nb_path[:plain_steps]), 1)
@@ -2014,7 +2077,7 @@ def bf16_vae_phases(dev, report, logdir, cfg=None):
 # ``train(ScgConfig(compute_dtype="bfloat16"))``, BF16_SCG_STEPS captured
 # steps (the plain route: the JAX trainer hands the kernels no dtype, and
 # fused bf16 training is fused float32 training, held bit for bit over
-# BF16_FUSED_STEPS), the 2000-step traced eval through
+# BF16_FUSED_STEPS), the 1000-step traced eval through
 # ``fused_chain_sampler(..., compute_dtype="bfloat16")`` and HMC at eps 0.15
 # (ESS ratio above MIN_ESS_RATIO; the kernel's ESS within ESS_GAP of a plain
 # bf16 ``sample_chain`` eval of the same params from the same x0), the parity
@@ -2174,6 +2237,49 @@ def _phi4_inputs(fd, dev, case, seed):
     return fd.prepare(dyn, fd.energy_spec_for_target(tgt), params, dev), x.T.contiguous()
 
 
+def bf16_conv_phase(dev, report):
+    """Phase 13d: the bf16 conv recipe at L = 32, cut in depth, with its
+    peak memory. Its conv nets run plain (the kernels take dense nets), so
+    it runs while the kernels build; phase 13 reports it."""
+    import numpy as np
+    import torch
+
+    from l2hmc_tpu_torch import targets
+    from l2hmc_tpu_torch.apps import phi4
+    from l2hmc_tpu_torch.train import ScgConfig, build_dynamics
+
+    BF = "bfloat16"
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    row, cstate = phi4.run(**BF16_CONV, n_steps=BF16_CONV_STEPS, eval_steps=BF16_CONV_EVAL,
+                           device=dev, return_state=True)
+    peak = torch.cuda.max_memory_allocated()
+    tc = targets.Phi4Lattice(L=BF16_CONV["L"], m2=BF16_CONV["m2"], lam=BF16_CONV["lam"])
+    dc, _ = build_dynamics(ScgConfig(dim=tc.dim, T=BF16_CONV["leapfrogs"], net_type="conv",
+                                     conv_channels=BF16_CONV["conv_channels"],
+                                     conv_depth=BF16_CONV["conv_depth"], compute_dtype=BF), tc)
+    xc = tc.sample(_gen(7), BF16_CONV["n_chains"], device=dev)
+    vc = torch.randn(xc.shape, generator=_gen(8)).to(dev)
+    with torch.no_grad():
+        X, V, ld = dc.forward(cstate.params, xc, vc)
+        x2, v2, ld2 = dc.backward(cstate.params, X, V)
+    miss = torch.maximum((x2 - xc).abs().amax(1), (v2 - vc).abs().amax(1))
+    c = report["bf16_conv_recipe"] = {
+        "row": row, "train_steps": BF16_CONV_STEPS,
+        "ms_per_train_step": 1e3 * row["train_time_s"] / BF16_CONV_STEPS,
+        "peak_memory_bytes": peak, "inverse_err": float(miss.max()),
+        "inverse_chains_over_tol": int((miss > BF16_INVERSE_TOL).sum()),
+        "inverse_logdet_err": float((ld + ld2).abs().max()),
+        "wall_s": time.perf_counter() - t_phase}
+    print(f"# bf16 conv recipe L=32 ({c['wall_s']:.1f} s): " + json.dumps(c), flush=True)
+    _require(np.isfinite(row["final_loss"]) and 0.0 < row["final_accept"] < 1.0
+             and all(np.isfinite(v) for k, v in row.items() if k.startswith(("tunn", "ess"))),
+             f"bf16 conv recipe: {row}")
+    _require(c["inverse_err"] <= BF16_RESOLUTION and c["inverse_logdet_err"] <= BF16_RESOLUTION,
+             f"bf16 conv recipe inverse: {c}")
+
+
 def bf16_scg_phases(dev, report):
     """Phase 13: kernels 1 and 3's bfloat16 instantiations against their
     plain versions (lane groups and sites), the bf16 SCG path, the bf16
@@ -2182,7 +2288,6 @@ def bf16_scg_phases(dev, report):
     import numpy as np
     import torch
 
-    from l2hmc_tpu_torch import targets
     from l2hmc_tpu_torch.apps import phi4, suite
     from l2hmc_tpu_torch.ops import _cuda
     from l2hmc_tpu_torch.ops import fused_dynamics as fd
@@ -2249,7 +2354,7 @@ def bf16_scg_phases(dev, report):
     # (c) the bf16 SCG path; the launch counts set to 0 just before it and
     # read just after
     t_phase = time.perf_counter()
-    n_tr, eval_steps = 1024, 2000
+    n_tr, eval_steps = 1024, 1000
     fd.reset_launch_counts()
     cfg = ScgConfig(n_chains=n_tr, n_steps=BF16_SCG_STEPS, seed=0, compute_dtype=BF)
     dynb, _ = build_dynamics(cfg, target)
@@ -2341,38 +2446,8 @@ def bf16_scg_phases(dev, report):
     for name in ("trajectory:bf16", "chain:bf16"):
         _require(launches[name] > 0, f"{name} not launched on the bf16 SCG path")
 
-    # (d) the bf16 conv recipe at L = 32, cut in depth, with its peak memory
-    t_phase = time.perf_counter()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    row, cstate = phi4.run(**BF16_CONV, n_steps=BF16_CONV_STEPS, eval_steps=BF16_CONV_EVAL,
-                           device=dev, return_state=True)
-    peak = torch.cuda.max_memory_allocated()
-    tc = targets.Phi4Lattice(L=BF16_CONV["L"], m2=BF16_CONV["m2"], lam=BF16_CONV["lam"])
-    dc, _ = build_dynamics(ScgConfig(dim=tc.dim, T=BF16_CONV["leapfrogs"], net_type="conv",
-                                     conv_channels=BF16_CONV["conv_channels"],
-                                     conv_depth=BF16_CONV["conv_depth"], compute_dtype=BF), tc)
-    xc = tc.sample(_gen(7), BF16_CONV["n_chains"], device=dev)
-    vc = torch.randn(xc.shape, generator=_gen(8)).to(dev)
-    with torch.no_grad():
-        X, V, ld = dc.forward(cstate.params, xc, vc)
-        x2, v2, ld2 = dc.backward(cstate.params, X, V)
-    miss = torch.maximum((x2 - xc).abs().amax(1), (v2 - vc).abs().amax(1))
-    out["conv_recipe"] = {
-        "row": row, "train_steps": BF16_CONV_STEPS,
-        "ms_per_train_step": 1e3 * row["train_time_s"] / BF16_CONV_STEPS,
-        "peak_memory_bytes": peak, "inverse_err": float(miss.max()),
-        "inverse_chains_over_tol": int((miss > BF16_INVERSE_TOL).sum()),
-        "inverse_logdet_err": float((ld + ld2).abs().max()),
-        "wall_s": time.perf_counter() - t_phase}
-    print(f"# bf16 conv recipe L=32 ({out['conv_recipe']['wall_s']:.1f} s): "
-          + json.dumps(out["conv_recipe"]), flush=True)
-    c = out["conv_recipe"]
-    _require(np.isfinite(row["final_loss"]) and 0.0 < row["final_accept"] < 1.0
-             and all(np.isfinite(v) for k, v in row.items() if k.startswith(("tunn", "ess"))),
-             f"bf16 conv recipe: {row}")
-    _require(c["inverse_err"] <= BF16_RESOLUTION and c["inverse_logdet_err"] <= BF16_RESOLUTION,
-             f"bf16 conv recipe inverse: {c}")
+    # (d) the bf16 conv recipe ran beside the build (``bf16_conv_phase``)
+    out["conv_recipe"] = report["bf16_conv_recipe"]
 
     # (e) each bf16 launch at its row's shape beside its float32 row, both
     # bounds, ptxas
@@ -2469,14 +2544,15 @@ SUITE_TRAJ_CHAINS = {"rough_well_easy": (2048, 203), "ring": (1024,), "funnel": 
 SPEC_OF_CASE = {"rough_well_easy": "rough_well", "ring": "gmm", "funnel": "funnel",
                 "mog2_hmc": "gmm", "icg": "gauss"}
 # The suite path cut in depth: 100 training steps and one training seed a
-# row (the recipes: 5000 and up to 4), a 1000-step eval (the recipes: 2000),
+# row (the recipes: 5000 and up to 4), a 500-step eval (the recipes: 2000;
+# the cross-checks' gaps 0.0-0.015 of the 0.30 bar there on an H100),
 # the HMC grid's eight step sizes (through the chain kernel) and the widths
 # and chain counts as the recipes have them. icg (2048 chains, the JAX
 # record's) trains 20 steps, and its HMC grid runs plain: through the chain
 # kernel it runs the 50-d Gaussian on WideLanes in HMC mode, where every lane
 # of a warp repeats the chain's dense gradient (ROADMAP P7), ~22 s an eps at
 # 2000 steps on an H100. The row shows the cross-check's path, not a ratio.
-SUITE_CUT = dict(n_steps=100, n_train_seeds=1, fused_hmc=True, eval_steps=1000)
+SUITE_CUT = dict(n_steps=100, n_train_seeds=1, fused_hmc=True, eval_steps=500)
 SUITE_ROWS = (("rough_well", {}), ("ring", dict(n_chains=2048)), ("funnel", {}),
               ("icg", dict(n_chains=2048, n_steps=20, fused_hmc=False)))
 # Fused against plain training on the suite's targets (no annealing, no
@@ -2491,6 +2567,41 @@ SUITE_TRAIN = (("ring", dict(eps=0.2)), ("rough_well_easy", {}), ("funnel", {}))
 # the times of each spec's kernels at its suite row's shapes: spec -> the
 # parity case giving target, widths and chains
 SUITE_TIMES = {"rough_well": "rough_well_easy", "gmm": "ring", "funnel": "funnel"}
+
+
+# 10d's witness on the CPU: the ring's two free training runs through
+# ``train`` (fused and plain) in a process of its own, started with phase 10
+# so that it runs beside (a)-(c) on CPU_WITNESS_THREADS of the host's cores
+CPU_WITNESS_THREADS = 4
+_CPU_WITNESS = """
+import dataclasses, json, sys
+import torch
+torch.set_num_threads(int(sys.argv[2]))
+from l2hmc_tpu_torch.apps import suite
+from l2hmc_tpu_torch.train import ScgConfig, train
+cfg = ScgConfig(**json.loads(sys.argv[1]))
+tgt = suite.PARITY_CASES["ring"].target()
+print(json.dumps({str(f): train(dataclasses.replace(cfg, fused_train=f), tgt, device="cpu")[1][
+    "loss"].tolist() for f in (True, False)}))
+"""
+
+
+def _start_cpu_witness(cfg_kwargs):
+    """Starts the witness on the ring's ScgConfig(**cfg_kwargs); returns its
+    process, whose output ``_cpu_witness_losses`` reads."""
+    return subprocess.Popen(
+        [sys.executable, "-c", _CPU_WITNESS, json.dumps(cfg_kwargs), str(CPU_WITNESS_THREADS)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def _cpu_witness_losses(proc):
+    """The witness's loss histories {fused: array}; fails if it did."""
+    import numpy as np
+
+    out, err = proc.communicate(timeout=600)
+    _require(proc.returncode == 0, f"the CPU witness failed: {err[-2000:]}")
+    return {k == "True": np.asarray(v) for k, v in json.loads(out.splitlines()[-1]).items()}
 
 
 def _spec_vjp_compare(fd, inp, x, v, dX, dV, dld, reverse):
@@ -2529,7 +2640,24 @@ def suite_phases(dev, report):
     plain versions, the suite path, fused against plain training, captured
     against eager for the annealed and the net-input recipes, and the
     kernels' times at the suite's shapes. Returns the ``kernels`` rows of
-    the three kernels for each of the suite's specs."""
+    the three kernels for each of the suite's specs. The ring's CPU witness
+    of (d) runs in its own process from the start."""
+    from l2hmc_tpu_torch.apps import suite
+
+    t_all = time.perf_counter()
+    ring = suite.PARITY_CASES["ring"]
+    ring_cfg = dict(n_chains=1024, n_steps=20, seed=0, dim=ring.target().dim, T=ring.T,
+                    hidden=ring.hidden, **{"eps": ring.eps, **dict(SUITE_TRAIN)["ring"]})
+    witness = _start_cpu_witness(ring_cfg)
+    try:
+        return _suite_phases(dev, report, witness, ring_cfg, t_all)
+    finally:
+        if witness.poll() is None:
+            witness.kill()
+            witness.wait()
+
+
+def _suite_phases(dev, report, witness_proc, ring_cfg, t_all):
     import numpy as np
     import torch
 
@@ -2537,13 +2665,8 @@ def suite_phases(dev, report):
     from l2hmc_tpu_torch.apps import suite
     from l2hmc_tpu_torch.ops import _cuda
     from l2hmc_tpu_torch.ops import fused_dynamics as fd
-    from l2hmc_tpu_torch.train import (
-        ScgConfig, StepDraws, build_dynamics, draw_step, init_state, make_optimizer,
-        make_train_step, train,
-    )
+    from l2hmc_tpu_torch.train import ScgConfig, build_dynamics, train
     from l2hmc_tpu_torch.train.optim import tree_leaves
-
-    t_all = time.perf_counter()
 
     # (a) the trajectory and backward kernels against their plain versions
     t_phase = time.perf_counter()
@@ -2626,18 +2749,7 @@ def suite_phases(dev, report):
         free_steps = suite.RING_FREE_STEPS if name == "ring" else cfg.n_steps
         # the fused step at each state of the plain run, on its draws
         dyn, _ = build_dynamics(cfg, tgt)
-        opt, _ = make_optimizer(cfg)
-        plain_step = make_train_step(cfg, dyn, opt)
-        fused_step = make_train_step(cfg, fd.differentiable_fused(dyn, tgt), opt)
-        state = init_state(cfg, dyn, opt, device=dev)
-        gen = _gen(cfg.seed + 100)
-        same = []
-        for _ in range(cfg.n_steps):
-            d = StepDraws(*(None if a is None else a.to(dev) for a in draw_step(
-                gen, cfg.n_chains, cfg.dim, z_burn_in=cfg.z_burn_in_loss)))
-            _, mf = fused_step(state, d)
-            state, mp = plain_step(state, d)
-            same.append((float(mf["loss"]), float(mp["loss"])))
+        same = _same_state_losses(cfg, dyn, tgt, dev)
         same_gap = float(_over_tolerance(*zip(*same)).max())
         # the two free runs through the entry point
         hists, step_ms = {}, {}
@@ -2653,8 +2765,8 @@ def suite_phases(dev, report):
         if name == "ring":
             # the same two runs on the CPU, where the fused step takes the
             # wrappers' plain versions: two plain routes on the same draws
-            cpu = {fused: train(dataclasses.replace(cfg, fused_train=fused), tgt,
-                                device="cpu")[1]["loss"] for fused in (True, False)}
+            _require(ScgConfig(**ring_cfg) == cfg, "the CPU witness's config is not the ring's")
+            cpu = _cpu_witness_losses(witness_proc)
             gaps = _over_tolerance(cpu[True], cpu[False])
             witness = {"cpu_plain_routes_gap_by_step": gaps.tolist()}
             _require(float(gaps[:free_steps].max()) <= 1.0,
@@ -2733,10 +2845,11 @@ def suite_phases(dev, report):
             "trajectory_bwd": _bwd_launch_ms(fd, _cuda, inp, x, v, dX, dV, dld, 100),
             "trajectory_bwd_plain": _cuda_time(
                 lambda: fd.trajectory_vjp_plain(inp, x, v, dX, dV, dld, False), 3),
-            "chain": _cuda_time(lambda: fd.chain(inp, x, 2, steps, True), 3),
+            "chain": _cuda_time(lambda: fd.chain(inp, x, 2, steps, True), 1),
             f"chain_{plain_steps}": _cuda_time(lambda: fd.chain(inp, x, 2, plain_steps, True), 5),
-            f"chain_plain_{plain_steps}": _cuda_time(
-                lambda: fd.chain_plain(inp, x, 2, plain_steps, collect_trace=True), 1),
+            f"chain_plain_{plain_steps}": _cuda_time(  # run at this shape in (b)
+                lambda: fd.chain_plain(inp, x, 2, plain_steps, collect_trace=True), 1,
+                warmup=False),
         }
         bounds = {
             "trajectory": traj_bound(D, H, H2, T, n, False, blk, ops),
@@ -2776,7 +2889,8 @@ def suite_phases(dev, report):
     t = {"chain": _cuda_time(lambda: fd.chain(inp, x, 2, steps, True), 1, warmup=False),
          f"chain_{plain_steps}": _cuda_time(lambda: fd.chain(inp, x, 2, plain_steps, True), 5),
          f"chain_plain_{plain_steps}": _cuda_time(
-             lambda: fd.chain_plain(inp, x, 2, plain_steps, collect_trace=True), 1)}
+             lambda: fd.chain_plain(inp, x, 2, plain_steps, collect_trace=True), 1,
+             warmup=False)}
     bound = chain_bound(D, H, H2, T, n, steps, False, inp.block().numel(), True, _ops_of(inp))
     chains_a_block, threads_a_block, smem = fd.site_tile(D, H, H2)
     l2 = phi4_l2_weight_bytes(D, H, H2, T, n, steps, chains_a_block)
@@ -2828,7 +2942,9 @@ PHI4_CHAIN_CASES = ("phi4_L16", "phi4_L32", "phi4_L64", "gauss_D128", "phi4_L16_
 # L = 16 after 300 training steps); the estimator sums every lag's
 # autocorrelation above 0.05, and its late lags average few products, so a
 # 1000-step ESS_m moves by tens of percent between streams (the per-stream
-# values are reported).
+# values are reported). The plain streams run as one batch of PHI4_SEEDS x
+# 512 chains, a block of 512 a stream: the plain nets' small launches take
+# about as long for one stream as for three.
 PHI4_RUN = dict(L=16, m2=-1.0, lam=0.5, n_chains=512, hidden=32, leapfrogs=10, n_steps=150,
                 eval_steps=1000, pt_rungs=8, pt_t_max=16.0)
 PHI4_PT_STEPS = 50
@@ -2840,17 +2956,17 @@ PHI4_GAP = 0.30
 PHI4_RUNS_MORE = (dict(L=8, n_chains=512, n_steps=50, eval_steps=500),
                   dict(L=32, n_chains=256, n_steps=20, eval_steps=500))
 # The 64 x 64 lattice at the JAX package's A_control shape (phi4_64_r3.json:
-# 256 chains, hidden 32, T = 10, eps = hmc_eps = 0.03), training cut to 100
+# 256 chains, hidden 32, T = 10, eps = hmc_eps = 0.03), training cut to 50
 # steps (the protocol: 2000) and the eval to 600 (1000), its kernel eval held
 # against a plain eval as L = 16's, each side the mean over PHI4_SEEDS_L64
 # streams (gaps 0.034 and 0.041 of the 0.30 bar over three streams of 1000
 # steps on an H100; a plain stream took 28-36 s).
 PHI4_RUN_L64 = dict(L=64, m2=-1.0, lam=0.5, n_chains=256, hidden=32, leapfrogs=10,
-                    n_steps=100, eval_steps=600, eps=0.03, hmc_eps=0.03)
+                    n_steps=50, eval_steps=600, eps=0.03, hmc_eps=0.03)
 PHI4_SEEDS_L64 = 2
 # (e) times the shipped L = 64 recipe's shape (hidden 64, T = 24; 26 s at
 # 1000 steps on an H100) over this many MH steps, for the script's clock
-PHI4_RECIPE_STEPS = 300
+PHI4_RECIPE_STEPS = 100
 
 
 def phi4_l2_weight_bytes(D, H, H2, T, N, K, chains_per_block):
@@ -2865,6 +2981,50 @@ def phi4_l2_weight_bytes(D, H, H2, T, N, K, chains_per_block):
     return -(-N // chains_per_block) * K * 4 * T * per_app * 4
 
 
+def phi4_conv_phase(dev, report):
+    """Phase 11d's conv-net training at L = 16, captured against eager,
+    cuDNN's TF32 off. It runs no kernel of the port (the kernels take dense
+    nets), so it runs while the kernels build; phase 11 reports it."""
+    import numpy as np
+    import torch
+
+    from l2hmc_tpu_torch import targets
+    from l2hmc_tpu_torch.train import ScgConfig, build_dynamics, train
+    from l2hmc_tpu_torch.train.optim import tree_leaves
+
+    t_phase = time.perf_counter()
+    _require(torch.backends.cudnn.allow_tf32 is False, "cuDNN TF32 is on")
+    _require(torch.backends.cuda.matmul.allow_tf32 is False, "matmul TF32 is on")
+    tgt = targets.Phi4Lattice(L=PHI4_RUN["L"], m2=PHI4_RUN["m2"], lam=PHI4_RUN["lam"])
+    conv_cfg = ScgConfig(dim=tgt.dim, n_chains=128, n_steps=5, T=10, net_type="conv", eps=0.05,
+                         seed=0)
+    conv = {}
+    for capture in (False, True):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, hist = train(conv_cfg, tgt, device=dev, capture=capture)
+        torch.cuda.synchronize()
+        conv[capture] = (st, hist, 1e3 * (time.perf_counter() - t) / conv_cfg.n_steps)
+
+    conv_gap = float(_over_tolerance(conv[True][1]["loss"], conv[False][1]["loss"]).max())
+    moved = any(bool((a != b).any()) for a, b in zip(
+        tree_leaves(conv[True][0].params),
+        tree_leaves(build_dynamics(conv_cfg, tgt)[0].init_params(_gen(0), eps=0.05, device=dev))))
+    out = report["phi4_conv_training_L16"] = {
+        "steps": conv_cfg.n_steps, "n_chains": conv_cfg.n_chains,
+        "loss_captured": conv[True][1]["loss"].tolist(),
+        "loss_eager": conv[False][1]["loss"].tolist(),
+        "captured_vs_eager_gap_over_tolerance": conv_gap,
+        "p_accept_last": float(conv[True][1]["p_accept"][-1]),
+        "ms_per_step_eager": conv[False][2], "ms_per_step_captured_incl_recording": conv[True][2],
+        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+        "wall_s": time.perf_counter() - t_phase}
+    print(f"# phi4 conv training L=16 ({out['wall_s']:.1f} s): " + json.dumps(out), flush=True)
+    _require(bool(np.isfinite(conv[True][1]["loss"]).all()), "conv training: non-finite loss")
+    _require(moved, "conv training: the params did not move")
+    _require(conv_gap <= 1.0, f"conv training captured vs eager: {conv_gap} x tolerance")
+
+
 def phi4_phases(dev, report):
     """Phase 11: the Phi4 spec through kernels 1-2 at L = 8, the chain
     kernel's site-parallel configuration at L = 8, 16 and 32, the phi^4 app's
@@ -2877,11 +3037,7 @@ def phi4_phases(dev, report):
     from l2hmc_tpu_torch.apps import phi4
     from l2hmc_tpu_torch.ops import _cuda
     from l2hmc_tpu_torch.ops import fused_dynamics as fd
-    from l2hmc_tpu_torch.train import (
-        ScgConfig, StepDraws, build_dynamics, draw_step, init_state, make_optimizer,
-        make_train_step, sample_chain, train,
-    )
-    from l2hmc_tpu_torch.train.optim import tree_leaves
+    from l2hmc_tpu_torch.train import ScgConfig, build_dynamics, sample_chain, train
 
     t_all = time.perf_counter()
     out = {}
@@ -3004,14 +3160,16 @@ def phi4_phases(dev, report):
         for i in range(1, n_streams):
             kernel_runs.append(scores(sampler.run(state.params, x0, seed=2 + 100 * i,
                                                   n_mh_steps=steps, collect_trace=True)[2]))
-        plain, plain_s = [], []
-        for i in range(n_streams):
-            t = time.perf_counter()
-            _, ptrace = sample_chain(dyn, state.params, x0, steps, _gen(2 + 100 * i))
-            torch.cuda.synchronize()
-            plain_s.append(time.perf_counter() - t)
-            plain.append(scores(ptrace))
-            del ptrace
+        # the plain streams in one batch: x0 once a stream along the chains,
+        # each block of n_chains chains a stream of its own (its chains draw
+        # their own numbers), scored apart
+        n = run_kw["n_chains"]
+        t = time.perf_counter()
+        _, ptrace = sample_chain(dyn, state.params, x0.repeat(n_streams, 1), steps, _gen(2))
+        torch.cuda.synchronize()
+        plain_s = [time.perf_counter() - t]
+        plain = [scores(ptrace[:, i * n:(i + 1) * n]) for i in range(n_streams)]
+        del ptrace
         means = {route: {k: float(np.mean([r[k] for r in runs])) for k in runs[0]}
                  for route, runs in (("kernel", kernel_runs), ("plain", plain))}
         gaps = {"tunneling_rate": abs(means["kernel"]["tunneling_rate"]
@@ -3053,37 +3211,11 @@ def phi4_phases(dev, report):
                  f"phi4 run L={kw['L']}: {r}")
     out["runs_more"] = more
 
-    # (d) conv-net training at L = 16, captured against eager, cuDNN's TF32
-    # off; fused against plain training at L = 8 (kernels 1-2 on Phi4)
+    # (d) conv-net training at L = 16, captured against eager (no kernel: it
+    # ran beside the build, ``phi4_conv_phase``); fused against plain
+    # training at L = 8 (kernels 1-2 on Phi4)
     t_phase = time.perf_counter()
-    _require(torch.backends.cudnn.allow_tf32 is False, "cuDNN TF32 is on")
-    _require(torch.backends.cuda.matmul.allow_tf32 is False, "matmul TF32 is on")
-    tgt = targets.Phi4Lattice(L=PHI4_RUN["L"], m2=PHI4_RUN["m2"], lam=PHI4_RUN["lam"])
-    conv_cfg = ScgConfig(dim=tgt.dim, n_chains=128, n_steps=5, T=10, net_type="conv", eps=0.05,
-                         seed=0)
-    conv = {}
-    for capture in (False, True):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        st, hist = train(conv_cfg, tgt, device=dev, capture=capture)
-        torch.cuda.synchronize()
-        conv[capture] = (st, hist, 1e3 * (time.perf_counter() - t) / conv_cfg.n_steps)
-
-    conv_gap = float(_over_tolerance(conv[True][1]["loss"], conv[False][1]["loss"]).max())
-    moved = any(bool((a != b).any()) for a, b in zip(
-        tree_leaves(conv[True][0].params),
-        tree_leaves(build_dynamics(conv_cfg, tgt)[0].init_params(_gen(0), eps=0.05, device=dev))))
-    out["conv_training_L16"] = {
-        "steps": conv_cfg.n_steps, "n_chains": conv_cfg.n_chains,
-        "loss_captured": conv[True][1]["loss"].tolist(),
-        "loss_eager": conv[False][1]["loss"].tolist(),
-        "captured_vs_eager_gap_over_tolerance": conv_gap,
-        "p_accept_last": float(conv[True][1]["p_accept"][-1]),
-        "ms_per_step_eager": conv[False][2], "ms_per_step_captured_incl_recording": conv[True][2],
-        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
-    _require(bool(np.isfinite(conv[True][1]["loss"]).all()), "conv training: non-finite loss")
-    _require(moved, "conv training: the params did not move")
-    _require(conv_gap <= 1.0, f"conv training captured vs eager: {conv_gap} x tolerance")
+    out["conv_training_L16"] = report["phi4_conv_training_L16"]
     # fused against plain at L = 8, as 10d: the fused step's loss at each of
     # the plain run's 10 states on the same draws, held at phase 5b's bar;
     # the two free runs through ``train`` reported and not held: on an H100
@@ -3093,18 +3225,7 @@ def phi4_phases(dev, report):
     t8 = targets.Phi4Lattice(L=8, m2=-1.0, lam=0.5)
     fcfg = ScgConfig(dim=t8.dim, n_chains=512, n_steps=10, T=10, hidden=32, seed=0)
     dyn8, _ = build_dynamics(fcfg, t8)
-    opt8, _ = make_optimizer(fcfg)
-    plain_step = make_train_step(fcfg, dyn8, opt8)
-    fused_step = make_train_step(fcfg, fd.differentiable_fused(dyn8, t8), opt8)
-    state8 = init_state(fcfg, dyn8, opt8, device=dev)
-    gen8 = _gen(fcfg.seed + 100)
-    same = []
-    for _ in range(fcfg.n_steps):
-        d = StepDraws(*(None if a is None else a.to(dev) for a in draw_step(
-            gen8, fcfg.n_chains, fcfg.dim, z_burn_in=fcfg.z_burn_in_loss)))
-        _, mf = fused_step(state8, d)
-        state8, mp = plain_step(state8, d)
-        same.append((float(mf["loss"]), float(mp["loss"])))
+    same = _same_state_losses(fcfg, dyn8, t8, dev)
     fused_gap = float(_over_tolerance(*zip(*same)).max())
     # the fused training path's own launches: the counts set to 0 just
     # before it and read just after
@@ -3168,8 +3289,9 @@ def phi4_phases(dev, report):
         k = PHI4_RECIPE_STEPS if label == "3h_recipe" else steps
         ms = _cuda_time(lambda: fd.chain(inp, xc, 2, k, True), 1, warmup=not wide)
         ms20 = _cuda_time(lambda: fd.chain(inp, xc, 2, plain_steps, True), 3)
+        # the plain chain ran at this shape in (b)
         plain = (_cuda_time(lambda: fd.chain_plain(inp, xc, 2, plain_steps, collect_trace=True),
-                            1) if label != "3h_recipe" else None)
+                            1, warmup=False) if label != "3h_recipe" else None)
         bound = chain_bound(Dc, Hc, H2c, Tc, n, k, False, inp.block().numel(), True,
                             _ops_of(inp))
         site = fd.chain_on_sites(inp)
@@ -3227,7 +3349,8 @@ def phi4_phases(dev, report):
                       f"{recipe['steps']} MH steps: "
                       f"{recipe['ms']:.2f} ms, {recipe['l2_weight_bytes']:.4g} L2 weight bytes "
                       f"reckoned, bound {recipe['bound_ms'][0]:.4g} ms; the app's plain "
-                      f"sample_chain eval: {out['run_L64']['plain_eval_s'][0]:.2f} s")
+                      f"sample_chain eval of its {PHI4_SEEDS_L64} streams in one batch: "
+                      f"{out['run_L64']['plain_eval_s'][0]:.2f} s")
         rows.append({"name": "chain[phi4]", "route": "cuda", "source": src + "chain.cu",
                      "replaces": "l2hmc_tpu/ops/fused_dynamics.py:1103",
                      "launches": launch_of[label],
@@ -3283,8 +3406,8 @@ WIDE_CAPTURE_STEPS = 10
 # L = 16 on the trained params (nearer the bf16 nets than the float32
 # kernel, in RMS, as 13c).
 WIDE_APP = dict(L=16, m2=-1.0, lam=0.5, n_chains=1024, hidden=32, T=10, eps=0.1)
-WIDE_TRAIN_STEPS = 300
-WIDE_EVAL_STEPS = 1000
+WIDE_TRAIN_STEPS = 150
+WIDE_EVAL_STEPS = 500
 WIDE_STEADY = (10, 40)
 WIDE_SHORT_RUNS = (("L32", 20), ("icg", 10), ("L64", 4))
 
@@ -3693,6 +3816,359 @@ def wide_traj_phases(dev, report):
     return rows
 
 
+# -- 15. the rough well, the mixtures and the funnel on sites ---------------------------
+
+# Kernels 1-3 past 64 wide on the specs whose sites need a per-chain prelude
+# (the funnel, the mixtures) or only themselves (the rough well), on the
+# site-parallel configuration (csrc/l2hmc_sites.cuh), at the path's five
+# configurations, ``suite.WIDE_CASES`` at their chain counts: (a) rows 1 and
+# 2 against their plain versions, both directions, each launch twice bit
+# for bit (X, V and the log-det at TRAJ_TOL, the log-det's bar raised to
+# WIDE_LD_REL of its largest magnitude as in 14a; the VJP per leaf at
+# BWD_TOL with the chains near a ReLU kink set aside, below); (b) row 3
+# against its plain version on the same Philox bits, 20 traced MH steps, at
+# most PHI4_FLIPS of the decisions flipped and 1e-2 on the other chains,
+# twice bit for bit; (c) fused against plain training from one state, the
+# fused step's loss at each of the plain run's WIDE_SPEC_SAME_STEPS states
+# on the same draws at phase 5b's bar (the ring without the recipe's anneal,
+# which the fused path does not take).
+WIDE_SPEC_CASES = ("rough_well_h100", "ring_h100", "rough_well_D100", "funnel_D100",
+                   "mixture_D80")
+# The VJP's ReLU rule at these widths: a chain's 4 T net applications take
+# thousands of gate decisions (8000 at hidden 100, T = 10), and at 2048
+# chains ~15% of the chains pass within 1e-5 of a kink somewhere and a few
+# within the rounding by which two sums in another order differ, where the
+# kernel and its plain version gate differently and the chain's cotangents
+# differ by whole terms (at most one such chain, 14b's rule, held at the
+# lattice and icg but not here). So the chains whose plain trajectory comes
+# within WIDE_RELU_MARGIN of a kink are set aside beforehand, whatever the
+# kernel gives them (at most a quarter of the chains): every chain whose dx
+# or dv differs by more than BWD_TOL must be among them, and on the others
+# every leaf holds BWD_TOL.
+WIDE_RELU_MARGIN = 1e-5
+WIDE_SPEC_SAME_STEPS = 20
+# (d) the path, launch counts set to 0 before it and read after: the suite's
+# ring and rough well at hidden 100 through ``run_target`` cut as phase 10c
+# (SUITE_CUT: 100 training steps, one training seed, a 500-step eval, the
+# HMC grid through the chain kernel): its fused cross-check "ran" and its
+# ESS within ESS_GAP of the plain eval's; then ``train`` with
+# fused_train=True on each configuration, WIDE_SPEC_TRAIN_STEPS steps at its
+# case's chains and widths (the rough well at D = 100 in the suite's hard
+# mode; the funnel and the mixture at D = 100 and 80; the ring and the rough
+# well at hidden 100, the ring without its anneal, which the suite rows
+# train plain), and where no suite row ran the chain kernel's cross-check
+# (D = 80-100), its traced eval of the trained sampler against a plain eval
+# (``sample_chain``) from the same start, WIDE_SPEC_EVAL_STEPS steps each on
+# its own stream: ESS within ESS_GAP. The configurations' recipes: (target,
+# ScgConfig fields).
+WIDE_SPEC_ROWS = ("ring", "rough_well")
+WIDE_SPEC_TRAIN_STEPS = 100
+WIDE_SPEC_EVAL_STEPS = 1000
+WIDE_SPEC_TRAIN = {
+    "rough_well_h100": (lambda t: t.RoughWell(dim=10, eps=0.1),
+                        dict(hidden=100, T=5, eps=0.05, n_chains=2048)),
+    "ring_h100": (lambda t: t.gen_ring(r=2.0, var=0.1, nb_mixtures=4),
+                  dict(hidden=100, T=10, eps=0.2, n_chains=2048)),
+    "rough_well_D100": (lambda t: t.RoughWell(dim=100, eps=0.1),
+                        dict(hidden=20, T=5, eps=0.05, n_chains=2048)),
+    "funnel_D100": (lambda t: t.GaussianFunnel(dim=100),
+                    dict(hidden=20, T=10, eps=0.1, n_chains=512, grad_clip=5.0,
+                         accept_penalty=20.0)),
+    "mixture_D80": (None, dict(hidden=20, T=10, eps=0.05, n_chains=512)),
+}
+# (e) the bf16 site trajectory on the rough well at D = 100 against its
+# plain bf16 version (13a's bars); (f) rows 1j-3j (the rough well at
+# D = 100), 1k-3k (the ring at hidden 100) and 1l-3l (the funnel at D = 100)
+# at their cases' shapes, beside their plain versions and bounds.
+WIDE_SPEC_ROWS_OF = {"rough_well_D100": ("j", "rough_well"), "ring_h100": ("k", "gmm"),
+                     "funnel_D100": ("l", "funnel")}
+
+
+def _site_vjp_compare(fd, inp, x, v, dX, dV, dld, reverse):
+    """Kernel against plain VJP on sites with WIDE_RELU_MARGIN's set-aside;
+    returns the summary, with the differing chains and their margins."""
+    import torch
+    from l2hmc_tpu_torch.train.optim import tree_leaves
+
+    def both(keep=None):
+        args = (dX, dV, dld) if keep is None else (dX * keep, dV * keep, dld * keep)
+        return (tree_leaves(fd.trajectory_vjp(inp, x, v, *args, reverse)),
+                tree_leaves(fd.trajectory_vjp_plain(inp, x, v, *args, reverse)))
+
+    got, ref = both()
+    n = x.shape[1]
+    differ = torch.zeros(n, dtype=torch.bool, device=x.device)
+    for a, b in zip(got[-2:], ref[-2:]):
+        differ |= (a - b).abs().amax(dim=0) > BWD_TOL * b.abs().max()
+    margin = fd.relu_margins(inp, x, v, reverse)
+    aside = margin < WIDE_RELU_MARGIN
+    idx = differ.nonzero().flatten().tolist()
+    out = {"differing_chains": idx[:20], "their_margins": margin[differ].tolist()[:20],
+           "set_aside": int(aside.sum())}
+    _require(not bool((differ & ~aside).any()) and out["set_aside"] <= n // 4,
+             f"VJP on sites: chains differ away from a ReLU kink: {out}")
+    got, ref = both((~aside).float()[None, :])
+    abs_err = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+    scale = [float(b.abs().max()) for b in ref]
+    out["max_abs_err"] = max(abs_err)
+    out["max_rel_err"] = max(e / s if s > 0 else (0.0 if e == 0 else float("inf"))
+                             for e, s in zip(abs_err, scale))
+    return out
+
+
+def wide_spec_phases(dev, report):
+    """Phase 15: kernels 1-3 on sites on the rough well, the mixtures and the
+    funnel against their plain versions, fused against plain training, the
+    path (the suite's rows at hidden 100 and fused training with the chain
+    kernel's eval on each configuration), the bf16 site trajectory, and
+    rows 1j-3l; returns those rows of the ``kernels`` line."""
+    import numpy as np
+    import torch
+
+    from l2hmc_tpu_torch import targets
+    from l2hmc_tpu_torch.apps import suite
+    from l2hmc_tpu_torch.ops import _cuda
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+    from l2hmc_tpu_torch.train import (
+        ScgConfig, build_dynamics, evaluate_ess, sample_chain, train,
+    )
+    from l2hmc_tpu_torch.train.optim import tree_leaves
+
+    t_all = time.perf_counter()
+    out = {}
+
+    def target_of(name):
+        make = WIDE_SPEC_TRAIN[name][0]
+        return suite.two_component_mixture(80) if make is None else make(targets)
+
+    # (a), (b) the three kernels against their plain versions
+    t_phase = time.perf_counter()
+    traj, bwd, chain_cmp, inputs = {}, {}, {}, {}
+    for name in WIDE_SPEC_CASES:
+        n = suite.WIDE_CASES[name].n_chains
+        inp, x = suite.parity_inputs(name, n, dev, seed=20)
+        x = x.contiguous()
+        D, H, H2, T = inp.dims
+        g = _gen(61)
+        v, dX, dV = (torch.randn(x.shape, generator=g).to(dev) for _ in range(3))
+        dld = torch.randn((1, n), generator=g).to(dev)
+        inputs[name] = (inp, x, v, dX, dV)
+        kind, nc = inp.energy_args
+        geom = {k: fd.trajectory_site_tile(k, D, H, H2, kind, nc)
+                for k in ("trajectory", "trajectory_bwd")}
+        geom["chain"] = fd.site_tile(D, H, H2, kind, nc)
+        _require(fd.trajectory_on_sites(inp) and fd.chain_on_sites(inp)
+                 and geom["chain"] == fd.site_geometry(D, H, H2, kind, nc)
+                 and all(geom[k] == fd.trajectory_site_geometry(k, D, H, H2, n, kind, nc)[:3]
+                         for k in ("trajectory", "trajectory_bwd")),
+                 f"{name}: site geometry {geom}")
+        case = {"dim": D, "hidden": H, "T": T, "n_chains": n,
+                "chains_threads_smem_bytes_a_block": geom,
+                "prelude_floats_a_chain": fd.site_prelude_floats(kind, nc, D)}
+        bcase = {"scratch_bytes": 4 * fd.bwd_scratch_floats(inp, n)}
+        for reverse in (False, True):
+            way = "backward" if reverse else "forward"
+            got = fd.trajectory(inp, x, v, reverse)
+            again = fd.trajectory(inp, x, v, reverse)
+            ref = fd.trajectory_plain(inp, x, v, reverse)
+            ld_bar = max(TRAJ_TOL, WIDE_LD_REL * float(ref[2].abs().max()))
+            c = {"max_abs_err_x_v": max(float((a - b).abs().max())
+                                        for a, b in zip(got[:2], ref[:2])),
+                 "max_abs_err_logdet": float((got[2] - ref[2]).abs().max()),
+                 "logdet_bar": ld_bar,
+                 "repeats_bit_for_bit": all(bool(torch.equal(a, b)) for a, b in zip(got, again))}
+            case[way] = c
+            _require(all(bool(torch.isfinite(a).all()) for a in got), f"trajectory {name} {way}")
+            _require(c["repeats_bit_for_bit"], f"trajectory {name} {way}: two launches differ")
+            _require(c["max_abs_err_x_v"] <= TRAJ_TOL and c["max_abs_err_logdet"] <= ld_bar,
+                     f"trajectory on sites {name} {way}: {c}")
+            b = _site_vjp_compare(fd, inp, x, v, dX, dV, dld, reverse)
+            a1 = tree_leaves(list(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse)))
+            a2 = tree_leaves(list(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse)))
+            b["repeats_bit_for_bit"] = all(bool(torch.equal(p, q)) for p, q in zip(a1, a2))
+            bcase[way] = b
+            _require(b["repeats_bit_for_bit"], f"trajectory_bwd {name} {way}: two launches differ")
+            _require(b["max_rel_err"] <= BWD_TOL, f"trajectory_bwd on sites {name} {way}: {b}")
+        traj[name], bwd[name] = case, bcase
+        chain_cmp[name] = _chain_vs_plain(fd, inp, x, f"chain on sites {name}",
+                                          PHI4_FLIPS * 20 * n)
+    out["trajectory_vs_plain"], out["trajectory_bwd_vs_plain"] = traj, bwd
+    out["chain_vs_plain"] = chain_cmp
+    print(f"# spec sites: kernels vs plain ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(out), flush=True)
+
+    # (c) fused against plain training at the plain run's states
+    t_phase = time.perf_counter()
+    same_gap = {}
+    for name in WIDE_SPEC_CASES:
+        tgt = target_of(name)
+        kw = WIDE_SPEC_TRAIN[name][1]
+        cfg = ScgConfig(dim=tgt.dim, n_steps=WIDE_SPEC_SAME_STEPS, seed=0, **kw)
+        dyn, _ = build_dynamics(cfg, tgt)
+        same = _same_state_losses(cfg, dyn, tgt, dev)
+        same_gap[name] = {"max_gap_over_tolerance": float(_over_tolerance(*zip(*same)).max()),
+                          "loss_first_last": [same[0][1], same[-1][1]]}
+        _require(np.isfinite(same).all() and same_gap[name]["max_gap_over_tolerance"] <= 1.0,
+                 f"fused vs plain training {name} at the same states: {same_gap[name]}")
+    out["fused_vs_plain_training"] = same_gap
+    print(f"# spec sites: fused vs plain training ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(same_gap), flush=True)
+
+    # (d) the path; launch counts set to 0 just before it and read just after
+    t_phase = time.perf_counter()
+    fd.reset_launch_counts()
+    rows, runs, launch_of, row_chain = {}, {}, {}, {}
+    for name in WIDE_SPEC_ROWS:
+        t = time.perf_counter()
+        before = fd.LAUNCHES["chain:sites"]
+        row = suite.run_target(name, device=dev, verbose=False, hidden=100, **SUITE_CUT)
+        row_chain[f"{name}_h100"] = fd.LAUNCHES["chain:sites"] - before
+        rows[name] = {k: row[k] for k in ("ess_ratio", "ess_l2hmc", "ess_hmc",
+                                          "ess_l2hmc_fused_trace", "fused_ess_rel_gap",
+                                          "final_accept", "fused_cross_check", "hmc_grid_fused")
+                      if k in row}
+        rows[name]["wall_s"] = time.perf_counter() - t
+        _require(row["fused_cross_check"] == "ran" and row["fused_ess_rel_gap"] < ESS_GAP,
+                 f"suite {name} at hidden 100: {rows[name]}")
+        _require(0.0 < row["final_accept"] < 1.0 and np.isfinite(row["ess_l2hmc"]),
+                 f"suite {name} at hidden 100: {rows[name]}")
+    launches_rows = dict(fd.LAUNCHES)
+    for name in WIDE_SPEC_CASES:
+        tgt = target_of(name)
+        cfg = ScgConfig(dim=tgt.dim, n_steps=WIDE_SPEC_TRAIN_STEPS, seed=0, fused_train=True,
+                        **WIDE_SPEC_TRAIN[name][1])
+        before = dict(fd.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, hist = train(cfg, tgt, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        runs[name] = {"config": {"dim": tgt.dim, **WIDE_SPEC_TRAIN[name][1]},
+                      "steps": WIDE_SPEC_TRAIN_STEPS, "train_s": train_s,
+                      "ms_per_step_incl_capture": 1e3 * train_s / WIDE_SPEC_TRAIN_STEPS,
+                      "final_loss": float(hist["loss"][-1]),
+                      "final_accept": float(np.mean(hist["p_accept"][-20:]))}
+        _require(bool(np.isfinite(hist["loss"]).all()), f"fused training on sites {name}")
+        if name in ("rough_well_D100", "funnel_D100", "mixture_D80"):
+            dyn, _ = build_dynamics(cfg, tgt)
+            x0 = tgt.sample(_gen(1), cfg.n_chains, device=dev)
+            t = time.perf_counter()
+            _, acc, trace = fd.fused_chain_sampler(dyn, tgt).run(
+                st.params, x0, seed=2, n_mh_steps=WIDE_SPEC_EVAL_STEPS, collect_trace=True)
+            torch.cuda.synchronize()
+            eval_kernel_s = time.perf_counter() - t
+            cov = np.cov(tgt.sample(_gen(7), 20000, device="cpu").numpy().T)
+            ess_k = evaluate_ess(trace, cov)
+            finite = bool(torch.isfinite(trace).all())
+            del trace
+            t = time.perf_counter()
+            _, ptrace = sample_chain(dyn, st.params, x0, WIDE_SPEC_EVAL_STEPS, _gen(3))
+            torch.cuda.synchronize()
+            eval_plain_s = time.perf_counter() - t
+            ess_p = evaluate_ess(ptrace, cov)
+            del ptrace
+            gap = abs(ess_k - ess_p) / max(ess_p, 1e-12)
+            runs[name].update({"eval_steps": WIDE_SPEC_EVAL_STEPS, "eval_kernel_s": eval_kernel_s,
+                               "eval_plain_s": eval_plain_s, "eval_accept": float(acc.mean()),
+                               "ess_kernel_trace": ess_k, "ess_plain": ess_p,
+                               "ess_rel_gap": gap})
+            _require(finite and gap < ESS_GAP, f"eval on sites {name}: {runs[name]}")
+        launch_of[name] = {k: fd.LAUNCHES[k] - before[k]
+                           for k in ("trajectory:sites", "trajectory_bwd:sites", "chain:sites")}
+        runs[name]["launches"] = launch_of[name]
+        print(f"# spec sites: path {name}: " + json.dumps(runs[name]), flush=True)
+    # the chain kernel's launches on the ring's and the rough well's
+    # configurations at hidden 100: their suite rows' cross-checks and grids
+    launch_of = {k: dict(v, **{"chain:sites": row_chain.get(k, v["chain:sites"])})
+                 for k, v in launch_of.items()}
+    for name in WIDE_SPEC_CASES:
+        _require(min(launch_of[name].values()) > 0, f"{name}: {launch_of[name]}")
+    launches = dict(fd.LAUNCHES)
+    out["path"] = {"suite_rows_hidden100": rows, "fused_training_runs": runs,
+                   "launches_suite_rows": launches_rows, "launches": launches,
+                   "wall_s": time.perf_counter() - t_phase}
+    print(f"# spec sites: path ({out['path']['wall_s']:.1f} s): "
+          + json.dumps({"suite_rows_hidden100": rows, "launches": launches}), flush=True)
+    for k in ("trajectory", "trajectory_bwd", "chain"):
+        for spec in ("rough_well", "gmm", "funnel"):
+            _require(launches[f"{k}:{spec}"] > 0, f"{k}:{spec} not launched on the path")
+    _require(launches_rows["chain:sites"] > 0, "the suite rows' cross-checks launched no "
+                                               "chain kernel on sites")
+
+    # (e) the bf16 site trajectory against its plain bf16 version (13a's bars)
+    t_phase = time.perf_counter()
+    inp, x, v, _, _ = inputs["rough_well_D100"]
+    out["bf16_trajectory_vs_plain_rough_well_D100"] = _bf16_traj_compare(
+        fd, dataclasses.replace(inp, cd=torch.bfloat16), inp, x, v,
+        "trajectory bf16 on sites rough_well_D100")
+    print(f"# spec sites: bf16 trajectory kernel vs plain ({time.perf_counter() - t_phase:.1f}"
+          " s): " + json.dumps(out["bf16_trajectory_vs_plain_rough_well_D100"]), flush=True)
+
+    # (f) rows 1j-3l: each launch alone at its case's shape, its plain
+    # version, the bounds
+    t_phase = time.perf_counter()
+    times, rows_out = {}, []
+    src = "l2hmc_tpu_torch/csrc/"
+    steps, plain_steps = 2000, 20
+    for name, (label, spec) in WIDE_SPEC_ROWS_OF.items():
+        inp, x, v, dX, dV = inputs[name]
+        D, H, H2, T = inp.dims
+        n = x.shape[1]
+        blk = inp.block().numel()
+        ops = _ops_of(inp)
+        dl1 = torch.ones((1, n), device=dev)
+        n_grads = sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D
+        t = {"trajectory": _traj_launch_ms(fd, _cuda, inp, x, v, 20),
+             "trajectory_plain": _cuda_time(lambda: fd.trajectory_plain(inp, x, v, False), 3),
+             "trajectory_bwd": _bwd_launch_ms(fd, _cuda, inp, x, v, dX, dV, dl1, 5),
+             "trajectory_bwd_plain": _cuda_time(
+                 lambda: fd.trajectory_vjp_plain(inp, x, v, dX, dV, dl1, False), 1),
+             # its instantiation warmed up by (b) and (d)
+             "chain": _cuda_time(lambda: fd.chain(inp, x, 2, steps, True), 1, warmup=False),
+             f"chain_{plain_steps}": _cuda_time(lambda: fd.chain(inp, x, 2, plain_steps, True), 3),
+             f"chain_plain_{plain_steps}": _cuda_time(  # run at this shape in (b)
+                 lambda: fd.chain_plain(inp, x, 2, plain_steps, collect_trace=True), 1,
+                 warmup=False)}
+        bounds = {"trajectory": traj_bound(D, H, H2, T, n, False, blk, ops),
+                  "trajectory_bwd": traj_bwd_bound(D, H, H2, T, n, False, blk, n_grads, ops),
+                  "chain": chain_bound(D, H, H2, T, n, steps, False, blk, True, ops)}
+        times[name] = {"ms": t, "bound_ms": bounds}
+        shape = (f"{name} D={D} H={H} T={T}, {n} chains, site-parallel (4 chains a block of "
+                 f"256 threads, {traj[name]['prelude_floats_a_chain']} prelude floats a chain)")
+        errs = {"trajectory": max(max(traj[name][w]["max_abs_err_x_v"],
+                                      traj[name][w]["max_abs_err_logdet"])
+                                  for w in ("forward", "backward")),
+                "trajectory_bwd": max(bwd[name][w]["max_abs_err"]
+                                      for w in ("forward", "backward")),
+                "chain": chain_cmp[name]["max_abs_dx_unflipped"]}
+        for num, kernel, line, what in (
+                (1, "trajectory", 645, "one direction, the launch alone"),
+                (2, "trajectory_bwd", 801, "one direction, the launch alone"),
+                (3, "chain", 1103, f"{steps} MH steps, traced; plain_ms over {plain_steps} MH "
+                                   f"steps (the kernel over {plain_steps}: "
+                                   f"{t[f'chain_{plain_steps}']:.4f} ms)")):
+            plain = t[f"chain_plain_{plain_steps}"] if kernel == "chain" else t[f"{kernel}_plain"]
+            rows_out.append({
+                "name": f"{kernel}[{spec}]", "route": "cuda",
+                "source": src + f"{fd._lib_name(kernel, inp)}.cu",
+                "replaces": f"l2hmc_tpu/ops/fused_dynamics.py:{line}",
+                "launches": launch_of[name][f"{kernel}:sites"], "max_abs_err": errs[kernel],
+                "ms": t[kernel], "plain_ms": plain, "bound_ms": bounds[kernel][0],
+                "bound_by": bounds[kernel][1], "library_ms": None, "row": f"{num}{label}",
+                "shape": f"{shape}, {what}"})
+    ptxas = _cuda.build_info.get("ptxas", "")
+    ptx = {k: _ptxas_of(ptxas, entry) for k, entry in (
+        ("trajectory", "16site_traj_kernel"), ("trajectory_bwd", "20site_traj_bwd_kernel"),
+        ("chain", "17site_chain_kernel"))}
+    out["kernel_times"] = {"times": times, "ptxas": ptx}
+    print(f"# spec sites: kernel times ({time.perf_counter() - t_phase:.1f} s): "
+          + json.dumps(out["kernel_times"]), flush=True)
+    report["wide_specs"] = out
+    report["wide_specs_wall_s"] = time.perf_counter() - t_all
+    print(f"# spec sites phase: {report['wide_specs_wall_s']:.1f} s", flush=True)
+    return rows_out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3727,12 +4203,43 @@ def main() -> int:
             out[net] = _tree_map(lambda a: a + 0.03, params[net])
         return out
 
-    # -- setup: build ------------------------------------------------------------
+    # -- setup: the build, in the background ------------------------------------
+    # One nvcc process a source. The conv-net phases (13d, 11d) need none,
+    # and the VAE application's four sources end first, so phases 6, 7 and
+    # 12 run while the L2HMC kernels' sources (the backward kernel's the
+    # longest) still compile, each phase's first launch waiting for its own
+    # library only.
     t0 = time.perf_counter()
-    _cuda.library("trajectory")
-    report["build_s"] = time.perf_counter() - t0
-    print(f"# kernels built in {report['build_s']:.1f} s "
-          f"(nvcc {_cuda.build_info.get('seconds', 0.0):.1f} s)", flush=True)
+    _cuda.start_build()
+
+    # -- 13d and 11d's conv nets, which run no kernel of the port ------------------
+    _clock("phases 13d, 11d")
+    bf16_conv_phase(dev, report)
+    phi4_conv_phase(dev, report)
+
+    _clock("phase 6")
+    # -- 6. the VAE application ------------------------------------------------------
+    with tempfile.TemporaryDirectory() as logdir:
+        vae_rows = vae_phases(dev, report, logdir)
+
+    _clock("phase 7")
+    # -- 7. VAE training -------------------------------------------------------------
+    with tempfile.TemporaryDirectory() as logdir:
+        vae_rows += vae_train_phases(dev, report, logdir)
+
+    _clock("phase 12")
+    # -- 12. bfloat16 operands in the VAE kernels -------------------------------------
+    with tempfile.TemporaryDirectory() as logdir:
+        vae_rows += bf16_vae_phases(dev, report, logdir)
+
+    _cuda.wait_build()
+    report["build_s"] = _cuda.build_info.get("seconds", 0.0)
+    report["build_s_by_source"] = _cuda.build_info.get("seconds_by_source", {})
+    report["build_and_vae_phases_s"] = time.perf_counter() - t0
+    print(f"# kernels built in {report['build_s']:.1f} s beside the VAE phases "
+          f"({report['build_and_vae_phases_s']:.1f} s with them); each source ending at "
+          + json.dumps({k: round(v, 1) for k, v in report["build_s_by_source"].items()}),
+          flush=True)
     ptxas = _cuda.build_info.get("ptxas", "")
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line:
@@ -3745,6 +4252,7 @@ def main() -> int:
     hmc_dyn, _ = build_dynamics(ScgConfig(hmc=True), target)
     hmc_params = hmc_dyn.init_params(_gen(0), eps=hmc_eps, device=dev)
 
+    _clock("phase 1")
     # -- 1. main path --------------------------------------------------------------
     fd.reset_launch_counts()
     t_main = time.perf_counter()
@@ -3796,6 +4304,7 @@ def main() -> int:
     for name in ("trajectory", "chain"):
         _require(launches[name] > 0, f"kernel {name} not launched on the main path")
 
+    _clock("phase 2")
     # -- 2. trajectory kernel vs plain ----------------------------------------------
     t_phase = time.perf_counter()
     icg = targets.ill_conditioned_gaussian(50)
@@ -3862,6 +4371,7 @@ def main() -> int:
     traj_bound_ms, traj_bound_by = traj_bound(D, H, H2, T, 2048, False, inp_scg.block().numel(),
                                               scg_ops)
 
+    _clock("phase 3")
     # -- 3. chain kernel vs plain on the same Philox bits ---------------------------
     # Tolerance: the kernel and its plain version draw identical bits, so an
     # accept decision can differ only where px - u is within the few-ulp gap
@@ -3931,6 +4441,7 @@ def main() -> int:
     print(f"# throughput ({time.perf_counter() - t_phase:.1f} s): "
           + json.dumps(report["throughput"]), flush=True)
 
+    _clock("phase 5")
     # -- 5. training -----------------------------------------------------------------
     # (a) backward-trajectory kernel vs its plain version, on phase 2's cases
     t_phase = time.perf_counter()
@@ -4048,7 +4559,8 @@ def main() -> int:
     # one seed each way, bit for bit, for the three step kinds the bench
     # trains (the reference architecture plain and fused, the best recipe)
     # and 50 MH steps of sample_chain; ms per step each way, the captured
-    # one at steady state (a 100- less a 20-step run, so the capture cancels)
+    # one at steady state (a 50- less a 10-step run, so the capture cancels;
+    # sampling 150 less 25)
     t_phase = time.perf_counter()
     cap = {}
     for name, kw in (("reference_plain", {}), ("reference_fused", dict(fused_train=True)),
@@ -4069,7 +4581,7 @@ def main() -> int:
         cap[name] = {"bit_for_bit": same, "ms_per_step_eager": eager_ms,
                      "ms_per_step_captured": steady_ms(
                          lambda n, kw=kw: train(ScgConfig(n_chains=n_tr, n_steps=n, **kw)),
-                         20, 100)}
+                         10, 50)}
         _require(same, f"captured {name} training differs from eager")
     for name, d_, p_ in (("sample_chain", dyn, params), ("sample_chain_hmc", hmc_dyn, hmc_params)):
         runs = [sample_chain(d_, p_, x0, 50, _gen(cfg.seed + 2), capture=c) for c in (False, True)]
@@ -4082,27 +4594,16 @@ def main() -> int:
                      "ms_per_step_eager": 1e3 * (time.perf_counter() - t) / 50,
                      "ms_per_step_captured": steady_ms(
                          lambda n, d_=d_, p_=p_: sample_chain(d_, p_, x0, n, _gen(cfg.seed + 2)),
-                         50, 300)}
+                         25, 150)}
         _require(same, f"captured {name} differs from eager")
     report["captured_vs_eager"] = cap
     print(f"# captured vs eager ({time.perf_counter() - t_phase:.1f} s): "
           + json.dumps(cap), flush=True)
 
-    # -- 6. the VAE application ------------------------------------------------------
-    with tempfile.TemporaryDirectory() as logdir:
-        vae_rows = vae_phases(dev, report, logdir)
-
-    # -- 7. VAE training -------------------------------------------------------------
-    with tempfile.TemporaryDirectory() as logdir:
-        vae_rows += vae_train_phases(dev, report, logdir)
-
-    # -- 12. bfloat16 operands in the VAE kernels -------------------------------------
-    with tempfile.TemporaryDirectory() as logdir:
-        vae_rows += bf16_vae_phases(dev, report, logdir)
-
+    _clock("phase 9")
     # -- 9. the bench protocol at a cut depth ---------------------------------------
-    # l2hmc_tpu_torch.bench on seed 0 only, 1000 training steps per arm, the
-    # full 2000-step eval and throughput at 8192 chains: its parity gate and
+    # l2hmc_tpu_torch.bench on seed 0 only, BENCH_CUT's training steps and
+    # eval, the throughput at 8192 chains: its parity gate and
     # ESS gap held inside it, both arms' ratios above MIN_ESS_RATIO here
     fd.reset_launch_counts()
     t_phase = time.perf_counter()
@@ -4123,18 +4624,27 @@ def main() -> int:
     for name in ("trajectory", "trajectory_bwd", "chain"):
         _require(bench_launches[name] > 0, f"kernel {name} not launched on the bench path")
 
+    _clock("phase 10")
     # -- 10. the distribution suite ----------------------------------------------
     suite_rows = suite_phases(dev, report)
 
+    _clock("phase 11")
     # -- 11. the phi^4 lattice --------------------------------------------------
     phi4_rows = phi4_phases(dev, report)
 
+    _clock("phase 13")
     # -- 13. bfloat16 operands in kernels 1 and 3 ----------------------------------
     bf16_scg_rows = bf16_scg_phases(dev, report)
 
+    _clock("phase 14")
     # -- 14. kernels 1-2 on sites ----------------------------------------------------
     wide_rows = wide_traj_phases(dev, report)
 
+    _clock("phase 15")
+    # -- 15. the rough well, the mixtures and the funnel on sites ---------------------
+    spec_site_rows = wide_spec_phases(dev, report)
+
+    _clock("the kernels line")
     # -- 8. the kernels line -------------------------------------------------------
     src = "l2hmc_tpu_torch/csrc/"
     kernels = [
@@ -4175,6 +4685,7 @@ def main() -> int:
         *phi4_rows,
         *bf16_scg_rows,
         *wide_rows,
+        *spec_site_rows,
     ]
     report["kernels"] = kernels
     print("# report: " + json.dumps(report))

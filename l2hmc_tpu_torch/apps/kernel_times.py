@@ -22,8 +22,10 @@ at rows 1, 3, 3f and 3h's shapes (keys ending ``_bf16``; null for a tree
 without them); the trajectory and backward kernels past 64 wide, on sites,
 through their wrappers (rows 1f/2f: the lattice at L = 16, 1024 chains;
 1g/2g: L = 32, 256; 1h/2h: icg at hidden 100, 2048; 1i: L = 64 at the
-A_control shape, 256; 1f_bf16; null where a tree's caps refuse them) and the
-fused training step at L = 16 (1024 chains, hidden 32, T = 10); kernel
+A_control shape, 256; 1f_bf16; null where a tree's caps refuse them), rows
+1j-3l on sites (the rough well and the funnel at D = 100, the ring at hidden
+100; null for a tree that refuses them) and the fused training step at L = 16
+(1024 chains, hidden 32, T = 10); kernel
 times by CUDA events, the training steps by the host clock.
 
 With ``--trees``, each directory must hold an ``l2hmc_tpu_torch`` package
@@ -311,13 +313,45 @@ def site_traj_times(dev) -> dict:
     return out
 
 
+def spec_site_times(dev) -> dict:
+    """Rows 1j-3l: the rough well at D = 100, the ring at hidden 100 and the
+    funnel at D = 100 on sites (``suite.WIDE_CASES`` at their chain
+    counts), kernels 1 and 2 through their wrappers, one direction, and the
+    chain kernel over 2000 traced steps; null for a tree without the cases
+    or whose kernels refuse them."""
+    import torch
+
+    from l2hmc_tpu_torch.apps import suite
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+
+    out = {}
+    for label, name in (("j", "rough_well_D100"), ("k", "ring_h100"), ("l", "funnel_D100")):
+        keys = (f"trajectory_1{label}", f"trajectory_bwd_2{label}", f"chain_3{label}")
+        try:
+            inp, x = suite.parity_inputs(name, suite.WIDE_CASES[name].n_chains, dev, seed=32)
+            x = x.contiguous()
+            n = x.shape[1]
+            g = _gen(7)
+            v, dX, dV = (torch.randn(x.shape, generator=g).to(dev) for _ in range(3))
+            dld = torch.ones((1, n), device=dev)
+            for key, fn, reps in (
+                    (keys[0], lambda: fd.trajectory(inp, x, v, False), 20),
+                    (keys[1], lambda: fd.trajectory_vjp(inp, x, v, dX, dV, dld, False), 5),
+                    (keys[2], lambda: fd.chain(inp, x, 2, 2000, True), 1)):
+                out[key] = _cuda_ms(fn, reps)
+        except (AttributeError, KeyError, ValueError):  # no such case, or refused
+            out.update({k: None for k in keys if k not in out})
+        torch.cuda.empty_cache()
+    return out
+
+
 def one(sites_only: bool = False) -> dict:
     import torch
 
     from l2hmc_tpu_torch.ops import _cuda
 
     dev = torch.device("cuda")
-    _cuda.library("trajectory")
+    _cuda.wait_build()  # nothing compiles while the kernels are timed
     out = {"package": os.path.dirname(os.path.dirname(os.path.abspath(_cuda.__file__))),
            "build_dir": _cuda.build_info.get("dir")}
     if not sites_only:
@@ -325,6 +359,7 @@ def one(sites_only: bool = False) -> dict:
         out.update(vae_times(dev))
     out.update(site_times(dev))
     out.update(site_traj_times(dev))
+    out.update(spec_site_times(dev))
     return out
 
 
@@ -357,7 +392,7 @@ def main() -> int:
     ap.add_argument("--trees", nargs="+", help="directories holding l2hmc_tpu_torch")
     ap.add_argument("--build", action="store_true", help="only build the kernels")
     ap.add_argument("--sites", action="store_true",
-                    help="only the site-parallel kernels' rows (3e-3i, 1f-1i, 2f-2h)")
+                    help="only the site-parallel kernels' rows (3e-3i, 1f-1i, 2f-2h, 1j-3l)")
     args = ap.parse_args()
     import torch
 
@@ -374,7 +409,7 @@ def main() -> int:
     if args.build:
         from l2hmc_tpu_torch.ops import _cuda
 
-        _cuda.library("trajectory")
+        _cuda.wait_build()
         return 0
     print(json.dumps(one(args.sites)), flush=True)
     return 0

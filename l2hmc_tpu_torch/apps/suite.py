@@ -17,8 +17,9 @@ JAX runner, by design:
     (``ops.fused_dynamics.kernel_refusal``: hidden widths past 128, a
     ``net_input_fn``, ``eps_mat``, a target with no energy spec); a row it
     cannot serve records the reason as ``fused_cross_check``. A row it can
-    serve runs the kernel's traced eval (icg's at hidden 100 on the kernel's
-    site-parallel configuration), and any failure raises.
+    serve runs the kernel's traced eval, and any failure raises. Past
+    hidden 64 (icg's recipe; any row at ``hidden=100``) the eval runs on the
+    kernel's site-parallel configuration, which takes every energy spec.
   - The fused cross-check runs on a CUDA device, as the JAX one runs on a
     TPU only. ``--fused_hmc`` runs wherever it is asked: through the chain
     kernel on the card, through its plain version (``chain_plain``) on the
@@ -185,6 +186,43 @@ PARITY_CASES: dict[str, ParityCase] = {
                       False, 2048, eps_dim=True, lift=0.001),
 }
 TRAJECTORY_CASES = ("rough_well_easy", "ring", "funnel", "mog2_hmc")
+
+
+def two_component_mixture(dim: int) -> targets_lib.GMM:
+    """A two-component Gaussian mixture in ``dim`` dimensions with full,
+    unequal covariances (0.5 I + 0.5 A_k A_k^T / dim, A_k from a fixed numpy
+    seed), means at +-1.5 / sqrt(dim) along the diagonal (3 apart, so that
+    chains between the modes weigh both) and weights 0.4 and 0.6."""
+    rng = np.random.default_rng(80)
+    mus = np.stack([np.full(dim, 1.5), np.full(dim, -1.5)]) / np.sqrt(dim)
+    a = rng.standard_normal((2, dim, dim)) / np.sqrt(dim)
+    sigmas = 0.5 * np.eye(dim) + 0.5 * a @ np.swapaxes(a, 1, 2)
+    return targets_lib.GMM(mus, sigmas, np.array([0.4, 0.6]))
+
+
+# The energy specs past 64 wide, on the site-parallel configuration of
+# kernels 1-3: the suite rows at icg's recipe width (hidden 100; the ring at
+# D = 2, whose first layer and heads take 2 of a block's 256 threads), the
+# rough well and the funnel at D = 100 (hidden 20, their recipes' width) and
+# a two-component mixture at D = 80. The easy rough well, as in
+# PARITY_CASES; the weights lifted by PARITY_LIFT_WIDE, which keeps S, T and
+# Q O(0.1-1) over inputs 80-100 wide (0.03 drives the trajectories far).
+PARITY_LIFT_WIDE = 0.003
+WIDE_CASES: dict[str, ParityCase] = {
+    "rough_well_h100": ParityCase(
+        lambda: targets_lib.RoughWell(dim=10, eps=0.1, easy=True), 100, 5, 0.05, False, 2048,
+        lift=PARITY_LIFT_WIDE),
+    "ring_h100": ParityCase(
+        lambda: targets_lib.gen_ring(r=2.0, var=0.1, nb_mixtures=4), 100, 10, 0.1, False, 2048,
+        lift=PARITY_LIFT_WIDE),
+    "rough_well_D100": ParityCase(
+        lambda: targets_lib.RoughWell(dim=100, eps=0.1, easy=True), 20, 5, 0.05, False, 2048,
+        lift=PARITY_LIFT_WIDE),
+    "funnel_D100": ParityCase(lambda: targets_lib.GaussianFunnel(dim=100), 20, 10, 0.02, False,
+                              512, lift=PARITY_LIFT_WIDE),
+    "mixture_D80": ParityCase(lambda: two_component_mixture(80), 20, 10, 0.05, False, 512,
+                              lift=PARITY_LIFT_WIDE),
+}
 FUNNEL_PAST_CLIP = (8.5, -8.5, 9.0, -9.0, 12.0, -12.0, 20.0, -20.0)
 # Fused and plain training on the ring, two free runs of 1024 chains from one
 # seed at the recipe's eps (0.2), agree to the SCG bar (rtol 2e-3, atol
@@ -200,8 +238,9 @@ def parity_inputs(case: str, n: int, device, seed: int = 0):
     parity case, from ``seed``: the nets' initial weights lifted (by the
     case's ``lift``) so that no output is zero, states drawn from the
     target, and the funnel's
-    first chains set past its clip with necks at the clipped scale."""
-    c = PARITY_CASES[case]
+    first chains set past its clip with necks at the clipped scale. The
+    case is one of PARITY_CASES or WIDE_CASES."""
+    c = PARITY_CASES[case] if case in PARITY_CASES else WIDE_CASES[case]
     tgt = c.target()
     dyn, _ = build_dynamics(ScgConfig(dim=tgt.dim, hidden=c.hidden, T=c.T, hmc=c.hmc,
                                       eps_dim=c.eps_dim), tgt)
@@ -213,8 +252,8 @@ def parity_inputs(case: str, n: int, device, seed: int = 0):
             params[net] = tree_unflatten(params[net],
                                          [a + c.lift for a in tree_leaves(params[net])])
     x = tgt.sample(_gen(seed + 1), n, device="cpu")
-    if case == "funnel":
-        v = torch.tensor(FUNNEL_PAST_CLIP)
+    if isinstance(tgt, targets_lib.GaussianFunnel):
+        v = torch.tensor(FUNNEL_PAST_CLIP[:n])
         x[:len(v), 0] = v
         x[:len(v), 1:] = torch.exp(torch.clamp(v, -tgt.clip, tgt.clip) / 2)[:, None] * (
             torch.randn((len(v), tgt.dim - 1), generator=_gen(seed + 2)))

@@ -161,8 +161,8 @@ static int launch_chain(const float* params, Dims d, int hmc,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Every energy spec on the lane groups (Phi4 on the sites only) and the
-// site-parallel configuration's specs, with TW operands.
+// Every energy spec on the lane groups (Phi4 on the sites only) and on the
+// site-parallel configuration, with TW operands.
 template <class TW>
 static int chain_entry(const float* params, Dims d, int kind, int hmc,
                        const float* x, float* xo, float* acc, float* trace,
@@ -173,7 +173,7 @@ static int chain_entry(const float* params, Dims d, int kind, int hmc,
                                static_cast<uint32_t>(seed >> 32));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (site_chain(d, kind)) {
-    return with_site_energy(d, kind, [&](auto e) {
+    return with_energy(d, kind, [&](auto e) {
       return launch_site_chain<decltype(e), TW>(params, d, hmc, x, xo, acc,
                                                 trace, scratch, N, K, key, s);
     });
@@ -223,7 +223,8 @@ extern "C" int l2hmc_chain_lanes(int D, int H, int H2) {
 
 // The site-parallel configuration's geometry at these widths, as
 // l2hmc_chain launches it: chains a block, threads a block, bytes of
-// dynamic shared memory a block; 0 where the widths are past its caps.
+// dynamic shared memory a block (on the energy spec kind with nc floats of
+// constants); 0 where the widths are past its caps.
 static bool site_widths(int D, int H, int H2) {
   using namespace l2hmc;
   return D > 0 && D <= kSiteMaxDim && H <= kSiteMaxHidden && H2 <= kSiteMaxHidden;
@@ -234,10 +235,11 @@ extern "C" int l2hmc_chain_site_chains(int D, int H, int H2) {
 extern "C" int l2hmc_chain_site_threads(int D, int H, int H2) {
   return site_widths(D, H, H2) ? l2hmc::kSiteThreads : 0;
 }
-extern "C" int l2hmc_chain_site_smem_bytes(int D, int H, int H2) {
+extern "C" int l2hmc_chain_site_smem_bytes(int D, int H, int H2, int kind, int nc) {
   using namespace l2hmc;
   if (!site_widths(D, H, H2)) return 0;
-  const int hm = site_hm(Dims{D, H, H2, 1});
-  return site_smem_floats(D, hm) * static_cast<int>(sizeof(float));
+  const Dims d{D, H, H2, 1, nc};
+  return site_smem_floats(D, site_hm(d), site_pre_floats(d, kind)) *
+         static_cast<int>(sizeof(float));
 }
 #endif

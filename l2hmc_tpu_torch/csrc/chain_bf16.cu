@@ -1,6 +1,6 @@
 // The chain kernel (chain.cu) with bfloat16 operands in the S/T/Q nets'
 // products: TW = __nv_bfloat16 on the lane groups (every spec but Phi4) and
-// on the site-parallel configuration (Gauss, Phi4; l2hmc_sites.cuh).
+// on the site-parallel configuration (every spec; l2hmc_sites.cuh).
 //
 // Replaces the Pallas kernel _make_chain_kernel with cd = bfloat16
 // (l2hmc_tpu/ops/fused_dynamics.py:1103, _dot_in :151 through _apply_stq

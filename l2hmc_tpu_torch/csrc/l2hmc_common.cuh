@@ -103,13 +103,22 @@ __device__ inline Block load_block(const float* __restrict__ g, float* s,
 //   grad_vjp(B, d, x, dg, dx)   dx += J(x)^T dg, J the Jacobian of grad E
 // The arithmetic is the JAX closures' (l2hmc_tpu/ops/fused_dynamics.py
 // :391-597) and their plain versions' (the specs' build and build_grad_vjp
-// in ops/fused_dynamics.py), sums over i in index order. The specs the
-// site-parallel configuration takes (Gauss, Phi4) also give one site i of
-// one chain's D-vector x, which its kernels keep in shared memory, from the
-// constants c:
-//   grad_at(c, D, x, i)            (grad E(x))_i
-//   energy_at(c, D, x, i)          site i's term of E(x)
-//   grad_vjp_at(c, D, x, dg, i)    (J(x)^T dg)_i
+// in ops/fused_dynamics.py), sums over i in index order. For the
+// site-parallel configuration (l2hmc_sites.cuh), whose kernels keep one
+// chain's D-vector x in shared memory and spread its sites over a block's
+// threads, every spec also gives one site i of it, from the constants c and
+// pre, the chain's prelude (below; unused where the spec has none):
+//   grad_at(c, d, x, i, pre)            (grad E(x))_i
+//   energy_at(c, d, x, i)               site i's term of E(x)
+//   grad_vjp_at(c, d, x, dg, i, pre)    (J(x)^T dg)_i
+// A spec whose site needs more than its neighbours (Funnel: the neck's sum of
+// squares; Gmm: each component's quadratic form) has kPrelude: per chain,
+// before the gradient, the energy or the VJP, the block sums pre_passes(d)
+// times one or (with dg) two sums over the sites i of pre_part (pass k's
+// first sums go to pre[k], its second to pre[pre_passes(d) + k]), then
+// pre_finish turns them into the pre_floats(d) scalars the site functions
+// read; its energy is then a whole chain's, chain_energy(d, pre), not a sum
+// of energy_at.
 
 // 0.5 (x - mu)^T P (x - mu). Constants: P (D x D, row-major) | mu (D).
 struct Gauss {
@@ -166,21 +175,25 @@ struct Gauss {
     return 0.5f * e;
   }
 
-  __device__ static float grad_at(const float* c, int D, const float* x,
-                                 int i) {
+  static constexpr bool kPrelude = false;
+  __device__ static float grad_at(const float* c, Dims d, const float* x,
+                                 int i, const float* = nullptr) {
+    const int D = d.D;
     const float* mu = c + D * D;
     float acc = 0.f;
     for (int j = 0; j < D; ++j) acc = fmaf(c[i * D + j], x[j] - mu[j], acc);
     return acc;
   }
   // 0.5 (x_i - mu_i) (P (x - mu))_i
-  __device__ static float energy_at(const float* c, int D, const float* x,
+  __device__ static float energy_at(const float* c, Dims d, const float* x,
                                    int i) {
-    return 0.5f * ((x[i] - c[D * D + i]) * grad_at(c, D, x, i));
+    return 0.5f * ((x[i] - c[d.D * d.D + i]) * grad_at(c, d, x, i));
   }
   // (P^T dg)_i
-  __device__ static float grad_vjp_at(const float* c, int D, const float*,
-                                     const float* dg, int i) {
+  __device__ static float grad_vjp_at(const float* c, Dims d, const float*,
+                                     const float* dg, int i,
+                                     const float* = nullptr) {
+    const int D = d.D;
     float acc = 0.f;
     for (int j = 0; j < D; ++j) acc = fmaf(c[j * D + i], dg[j], acc);
     return acc;
@@ -246,6 +259,22 @@ struct RoughWell {
       if (i >= d.D) break;
       dx[i] += (1.f - b * cosf(x[i] * r)) * dg[i];
     }
+  }
+
+  // elementwise: a site reads only its own value
+  static constexpr bool kPrelude = false;
+  __device__ static float grad_at(const float* c, Dims, const float* x, int i,
+                                 const float* = nullptr) {
+    return x[i] - c[2] * sinf(x[i] * c[1]);
+  }
+  __device__ static float energy_at(const float* c, Dims, const float* x,
+                                   int i) {
+    return 0.5f * (x[i] * x[i]) + c[0] * cosf(x[i] * c[1]);
+  }
+  __device__ static float grad_vjp_at(const float* c, Dims, const float* x,
+                                     const float* dg, int i,
+                                     const float* = nullptr) {
+    return (1.f - c[3] * cosf(x[i] * c[1])) * dg[i];
   }
 };
 
@@ -395,6 +424,82 @@ struct Gmm {
       dx[i] += a[i] / s + gd * (qs[i] / s);
     }
   }
+
+  // On sites. Pass k of the prelude sums dk.(P_k dk) and, with dg, p_k.dg;
+  // pre_finish leaves per chain the unnormalised weights w_k = exp(lw_k -
+  // max) in pre[0, K), the sums p_k.dg in pre[K, 2K), s = sum_k w_k in
+  // pre[2K], and in pre[2K + 1] the energy -(max + log s) or, with dg,
+  // g.dg = sum_k w_k (p_k.dg) / s. A site recomputes its element of P_k dk
+  // from x in every pass and in the gradient, as the lane form's second
+  // pass does: O(K D) a site and no store of P_k dk, which would take K C D
+  // floats of shared memory (256 KB at D = 4096, K = 4, past what a block
+  // may use beside x', v and g).
+  static constexpr bool kPrelude = true;
+  __host__ __device__ static int pre_passes(Dims d) { return comps(d); }
+  __host__ __device__ static int pre_floats(Dims d) { return 2 * comps(d) + 2; }
+
+  // (P_k (x - mu_k))_i
+  __device__ static float row_at(const float* c, Dims d, int K, int k,
+                                 const float* x, int i) {
+    const int D = d.D;
+    const float* prec = c + D * K + k * D * D;
+    float acc = 0.f;
+    for (int j = 0; j < D; ++j) acc = fmaf(prec[i * D + j], x[j] - c[j * K + k], acc);
+    return acc;
+  }
+  __device__ static void pre_part(const float* c, Dims d, int k, const float* x,
+                                  const float* dg, int i, float& a, float& b) {
+    const int K = comps(d);
+    const float p = row_at(c, d, K, k, x, i);
+    a = fmaf(x[i] - c[i * K + k], p, a);
+    if (dg != nullptr) b = fmaf(p, dg[i], b);
+  }
+  __device__ static void pre_finish(const float* c, Dims d, const float*,
+                                    float* pre, bool vjp) {
+    const int K = comps(d);
+    const float* lc = c + d.D * K + K * d.D * d.D;
+    float m = lc[0] - 0.5f * pre[0];
+    for (int k = 1; k < K; ++k) m = fmaxf(m, lc[k] - 0.5f * pre[k]);
+    float s = 0.f, gd = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float w = expf(lc[k] - 0.5f * pre[k] - m);
+      pre[k] = w;
+      s += w;
+      if (vjp) gd = fmaf(w, pre[K + k], gd);
+    }
+    pre[2 * K] = s;
+    pre[2 * K + 1] = vjp ? gd / s : -(m + logf(s));
+  }
+  __device__ static float chain_energy(Dims d, const float* pre) {
+    return pre[2 * comps(d) + 1];
+  }
+  // sum_k w_k (P_k dk)_i / s
+  __device__ static float grad_at(const float* c, Dims d, const float* x,
+                                 int i, const float* pre) {
+    const int K = comps(d);
+    float g = 0.f;
+    for (int k = 0; k < K; ++k) g += pre[k] * row_at(c, d, K, k, x, i);
+    return g / pre[2 * K];
+  }
+  // sum_k w~_k [(P_k^T dg)_i - (p_k.dg) q_k,i] + (g.dg) sum_k w~_k q_k,i
+  __device__ static float grad_vjp_at(const float* c, Dims d, const float* x,
+                                     const float* dg, int i, const float* pre) {
+    const int K = comps(d), D = d.D;
+    float a = 0.f, qs = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float* prec = c + D * K + k * D * D;
+      float ptd = 0.f, ptk = 0.f;  // (P_k^T dg)_i, (P_k^T dk)_i
+      for (int j = 0; j < D; ++j) {
+        ptd = fmaf(prec[j * D + i], dg[j], ptd);
+        ptk = fmaf(prec[j * D + i], x[j] - c[j * K + k], ptk);
+      }
+      const float q = 0.5f * (row_at(c, d, K, k, x, i) + ptk);
+      a += pre[k] * (ptd - pre[K + k] * q);
+      qs += pre[k] * q;
+    }
+    const float s = pre[2 * K];
+    return a / s + pre[2 * K + 1] * (qs / s);
+  }
 };
 
 // The Gaussian funnel with its clipped energy: v = x_0, w = clip(v, -c, c),
@@ -466,6 +571,40 @@ struct Funnel {
     }
     dx[0] += dg[0] * (is2 + 0.5f * in * S * inv_s) - in * inv_s * xd;
   }
+
+  // On sites. The prelude's one pass sums the neck's x_i^2 (S, pre[0]) and,
+  // with dg, its x_i dg_i (pre[1]); without dg pre_finish puts the chain's
+  // energy in pre[1]. Every site reads v = x_0 from the chain's array.
+  static constexpr bool kPrelude = true;
+  __host__ __device__ static int pre_passes(Dims) { return 1; }
+  __host__ __device__ static int pre_floats(Dims) { return 2; }
+  __device__ static void pre_part(const float*, Dims, int, const float* x,
+                                  const float* dg, int i, float& a, float& b) {
+    if (i == 0) return;
+    a += x[i] * x[i];
+    if (dg != nullptr) b += x[i] * dg[i];
+  }
+  __device__ static void pre_finish(const float* c, Dims, const float* x,
+                                    float* pre, bool vjp) {
+    if (vjp) return;
+    const float v = x[0], w = clip(v, c[1]);
+    pre[1] = 0.5f * (v * v * c[0] + pre[0] * expf(-w) + c[2] * (1.8378770664093453f + w));
+  }
+  __device__ static float chain_energy(Dims, const float* pre) { return pre[1]; }
+  __device__ static float grad_at(const float* c, Dims, const float* x, int i,
+                                 const float* pre) {
+    const float v = x[0], inv_s = expf(-clip(v, c[1]));
+    if (i > 0) return x[i] * inv_s;
+    const float in = (v > -c[1] && v < c[1]) ? 1.f : 0.f;
+    return v * c[0] + 0.5f * in * (c[2] - pre[0] * inv_s);
+  }
+  __device__ static float grad_vjp_at(const float* c, Dims, const float* x,
+                                     const float* dg, int i, const float* pre) {
+    const float v = x[0], inv_s = expf(-clip(v, c[1]));
+    const float in = (v > -c[1] && v < c[1]) ? 1.f : 0.f;
+    if (i > 0) return inv_s * dg[i] - in * x[i] * inv_s * dg[0];
+    return dg[0] * (c[0] + 0.5f * in * pre[0] * inv_s) - in * inv_s * pre[1];
+  }
 };
 
 // The 2-D phi^4 lattice action on the flattened L x L state, D = L L, site
@@ -498,28 +637,30 @@ struct Phi4 {
     up = i < L ? i - L + D : i - L;
   }
 
-  __device__ static float grad_at(const float* c, int D, const float* x,
-                                 int i) {
+  static constexpr bool kPrelude = false;
+  __device__ static float grad_at(const float* c, Dims d, const float* x,
+                                 int i, const float* = nullptr) {
     int r, l, dn, up;
-    nbrs(static_cast<int>(c[2]), D, i, r, l, dn, up);
+    nbrs(static_cast<int>(c[2]), d.D, i, r, l, dn, up);
     const float xi = x[i];
     const float lap = 4.f * xi - x[r] - x[l] - x[dn] - x[up];
     return lap + c[0] * xi + (4.f * c[1]) * xi * xi * xi;
   }
 
-  __device__ static float energy_at(const float* c, int D, const float* x,
+  __device__ static float energy_at(const float* c, Dims d, const float* x,
                                    int i) {
     int r, l, dn, up;
-    nbrs(static_cast<int>(c[2]), D, i, r, l, dn, up);
+    nbrs(static_cast<int>(c[2]), d.D, i, r, l, dn, up);
     const float xi = x[i], a = x[r] - xi, b = x[dn] - xi, x2 = xi * xi;
     return 0.5f * (a * a + b * b) + ((0.5f * c[0]) * x2 + c[1] * (x2 * x2));
   }
 
   // (4 + m2 + 12 lam x_i^2) dg_i - (the sum of dg over site i's neighbours)
-  __device__ static float grad_vjp_at(const float* c, int D, const float* x,
-                                     const float* dg, int i) {
+  __device__ static float grad_vjp_at(const float* c, Dims d, const float* x,
+                                     const float* dg, int i,
+                                     const float* = nullptr) {
     int r, l, dn, up;
-    nbrs(static_cast<int>(c[2]), D, i, r, l, dn, up);
+    nbrs(static_cast<int>(c[2]), d.D, i, r, l, dn, up);
     const float xi = x[i];
     return (4.f + c[0] + (12.f * c[1]) * xi * xi) * dg[i] -
            (dg[r] + dg[l] + dg[dn] + dg[up]);
@@ -531,7 +672,7 @@ struct Phi4 {
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
       if (i >= d.D) break;
-      g[i] = grad_at(B.c, d.D, x, i);
+      g[i] = grad_at(B.c, d, x, i);
     }
   }
 
@@ -541,7 +682,7 @@ struct Phi4 {
 #pragma unroll (C::UD)
     for (int i = 0; i < C::DM; ++i) {
       if (i >= d.D) break;
-      e += energy_at(B.c, d.D, x, i);
+      e += energy_at(B.c, d, x, i);
     }
     return e;
   }

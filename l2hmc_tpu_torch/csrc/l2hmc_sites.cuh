@@ -1,8 +1,9 @@
 // The site-parallel configuration of the L2HMC kernels, for states or S/T/Q
 // nets wider than a lane group holds: D <= kSiteMaxDim (4096, the 64 x 64
 // phi^4 lattice) and hidden widths H, H2 <= kSiteMaxHidden (128, the suite's
-// ill-conditioned Gaussian at hidden 100), past WideLanes' D, H, H2 <= 64.
-// The chain kernel (chain.cu) runs the phi^4 lattice here at every width
+// ill-conditioned Gaussian at hidden 100), past WideLanes' D, H, H2 <= 64,
+// for every energy spec (Gauss, RoughWell, Gmm, Funnel, Phi4). The chain
+// kernel (chain.cu) runs the phi^4 lattice here at every width
 // (site_chain); the trajectory kernel (trajectory.cu) and its backward
 // kernel (trajectory_bwd.cu) run here past 64. All three run the same
 // substep (site_traj_step, below).
@@ -10,8 +11,9 @@
 // Replaces, with chain.cu, the Pallas kernel _make_chain_kernel /
 // FusedChainSampler (l2hmc_tpu/ops/fused_dynamics.py:1103, pallas_call at
 // :1350) at the phi^4 eval's widths (D = 256, 1024 and 4096) and at hidden
-// widths past 64; with trajectory.cu and trajectory_bwd.cu, _make_kernel /
-// FusedDynamics (:645, pallas_call at :718) and _make_bwd_kernel /
+// widths past 64, on every spec (RoughWellEnergy :422, GmmEnergy :446,
+// FunnelEnergy :501 and the rest); with trajectory.cu and trajectory_bwd.cu,
+// _make_kernel / FusedDynamics (:645, pallas_call at :718) and _make_bwd_kernel /
 // DifferentiableFusedDynamics (:801, pallas_call at :1024) at the same
 // widths, whose (D, tile) blocks in VMEM take any width. At dim >= 2048 the
 // JAX sampler builds the chain kernel with
@@ -78,6 +80,17 @@
 // equal the plain version's torch.sum bit for bit; the comparisons state
 // their tolerance.
 //
+// The energy specs. A site of Gauss, RoughWell or Phi4 needs only the
+// chain's state in shared memory (Gauss a row of P, Phi4 its neighbours).
+// Funnel's and Gmm's need per-chain sums first (the neck's sum of squares;
+// each component's quadratic form, from which the mixture's weights): their
+// prelude (site_prelude) takes those sums over the sites by the same fixed-
+// order block sums, once before each gradient, each Hamiltonian and each
+// gradient VJP, and leaves (C, P) scalars in shared memory (P =
+// site_pre_floats: 2 for Funnel, 2K + 2 for a K-component Gmm) that every
+// site reads. Their energy is then a chain's, not a sum over sites: the
+// mixture's -logsumexp is not one.
+//
 // A substep's four applications run vnet, xnet, xnet, vnet in both
 // directions; only the masks' roles, the update formulas and the step
 // index differ, so the chains of a tile, each with its own direction, run
@@ -110,14 +123,22 @@ inline int site_hm(Dims d) {
                                                        : kSiteMaxHidden;
 }
 
+// Floats of the prelude a chain of spec `kind` keeps (site_prelude): 0 for
+// a spec without one.
+__host__ __device__ inline int site_pre_floats(Dims d, int kind) {
+  return kind == Gmm::kKind      ? Gmm::pre_floats(d)
+         : kind == Funnel::kKind ? Funnel::pre_floats(d)
+                                 : 0;
+}
+
 // Floats of dynamic shared memory a block uses at state width D with
-// buffers of HM hidden units: at D = 4096, 49,152 for x', v, g and 2,668
-// (HM = 64) or 5,228 (HM = 128) for the rest, 207,280 and 217,520 bytes of
-// the 232,448 a block may use.
-__host__ __device__ inline int site_smem_floats(int D, int HM) {
+// buffers of HM hidden units and P prelude floats a chain: at D = 4096,
+// 49,152 for x', v, g and 2,668 (HM = 64) or 5,228 (HM = 128) for the rest,
+// 207,280 and 217,520 bytes of the 232,448 a block may use, and 4 C P more.
+__host__ __device__ inline int site_smem_floats(int D, int HM, int P) {
   const int C = kSiteChains;
   return 3 * C * D + kSiteWarps * C * HM + 2 * C * HM + kSiteWarps * 3 * C +
-         3 * C;
+         3 * C + C * P;
 }
 
 template <int HM>
@@ -126,7 +147,19 @@ struct SiteSmem {
   float *red;         // (warps, C, HM): the first layer's partial sums
   float *h, *h2;      // (C, HM): the two hidden layers
   float *sred, *tot;  // (warps, 3C), (3C): the chains' sums
+  float *pre;         // (C, P): the spec's prelude
 };
+
+// What a prelude uses: block_sums' partials and results (at least (warps,
+// 2C) and 2C floats) and the (C, P) prelude.
+struct SiteScratch {
+  float *sred, *tot, *pre;
+};
+
+template <int HM>
+__device__ inline SiteScratch scratch_of(const SiteSmem<HM>& s) {
+  return SiteScratch{s.sred, s.tot, s.pre};
+}
 
 template <int HM>
 __device__ inline SiteSmem<HM> site_smem(float* p, int D) {
@@ -140,29 +173,64 @@ __device__ inline SiteSmem<HM> site_smem(float* p, int D) {
   s.h2 = s.h + C * HM;
   s.sred = s.h2 + C * HM;
   s.tot = s.sred + kSiteWarps * 3 * C;
+  s.pre = s.tot + 3 * C;
   return s;
 }
 
-// Block-wide sums of each thread's V values into s.tot, in a fixed order: a
-// warp's lanes by a butterfly (lane 0's result), then the warps in order.
-// Every thread calls it; it synchronises.
-template <int V, int HM>
-__device__ inline void site_sums(float (&v)[V], const SiteSmem<HM>& s) {
+// Block-wide sums of each thread's V values into tot, in a fixed order: a
+// warp's lanes by a butterfly (lane 0's result), then the warps in order
+// (sred: (warps, V) partials). Every thread calls it; it synchronises.
+template <int V>
+__device__ inline void block_sums(float (&v)[V], float* sred, float* tot) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < V; ++k) {
     float a = v[k];
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-    if (lane == 0) s.sred[warp * V + k] = a;
+    if (lane == 0) sred[warp * V + k] = a;
   }
   __syncthreads();
   if (threadIdx.x < V) {
     float t = 0.f;
-    for (int w = 0; w < kSiteWarps; ++w) t += s.sred[w * V + threadIdx.x];
-    s.tot[threadIdx.x] = t;
+    for (int w = 0; w < kSiteWarps; ++w) t += sred[w * V + threadIdx.x];
+    tot[threadIdx.x] = t;
   }
   __syncthreads();
+}
+
+// The prelude of spec En for the tile's states x ((C, D)) and, in the VJP,
+// the cotangents dg ((C, D), else null): pre_passes block sums of the
+// sites' pre_part, each through block_sums, then pre_finish by one thread a
+// chain, into sc.pre. Nothing for a spec without one. Every thread calls
+// it; it synchronises.
+template <class En>
+__device__ inline void site_prelude(const Block& B, Dims d, const float* x,
+                                    const float* dg, const SiteScratch& sc) {
+  if constexpr (En::kPrelude) {
+    constexpr int C = kSiteChains;
+    const int K = En::pre_passes(d), P = En::pre_floats(d);
+    for (int k = 0; k < K; ++k) {
+      float part[2 * C];
+#pragma unroll
+      for (int q = 0; q < 2 * C; ++q) part[q] = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float* dgc = dg == nullptr ? nullptr : dg + c * d.D;
+        for (int i = threadIdx.x; i < d.D; i += kSiteThreads)
+          En::pre_part(B.c, d, k, x + c * d.D, dgc, i, part[c], part[C + c]);
+      }
+      block_sums(part, sc.sred, sc.tot);
+      if (threadIdx.x < C) {
+        sc.pre[threadIdx.x * P + k] = sc.tot[threadIdx.x];
+        if (dg != nullptr) sc.pre[threadIdx.x * P + K + k] = sc.tot[C + threadIdx.x];
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < C)
+      En::pre_finish(B.c, d, x + threadIdx.x * d.D, sc.pre + threadIdx.x * P, dg != nullptr);
+    __syncthreads();
+  }
 }
 
 // The state arrays a net application reads and writes ((C, D) each, in
@@ -335,12 +403,28 @@ __device__ inline void site_heads(const Block& B, const Net& w, Dims d,
   __syncthreads();
 }
 
-// g <- grad E(x) for the tile's chains ((C, D) each).
+// g <- grad E(x) for the tile's chains ((C, D) each), after the prelude.
 template <class En>
-__device__ inline void site_grad(const Block& B, Dims d, const float* x, float* g) {
+__device__ inline void site_grad(const Block& B, Dims d, const float* x, float* g,
+                                 const SiteScratch& sc) {
+  site_prelude<En>(B, d, x, nullptr, sc);
+  const int P = site_pre_floats(d, En::kKind);
   for (int c = 0; c < kSiteChains; ++c)
     for (int i = threadIdx.x; i < d.D; i += kSiteThreads)
-      g[c * d.D + i] = En::grad_at(B.c, d.D, x + c * d.D, i);
+      g[c * d.D + i] = En::grad_at(B.c, d, x + c * d.D, i, sc.pre + c * P);
+  __syncthreads();
+}
+
+// dx += J(x)^T dg for the tile's chains ((C, D) each), J the Jacobian of
+// grad E, after the prelude at (x, dg).
+template <class En>
+__device__ inline void site_grad_vjp(const Block& B, Dims d, const float* x, const float* dg,
+                                     float* dx, const SiteScratch& sc) {
+  site_prelude<En>(B, d, x, dg, sc);
+  const int P = site_pre_floats(d, En::kKind);
+  for (int c = 0; c < kSiteChains; ++c)
+    for (int i = threadIdx.x; i < d.D; i += kSiteThreads)
+      dx[c * d.D + i] += En::grad_vjp_at(B.c, d, x + c * d.D, dg + c * d.D, i, sc.pre + c * P);
   __syncthreads();
 }
 
@@ -364,27 +448,33 @@ __device__ inline void site_traj_step(const Block& B, Dims d, bool hmc,
   site_heads<2, HM>(B, B.xnet, d, hmc, rev, step, s.h2, io, ld);
   if (!hmc) site_hidden<TW, HM>(B.xnet, d, s.v, s.g, step, s.red, s.h, s.h2);
   site_heads<3, HM>(B, B.xnet, d, hmc, rev, step, s.h2, io, ld);
-  site_grad<En>(B, d, s.xp, s.g);
+  site_grad<En>(B, d, s.xp, s.g, scratch_of(s));
   if (!hmc) site_hidden<TW, HM>(B.vnet, d, s.xp, s.g, step, s.red, s.h, s.h2);
   site_heads<4, HM>(B, B.vnet, d, hmc, rev, step, s.h2, io, ld);
 }
 
 // This thread's partial sums of E(x') and of v . v for each chain into
-// part[c], part[C + c], and ld into part[2C + c].
+// part[c], part[C + c], and ld into part[2C + c]; a spec with a prelude puts
+// each chain's whole energy in thread 0's part. Every thread calls it; it
+// synchronises where the spec has a prelude.
 template <class En, int HM>
 __device__ inline void site_hamiltonian_parts(const Block& B, Dims d,
                                               const SiteSmem<HM>& s,
                                               const float (&ld)[kSiteChains],
                                               float (&part)[3 * kSiteChains]) {
   constexpr int C = kSiteChains;
+  site_prelude<En>(B, d, s.xp, nullptr, scratch_of(s));
+  const int P = site_pre_floats(d, En::kKind);
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     float en = 0.f, kin = 0.f;
     for (int i = threadIdx.x; i < d.D; i += kSiteThreads) {
       const float vi = s.v[c * d.D + i];
-      en += En::energy_at(B.c, d.D, s.xp + c * d.D, i);
+      if constexpr (!En::kPrelude) en += En::energy_at(B.c, d, s.xp + c * d.D, i);
       kin = fmaf(vi, vi, kin);
     }
+    if constexpr (En::kPrelude)
+      en = threadIdx.x == 0 ? En::chain_energy(d, s.pre + c * P) : 0.f;
     part[c] = en;
     part[C + c] = kin;
     part[2 * C + c] = ld[c];
@@ -453,12 +543,12 @@ __global__ void __launch_bounds__(kSiteThreads) site_chain_kernel(
 #pragma unroll
     for (int c = 0; c < C; ++c) ld[c] = 0.f;
     site_hamiltonian_parts<En>(B, d, s, ld, part);
-    site_sums(part, s);
+    block_sums(part, s.sred, s.tot);
     float h0[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) h0[c] = s.tot[c] + 0.5f * s.tot[C + c];
 
-    site_grad<En>(B, d, s.xp, s.g);
+    site_grad<En>(B, d, s.xp, s.g, scratch_of(s));
     for (int t = 0; t < d.T; ++t) {
       int step[C];
 #pragma unroll
@@ -468,7 +558,7 @@ __global__ void __launch_bounds__(kSiteThreads) site_chain_kernel(
 
     // H(x', v') and the log-det, then the accept: the same in every thread
     site_hamiltonian_parts<En>(B, d, s, ld, part);
-    site_sums(part, s);
+    block_sums(part, s.sred, s.tot);
     bool acc[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -547,13 +637,14 @@ __host__ __device__ inline bool site_vjp_arrays_in_smem(int D) {
   return D <= kSiteVjpSmemDim;
 }
 
-// Floats of dynamic shared memory the backward kernel's block uses: at
-// D = 1024, 45,568 (HM = 64) or 50,176 (HM = 128), 182,272 and 200,704
-// bytes; past it 4,608 or 9,216 floats (the buffers alone).
-__host__ __device__ inline int site_vjp_smem_floats(int D, int HM) {
+// Floats of dynamic shared memory the backward kernel's block uses with P
+// prelude floats a chain: at D = 1024, 45,568 (HM = 64) or 50,176
+// (HM = 128), 182,272 and 200,704 bytes; past it 4,608 or 9,216 floats (the
+// buffers alone); and C P more.
+__host__ __device__ inline int site_vjp_smem_floats(int D, int HM, int P) {
   const int C = kSiteChains;
   const int arrays = site_vjp_arrays_in_smem(D) ? kSiteVjpArrays * C * D : 0;
-  return arrays + kSiteWarps * C * HM + 10 * C * HM;
+  return arrays + kSiteWarps * C * HM + 10 * C * HM + C * P;
 }
 
 template <int HM>
@@ -562,6 +653,10 @@ struct SiteVjpSmem {
   float* red;        // (warps, C, HM): partial sums over sites
   float *h, *h2;     // (4, C, HM) each: the applications' hidden layers
   float *dz1, *dz2;  // (C, HM): a net's hidden-layer cotangents
+  // the prelude's block sums run in red, free wherever a prelude runs (in a
+  // gradient, and before the gradient VJP, after the first layer's VJP has
+  // read red's partials); its (C, P) scalars follow dz2
+  SiteScratch sc;
 };
 
 // The layout at shared memory p, the (C, D) arrays at glob (the block's
@@ -581,6 +676,7 @@ __device__ inline SiteVjpSmem<HM> site_vjp_smem(float* p, float* glob, int D) {
   s.h2 = s.h + 4 * C * HM;
   s.dz1 = s.h2 + 4 * C * HM;
   s.dz2 = s.dz1 + C * HM;
+  s.sc = SiteScratch{s.red, s.red + kSiteWarps * 2 * C, s.dz2 + C * HM};
   return s;
 }
 
@@ -836,13 +932,7 @@ __device__ inline void site_app_vjp(const Block& B, Dims d, bool hmc, bool rev,
     }
     __syncthreads();
   }
-  if (VNET) {
-    // through the energy gradient at the application's x: dx += J^T dg
-    for (int c = 0; c < C; ++c)
-      for (int i = threadIdx.x; i < d.D; i += kSiteThreads)
-        s.dx[c * d.D + i] += En::grad_vjp_at(B.c, d.D, a + c * d.D, s.dg + c * d.D, i);
-    __syncthreads();
-  }
+  if (VNET) site_grad_vjp<En>(B, d, a, s.dg, s.dx, s.sc);  // through the energy gradient
 }
 
 // VJP of one substep (step, direction rev) at the input (s.x, s.v) for the
@@ -868,7 +958,7 @@ __device__ inline void site_substep_vjp(const Block& B, Dims d, bool hmc, bool r
   }
   auto hid = [&](int app) { return s.h + app * C * HM; };
   auto hid2 = [&](int app) { return s.h2 + app * C * HM; };
-  site_grad<En>(B, d, s.x, s.g1);
+  site_grad<En>(B, d, s.x, s.g1, s.sc);
   if (!hmc) site_hidden<float, HM>(B.vnet, d, s.x, s.g1, steps, s.red, hid(0), hid2(0));
   site_heads<1, HM>(B, B.vnet, d, hmc, revs, steps, hid2(0),
                     SiteIO{s.x, nullptr, s.v, s.vh, s.g1, s.dg}, ld);
@@ -878,7 +968,7 @@ __device__ inline void site_substep_vjp(const Block& B, Dims d, bool hmc, bool r
   if (!hmc) site_hidden<float, HM>(B.xnet, d, s.vh, s.dg, steps, s.red, hid(2), hid2(2));
   site_heads<3, HM>(B, B.xnet, d, hmc, revs, steps, hid2(2),
                     SiteIO{s.y, s.xo, s.vh, nullptr, nullptr, nullptr}, ld);
-  site_grad<En>(B, d, s.xo, s.g2);
+  site_grad<En>(B, d, s.xo, s.g2, s.sc);
   if (!hmc) site_hidden<float, HM>(B.vnet, d, s.xo, s.g2, steps, s.red, hid(3), hid2(3));
   site_app_vjp<4, En, HM>(B, d, hmc, rev, step, s, dl, row, nf);
   site_app_vjp<3, En, HM>(B, d, hmc, rev, step, s, dl, row, nf);
@@ -896,28 +986,14 @@ inline bool site_chain(Dims d, int kind) {
   return p == 3 || (p == 2 && kind == Phi4::kKind);
 }
 
-// Calls f(En{}) with the spec of `kind` among those the site-parallel
-// configuration takes (Gauss, Phi4); cudaErrorInvalidValue for
-// another kind or constants that do not fit it.
-template <class F>
-inline int with_site_energy(Dims d, int kind, F&& f) {
-  const int bad = static_cast<int>(cudaErrorInvalidValue);
-  switch (kind) {
-    case Gauss::kKind:
-      return Gauss::fits(d) ? f(Gauss{}) : bad;
-    case Phi4::kKind:
-      return Phi4::fits(d) ? f(Phi4{}) : bad;
-    default:
-      return bad;
-  }
-}
-
 template <class En, int HM, class TW>
 static int launch_site_chain_hm(const float* params, Dims d, int hmc,
                                 const float* x, float* xo, float* acc,
                                 float* trace, float* xs, int N, int K,
                                 uint2 key, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(site_smem_floats(d.D, HM)) * sizeof(float);
+  const size_t smem =
+      static_cast<size_t>(site_smem_floats(d.D, HM, site_pre_floats(d, En::kKind))) *
+      sizeof(float);
   cudaError_t e = allow_smem(site_chain_kernel<En, HM, TW>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (N + kSiteChains - 1) / kSiteChains;

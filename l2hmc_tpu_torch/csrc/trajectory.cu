@@ -38,8 +38,8 @@
 // of 256 threads, x', v and g in shared memory (the chain kernel's budget,
 // 212.4 KB at D = 4096 and hidden 128), the weights read through the L2,
 // the launch's one direction in every chain, and the log-det reduced by
-// fixed-order warp trees. The Gauss and Phi4 specs run there (the specs with
-// per-site versions), as in the chain kernel.
+// fixed-order warp trees. Every spec runs there, as in the chain kernel
+// (Funnel's and Gmm's gradients after their per-chain prelude).
 //
 // Operands: TW, float here; trajectory_bf16.cu compiles this file again for
 // TW = __nv_bfloat16 (the JAX kernel's cd = bfloat16) in a translation unit
@@ -133,14 +133,14 @@ __global__ void __launch_bounds__(kSiteThreads) site_traj_kernel(
     s.v[c * d.D + i] = vin[i * sN + n[c]];
   }
   __syncthreads();
-  site_grad<En>(B, d, s.xp, s.g);
+  site_grad<En>(B, d, s.xp, s.g, scratch_of(s));
   for (int t = 0; t < d.T; ++t) {
     int step[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) step[c] = reverse ? d.T - 1 - t : t;
     site_traj_step<En, HM, TW>(B, d, hmc != 0, rev, step, s, l);
   }
-  site_sums(l, s);
+  block_sums(l, s.sred, s.tot);
   for (int p = threadIdx.x; p < C * d.D; p += kSiteThreads) {
     const int c = p % C, i = p / C;
     if (live[c]) {
@@ -155,7 +155,9 @@ template <class En, int HM, class TW>
 static int launch_site_traj_hm(const float* params, Dims d, int reverse, int hmc,
                                const float* x, const float* v, float* xo,
                                float* vo, float* ld, int N, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(site_smem_floats(d.D, HM)) * sizeof(float);
+  const size_t smem =
+      static_cast<size_t>(site_smem_floats(d.D, HM, site_pre_floats(d, En::kKind))) *
+      sizeof(float);
   cudaError_t e = allow_smem(site_traj_kernel<En, HM, TW>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (N + kSiteChains - 1) / kSiteChains;
@@ -164,8 +166,8 @@ static int launch_site_traj_hm(const float* params, Dims d, int reverse, int hmc
   return static_cast<int>(cudaGetLastError());
 }
 
-// Every energy spec on both lane configurations, and past them the
-// site-parallel configuration's specs, with TW operands.
+// Every energy spec on both lane configurations and, past them, on the
+// site-parallel configuration, with TW operands.
 template <class TW>
 static int trajectory_entry(const float* params, Dims d, int kind, int reverse,
                             int hmc, const float* x, const float* v, float* xo,
@@ -173,7 +175,7 @@ static int trajectory_entry(const float* params, Dims d, int kind, int reverse,
   if (N <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (pick_lanes(d) == 3) {
-    return with_site_energy(d, kind, [&](auto e) {
+    return with_energy(d, kind, [&](auto e) {
       using En = decltype(e);
       if (site_hm(d) == WideLanes::HM)
         return launch_site_traj_hm<En, WideLanes::HM, TW>(params, d, reverse, hmc, x, v,
@@ -207,7 +209,8 @@ extern "C" int l2hmc_trajectory(const float* params, int D, int H, int H2,
 
 // The site-parallel form's geometry at these widths, as l2hmc_trajectory
 // launches it: chains a block, threads a block, bytes of dynamic shared
-// memory a block; 0 where the widths are not past 64 or past its caps.
+// memory a block (on the energy spec kind with nc floats of constants); 0
+// where the widths are not past 64 or past its caps.
 static bool traj_on_sites(int D, int H, int H2) {
   return l2hmc::pick_lanes(l2hmc::Dims{D, H, H2, 1}) == 3;
 }
@@ -217,9 +220,11 @@ extern "C" int l2hmc_trajectory_site_chains(int D, int H, int H2) {
 extern "C" int l2hmc_trajectory_site_threads(int D, int H, int H2) {
   return traj_on_sites(D, H, H2) ? l2hmc::kSiteThreads : 0;
 }
-extern "C" int l2hmc_trajectory_site_smem_bytes(int D, int H, int H2) {
+extern "C" int l2hmc_trajectory_site_smem_bytes(int D, int H, int H2, int kind, int nc) {
   using namespace l2hmc;
   if (!traj_on_sites(D, H, H2)) return 0;
-  return site_smem_floats(D, site_hm(Dims{D, H, H2, 1})) * static_cast<int>(sizeof(float));
+  const Dims d{D, H, H2, 1, nc};
+  return site_smem_floats(D, site_hm(d), site_pre_floats(d, kind)) *
+         static_cast<int>(sizeof(float));
 }
 #endif

@@ -1,6 +1,6 @@
 // The trajectory kernel (trajectory.cu) with bfloat16 operands in the S/T/Q
 // nets' products: TW = __nv_bfloat16, every energy spec on both lane
-// configurations, and past 64 wide the site-parallel configuration's specs
+// configurations and, past 64 wide, on the site-parallel configuration
 // (site_traj_kernel).
 //
 // Replaces the Pallas kernel _make_kernel with cd = bfloat16

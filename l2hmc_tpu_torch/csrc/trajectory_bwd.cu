@@ -42,7 +42,9 @@
 // Past 64 wide (states up to 4096, the 64 x 64 phi^4 lattice, or hidden
 // widths up to 128) site_traj_bwd_kernel runs the VJP on the site-parallel
 // configuration (l2hmc_sites.cuh: site_substep_vjp), a tile of 4 chains a
-// block of 256 threads, for the Gauss and Phi4 specs. Its forward sweep
+// block of 256 threads, for every spec: this source instantiates it for the
+// Gauss and Phi4 specs and trajectory_bwd_specs.cu, which compiles this file
+// again, for RoughWell, Gmm and Funnel (below). Its forward sweep
 // (site_traj_step, the trajectory kernel's substep) writes the tile's
 // boundary states to a (T, 2, C, D) scratch of its own; the reverse sweep
 // recomputes each substep's intermediates into shared memory (past D = 1024
@@ -221,10 +223,10 @@ __global__ void __launch_bounds__(kSiteThreads) site_traj_bwd_kernel(
   }
   __syncthreads();
 
-  // the forward sweep: each substep's input to the boundary scratch
-  // (the block sums of the chain kernel's SiteSmem are not used here)
-  const SiteSmem<HM> f{s.x, s.v, s.g1, s.red, s.h, s.h2, nullptr, nullptr};
-  site_grad<En>(B, d, s.x, s.g1);
+  // the forward sweep: each substep's input to the boundary scratch (of
+  // the chain kernel's SiteSmem block sums, only the prelude's, in s.sc)
+  const SiteSmem<HM> f{s.x, s.v, s.g1, s.red, s.h, s.h2, s.sc.sred, s.sc.tot, s.sc.pre};
+  site_grad<En>(B, d, s.x, s.g1, s.sc);
   for (int t = 0; t < d.T; ++t) {
     float* const bk = bn + static_cast<size_t>(2 * t) * CD;
     for (int p = threadIdx.x; p < CD; p += kSiteThreads) {
@@ -264,7 +266,9 @@ static int launch_site_traj_bwd(const float* params, Dims d, int reverse, int hm
                                 const float* dV, const float* dld, float* dx,
                                 float* dv, float* grads, float* scratch, int N,
                                 cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(site_vjp_smem_floats(d.D, HM)) * sizeof(float);
+  const size_t smem =
+      static_cast<size_t>(site_vjp_smem_floats(d.D, HM, site_pre_floats(d, En::kKind))) *
+      sizeof(float);
   cudaError_t e = allow_smem(site_traj_bwd_kernel<En, HM>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int P = 2 * net_floats(d) + d.D;
@@ -304,8 +308,44 @@ static int launch_trajectory_bwd(
   return static_cast<int>(cudaGetLastError());
 }
 
+// The specs whose site kernels this translation unit instantiates: Gauss
+// and Phi4 here, RoughWell, Gmm and Funnel in trajectory_bwd_specs.cu
+// (L2HMC_BWD_SPECS_UNIT). Each site instantiation took nvcc ~20 s, and ten
+// in one source (five specs, two widths) made it the build's longest by
+// ~150 s; in two sources they build beside each other. The kernels are the
+// same templates either way; the host picks the library by the spec.
+template <class En>
+constexpr bool kUnitSite =
+#ifdef L2HMC_BWD_SPECS_UNIT
+    !(std::is_same_v<En, Gauss> || std::is_same_v<En, Phi4>);
+#else
+    std::is_same_v<En, Gauss> || std::is_same_v<En, Phi4>;
+#endif
+
+// The VJP on sites for this unit's specs; cudaErrorInvalidValue for another.
+static int trajectory_bwd_sites(const float* params, Dims d, int kind, int reverse, int hmc,
+                                const float* x, const float* v, const float* dX,
+                                const float* dV, const float* dld, float* dx, float* dv,
+                                float* grads, float* scratch, int N, cudaStream_t s) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (d.D > kSiteVjpMaxDim) return bad;
+  return with_energy(d, kind, [&](auto e) {
+    using En = decltype(e);
+    if constexpr (!kUnitSite<En>) {
+      return bad;
+    } else {
+      if (site_hm(d) == WideLanes::HM)
+        return launch_site_traj_bwd<En, WideLanes::HM>(params, d, reverse, hmc, x, v, dX, dV,
+                                                       dld, dx, dv, grads, scratch, N, s);
+      return launch_site_traj_bwd<En, kSiteMaxHidden>(params, d, reverse, hmc, x, v, dX, dV,
+                                                      dld, dx, dv, grads, scratch, N, s);
+    }
+  });
+}
+
 }  // namespace l2hmc
 
+#ifndef L2HMC_BWD_SPECS_UNIT
 // Plain C entry point (loaded with ctypes). Pointers are device pointers to
 // float32: params (the packed block, with nc floats of the energy spec's
 // constants; kind as in l2hmc_trajectory); x, v, dX, dV, dx, dv as (D, N); dld as
@@ -314,8 +354,9 @@ static int launch_trajectory_bwd(
 // floats on the lane groups, and past 64 wide, on the sites, of
 // B (P + 2 T C D) with C = l2hmc_trajectory_bwd_site_chains and
 // B = ceil(N / C) (the blocks' rows and boundary states), and past D = 1024
-// B 10 C D more (the blocks' intermediates). Returns a cudaError_t as int;
-// 0 means both launches were accepted.
+// B 10 C D more (the blocks' intermediates). On sites it takes the Gauss and
+// Phi4 specs; l2hmc_trajectory_bwd_specs (trajectory_bwd_specs.cu) the
+// others. Returns a cudaError_t as int; 0 means both launches were accepted.
 extern "C" int l2hmc_trajectory_bwd(const float* params, int D, int H, int H2,
                                     int T, int kind, int nc, int reverse,
                                     int hmc, const float* x, const float* v,
@@ -327,17 +368,9 @@ extern "C" int l2hmc_trajectory_bwd(const float* params, int D, int H, int H2,
   const Dims d{D, H, H2, T, nc};
   if (N <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pick_lanes(d) == 3) {
-    if (d.D > kSiteVjpMaxDim) return static_cast<int>(cudaErrorInvalidValue);
-    return with_site_energy(d, kind, [&](auto e) {
-      using En = decltype(e);
-      if (site_hm(d) == WideLanes::HM)
-        return launch_site_traj_bwd<En, WideLanes::HM>(params, d, reverse, hmc, x, v, dX,
-                                                       dV, dld, dx, dv, grads, scratch, N, s);
-      return launch_site_traj_bwd<En, kSiteMaxHidden>(params, d, reverse, hmc, x, v, dX, dV,
-                                                      dld, dx, dv, grads, scratch, N, s);
-    });
-  }
+  if (pick_lanes(d) == 3)
+    return trajectory_bwd_sites(params, d, kind, reverse, hmc, x, v, dX, dV, dld, dx, dv,
+                                grads, scratch, N, s);
   return dispatch<ScgLanes>(d, kind, [&](auto c, auto e) {
     return launch_trajectory_bwd<decltype(c), decltype(e)>(
         params, d, reverse, hmc, x, v, dX, dV, dld, dx, dv, grads, scratch, N,
@@ -347,9 +380,9 @@ extern "C" int l2hmc_trajectory_bwd(const float* params, int D, int H, int H2,
 
 // The site-parallel form's geometry at these widths, as
 // l2hmc_trajectory_bwd launches it: chains a block, threads a block, bytes
-// of dynamic shared memory a block (the intermediates' (10, C, D) global
-// scratch past D = 1024 not counted); 0 where the widths are not past 64 or
-// past its caps.
+// of dynamic shared memory a block (on the energy spec kind with nc floats
+// of constants; the intermediates' (10, C, D) global scratch past D = 1024
+// not counted); 0 where the widths are not past 64 or past its caps.
 static bool bwd_on_sites(int D, int H, int H2) {
   using namespace l2hmc;
   return pick_lanes(Dims{D, H, H2, 1}) == 3 && D <= kSiteVjpMaxDim;
@@ -360,8 +393,11 @@ extern "C" int l2hmc_trajectory_bwd_site_chains(int D, int H, int H2) {
 extern "C" int l2hmc_trajectory_bwd_site_threads(int D, int H, int H2) {
   return bwd_on_sites(D, H, H2) ? l2hmc::kSiteThreads : 0;
 }
-extern "C" int l2hmc_trajectory_bwd_site_smem_bytes(int D, int H, int H2) {
+extern "C" int l2hmc_trajectory_bwd_site_smem_bytes(int D, int H, int H2, int kind, int nc) {
   using namespace l2hmc;
   if (!bwd_on_sites(D, H, H2)) return 0;
-  return site_vjp_smem_floats(D, site_hm(Dims{D, H, H2, 1})) * static_cast<int>(sizeof(float));
+  const Dims d{D, H, H2, 1, nc};
+  return site_vjp_smem_floats(D, site_hm(d), site_pre_floats(d, kind)) *
+         static_cast<int>(sizeof(float));
 }
+#endif

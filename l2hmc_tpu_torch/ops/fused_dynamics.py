@@ -58,10 +58,11 @@ vector-Jacobian product.
 
 Widths: up to 64 (states and hidden widths) the kernels run a chain on a
 lane group (``csrc/l2hmc_lanes.cuh``); past 64, on the site-parallel
-configuration (``csrc/l2hmc_sites.cuh``), a tile of chains a block, for the
-specs that have per-site versions (Gaussian, phi^4): states up to 4096
-wide (the 64 x 64 phi^4 lattice) and hidden widths up to 128
-(``trajectory_on_sites``, ``trajectory_site_geometry``; ``site_geometry``).
+configuration (``csrc/l2hmc_sites.cuh``), a tile of chains a block, for
+every spec (the funnel and the mixtures after a per-chain prelude of block
+sums, ``site_prelude_floats``): states up to 4096 wide (the 64 x 64 phi^4
+lattice) and hidden widths up to 128 (``trajectory_on_sites``,
+``trajectory_site_geometry``; ``site_geometry``).
 The chain kernel runs the phi^4 lattice there at every width
 (``chain_on_sites``). ``kernel_refusal`` and the wrappers name the kernel and
 the caps a request exceeds.
@@ -500,8 +501,8 @@ class Phi4Energy:
 
 _SPEC_NAMES = {c.KIND: c.NAME for c in (QuadraticGaussianEnergy, RoughWellEnergy, GmmEnergy,
                                          FunnelEnergy, Phi4Energy)}
-# the specs the chain kernel's site-parallel configuration takes (past 64)
-_SITE_KINDS = (QuadraticGaussianEnergy.KIND, Phi4Energy.KIND)
+# the specs whose backward kernel on sites csrc/trajectory_bwd_specs.cu builds
+_BWD_SPECS_KINDS = (RoughWellEnergy.KIND, GmmEnergy.KIND, FunnelEnergy.KIND)
 LAUNCHES.update({f"{k}:{n}": 0 for k in ("trajectory", "trajectory_bwd", "chain")
                  for n in _SPEC_NAMES.values()})
 # the site-parallel launches
@@ -627,18 +628,13 @@ def prepare(dyn: Dynamics, spec, params, device, *, differentiable: bool = False
     )
 
 
-def _caps_refusal(kernel: str, dim: int, hidden: int, kind: int) -> Optional[str]:
+def _caps_refusal(kernel: str, dim: int, hidden: int) -> Optional[str]:
     """Why ``kernel`` cannot take a state ``dim`` wide with S/T/Q nets of
-    ``hidden`` units on the energy spec ``kind``, or None where it can."""
+    ``hidden`` units, or None where it can (every energy spec alike)."""
     cap, hcap = _MAX_DIM, _MAX_HIDDEN
     if dim > cap or hidden > hcap:
         return (f"{kernel} kernel caps exceeded: dim {dim}, hidden {hidden} "
                 f"(caps dim {cap}, hidden {hcap})")
-    past = ("dim" if dim > _LANE_WIDTH else "hidden" if hidden > _LANE_WIDTH else None)
-    if past is not None and kind not in _SITE_KINDS:
-        names = ", ".join(_SPEC_NAMES[k] for k in _SITE_KINDS)
-        return (f"{kernel} kernel past {past} {_LANE_WIDTH} takes the {names} specs, "
-                f"not {_SPEC_NAMES[kind]}")
     return None
 
 
@@ -650,29 +646,45 @@ def chain_on_sites(inp: KernelInputs) -> bool:
     return max(inp.dims[:3]) > _LANE_WIDTH or inp.kind == Phi4Energy.KIND
 
 
-def site_geometry(dim: int, hidden: int, hidden2: int) -> tuple[int, int, int]:
+def site_prelude_floats(kind: int, nc: int, dim: int) -> int:
+    """Floats of the prelude each chain of a site-parallel tile keeps in
+    shared memory for the energy spec ``kind`` with ``nc`` floats of
+    constants at ``dim`` (``site_pre_floats`` in csrc/l2hmc_sites.cuh): the
+    funnel's 2 (the neck's sum of squares and a second sum or the energy), a
+    K-component mixture's 2K + 2 (its weights, the VJP's K sums, their total
+    and the energy or the VJP's g.dg), none for the other specs."""
+    if kind == GmmEnergy.KIND:
+        return 2 * (nc // (dim + dim * dim + 1)) + 2
+    return 2 if kind == FunnelEnergy.KIND else 0
+
+
+def site_geometry(dim: int, hidden: int, hidden2: int, kind: int = QuadraticGaussianEnergy.KIND,
+                  nc: int = 0) -> tuple[int, int, int]:
     """(chains, threads, bytes of shared memory) a block of the chain
-    kernel's site-parallel configuration takes at these widths: a host
-    mirror of ``site_smem_floats`` in csrc/l2hmc_sites.cuh. Its buffers hold
-    64 hidden units, or 128 where a width passes 64; x', v and g of the
-    tile's chains lie in shared memory, the accepted states in the wrapper's
-    scratch. Raises past the caps."""
-    reason = _caps_refusal("chain", dim, max(hidden, hidden2), QuadraticGaussianEnergy.KIND)
+    kernel's site-parallel configuration takes at these widths on the energy
+    spec ``kind`` with ``nc`` floats of constants: a host mirror of
+    ``site_smem_floats`` in csrc/l2hmc_sites.cuh. Its buffers hold 64 hidden
+    units, or 128 where a width passes 64; x', v and g of the tile's chains
+    and the spec's prelude lie in shared memory, the accepted states in the
+    wrapper's scratch. Raises past the caps."""
+    reason = _caps_refusal("chain", dim, max(hidden, hidden2))
     if reason is not None:
         raise ValueError(reason)
     hm = _LANE_WIDTH if max(hidden, hidden2) <= _LANE_WIDTH else _MAX_HIDDEN
     C, W = _SITE_CHAINS, _SITE_THREADS // 32
-    floats = 3 * C * dim + W * C * hm + 2 * C * hm + W * 3 * C + 3 * C
+    floats = (3 * C * dim + W * C * hm + 2 * C * hm + W * 3 * C + 3 * C
+              + C * site_prelude_floats(kind, nc, dim))
     return C, _SITE_THREADS, 4 * floats
 
 
-def site_tile(dim: int, hidden: int, hidden2: int) -> tuple[int, int, int]:
+def site_tile(dim: int, hidden: int, hidden2: int, kind: int = QuadraticGaussianEnergy.KIND,
+              nc: int = 0) -> tuple[int, int, int]:
     """``site_geometry`` as the built library reports it (chains, threads,
     bytes of shared memory a block; zeros past the caps)."""
     lib = _cuda.library("chain")
     return (lib.l2hmc_chain_site_chains(dim, hidden, hidden2),
             lib.l2hmc_chain_site_threads(dim, hidden, hidden2),
-            lib.l2hmc_chain_site_smem_bytes(dim, hidden, hidden2))
+            lib.l2hmc_chain_site_smem_bytes(dim, hidden, hidden2, kind, nc))
 
 
 def trajectory_on_sites(inp: KernelInputs) -> bool:
@@ -682,39 +694,45 @@ def trajectory_on_sites(inp: KernelInputs) -> bool:
     return max(inp.dims[:3]) > _LANE_WIDTH
 
 
-def trajectory_site_geometry(kernel: str, dim: int, hidden: int, hidden2: int,
-                             n_chains: int) -> tuple[int, int, int, int]:
+def trajectory_site_geometry(kernel: str, dim: int, hidden: int, hidden2: int, n_chains: int,
+                             kind: int = QuadraticGaussianEnergy.KIND,
+                             nc: int = 0) -> tuple[int, int, int, int]:
     """(chains, threads, bytes of shared memory a block, scratch rows) of
     ``kernel`` ("trajectory" or "trajectory_bwd") on the site-parallel
-    configuration at these widths and ``n_chains`` chains: a host mirror of
+    configuration at these widths, ``n_chains`` chains and the energy spec
+    ``kind`` with ``nc`` floats of constants: a host mirror of
     ``site_smem_floats`` and ``site_vjp_smem_floats`` in
     csrc/l2hmc_sites.cuh. The trajectory kernel keeps x', v and g of its tile
     in shared memory, as the chain kernel does, and no scratch; the backward
     kernel keeps ten (C, D) arrays there up to dim 1024 (past it in its
     scratch) and the four net applications' hidden layers, and one row of
-    weight and eps cotangents a block in the wrapper's scratch. Raises past
-    the caps or where the lane groups serve the widths."""
-    reason = _caps_refusal(kernel, dim, max(hidden, hidden2), QuadraticGaussianEnergy.KIND)
+    weight and eps cotangents a block in the wrapper's scratch; both keep the
+    spec's prelude (``site_prelude_floats``) beside them. Raises past the
+    caps or where the lane groups serve the widths."""
+    reason = _caps_refusal(kernel, dim, max(hidden, hidden2))
     if reason is not None:
         raise ValueError(reason)
     if max(dim, hidden, hidden2) <= _LANE_WIDTH:
         raise ValueError(f"{kernel} kernel runs dim {dim}, hidden {max(hidden, hidden2)} on "
                          f"its lane groups, not on sites")
+    if kernel == "trajectory":
+        return (*site_geometry(dim, hidden, hidden2, kind, nc), 0)
     hm = _LANE_WIDTH if max(hidden, hidden2) <= _LANE_WIDTH else _MAX_HIDDEN
     C, W = _SITE_CHAINS, _SITE_THREADS // 32
-    if kernel == "trajectory":
-        return (C, _SITE_THREADS,
-                4 * (3 * C * dim + W * C * hm + 2 * C * hm + W * 3 * C + 3 * C), 0)
     arrays = 10 * C * dim if dim <= _SITE_VJP_SMEM_DIM else 0
-    return C, _SITE_THREADS, 4 * (arrays + W * C * hm + 10 * C * hm), -(-n_chains // C)
+    pre = C * site_prelude_floats(kind, nc, dim)
+    return C, _SITE_THREADS, 4 * (arrays + W * C * hm + 10 * C * hm + pre), -(-n_chains // C)
 
 
-def trajectory_site_tile(kernel: str, dim: int, hidden: int, hidden2: int) -> tuple[int, int, int]:
+def trajectory_site_tile(kernel: str, dim: int, hidden: int, hidden2: int,
+                         kind: int = QuadraticGaussianEnergy.KIND,
+                         nc: int = 0) -> tuple[int, int, int]:
     """``trajectory_site_geometry``'s first three as the built library reports
     them (zeros where the widths are not past 64 or past the caps)."""
     lib = _cuda.library(kernel)
-    return tuple(getattr(lib, f"l2hmc_{kernel}_site_{q}")(dim, hidden, hidden2)
-                 for q in ("chains", "threads", "smem_bytes"))
+    return (getattr(lib, f"l2hmc_{kernel}_site_chains")(dim, hidden, hidden2),
+            getattr(lib, f"l2hmc_{kernel}_site_threads")(dim, hidden, hidden2),
+            getattr(lib, f"l2hmc_{kernel}_site_smem_bytes")(dim, hidden, hidden2, kind, nc))
 
 
 def bwd_scratch_floats(inp: KernelInputs, n: int) -> int:
@@ -738,7 +756,7 @@ def _kernel_block(inp: KernelInputs, x: torch.Tensor, kernel: str) -> torch.Tens
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {x.device}")
     D, H, H2, T = inp.dims
-    reason = _caps_refusal(kernel, D, 0 if inp.hmc else max(H, H2), inp.kind)
+    reason = _caps_refusal(kernel, D, 0 if inp.hmc else max(H, H2))
     if reason is not None:
         raise ValueError(reason)
     block = inp.block()
@@ -1118,8 +1136,13 @@ def chain_plain(
 
 
 def _lib_name(kernel: str, inp: KernelInputs) -> str:
-    """The library (and its entry point's suffix) that runs ``kernel`` at
-    ``inp``'s operand dtype: ``kernel`` or ``kernel_bf16``."""
+    """The library (and its entry point's suffix) that runs ``kernel`` on
+    ``inp``: ``kernel``, or ``kernel_bf16`` at bfloat16 operands; the
+    backward kernel on sites for the rough well, the mixtures and the funnel
+    ``trajectory_bwd_specs`` (their site instantiations are a source of
+    their own, ``csrc/trajectory_bwd_specs.cu``, for the build's clock)."""
+    if kernel == "trajectory_bwd" and trajectory_on_sites(inp) and inp.kind in _BWD_SPECS_KINDS:
+        return "trajectory_bwd_specs"
     return kernel if inp.cd is None else f"{kernel}_bf16"
 
 
@@ -1154,7 +1177,8 @@ def trajectory_vjp(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
     """VJP of the fused trajectory at (D, N) float32 (x, v) for the
     cotangents dX, dV (D, N) and dld (1, N); returns what
     ``trajectory_vjp_plain`` returns. CPU tensors take the plain version;
-    CUDA tensors launch ``csrc/trajectory_bwd.cu`` (up to 64 wide a lane
+    CUDA tensors launch ``csrc/trajectory_bwd.cu`` (``trajectory_bwd_specs.cu``
+    on sites for the rough well, the mixtures and the funnel; up to 64 wide a lane
     group per chain, each lane writing its share of the chain's cotangents
     into an (N, P) scratch once; past it a tile of chains a block, adding
     each substep's cotangents into the block's row of a (ceil(N / C), P)
@@ -1177,15 +1201,16 @@ def trajectory_vjp(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
     grads = torch.empty(n_grads, dtype=torch.float32, device=x.device)
     scratch = torch.empty(bwd_scratch_floats(inp, N), dtype=torch.float32, device=x.device)
     dx, dv = torch.empty_like(x), torch.empty_like(v)
-    lib = _cuda.library("trajectory_bwd")
+    name = _lib_name("trajectory_bwd", inp)
+    entry = getattr(_cuda.library(name), f"l2hmc_{name}")
     with torch.cuda.device(x.device):
-        err = lib.l2hmc_trajectory_bwd(
+        err = entry(
             block.data_ptr(), D, H, H2, T, *inp.energy_args, int(reverse), int(inp.hmc),
             x.data_ptr(), v.data_ptr(), dX.data_ptr(), dV.data_ptr(), dld.data_ptr(),
             dx.data_ptr(), dv.data_ptr(), grads.data_ptr(), scratch.data_ptr(), N,
             torch.cuda.current_stream().cuda_stream,
         )
-    _cuda.check(err, "trajectory_bwd")
+    _cuda.check(err, name)
     _count("trajectory_bwd", inp, trajectory_on_sites(inp))
     parts = torch.split(grads, [w.numel() for w in weights] + [D])
     g = [p.view(w.shape) for p, w in zip(parts, weights)]
@@ -1266,7 +1291,7 @@ def kernel_refusal(dynamics: Dynamics, target, hidden: int, *,
     if reason is None and spec is None:
         reason = f"no fused energy spec for target {type(target).__name__}"
     if reason is None:
-        reason = _caps_refusal("chain", dynamics.dim, 0 if dynamics.hmc else hidden, spec.KIND)
+        reason = _caps_refusal("chain", dynamics.dim, 0 if dynamics.hmc else hidden)
     return reason
 
 

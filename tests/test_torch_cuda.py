@@ -278,15 +278,17 @@ def test_spec_trajectory_kernel_matches_plain(cuda, case, reverse, n):
 
 
 @pytest.mark.parametrize("n", [203, "suite"])
-@pytest.mark.parametrize("case", list(suite.PARITY_CASES))
+@pytest.mark.parametrize("case", [*suite.PARITY_CASES, *suite.WIDE_CASES])
 def test_spec_chain_kernel_matches_plain_on_same_bits(cuda, case, n):
     """Each suite spec's chain kernel against its plain version on the same
     Philox bits, 20 traced MH steps, at a ragged count and at its suite
     row's: at most 5 flipped decisions on the lane groups, 0.2% on the
-    site-parallel configuration (icg), 1e-2 on the other chains
+    site-parallel configuration (icg; the rough well, the mixtures and the
+    funnel past 64, ``suite.WIDE_CASES``), 1e-2 on the other chains
     (chip_smoke.py's limits), the trace's end the state, twice bit for
     bit."""
-    n = suite.PARITY_CASES[case].n_chains if n == "suite" else n
+    if n == "suite":
+        n = {**suite.PARITY_CASES, **suite.WIDE_CASES}[case].n_chains
     inp, x = suite.parity_inputs(case, n, cuda)
     before = fd.LAUNCHES["chain"]
     xk, acck, trk = fd.chain(inp, x, seed=4, n_mh_steps=20, collect_trace=True)
@@ -416,9 +418,10 @@ def test_phi4_chain_kernel_matches_plain_on_same_bits(cuda, case, n):
 
 def test_kernels_refuse_past_their_caps(cuda):
     """The trajectory kernels and the chain kernel take states up to 4096
-    wide and hidden widths up to 128 (past 64 on the Gaussian and phi^4
-    specs): past them each raises naming the kernel and its caps; nothing
-    falls back to a plain version."""
+    wide and hidden widths up to 128, every energy spec alike: past them each
+    raises naming the kernel and its caps; nothing falls back to a plain
+    version. Within them a rough well past dim 64 runs on the chain kernel's
+    site-parallel configuration."""
     t128 = targets.Phi4Lattice(L=128)
     d128, _ = build_dynamics(ScgConfig(dim=t128.dim, hidden=32), t128)
     inp = fd.prepare(d128, fd.energy_spec_for_target(t128),
@@ -441,10 +444,12 @@ def test_kernels_refuse_past_their_caps(cuda):
                                                seed=0, n_mh_steps=1)
     rough = targets.RoughWell(dim=100, eps=0.1, easy=True)
     dyn, _ = build_dynamics(ScgConfig(dim=100, hidden=32), rough)
-    with pytest.raises(ValueError, match="chain kernel past dim 64 takes the gauss, phi4 specs"):
-        fd.fused_chain_sampler(dyn, rough).run(dyn.init_params(torch.Generator(), device=cuda),
-                                               rough.sample(torch.Generator(), 4, device=cuda),
-                                               seed=0, n_mh_steps=1)
+    before = fd.LAUNCHES["chain:sites"]
+    x, acc = fd.fused_chain_sampler(dyn, rough).run(
+        dyn.init_params(torch.Generator(), device=cuda),
+        rough.sample(torch.Generator(), 4, device=cuda), seed=0, n_mh_steps=1)
+    assert fd.LAUNCHES["chain:sites"] == before + 1
+    assert torch.isfinite(x).all() and x.shape == (4, 100)
 
 
 def test_chain_on_sites_and_site_geometry_match_the_library(cuda):
@@ -479,7 +484,8 @@ SITE_TRAJ_CASES = [("phi4_L16", 1024), ("phi4_L16", 203), ("phi4_L32", 256), ("i
 
 
 def _site_inputs(cuda, case, n):
-    maker = suite.parity_inputs if case == "icg" else phi4.parity_inputs
+    maker = (suite.parity_inputs if case == "icg" or case in suite.WIDE_CASES
+             else phi4.parity_inputs)
     inp, x = maker(case, n, cuda, seed=20)
     return inp, x.contiguous()
 
@@ -533,6 +539,68 @@ def test_site_trajectory_kernels_match_plain(cuda, case, n, reverse):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-30)
 
 
+# The rough well, the ring, the funnel and a mixture past 64
+# (``suite.WIDE_CASES``), at their rows' chain counts and at ragged ones
+SITE_SPEC_CASES = [("rough_well_h100", 2048), ("rough_well_h100", 37), ("ring_h100", 2048),
+                   ("ring_h100", 203), ("rough_well_D100", 2048), ("funnel_D100", 512),
+                   ("funnel_D100", 37), ("mixture_D80", 512), ("mixture_D80", 37)]
+# A chain whose plain trajectory passes within this share of a layer's
+# largest pre-activation of a ReLU kink is set aside in the VJP comparison
+RELU_MARGIN = 1e-5
+
+
+@pytest.mark.parametrize("case,n", SITE_SPEC_CASES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_site_spec_kernels_match_plain(cuda, case, n, reverse):
+    """Kernels 1-2 on sites for the rough well, the mixtures and the funnel
+    (the funnel's and the mixture's gradients and VJPs after their
+    per-chain prelude) against their plain versions: the trajectory's X and
+    V within 5e-4, its log-det within 5e-4 or 2e-6 of its largest
+    magnitude; the VJP per leaf within 1e-4 of the leaf's largest entry on
+    the chains whose plain trajectory stays farther than RELU_MARGIN from a
+    ReLU kink (at hidden 100 and 2048 chains a chain's 4 T net applications
+    take 8000 gate decisions, and ~15% of the chains come that near a kink
+    somewhere), every chain whose dx or dv differs among those set aside,
+    at most a quarter set aside; each launch twice bit for bit and counted
+    as a site launch on the spec."""
+    inp, x = _site_inputs(cuda, case, n)
+    assert fd.trajectory_on_sites(inp) and fd.chain_on_sites(inp)
+    spec = fd._SPEC_NAMES[inp.kind]
+    g = torch.Generator().manual_seed(3)
+    v, dX, dV = (torch.randn(x.shape, generator=g).to(cuda) for _ in range(3))
+    dld = torch.randn((1, n), generator=g).to(cuda)
+    before = fd.LAUNCHES[f"trajectory:{spec}"], fd.LAUNCHES["trajectory:sites"]
+    got = fd.trajectory(inp, x, v, reverse)
+    assert (fd.LAUNCHES[f"trajectory:{spec}"], fd.LAUNCHES["trajectory:sites"]) == (
+        before[0] + 1, before[1] + 1)
+    for a, b in zip(got, fd.trajectory(inp, x, v, reverse)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    ref = fd.trajectory_plain(inp, x, v, reverse)
+    for a, b in zip(got[:2], ref[:2]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=TOL)
+    torch.testing.assert_close(got[2], ref[2], rtol=0,
+                               atol=max(TOL, 2e-6 * float(ref[2].abs().max())))
+    before = fd.LAUNCHES["trajectory_bwd:sites"]
+    got = tree_leaves(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse))
+    assert fd.LAUNCHES["trajectory_bwd:sites"] == before + 1
+    for a, b in zip(got, tree_leaves(fd.trajectory_vjp(inp, x, v, dX, dV, dld, reverse))):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    ref = tree_leaves(fd.trajectory_vjp_plain(inp, x, v, dX, dV, dld, reverse))
+    differ = torch.zeros(n, dtype=torch.bool, device=cuda)
+    for a, b in zip(got[-2:], ref[-2:]):
+        differ |= (a - b).abs().amax(dim=0) > 1e-4 * b.abs().max()
+    aside = fd.relu_margins(inp, x, v, reverse) < RELU_MARGIN
+    assert not bool((differ & ~aside).any()) and int(aside.sum()) <= n // 4
+    keep = (~aside).float()[None, :]
+    got = tree_leaves(fd.trajectory_vjp(inp, x, v, dX * keep, dV * keep, dld * keep, reverse))
+    ref = tree_leaves(fd.trajectory_vjp_plain(inp, x, v, dX * keep, dV * keep, dld * keep,
+                                              reverse))
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-30)
+
+
 def test_site_trajectory_at_L64(cuda):
     """Kernels 1-2 at the 64 x 64 lattice (dim 4096, A_control's shape:
     hidden 32, T = 10, eps 0.03; the backward kernel's intermediates in its
@@ -577,6 +645,33 @@ def test_site_trajectory_at_L64(cuda):
         for a, b in zip(got, ref):
             assert torch.isfinite(a).all()
             torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-30)
+
+
+@pytest.mark.parametrize("kind,nc_of", [
+    (fd.RoughWellEnergy.KIND, lambda d: 4), (fd.FunnelEnergy.KIND, lambda d: 3),
+    (fd.GmmEnergy.KIND, lambda d: 2 * (d + d * d + 1)),
+    (fd.GmmEnergy.KIND, lambda d: 4 * (d + d * d + 1))])
+def test_site_geometry_with_a_prelude_matches_the_library(cuda, kind, nc_of):
+    """With an energy spec's prelude (the funnel's 2 floats a chain, a
+    K-component mixture's 2K + 2) the host mirrors ``site_geometry`` and
+    ``trajectory_site_geometry`` equal each library's shared memory a block
+    (zeros where the lane groups serve the widths or past the caps)."""
+    for dim in (2, 50, 65, 100, 1024, 4096):
+        for hidden in (10, 64, 100, 128):
+            nc = nc_of(dim)
+            try:
+                host = fd.site_geometry(dim, hidden, hidden, kind, nc)
+            except ValueError:
+                host = (0, 0, 0)
+            assert fd.site_tile(dim, hidden, hidden, kind, nc) == host, (dim, hidden)
+            for kernel in ("trajectory", "trajectory_bwd"):
+                try:
+                    host = fd.trajectory_site_geometry(kernel, dim, hidden, hidden, 8, kind,
+                                                       nc)[:3]
+                except ValueError:
+                    host = (0, 0, 0)
+                assert fd.trajectory_site_tile(kernel, dim, hidden, hidden, kind, nc) == host, (
+                    kernel, dim, hidden)
 
 
 def test_trajectory_site_geometry_matches_the_library(cuda):

@@ -75,8 +75,8 @@ def test_kernel_refusals_at_the_lattice_widths():
     """The pure check names the kernel and the caps: the chain kernel serves
     the dense nets at L = 16, 32 and 64 and hidden 100, refuses L = 128 and
     hidden 129; the trajectory kernels stop at dim 4096 and hidden 128;
-    conv nets, and a mixture or a rough well past 64, are refused with their
-    reason and the width cap."""
+    conv nets are refused with their reason; a mixture or a rough well past
+    64 is served, as the lattice is."""
     def dyn(L, hidden=32):
         t = targets.Phi4Lattice(L=L)
         return build_dynamics(ScgConfig(dim=t.dim, hidden=hidden), t)[0], t
@@ -84,14 +84,13 @@ def test_kernel_refusals_at_the_lattice_widths():
     for L in (8, 16, 32, 64):
         assert fd.kernel_refusal(*dyn(L), 32) is None
     d16, t16 = dyn(16)
-    kind = fd.Phi4Energy.KIND
-    assert fd._caps_refusal("trajectory", 16384, 32, kind) == (
+    assert fd._caps_refusal("trajectory", 16384, 32) == (
         "trajectory kernel caps exceeded: dim 16384, hidden 32 (caps dim 4096, hidden 128)")
-    assert "trajectory_bwd kernel caps" in fd._caps_refusal("trajectory_bwd", 16384, 32, kind)
-    assert fd._caps_refusal("trajectory", 256, 32, kind) is None
-    assert fd._caps_refusal("trajectory_bwd", 4096, 100, kind) is None
+    assert "trajectory_bwd kernel caps" in fd._caps_refusal("trajectory_bwd", 16384, 32)
+    assert fd._caps_refusal("trajectory", 256, 32) is None
+    assert fd._caps_refusal("trajectory_bwd", 4096, 100) is None
     assert "trajectory kernel caps exceeded: dim 64, hidden 129" in fd._caps_refusal(
-        "trajectory", 64, 129, kind)
+        "trajectory", 64, 129)
     assert fd.kernel_refusal(*dyn(128), 32) == (
         "chain kernel caps exceeded: dim 16384, hidden 32 (caps dim 4096, hidden 128)")
     assert fd.kernel_refusal(*dyn(16, 100), 100) is None
@@ -99,14 +98,14 @@ def test_kernel_refusals_at_the_lattice_widths():
         "chain kernel caps exceeded: dim 256, hidden 129 (caps dim 4096, hidden 128)")
     assert "not conv" in fd.kernel_refusal(d16, t16, 32, net_type="conv")
     ring = targets.gen_ring(r=2.0, var=0.1, nb_mixtures=4)
-    assert "not gmm" in fd.kernel_refusal(d16, ring, 32)
+    assert fd.kernel_refusal(d16, ring, 32) is None
     rdyn = build_dynamics(ScgConfig(dim=2, hidden=100), ring)[0]
-    assert fd.kernel_refusal(rdyn, ring, 100) == (
-        "chain kernel past hidden 64 takes the gauss, phi4 specs, not gmm")
+    assert fd.kernel_refusal(rdyn, ring, 100) is None
     rough = targets.RoughWell(dim=100, eps=0.1, easy=True)
     rdyn = build_dynamics(ScgConfig(dim=100, hidden=32), rough)[0]
-    assert fd.kernel_refusal(rdyn, rough, 32) == (
-        "chain kernel past dim 64 takes the gauss, phi4 specs, not rough_well")
+    assert fd.kernel_refusal(rdyn, rough, 32) is None
+    assert fd.kernel_refusal(rdyn, rough, 129) == (
+        "chain kernel caps exceeded: dim 100, hidden 129 (caps dim 4096, hidden 128)")
 
 
 @pytest.mark.parametrize("case", list(phi4.PARITY_CASES))

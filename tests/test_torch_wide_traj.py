@@ -220,25 +220,23 @@ def test_trajectory_on_sites_follows_pick_lanes():
 def test_refusals_at_the_new_caps():
     """Past the caps the wrappers' check names the kernel and both caps:
     the trajectory kernel and its backward kernel past dim 4096 or hidden
-    128; past 64 a spec without per-site versions is refused by name."""
-    kind = fd.Phi4Energy.KIND
-    assert fd._caps_refusal("trajectory", 4096, 128, kind) is None
-    assert fd._caps_refusal("trajectory", 16384, 32, kind) == (
+    128; within them every energy spec is served, the rough well past dim
+    64 and the mixture past hidden 64 as the lattice."""
+    assert fd._caps_refusal("trajectory", 4096, 128) is None
+    assert fd._caps_refusal("trajectory", 16384, 32) == (
         "trajectory kernel caps exceeded: dim 16384, hidden 32 (caps dim 4096, hidden 128)")
-    assert fd._caps_refusal("trajectory", 256, 129, kind) == (
+    assert fd._caps_refusal("trajectory", 256, 129) == (
         "trajectory kernel caps exceeded: dim 256, hidden 129 (caps dim 4096, hidden 128)")
     for dim in (1024, 1089, 4096):
-        assert fd._caps_refusal("trajectory_bwd", dim, 128, kind) is None
+        assert fd._caps_refusal("trajectory_bwd", dim, 128) is None
     for dim in (4097, 16384):
-        assert fd._caps_refusal("trajectory_bwd", dim, 32, kind) == (
+        assert fd._caps_refusal("trajectory_bwd", dim, 32) == (
             f"trajectory_bwd kernel caps exceeded: dim {dim}, hidden 32 "
             "(caps dim 4096, hidden 128)")
-    assert fd._caps_refusal("trajectory_bwd", 50, 129, fd.QuadraticGaussianEnergy.KIND) == (
+    assert fd._caps_refusal("trajectory_bwd", 50, 129) == (
         "trajectory_bwd kernel caps exceeded: dim 50, hidden 129 (caps dim 4096, hidden 128)")
-    assert fd._caps_refusal("trajectory", 100, 32, fd.RoughWellEnergy.KIND) == (
-        "trajectory kernel past dim 64 takes the gauss, phi4 specs, not rough_well")
-    assert fd._caps_refusal("trajectory_bwd", 2, 100, fd.GmmEnergy.KIND) == (
-        "trajectory_bwd kernel past hidden 64 takes the gauss, phi4 specs, not gmm")
+    assert fd._caps_refusal("trajectory", 100, 32) is None
+    assert fd._caps_refusal("trajectory_bwd", 2, 100) is None
     # a CPU tensor takes the plain version at every width; the kernel check
     # is for CUDA tensors only
     inp, x = phi4.parity_inputs("phi4_L64", 2, "cpu")
