@@ -192,7 +192,10 @@ phases:
      32 (256), 64 (256, A_control's shape) and icg (hidden 100, 2048), both
      directions, twice bit for bit, inverting; (b) its backward kernel vs its
      plain version at the same cases (at L = 64 its intermediates in its
-     global scratch); (c) fused vs plain training at L = 16 at the plain run's 20
+     global scratch), its scratch plan against the library's, and its
+     second kernel, the fixed-order reduction of the factors, vs its plain
+     version at the L = 16 path's shape (REDUCE_TOL), twice bit for bit;
+     (c) fused vs plain training at L = 16 at the plain run's 20
      states (phase 5b's bar), a fused step recorded as a CUDA graph against
      the eager step and ``train``'s captured route against its eager one,
      bit for bit; (d) the path: ``train`` on the phi^4
@@ -201,9 +204,10 @@ phases:
      ESS_m), ms per fused and plain step, short fused runs at L = 32 and 64
      and on icg, the trajectory kernel as the trajectory gate at L = 64 and in bf16
      at L = 16; (e) the bf16 site trajectory vs its plain bf16 version
-     (phase 13's shares); (f) rows 1f-1i, 2f-2i and 1f-bf16 timed beside
-     their plain versions, bounds and reckoned L2 bytes, ptxas. Launch counts
-     are reset before (d) and read after each of its runs;
+     (phase 13's shares); (f) rows 1f-1i, 2f-2i, the reduction (2r) and
+     1f-bf16 timed beside their plain versions, bounds and reckoned L2
+     bytes, ptxas of all four kernels. Launch counts are reset before (d) and
+     read after each of its runs;
  15. kernels 1-3 on sites for the rough well, the mixtures and the funnel
      (their prelude of per-chain block sums, ``csrc/l2hmc_sites.cuh``) at
      the path's five configurations (``apps.suite.WIDE_CASES``: the rough
@@ -552,9 +556,9 @@ def _captured_ms(fn, calls, reps):
 
 def _bwd_launch_ms(fd, cuda_lib, inp, x, v, dX, dV, dld, reps):
     """Mean ms of the backward kernel's launch (the VJP and the sum over
-    chains) through its C entry point, by CUDA events, with the arguments
-    ``fd.trajectory_vjp`` gives it made once: the device's time, apart from
-    the wrapper's host work."""
+    chains; on sites its reduction) through its C entry point, by CUDA
+    events, with the arguments ``fd.trajectory_vjp`` gives it made once: the
+    device's time, apart from the wrapper's host work."""
     import torch
 
     block = fd._kernel_block(inp, x, "trajectory_bwd")
@@ -3417,14 +3421,62 @@ def wide_l2_bytes(D, H, H2, T, N, kernel):
     the L2, reckoned for the report: the weights of its 4 T net applications
     a block (``phi4_l2_weight_bytes``, one trajectory), for the backward
     kernel three times (the forward sweep, each substep's recompute, its
-    VJP) and its cotangent rows' read-modify-writes (each substep: the
-    heads' and first layer's weights of the four applications, wh and the
-    per-site arrays, 8 bytes each)."""
+    VJP), its factor writes (each application's a, b, dus, dut, duq, h,
+    dz1, h2 and dz2 for the tile's 4 chains, once, 4 bytes each) and its
+    compact rows' read-modify-writes (each application: the per-site
+    arrays and eps, bh and te's column, 8 bytes each)."""
     w = phi4_l2_weight_bytes(D, H, H2, T, N, 1, 4)
     if kernel == "trajectory":
         return w
-    rows = -(-N // 4) * T * 4 * (3 * H2 * D + 2 * D * H + H * H2 + 6 * D + H2 + H) * 8
-    return 3 * w + rows
+    apps = -(-N // 4) * T * 4
+    factors = apps * 4 * (5 * D + 2 * H + 2 * H2) * 4
+    rows = apps * (6 * D + H2 + H) * 8
+    return 3 * w + factors + rows
+
+
+# The site VJP's reduction (rows 2f-2l's second kernel, csrc/trajectory_bwd.cu:
+# site_reduce_kernel, then site_reduce_sum_kernel over its partial rows)
+# against its plain version (float32 matrix products, TF32 off) on seeded
+# factors of the main path's shape (the fused L = 16 path's launches: 1024
+# chains, K = 20,480 rows a net), per product within REDUCE_TOL of its
+# largest entry (float32 sums over K in another order: measured ~2e-6 on
+# seeded normal factors), twice bit for bit.
+REDUCE_TOL = 1e-5
+
+
+def reduce_bound(D, H, H2, K):
+    """The reduction's bound: its twelve products over K factor rows a net
+    (an FMA 2), or its bytes (the factors read once, the products written
+    once)."""
+    wc = 2 * _stq_weights(D, H, H2)
+    return _bound(2 * K * wc, 4 * (2 * K * (5 * D + 2 * H + 2 * H2) + wc))
+
+
+def _reduce_vs_plain(fd, dev, D, H, H2, K):
+    """The reduction kernel against its plain version on seeded normal
+    factors of K rows a net, each launch twice, with its time, the plain
+    version's and the bound."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(71)
+    flat = torch.randn(2 * K * fd._factor_row_floats(D, H, H2), generator=g, device=dev)
+    got = fd.reduce_factors(flat, D, H, H2, K)
+    again = fd.reduce_factors(flat, D, H, H2, K)
+    ref = fd.reduce_factors_plain(flat, D, H, H2, K)
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for ga, gb in zip(fd.reduced_weights(got, D, H, H2),
+                                fd.reduced_weights(ref, D, H, H2)) for a, b in zip(ga, gb))
+    out = {"K": K, "splits": fd.reduce_splits(D, H, H2, K), "factor_bytes": 4 * flat.numel(),
+           "max_abs_err": float((got - ref).abs().max()), "max_rel_err": rel,
+           "repeats_bit_for_bit": bool(torch.equal(got, again)),
+           "finite": bool(torch.isfinite(got).all()),
+           "ms": _cuda_time(lambda: fd.reduce_factors(flat, D, H, H2, K), 20, warmup=False),
+           "plain_ms": _cuda_time(lambda: fd.reduce_factors_plain(flat, D, H, H2, K), 5,
+                                  warmup=False),
+           "bound": reduce_bound(D, H, H2, K)}
+    _require(out["finite"] and out["repeats_bit_for_bit"] and rel <= REDUCE_TOL,
+             f"the site VJP's reduction against its plain version: {out}")
+    return out
 
 
 def _wide_inputs(fd, dev, name, n, seed):
@@ -3501,10 +3553,14 @@ def wide_traj_phases(dev, report):
                      f"trajectory on sites {name} {way}: {c}")
         traj[name] = case
         bgeom = fd.trajectory_site_tile("trajectory_bwd", D, H, H2)
-        _require(bgeom == fd.trajectory_site_geometry("trajectory_bwd", D, H, H2, n)[:3],
-                 f"trajectory_bwd on sites {name}: geometry {bgeom}")
+        plan = fd.site_bwd_plan(D, H, H2, T, n)
+        _require(bgeom == fd.trajectory_site_geometry("trajectory_bwd", D, H, H2, n)[:3]
+                 and plan == fd.site_bwd_plan_of_library(D, H, H2, T, n),
+                 f"trajectory_bwd on sites {name}: geometry {bgeom}, plan {plan}")
         bcase = {"chains_threads_smem_bytes_a_block": bgeom,
-                 "scratch_bytes": 4 * fd.bwd_scratch_floats(inp, n)}
+                 "scratch_bytes": 4 * fd.bwd_scratch_floats(inp, n),
+                 "factor_scratch_bytes": 4 * plan["fac"],
+                 "plan": {k: plan[k] for k in ("blocks", "parts", "K", "splits")}}
         for reverse in (False, True):
             way = "backward" if reverse else "forward"
             c = _spec_vjp_compare(fd, inp, x, v, dX, dV, dld, reverse)
@@ -3519,6 +3575,15 @@ def wide_traj_phases(dev, report):
     print(f"# sites: trajectory kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
           + json.dumps(traj), flush=True)
     print("# sites: backward kernel vs plain: " + json.dumps(bwd), flush=True)
+    # the backward kernel's reduction alone at the L = 16 path's factors
+    t_phase = time.perf_counter()
+    inp16 = inputs["phi4_L16"][0]
+    D, H, H2, T = inp16.dims
+    K16 = fd.site_bwd_plan(D, H, H2, T, dict(cases)["phi4_L16"])["K"]
+    out["reduce_vs_plain"] = _reduce_vs_plain(fd, dev, D, H, H2, K16)
+    print(f"# sites: the backward kernel's reduction vs plain "
+          f"({time.perf_counter() - t_phase:.1f} s): " + json.dumps(out["reduce_vs_plain"]),
+          flush=True)
 
     # (c) fused against plain training at L = 16 at the plain run's states;
     # one fused step recorded against the eager step
@@ -3649,7 +3714,8 @@ def wide_traj_phases(dev, report):
                         "ms_per_step_incl_capture": 1e3 * (time.perf_counter() - t) / steps,
                         "loss": h_s["loss"].tolist(),
                         "launches": {k: fd.LAUNCHES[k] - before[k]
-                                     for k in ("trajectory:sites", "trajectory_bwd:sites")}}
+                                     for k in ("trajectory:sites", "trajectory_bwd:sites",
+                                               "trajectory_bwd_reduce")}}
         _require(bool(np.isfinite(h_s["loss"]).all())
                  and min(short[label]["launches"].values()) > 0, f"fused {label}: {short[label]}")
     # the trajectory kernel as the sampler's trajectory gate: at L = 64
@@ -3709,7 +3775,7 @@ def wide_traj_phases(dev, report):
              f"fused phi4 path scores: {path}")
     _require(gate64 <= TRAJ_TOL, f"trajectory gate at L = 64: {gate64}")
     _require(max(shares) < 1.0, f"bf16 trajectory gate at L = 16: {shares}")
-    for k in ("trajectory:sites", "trajectory_bwd:sites"):
+    for k in ("trajectory:sites", "trajectory_bwd:sites", "trajectory_bwd_reduce"):
         _require(launches_train[k] > 0, f"{k} not launched by fused phi4 training")
     _require(gate64_launches > 0 and bf16_launches > 0,
              f"the trajectory gates launched {gate64_launches}, {bf16_launches} times")
@@ -3752,8 +3818,10 @@ def wide_traj_phases(dev, report):
                     "l2_bytes": wide_l2_bytes(D, H, H2, T, n, "trajectory_bwd")}
         times[name] = r
     ptxas = _cuda.build_info.get("ptxas", "")
-    ptx = {k: _ptxas_of(ptxas, entry) for k, entry in (("trajectory", "16site_traj_kernel"),
-                                                       ("trajectory_bwd", "20site_traj_bwd_kernel"))}
+    ptx = {k: _ptxas_of(ptxas, entry) for k, entry in (
+        ("trajectory", "16site_traj_kernel"), ("trajectory_bwd", "20site_traj_bwd_kernel"),
+        ("trajectory_bwd_reduce", "18site_reduce_kernel"),
+        ("trajectory_bwd_reduce_sum", "22site_reduce_sum_kernel"))}
     out["kernel_times"] = {"times": times, "ptxas": ptx}
     print(f"# sites: kernel times ({time.perf_counter() - t_phase:.1f} s): "
           + json.dumps(out["kernel_times"]), flush=True)
@@ -3795,8 +3863,8 @@ def wide_traj_phases(dev, report):
                          "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound"][0],
                          "bound_by": b["bound"][1], "library_ms": None, "row": "2" + labels[name],
                          "shape": (shape + f"; scratch {bwd[name]['scratch_bytes']:.4g} bytes; "
-                                   f"{b['l2_bytes']:.4g} L2 bytes reckoned (weights and the "
-                                   "cotangent rows)")})
+                                   f"{b['l2_bytes']:.4g} L2 bytes reckoned (weights, factors and "
+                                   "compact rows)")})
         if "bf16" in r:
             bb = r["bf16"]
             rows.append({"name": "trajectory[phi4]_bf16", "route": "cuda",
@@ -3810,6 +3878,18 @@ def wide_traj_phases(dev, report):
                          "shape": (shape + f"; plain_ms the plain bf16 version; float32 row in "
                                    f"the same run: {r['ms']:.4f} ms; all operations on the f32 "
                                    f"pipe: {bb['bound'][2]:.4g} ms")})
+    red = out["reduce_vs_plain"]
+    rows.append({"name": "trajectory_bwd_reduce[sites]", "route": "cuda",
+                 "source": src + "trajectory_bwd.cu",
+                 "replaces": "l2hmc_tpu/ops/fused_dynamics.py:867",
+                 "launches": launches_train["trajectory_bwd_reduce"],
+                 "max_abs_err": red["max_abs_err"], "ms": red["ms"], "plain_ms": red["plain_ms"],
+                 "bound_ms": red["bound"][0], "bound_by": red["bound"][1], "library_ms": None,
+                 "row": "2r",
+                 "shape": (f"the site VJP's twelve weight products over the factors of a phi4_L16 "
+                           f"launch (1024 chains): K = {red['K']} rows a net in "
+                           f"{red['splits']} fixed splits, {red['factor_bytes']:.4g} bytes of "
+                           f"factors (seeded normals), float32 on the CUDA cores")})
     report["wide_traj"] = out
     report["wide_traj_wall_s"] = time.perf_counter() - t_all
     print(f"# sites phase: {report['wide_traj_wall_s']:.1f} s", flush=True)
@@ -4074,7 +4154,8 @@ def wide_spec_phases(dev, report):
                                "ess_rel_gap": gap})
             _require(finite and gap < ESS_GAP, f"eval on sites {name}: {runs[name]}")
         launch_of[name] = {k: fd.LAUNCHES[k] - before[k]
-                           for k in ("trajectory:sites", "trajectory_bwd:sites", "chain:sites")}
+                           for k in ("trajectory:sites", "trajectory_bwd:sites",
+                                     "trajectory_bwd_reduce", "chain:sites")}
         runs[name]["launches"] = launch_of[name]
         print(f"# spec sites: path {name}: " + json.dumps(runs[name]), flush=True)
     # the chain kernel's launches on the ring's and the rough well's

@@ -2,7 +2,7 @@
 source trees on one card.
 
     python -P l2hmc_tpu_torch/apps/kernel_times.py
-    python -P l2hmc_tpu_torch/apps/kernel_times.py --trees PARENT CHANGE [...] [--sites]
+    python -P l2hmc_tpu_torch/apps/kernel_times.py --trees PARENT CHANGE [...] [--sites | --bwd]
 
 Alone, it times the ``l2hmc_tpu_torch`` package that Python imports and
 prints one JSON line: the SCG trajectory and backward kernels' launches
@@ -11,7 +11,8 @@ traced steps and 8192 x 500 untraced, each in L2HMC and in HMC mode at eps
 0.15), the fused SCG training step (1024 chains), the VAE training
 kernels at the training batch (512 chains), the AIS kernel (1000 chains x
 100 anneal steps x 10 leapfrogs) and the VAE sampler (200 chains x 200
-recorded steps of 1-3 ops), all at the reference widths with seeded
+recorded steps of 1-3 ops), the backward kernel on its lane groups at rows
+2 and 2b-2e's shapes (``--bwd``: only these), all at the reference widths with seeded
 weights, each VAE kernel also with bfloat16 operands (rows 4b-7b, keys
 ending ``_bf16``; null for a tree without them); and the chain kernel's site-parallel configuration at its rows'
 shapes (3e-3g: the phi^4 lattice at L = 8, 16, 32, 1000 traced steps; 3h:
@@ -21,12 +22,15 @@ a row gives null); the trajectory and chain kernels with bfloat16 operands
 at rows 1, 3, 3f and 3h's shapes (keys ending ``_bf16``; null for a tree
 without them); the trajectory and backward kernels past 64 wide, on sites,
 through their wrappers (rows 1f/2f: the lattice at L = 16, 1024 chains;
-1g/2g: L = 32, 256; 1h/2h: icg at hidden 100, 2048; 1i: L = 64 at the
-A_control shape, 256; 1f_bf16; null where a tree's caps refuse them), rows
-1j-3l on sites (the rough well and the funnel at D = 100, the ring at hidden
-100; null for a tree that refuses them) and the fused training step at L = 16
-(1024 chains, hidden 32, T = 10); kernel
-times by CUDA events, the training steps by the host clock.
+1g/2g: L = 32, 256; 1h/2h: icg at hidden 100, 2048; 1i/2i: L = 64 at the
+A_control shape, 256; 1f_bf16; null where a tree's caps refuse them), the
+site VJP's reduction alone at row 2f's shape (null for a tree without it),
+rows 1j-3l on sites (the rough well and the funnel at D = 100, the ring at
+hidden 100; null for a tree that refuses them) and the training step at
+L = 16 (1024 chains, hidden 32, T = 10): fused by the host clock at steady
+state, and fused and plain each recorded as a CUDA graph and timed by CUDA
+events over its replays; kernel times by CUDA events. Every line carries the
+card's name and power limit (``card``).
 
 With ``--trees``, each directory must hold an ``l2hmc_tpu_torch`` package
 (a checkout, or an unpacked ``git archive``). Every tree's kernels are built
@@ -254,9 +258,102 @@ def site_times(dev) -> dict:
     return out
 
 
+def _bwd_entry_ms(inp, x, v, dX, dV, dld, name, reps):
+    """Mean ms of the backward kernel's launch through library ``name``'s C
+    entry point, by CUDA events, its arguments made once (the device's time
+    apart from the wrapper's host work)."""
+    import torch
+
+    from l2hmc_tpu_torch.ops import _cuda
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+
+    block = fd._kernel_block(inp, x, "trajectory_bwd")
+    D, H, H2, T = inp.dims
+    N = x.shape[1]
+    grads = torch.empty(sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D,
+                        device=x.device)
+    scratch = torch.empty(fd.bwd_scratch_floats(inp, N), device=x.device)
+    dx, dv = torch.empty_like(x), torch.empty_like(v)
+    stream = torch.cuda.current_stream().cuda_stream
+    entry = getattr(_cuda.library(name), f"l2hmc_{name}")
+    return _cuda_ms(lambda: _cuda.check(entry(
+        block.data_ptr(), D, H, H2, T, *inp.energy_args, 0, int(inp.hmc), x.data_ptr(),
+        v.data_ptr(), dX.data_ptr(), dV.data_ptr(), dld.data_ptr(), dx.data_ptr(),
+        dv.data_ptr(), grads.data_ptr(), scratch.data_ptr(), N, stream), name), reps)
+
+
+def lane_bwd_times(dev) -> dict:
+    """Rows 2 and 2b-2e, the backward kernel on its lane groups, each launch
+    through its C entry point, one direction: SCG at 1024 and 8192 chains
+    (the reference model's seeded weights), the suite's rough well (easy),
+    ring and funnel at their parity cases' chains, phi^4 at L = 8 (512)."""
+    import torch
+
+    from l2hmc_tpu_torch.apps import phi4, suite
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+    from l2hmc_tpu_torch.train import ScgConfig, build_dynamics
+
+    cfg = ScgConfig()
+    dyn, target = build_dynamics(cfg)
+    scg = fd.prepare(dyn, fd.energy_spec_for_target(target),
+                     dyn.init_params(_gen(0), eps=cfg.eps, device=dev), dev)
+    cases = [("2_1024", lambda: (scg, target.sample(_gen(1), 1024, device=dev).T)),
+             ("2_8192", lambda: (scg, target.sample(_gen(1), 8192, device=dev).T))]
+    cases += [(f"2{r}", lambda c=c: suite.parity_inputs(c, suite.PARITY_CASES[c].n_chains, dev,
+                                                       seed=32))
+              for r, c in (("b", "rough_well_easy"), ("c", "ring"), ("d", "funnel"))]
+    cases.append(("2e", lambda: phi4.parity_inputs("phi4_L8", 512, dev, seed=20)))
+    out = {}
+    for label, make in cases:
+        inp, x = make()
+        x = x.contiguous()
+        g = _gen(34)
+        v, dX, dV = (torch.randn(x.shape, generator=g).to(dev) for _ in range(3))
+        dld = torch.ones((1, x.shape[1]), device=dev)
+        out[f"trajectory_bwd_{label}"] = _bwd_entry_ms(
+            inp, x, v, dX, dV, dld, fd._lib_name("trajectory_bwd", inp), 100)
+    return out
+
+
+def _captured_step_ms(dev, fused: bool, reps: int = 20):
+    """Mean ms of one training step at L = 16 (1024 chains, hidden 32,
+    T = 10, eps 0.1), fused (kernels 1 and 2) or plain, recorded as a CUDA
+    graph after the captured route's warm-up calls and replayed on one state
+    and one set of draws, by CUDA events around ``reps`` replays."""
+    import torch
+
+    from l2hmc_tpu_torch import targets
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+    from l2hmc_tpu_torch.train import (ScgConfig, StepDraws, build_dynamics, draw_step,
+                                       init_state, make_optimizer, make_train_step)
+    from l2hmc_tpu_torch.utils import capture
+
+    t = targets.Phi4Lattice(L=16, m2=-1.0, lam=0.5)
+    cfg = ScgConfig(dim=t.dim, n_chains=1024, T=10, hidden=32, eps=0.1, seed=0)
+    dyn, _ = build_dynamics(cfg, t)
+    opt, _ = make_optimizer(cfg)
+    step = make_train_step(cfg, fd.differentiable_fused(dyn, t) if fused else dyn, opt)
+    state = init_state(cfg, dyn, opt, device=dev)
+    state = state._replace(step=torch.as_tensor(0, dtype=torch.int32, device=dev))
+    draws = StepDraws(*(None if a is None else a.to(dev) for a in draw_step(
+        _gen(cfg.seed + 100), cfg.n_chains, cfg.dim, z_burn_in=cfg.z_burn_in_loss)))
+    box = {}
+
+    def body():
+        box["o"] = step(state, draws)
+
+    for _ in range(capture.WARMUP_CALLS):
+        capture.run_on_side_stream(body)
+    graph = capture.Graph(body)
+    return _cuda_ms(graph.replay, reps)
+
+
 def site_traj_times(dev) -> dict:
-    """Rows 1f-1i, 2f-2h and 1f_bf16: each launch through its wrapper, one
-    direction, and the fused L = 16 training step at steady state."""
+    """Rows 1f-1i and 2f-2i, 1f_bf16, the site VJP's reduction alone at
+    row 2f's factors (``reduce_2f``; null for a tree without it): each launch
+    through its wrapper, one direction; the fused L = 16 training step at
+    steady state by the host clock, and the fused and plain L = 16 steps
+    captured, by CUDA events (``captured_*_phi4_L16_step``)."""
     import dataclasses
 
     import torch
@@ -282,9 +379,8 @@ def site_traj_times(dev) -> dict:
         for key, fn, reps in (
                 (f"trajectory_1{label}", lambda: fd.trajectory(inp, x, v, False), 20),
                 (f"trajectory_bwd_2{label}",
-                 lambda: fd.trajectory_vjp(inp, x, v, dX, dV, dld, False), 5)):
-            if label == "i" and "bwd" in key:
-                continue
+                 lambda: fd.trajectory_vjp(inp, x, v, dX, dV, dld, False),
+                 2 if label == "i" else 5)):
             try:
                 out[key] = _cuda_ms(fn, reps)
             except ValueError:  # a tree whose caps refuse the widths
@@ -295,6 +391,14 @@ def site_traj_times(dev) -> dict:
                 out["trajectory_1f_bf16"] = _cuda_ms(lambda: fd.trajectory(ib, x, v, False), 20)
             except ValueError:
                 out["trajectory_1f_bf16"] = None
+            out["reduce_2f"] = None
+            if hasattr(fd, "reduce_factors"):  # the factors of row 2f's launch, seeded
+                D, H, H2, T = inp.dims
+                K = fd.site_bwd_plan(D, H, H2, T, n)["K"]
+                flat = torch.randn(2 * K * fd._factor_row_floats(D, H, H2),
+                                   generator=_gen(8)).to(dev)
+                out["reduce_2f"] = _cuda_ms(lambda: fd.reduce_factors(flat, D, H, H2, K), 20)
+                del flat
         del inp, x
         torch.cuda.empty_cache()
     t = targets.Phi4Lattice(L=16, m2=-1.0, lam=0.5)
@@ -310,6 +414,10 @@ def site_traj_times(dev) -> dict:
         out["fused_phi4_L16_step"] = 1e3 * (times[1] - times[0]) / 60
     except ValueError:
         out["fused_phi4_L16_step"] = None
+    for fused in (True, False):
+        out[f"captured_{'fused' if fused else 'plain'}_phi4_L16_step"] = _captured_step_ms(
+            dev, fused)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -345,7 +453,14 @@ def spec_site_times(dev) -> dict:
     return out
 
 
-def one(sites_only: bool = False) -> dict:
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def one(sites_only: bool = False, bwd_only: bool = False) -> dict:
     import torch
 
     from l2hmc_tpu_torch.ops import _cuda
@@ -353,17 +468,21 @@ def one(sites_only: bool = False) -> dict:
     dev = torch.device("cuda")
     _cuda.wait_build()  # nothing compiles while the kernels are timed
     out = {"package": os.path.dirname(os.path.dirname(os.path.abspath(_cuda.__file__))),
-           "build_dir": _cuda.build_info.get("dir")}
+           "build_dir": _cuda.build_info.get("dir"), "card": _card()}
+    if bwd_only:
+        out.update(lane_bwd_times(dev))
+        return out
     if not sites_only:
         out.update(scg_times(dev))
         out.update(vae_times(dev))
+        out.update(lane_bwd_times(dev))
     out.update(site_times(dev))
     out.update(site_traj_times(dev))
     out.update(spec_site_times(dev))
     return out
 
 
-def compare(trees: list[str], sites_only: bool = False) -> dict:
+def compare(trees: list[str], flags: tuple = ()) -> dict:
     """Builds every tree's kernels at once, then times the trees in the
     order given and reversed, each in a process of its own."""
     def run(tree, *args):
@@ -377,7 +496,7 @@ def compare(trees: list[str], sites_only: bool = False) -> dict:
             raise RuntimeError(f"build failed in {t}")
     runs = {t: [] for t in trees}
     for t in trees + trees[::-1]:
-        p = run(t, *(["--sites"] if sites_only else []))
+        p = run(t, *flags)
         line = p.communicate()[0].strip().splitlines()[-1]
         if p.returncode != 0:
             raise RuntimeError(f"timing failed in {t}")
@@ -392,7 +511,10 @@ def main() -> int:
     ap.add_argument("--trees", nargs="+", help="directories holding l2hmc_tpu_torch")
     ap.add_argument("--build", action="store_true", help="only build the kernels")
     ap.add_argument("--sites", action="store_true",
-                    help="only the site-parallel kernels' rows (3e-3i, 1f-1i, 2f-2h, 1j-3l)")
+                    help="only the site-parallel kernels' rows (3e-3i, 1f-1i, 2f-2i, the "
+                         "reduction, 1j-3l, the L = 16 steps)")
+    ap.add_argument("--bwd", action="store_true",
+                    help="only the backward kernel's lane-group rows (2, 2b-2e)")
     args = ap.parse_args()
     import torch
 
@@ -400,18 +522,16 @@ def main() -> int:
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 2
     if args.trees:
-        print(json.dumps({"card": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True).stdout.strip(),
-            "order": args.trees + args.trees[::-1],
-            "ms": compare(args.trees, args.sites)}))
+        print(json.dumps({"card": _card(), "order": args.trees + args.trees[::-1],
+            "ms": compare(args.trees, tuple(f for f, on in (("--sites", args.sites),
+                                                            ("--bwd", args.bwd)) if on))}))
         return 0
     if args.build:
         from l2hmc_tpu_torch.ops import _cuda
 
         _cuda.wait_build()
         return 0
-    print(json.dumps(one(args.sites)), flush=True)
+    print(json.dumps(one(args.sites, args.bwd)), flush=True)
     return 0
 
 

@@ -611,22 +611,32 @@ __global__ void __launch_bounds__(kSiteThreads) site_chain_kernel(
 // block's global accesses as its shared ones); kSiteVjpMaxDim (4096) is the
 // chain kernel's cap.
 //
-// Weight cotangents. Two nets' 13 arrays are ~340 k floats at D = 1024,
-// H = H2 = 32: no thread holds its share in registers. Each block owns one
-// row of a (blocks, P) scratch in global memory and adds each substep's
-// cotangents, summed over the tile's chains in chain order, into it by
-// read-modify-write; every element has exactly one owning thread (the
-// thread of its site i for the per-site arrays and the heads' weights
-// (k, i), lane j of the warp of site i for w1 and w2's (i, j), thread p for
-// wh's element p, thread k or j for bh and te), so no atomics are needed and
-// the order of every sum is fixed: a launch repeats bit for bit. The rows are
-// then summed in row order (sum_chains_kernel). The heads' input
-// cotangent (dz2, a sum over the D sites for each hidden unit) is taken per
-// thread over its sites, one unit at a time, by a warp butterfly (lane 0's
-// result) and then over warps in order; the first layer's input cotangents
-// (da, db, sums over H units for each site) by a warp a site, lanes over the
-// units, and a butterfly. A tile's chains past N run with zero cotangents,
-// so they add exact zeros.
+// Weight cotangents. Each product weight's cotangent is a sum, over the
+// chains and the net's applications, of an outer product of two factors:
+// w1's of the first layer's input a and its cotangent dz1, w2's of the
+// masked input b and dz1, wh's of h and dz2, and ws's, wt's and wq's of h2
+// and the heads' input cotangents dus, dut, duq. Two nets' weights are
+// ~340 k floats at D = 1024, H = H2 = 32, so no block holds their sums, and
+// adding each application's rank-C update into a row of global memory
+// inside the substep loop moved ~3.6 GB through the L2 a launch at L = 16
+// (a 16 x 16 lattice, 1024 chains). Here each application writes its
+// factors once instead, each array by coalesced stores, into the factor
+// scratch (factor_row): K-major arrays with one row a (block, substep,
+// application, chain), and a second kernel (site_reduce_kernel in
+// trajectory_bwd.cu) forms the products over K after the launch, in a fixed
+// order. Only the per-site arrays (bs, ls, bt, bq, lq and eps), bh and te
+// stay in the block, ~3.5% of the old row's traffic: a compact row a block
+// in global memory (SmallRow), each element read-modify-written by its one
+// owning thread (the thread of its site i, thread k for bh, thread j for
+// te), in a fixed order, and summed over the blocks in block order by
+// site_reduce_sum_kernel. No atomics, so a launch repeats bit for bit. The
+// heads' input cotangent (dz2, a sum over the D sites for each hidden unit)
+// is taken per thread over its sites, over a warp's lanes 8 units at a time
+// (warp_reduce_scatter8) and then over warps in order; the first layer's
+// input cotangents (da, db, sums over H units for each site) by a thread a
+// site, with no shuffles. A tile's chains past N run with zero cotangents, so
+// their dz, dus, dut and duq are exact zeros and their factor rows add exact
+// zeros.
 
 constexpr int kSiteVjpMaxDim = kSiteMaxDim;
 constexpr int kSiteVjpSmemDim = 1024;
@@ -680,11 +690,125 @@ __device__ inline SiteVjpSmem<HM> site_vjp_smem(float* p, float* glob, int D) {
   return s;
 }
 
-// The sum of a over a warp's lanes in a fixed order (lane 0's result).
-__device__ inline float warp_sum(float a) {
+// The heads' input cotangent dz2 is summed over a warp's lanes kDz2Units
+// units at a time: each lane's values of 8 units (one a unit) reduced and
+// scattered over the lanes by xor offsets 4, 2, 1, then summed over the four
+// groups of 8 lanes by offsets 8, 16: 9 shuffles for 8 units, where a
+// butterfly a unit takes 40.
+constexpr int kDz2Units = 8;
+
+// Lane l's result: the sum over the warp's lanes of v[l % 8], in a fixed
+// order.
+__device__ inline float warp_reduce_scatter8(float (&v)[kDz2Units], int lane) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+  for (int o = kDz2Units / 2; o > 0; o >>= 1) {
+    const bool up = lane & o;  // keeps v[o .. 2o), sends v[0 .. o)
+#pragma unroll
+    for (int t = 0; t < o; ++t) {
+      const float keep = up ? v[t + o] : v[t], send = up ? v[t] : v[t + o];
+      v[t] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+  float a = v[0];
+  a += __shfl_xor_sync(0xffffffffu, a, 8);
+  a += __shfl_xor_sync(0xffffffffu, a, 16);
   return a;
+}
+
+// n rounded up to a multiple of 4 floats (16 bytes): the factor arrays' row
+// stride, so that the reduction copies whole 16-byte chunks.
+__host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
+
+// A block's compact row of the cotangents that stay in the block: per net
+// bh (H2) | bs | ls | bt | bq | lq (D each) | te (H x T), the xnet's then
+// the vnet's, then eps (D).
+struct SmallRow {
+  int bh, bs, ls, bt, bq, lq, te;
+};
+
+__host__ __device__ inline int small_net_floats(Dims d) {
+  return d.H2 + 5 * d.D + d.H * d.T;
+}
+__host__ __device__ inline int small_row_floats(Dims d) {
+  return 2 * small_net_floats(d) + d.D;
+}
+__host__ __device__ inline SmallRow small_row(int net, Dims d) {
+  SmallRow r;
+  r.bh = net * small_net_floats(d);
+  r.bs = r.bh + d.H2;
+  r.ls = r.bs + d.D;
+  r.bt = r.ls + d.D;
+  r.bq = r.bt + d.D;
+  r.lq = r.bq + d.D;
+  r.te = r.lq + d.D;
+  return r;
+}
+
+// The products' weight cotangents of both nets, the reduction's output:
+// per net w1, w2 (D x H) | wh (H x H2) | ws, wt, wq (H2 x D), row-major,
+// the xnet's then the vnet's.
+__host__ __device__ inline int reduce_net_floats(Dims d) {
+  return 2 * d.D * d.H + d.H * d.H2 + 3 * d.H2 * d.D;
+}
+
+// Where element r of the reduction's output (r < 2 reduce_net_floats) or,
+// past it, of the compact row (SmallRow) lies in the gradient vector
+// (net_rows' layout: xnet's 13 arrays | vnet's | eps).
+__host__ __device__ inline int site_grad_index(int r, Dims d) {
+  const int nf = net_floats(d), wn = reduce_net_floats(d), sn = small_net_floats(d);
+  const int hd = d.H2 * d.D;
+  if (r < 2 * wn) {
+    const int net = r >= wn;
+    int c = r - net * wn;
+    const NetRows R = net_rows(net * nf, d);
+    const int w12h = 2 * d.D * d.H + d.H * d.H2;  // w1, w2, wh lie together
+    if (c < w12h) return R.w1 + c;
+    c -= w12h;
+    if (c < hd) return R.ws + c;
+    c -= hd;
+    return c < hd ? R.wt + c : R.wq + c - hd;
+  }
+  r -= 2 * wn;
+  if (r < 2 * sn) {
+    const int net = r >= sn;
+    int c = r - net * sn;
+    const NetRows R = net_rows(net * nf, d);
+    if (c < d.H2) return R.bh + c;
+    c -= d.H2;
+    if (c < 2 * d.D) return R.bs + c;  // bs, ls lie together
+    c -= 2 * d.D;
+    return c < d.D ? R.bt + c : R.bq + c - d.D;  // bq, lq, te lie together
+  }
+  return 2 * nf + r - 2 * sn;
+}
+
+// One net's factors in a factor scratch of K rows a net: a, b (the first
+// layer's inputs, b masked as the xnet reads it), us, ut, uq (the heads'
+// input cotangents), (K, pad4(D)) each; h, z1 (the first hidden layer and
+// its cotangent after the ReLU gate), (K, pad4(H)); h2, z2 (the second),
+// (K, pad4(H2)); row-major, in that order, the xnet's first. Row k of the
+// part's block b is its application a (0 the first of the net in the
+// substep, 1 the second) of substep t for chain c, k = ((b T + t) 2 + a) C +
+// c: the reduction reads K in the order the blocks wrote it.
+enum FactorArray { kFa, kFb, kFus, kFut, kFuq, kFh, kFz1, kFh2, kFz2 };
+
+__host__ __device__ inline size_t factor_row_floats(Dims d) {
+  return static_cast<size_t>(5 * pad4(d.D) + 2 * pad4(d.H) + 2 * pad4(d.H2));
+}
+
+// Row k of array `arr` of net `net`'s factors in the scratch f of K rows a
+// net.
+__host__ __device__ inline float* factor_row(float* f, Dims d, size_t K, int net, int arr,
+                                             size_t k) {
+  const size_t ldD = pad4(d.D), ldH = pad4(d.H), ldH2 = pad4(d.H2);
+  size_t o = static_cast<size_t>(net) * K * factor_row_floats(d);
+  if (arr < kFh)
+    o += (arr * K + k) * ldD;
+  else if (arr < kFh2)
+    o += 5 * K * ldD + ((arr - kFh) * K + k) * ldH;
+  else
+    o += 5 * K * ldD + 2 * K * ldH + ((arr - kFh2) * K + k) * ldH2;
+  return f + o;
 }
 
 // VJP of application APP (run as 4, 3, 2, 1) of the substep whose recompute
@@ -692,19 +816,25 @@ __device__ inline float warp_sum(float a) {
 // arrays hold the cotangents of the application's outputs, on return those
 // of its inputs (the comments give the forward direction's names; the
 // reverse direction's expressions are lane_traj_step_vjp's). dl: each
-// chain's log-det cotangent. The weight cotangents and the eps cotangent are
-// added into the block's row (net at row offset 0 for the xnet, nf for the
-// vnet, eps at 2 nf).
+// chain's log-det cotangent. The per-site, bh, te and eps cotangents are
+// added into the block's compact row; the application's factors go to the
+// factor scratch fac (K rows a net) at rows k + (0 for APP 1 and 2, C for
+// APP 3 and 4).
 template <int APP, class En, int HM>
 __device__ inline void site_app_vjp(const Block& B, Dims d, bool hmc, bool rev,
                                     int step, const SiteVjpSmem<HM>& s,
                                     const float (&dl)[kSiteChains], float* row,
-                                    int nf) {
-  constexpr int C = kSiteChains, U = HM / 32;
+                                    float* fac, size_t K, size_t k) {
+  constexpr int C = kSiteChains;
   constexpr bool VNET = APP == 1 || APP == 4;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const Net& w = VNET ? B.vnet : B.xnet;
-  const NetRows r = net_rows(VNET ? nf : 0, d);
+  const SmallRow r = small_row(VNET ? 1 : 0, d);
+  const int eps_at = 2 * small_net_floats(d);  // eps in the compact row
+  // this application's factor rows (the net's first application in the
+  // substep at k, its second at k + C)
+  const int net = VNET ? 1 : 0;
+  const size_t kr = k + (APP <= 2 ? 0 : C);
   const float* h = s.h + (APP - 1) * C * HM;
   const float* h2 = s.h2 + (APP - 1) * C * HM;
   // the application's inputs (a, b): b masked for the xnet (its mask's half
@@ -717,7 +847,8 @@ __device__ inline void site_app_vjp(const Block& B, Dims d, bool hmc, bool rev,
   const bool b_is_m = (APP == 2) == !rev;
 
   // the elementwise backward of the update and of the heads, site by site;
-  // the heads' weight cotangents and their input cotangent's partial sums
+  // the per-site cotangents, the factors a, b, dus, dut, duq, and the heads'
+  // input cotangent's partial sums
   const int groups = (d.D + kSiteThreads - 1) / kSiteThreads;
   for (int gi = 0; gi < groups; ++gi) {
     const int i = threadIdx.x + gi * kSiteThreads;
@@ -803,13 +934,25 @@ __device__ inline void site_app_vjp(const Block& B, Dims d, bool hmc, bool rev,
         hbt += dt;
         hbq += duq[c];
       }
-      row[2 * nf + i] += de;
+      row[eps_at + i] += de;
       if (!hmc) {
         row[r.bs + i] += hbs;
         row[r.ls + i] += hls;
         row[r.bt + i] += hbt;
         row[r.bq + i] += hbq;
         row[r.lq + i] += hlq;
+        const float bm = VNET ? 1.f : b_is_m ? m : mb;
+        float* const fo = factor_row(fac, d, K, net, kFa, kr) + i;  // then b, us, ut, uq
+        const size_t nD = K * pad4(d.D);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          float* const o = fo + c * pad4(d.D);
+          o[0] = a[c * d.D + i];
+          o[nD] = bm * b[c * d.D + i];
+          o[2 * nD] = dus[c];
+          o[3 * nD] = dut[c];
+          o[4 * nD] = duq[c];
+        }
       }
     } else {
 #pragma unroll
@@ -817,30 +960,26 @@ __device__ inline void site_app_vjp(const Block& B, Dims d, bool hmc, bool rev,
     }
     if (hmc) continue;
     // dz2 (before the ReLU gate) = sum over sites of the heads' weights times
-    // their input cotangents: this warp's part, unit by unit
-    for (int k = 0; k < d.H2; ++k) {
-      float ws = 0.f, wt = 0.f, wq = 0.f;
-      if (on) {
-        ws = w.ws[k * d.D + i];
-        wt = w.wt[k * d.D + i];
-        wq = w.wq[k * d.D + i];
-        float gs = 0.f, gt = 0.f, gq = 0.f;
+    // their input cotangents: this warp's part, kDz2Units units at a time
+    for (int k0 = 0; k0 < d.H2; k0 += kDz2Units) {
+      float u[C][kDz2Units];
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float hk = h2[c * HM + k];
-          gs = fmaf(hk, dus[c], gs);
-          gt = fmaf(hk, dut[c], gt);
-          gq = fmaf(hk, duq[c], gq);
+      for (int t = 0; t < kDz2Units; ++t) {
+        const int kk = k0 + t;
+        float ws = 0.f, wt = 0.f, wq = 0.f;
+        if (on && kk < d.H2) {
+          ws = w.ws[kk * d.D + i];
+          wt = w.wt[kk * d.D + i];
+          wq = w.wq[kk * d.D + i];
         }
-        row[r.ws + k * d.D + i] += gs;
-        row[r.wt + k * d.D + i] += gt;
-        row[r.wq + k * d.D + i] += gq;
+#pragma unroll
+        for (int c = 0; c < C; ++c) u[c][t] = fmaf(ws, dus[c], fmaf(wt, dut[c], wq * duq[c]));
       }
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const float p = warp_sum(fmaf(ws, dus[c], fmaf(wt, dut[c], wq * duq[c])));
-        if (lane == 0) {
-          float* q = s.red + (warp * C + c) * HM + k;
+        const float p = warp_reduce_scatter8(u[c], lane);  // unit k0 + lane % 8's
+        if (lane < kDz2Units && k0 + lane < d.H2) {
+          float* q = s.red + (warp * C + c) * HM + k0 + lane;
           *q = gi == 0 ? p : *q + p;
         }
       }
@@ -848,32 +987,33 @@ __device__ inline void site_app_vjp(const Block& B, Dims d, bool hmc, bool rev,
   }
   __syncthreads();
   if (!hmc) {
-    // dz2 = its warps' partials in warp order, gated by the second ReLU
+    // dz2 = its warps' partials in warp order, gated by the second ReLU; the
+    // factors h2 and dz2
     for (int p = threadIdx.x; p < C * d.H2; p += kSiteThreads) {
-      const int c = p / d.H2, k = p - c * d.H2;
+      const int c = p / d.H2, kk = p - c * d.H2;
       float t = 0.f;
-      for (int wv = 0; wv < kSiteWarps; ++wv) t += s.red[(wv * C + c) * HM + k];
-      s.dz2[c * HM + k] = h2[c * HM + k] > 0.f ? t : 0.f;
+      for (int wv = 0; wv < kSiteWarps; ++wv) t += s.red[(wv * C + c) * HM + kk];
+      const float z = h2[c * HM + kk] > 0.f ? t : 0.f;
+      s.dz2[c * HM + kk] = z;
+      factor_row(fac, d, K, net, kFz2, kr + c)[kk] = z;
+      factor_row(fac, d, K, net, kFh2, kr + c)[kk] = h2[c * HM + kk];
     }
     __syncthreads();
-    for (int k = threadIdx.x; k < d.H2; k += kSiteThreads) {
+    for (int kk = threadIdx.x; kk < d.H2; kk += kSiteThreads) {
       float t = 0.f;
 #pragma unroll
-      for (int c = 0; c < C; ++c) t += s.dz2[c * HM + k];
-      row[r.bh + k] += t;
+      for (int c = 0; c < C; ++c) t += s.dz2[c * HM + kk];
+      row[r.bh + kk] += t;
     }
-    for (int p = threadIdx.x; p < d.H * d.H2; p += kSiteThreads) {
-      const int j = p / d.H2, k = p - j * d.H2;
-      float t = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) t = fmaf(h[c * HM + j], s.dz2[c * HM + k], t);
-      row[r.wh + p] += t;
-    }
+    // dz1, gated by the first ReLU; the factors h and dz1
     for (int p = threadIdx.x; p < C * d.H; p += kSiteThreads) {
       const int c = p / d.H, j = p - c * d.H;
       float t = 0.f;
-      for (int k = 0; k < d.H2; ++k) t = fmaf(w.wh[j * d.H2 + k], s.dz2[c * HM + k], t);
-      s.dz1[c * HM + j] = h[c * HM + j] > 0.f ? t : 0.f;  // h is 0 where the ReLU cut
+      for (int kk = 0; kk < d.H2; ++kk) t = fmaf(w.wh[j * d.H2 + kk], s.dz2[c * HM + kk], t);
+      const float z = h[c * HM + j] > 0.f ? t : 0.f;  // h is 0 where the ReLU cut
+      s.dz1[c * HM + j] = z;
+      factor_row(fac, d, K, net, kFz1, kr + c)[j] = z;
+      factor_row(fac, d, K, net, kFh, kr + c)[j] = h[c * HM + j];
     }
     __syncthreads();
     for (int j = threadIdx.x; j < d.H; j += kSiteThreads) {
@@ -882,52 +1022,33 @@ __device__ inline void site_app_vjp(const Block& B, Dims d, bool hmc, bool rev,
       for (int c = 0; c < C; ++c) t += s.dz1[c * HM + j];
       row[r.te + j * d.T + step] += t;
     }
-    // the first layer: a warp a site, lanes over the units
-    float dz[C][U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = lane + 32 * u;
-#pragma unroll
-      for (int c = 0; c < C; ++c) dz[c][u] = j < d.H ? s.dz1[c * HM + j] : 0.f;
-    }
-    for (int i = warp; i < d.D; i += kSiteWarps) {
+    // the first layer's input cotangents: a thread a site, over its row of
+    // w1 and w2 in unit order (dz1 read by every thread at once)
+    for (int i = threadIdx.x; i < d.D; i += kSiteThreads) {
       float bm = 1.f;
       if (!VNET) {
         const float m = B.masks[i * d.T + step];
         bm = b_is_m ? m : 1.f - m;
       }
-      float pa[C], pb[C], av[C], bv[C];
+      const float* const w1 = w.w1 + i * d.H;
+      const float* const w2 = w.w2 + i * d.H;
+      float pa[C], pb[C];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        pa[c] = pb[c] = 0.f;
-        av[c] = a[c * d.D + i];
-        bv[c] = bm * b[c * d.D + i];
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (u > 0 && d.H <= 32 * u) break;  // the same in every lane
-        const int j = lane + 32 * u, jj = min(j, d.H - 1);
-        const float w1 = w.w1[i * d.H + jj], w2 = w.w2[i * d.H + jj];
-        float g1 = 0.f, g2 = 0.f;
+      for (int c = 0; c < C; ++c) pa[c] = pb[c] = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < d.H; ++j) {
+        const float a1 = w1[j], a2 = w2[j];
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          pa[c] = fmaf(w1, dz[c][u], pa[c]);
-          pb[c] = fmaf(w2, dz[c][u], pb[c]);
-          g1 = fmaf(av[c], dz[c][u], g1);
-          g2 = fmaf(bv[c], dz[c][u], g2);
-        }
-        if (j < d.H) {
-          row[r.w1 + i * d.H + j] += g1;
-          row[r.w2 + i * d.H + j] += g2;
+          const float z = s.dz1[c * HM + j];
+          pa[c] = fmaf(a1, z, pa[c]);
+          pb[c] = fmaf(a2, z, pb[c]);
         }
       }
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const float sa = warp_sum(pa[c]), sb = warp_sum(pb[c]);
-        if (lane == 0) {
-          A[c * d.D + i] += sa;
-          Bd[c * d.D + i] += bm * sb;
-        }
+        A[c * d.D + i] += pa[c];
+        Bd[c * d.D + i] += bm * pb[c];
       }
     }
     __syncthreads();
@@ -937,15 +1058,16 @@ __device__ inline void site_app_vjp(const Block& B, Dims d, bool hmc, bool rev,
 
 // VJP of one substep (step, direction rev) at the input (s.x, s.v) for the
 // tile's chains: on entry s.dx, s.dv hold the cotangents of its output and
-// dl the log-det's; on return s.dx, s.dv those of its input, and the
-// weight and eps cotangents are added into row. The substep is recomputed
-// first with the forward phases (site_hidden, site_heads), its
-// intermediates kept apart.
+// dl the log-det's; on return s.dx, s.dv those of its input, the per-site
+// cotangents are added into the block's compact row, and the four
+// applications' factors are written to fac (K rows a net) from row k on.
+// The substep is recomputed first with the forward phases (site_hidden,
+// site_heads), its intermediates kept apart.
 template <class En, int HM>
 __device__ inline void site_substep_vjp(const Block& B, Dims d, bool hmc, bool rev,
                                         int step, const SiteVjpSmem<HM>& s,
                                         const float (&dl)[kSiteChains], float* row,
-                                        int nf) {
+                                        float* fac, size_t K, size_t k) {
   constexpr int C = kSiteChains;
   int steps[C];
   bool revs[C];
@@ -970,10 +1092,10 @@ __device__ inline void site_substep_vjp(const Block& B, Dims d, bool hmc, bool r
                     SiteIO{s.y, s.xo, s.vh, nullptr, nullptr, nullptr}, ld);
   site_grad<En>(B, d, s.xo, s.g2, s.sc);
   if (!hmc) site_hidden<float, HM>(B.vnet, d, s.xo, s.g2, steps, s.red, hid(3), hid2(3));
-  site_app_vjp<4, En, HM>(B, d, hmc, rev, step, s, dl, row, nf);
-  site_app_vjp<3, En, HM>(B, d, hmc, rev, step, s, dl, row, nf);
-  site_app_vjp<2, En, HM>(B, d, hmc, rev, step, s, dl, row, nf);
-  site_app_vjp<1, En, HM>(B, d, hmc, rev, step, s, dl, row, nf);
+  site_app_vjp<4, En, HM>(B, d, hmc, rev, step, s, dl, row, fac, K, k);
+  site_app_vjp<3, En, HM>(B, d, hmc, rev, step, s, dl, row, fac, K, k);
+  site_app_vjp<2, En, HM>(B, d, hmc, rev, step, s, dl, row, fac, K, k);
+  site_app_vjp<1, En, HM>(B, d, hmc, rev, step, s, dl, row, fac, K, k);
 }
 
 // Whether the chain kernel runs these widths and spec on the site-parallel

@@ -47,6 +47,9 @@ SIGNATURES = {
         "l2hmc_trajectory_bwd_site_chains": [_I, _I, _I],
         "l2hmc_trajectory_bwd_site_threads": [_I, _I, _I],
         "l2hmc_trajectory_bwd_site_smem_bytes": [_I] * 5,  # D, H, H2, energy kind, constants
+        "l2hmc_trajectory_bwd_site_plan": [*([_I] * 5), _P],  # D, H, H2, T, N, out[10]
+        # the site VJP's reduction alone: factors, D, H, H2, K, out, partial, stream
+        "l2hmc_site_reduce": [_P, *([_I] * 4), _P, _P, _P],
     },
     "trajectory_bwd_specs": {
         "l2hmc_trajectory_bwd_specs": [_P, *([_I] * 8), *([_P] * 9), _I, _P],

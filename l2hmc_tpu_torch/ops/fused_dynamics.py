@@ -8,7 +8,9 @@ Three kernels, all in ``csrc/`` (see the notes at the top of each source):
     reverse. Public class ``FusedDynamics``.
   - ``trajectory_bwd`` (``csrc/trajectory_bwd.cu``) replaces
     ``_make_bwd_kernel``: the trajectory's vector-Jacobian product, with the
-    weight and eps cotangents summed over chains. Public class
+    weight and eps cotangents summed over chains (past 64 wide the product
+    weights' from the factors each application writes, by a second kernel:
+    ``reduce_factors``). Public class
     ``DifferentiableFusedDynamics``, the training path, whose
     ``torch.autograd.Function`` launches ``trajectory`` forward and
     ``trajectory_bwd`` backward.
@@ -70,6 +72,7 @@ the caps a request exceeds.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import Any, Callable, Optional
@@ -107,6 +110,12 @@ _MAX_DIM, _MAX_HIDDEN = 4096, 128
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 # the site-parallel configuration's tile: chains and threads a block
 _SITE_CHAINS, _SITE_THREADS = 4, 256
+# the site VJP's factor scratch a part, in floats (kSiteFactorCap), and its
+# reduction's output tile, rows of K a stage, blocks aimed at and most splits
+# of K (kRedTile, kRedK, kRedTargetBlocks, kRedMaxSplits in
+# csrc/trajectory_bwd.cu)
+_SITE_FACTOR_CAP = 1 << 30
+_RED_TILE, _RED_K, _RED_TARGET_BLOCKS, _RED_MAX_SPLITS = 64, 16, 1056, 64
 
 
 def reset_launch_counts() -> None:
@@ -508,6 +517,9 @@ LAUNCHES.update({f"{k}:{n}": 0 for k in ("trajectory", "trajectory_bwd", "chain"
 # the site-parallel launches
 LAUNCHES.update({f"{k}:sites": 0 for k in ("trajectory", "trajectory_bwd", "chain")})
 LAUNCHES.update({"trajectory:bf16": 0, "chain:bf16": 0})  # bfloat16 instantiations
+# the site VJP's reduction of its factors (``reduce_factors``; inside a
+# ``trajectory_vjp`` on sites that writes factors)
+LAUNCHES["trajectory_bwd_reduce"] = 0
 
 
 def _count(name: str, inp, sites: bool) -> None:
@@ -705,8 +717,9 @@ def trajectory_site_geometry(kernel: str, dim: int, hidden: int, hidden2: int, n
     csrc/l2hmc_sites.cuh. The trajectory kernel keeps x', v and g of its tile
     in shared memory, as the chain kernel does, and no scratch; the backward
     kernel keeps ten (C, D) arrays there up to dim 1024 (past it in its
-    scratch) and the four net applications' hidden layers, and one row of
-    weight and eps cotangents a block in the wrapper's scratch; both keep the
+    scratch) and the four net applications' hidden layers, and a compact row
+    of per-site, bh, te and eps cotangents a block in the wrapper's scratch
+    (beside its factors, ``site_bwd_plan``); both keep the
     spec's prelude (``site_prelude_floats``) beside them. Raises past the
     caps or where the lane groups serve the widths."""
     reason = _caps_refusal(kernel, dim, max(hidden, hidden2))
@@ -735,19 +748,194 @@ def trajectory_site_tile(kernel: str, dim: int, hidden: int, hidden2: int,
             getattr(lib, f"l2hmc_{kernel}_site_smem_bytes")(dim, hidden, hidden2, kind, nc))
 
 
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _factor_row_floats(D: int, H: int, H2: int) -> int:
+    """Floats of one factor row (``factor_row_floats`` in csrc/l2hmc_sites.cuh):
+    a, b, dus, dut, duq at ``_pad4(D)``, h, dz1 at ``_pad4(H)``, h2, dz2 at
+    ``_pad4(H2)``."""
+    return 5 * _pad4(D) + 2 * _pad4(H) + 2 * _pad4(H2)
+
+
+def _reduce_net_floats(D: int, H: int, H2: int) -> int:
+    """Floats of one net's product weights: w1, w2, wh, ws, wt, wq."""
+    return 2 * D * H + H * H2 + 3 * H2 * D
+
+
+def reduce_splits(D: int, H: int, H2: int, K: int) -> int:
+    """The parts the site VJP's reduction cuts K factor rows into
+    (``reduce_splits`` in csrc/trajectory_bwd.cu): enough 64 x 64 output
+    tiles' blocks to fill the card, at most 64, at least 4 stages of 16
+    rows each; a function of the widths and K alone."""
+    def tiles(m, n):
+        return -(-m // _RED_TILE) * -(-n // _RED_TILE)
+
+    t = 2 * (2 * tiles(D, H) + tiles(H, H2) + 3 * tiles(H2, D))
+    chunks = -(-K // _RED_K)
+    return max(1, min(-(-_RED_TARGET_BLOCKS // t), _RED_MAX_SPLITS, chunks // 4))
+
+
+def site_bwd_plan(D: int, H: int, H2: int, T: int, n: int) -> dict:
+    """A site VJP launch on ``n`` chains (``site_bwd_plan`` in
+    csrc/trajectory_bwd.cu): its blocks of ``_SITE_CHAINS`` chains, run in
+    ``parts`` of ``part_blocks`` blocks (the last may hold fewer) so that a
+    part's factors stay within ``_SITE_FACTOR_CAP`` floats; ``K`` factor rows
+    a net in a part (block, substep, application, chain); the reduction's
+    ``splits`` of K; and the scratch's regions in floats, each a multiple of
+    4: the blocks' compact rows of per-site, bh, te and eps cotangents
+    (``rows``), a part's boundary states (``bnd``), its intermediates past
+    dim 1024 (``arr``) and its factors (``fac``), and every part's partial
+    sums (``partial``)."""
+    C = _SITE_CHAINS
+    blocks = -(-n // C)
+    block_fac = 2 * T * 2 * C * _factor_row_floats(D, H, H2)
+    parts = max(1, -(-(block_fac * blocks) // _SITE_FACTOR_CAP))
+    part_blocks = -(-blocks // parts)
+    parts = -(-blocks // part_blocks)
+    K = part_blocks * T * 2 * C
+    splits = reduce_splits(D, H, H2, K)
+    small = 2 * (H2 + 5 * D + H * T) + D
+    return {"blocks": blocks, "parts": parts, "part_blocks": part_blocks, "K": K,
+            "splits": splits, "rows": _pad4(blocks * small),
+            "bnd": _pad4(part_blocks * T * 2 * C * D),
+            "arr": 0 if D <= _SITE_VJP_SMEM_DIM else _pad4(part_blocks * 10 * C * D),
+            "fac": block_fac * part_blocks,
+            "partial": splits * parts * 2 * _reduce_net_floats(D, H, H2)}
+
+
+_PLAN_REGIONS = ("rows", "bnd", "arr", "fac", "partial")
+
+
 def bwd_scratch_floats(inp: KernelInputs, n: int) -> int:
     """Floats of scratch a backward launch on ``n`` chains takes: on the lane
     groups a row of weight and eps cotangents a chain and the (T + 1, 2, D,
-    N) boundary states; on sites a row a block of ``_SITE_CHAINS`` chains,
-    each block's (T, 2, C, D) boundary states and, past dim 1024, its
-    (10, C, D) intermediates."""
-    D, _, _, T = inp.dims
-    P = sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D
+    N) boundary states; on sites the regions of ``site_bwd_plan``."""
+    D, H, H2, T = inp.dims
     if not trajectory_on_sites(inp):
+        P = sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D
         return P * n + 2 * (T + 1) * D * n
-    rows = -(-n // _SITE_CHAINS)
-    arrays = 10 * _SITE_CHAINS * D if D > _SITE_VJP_SMEM_DIM else 0
-    return rows * (P + 2 * T * _SITE_CHAINS * D + arrays)
+    plan = site_bwd_plan(D, H, H2, T, n)
+    return sum(plan[k] for k in _PLAN_REGIONS)
+
+
+def site_bwd_plan_of_library(D: int, H: int, H2: int, T: int, n: int) -> Optional[dict]:
+    """``site_bwd_plan`` as the built library computes it
+    (``l2hmc_trajectory_bwd_site_plan``), or None where the widths are not
+    on sites or past the caps."""
+    out = (ctypes.c_longlong * 10)()
+    if _cuda.library("trajectory_bwd").l2hmc_trajectory_bwd_site_plan(D, H, H2, T, n, out):
+        return None
+    keys = ("blocks", "parts", "part_blocks", "K", "splits", *_PLAN_REGIONS)
+    return dict(zip(keys, (int(v) for v in out)))
+
+
+# -- the site VJP's factors and their reduction ----------------------------------
+#
+# The site VJP writes each S/T/Q application's factors into a K-major scratch
+# (``factor_row`` in csrc/l2hmc_sites.cuh): per net (the xnet's first) the
+# arrays a, b, us, ut, uq (K, pad4(D)), h, z1 (K, pad4(H)), h2, z2 (K,
+# pad4(H2)), row k = ((block T + t) 2 + a) C + c for chain c of the block's
+# tile, substep t and the net's application a (0: the first in the substep).
+# The product weights' cotangents are sums over K of their outer products,
+# formed by ``reduce_factors``.
+
+_FACTOR_ARRAYS = ("a", "b", "us", "ut", "uq", "h", "z1", "h2", "z2")
+
+
+def factor_views(flat: torch.Tensor, D: int, H: int, H2: int, K: int) -> list[dict]:
+    """The two nets' factor arrays in the flat scratch ``flat`` of K rows a
+    net: [xnet, vnet], each a dict of (K, width) views (the padding columns
+    left out)."""
+    widths = dict(a=D, b=D, us=D, ut=D, uq=D, h=H, z1=H, h2=H2, z2=H2)
+    nets, o = [], 0
+    for _ in range(2):
+        net = {}
+        for name in _FACTOR_ARRAYS:
+            w = widths[name]
+            ld = _pad4(w)
+            net[name] = flat[o:o + K * ld].view(K, ld)[:, :w]
+            o += K * ld
+        nets.append(net)
+    return nets
+
+
+def reduce_factors_plain(flat: torch.Tensor, D: int, H: int, H2: int, K: int) -> torch.Tensor:
+    """Plain version of the site VJP's reduction: the twelve products of the
+    factors in ``flat`` (K rows a net) as float32 matrix products, in the
+    kernel's output order (per net w1 | w2 | wh | ws | wt | wq, row-major;
+    the xnet's first), one flat tensor."""
+    out = []
+    for f in factor_views(flat, D, H, H2, K):
+        out += [f["a"].T @ f["z1"], f["b"].T @ f["z1"], f["h"].T @ f["z2"],
+                f["h2"].T @ f["us"], f["h2"].T @ f["ut"], f["h2"].T @ f["uq"]]
+    return torch.cat([o.reshape(-1) for o in out])
+
+
+def reduce_factors(flat: torch.Tensor, D: int, H: int, H2: int, K: int) -> torch.Tensor:
+    """The site VJP's reduction of its factors (K rows a net, the layout of
+    ``factor_views``): what ``reduce_factors_plain`` returns. CPU tensors
+    take the plain version; a CUDA tensor launches ``site_reduce_kernel`` and
+    ``site_reduce_sum_kernel`` (csrc/trajectory_bwd.cu): float32 sums over
+    fixed splits of K, added in a fixed order."""
+    n = 2 * K * _factor_row_floats(D, H, H2)
+    if flat.dtype != torch.float32 or flat.dim() != 1 or flat.numel() != n \
+            or not flat.is_contiguous():
+        raise ValueError(f"factors must be a contiguous float32 ({n},) tensor")
+    if flat.device.type == "cpu":
+        return reduce_factors_plain(flat, D, H, H2, K)
+    if flat.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {flat.device}")
+    if flat.data_ptr() % 16:
+        raise ValueError("factors must be 16-byte aligned")
+    lib = _cuda.library("trajectory_bwd")
+    wc = 2 * _reduce_net_floats(D, H, H2)
+    out = torch.empty(wc, dtype=torch.float32, device=flat.device)
+    partial = torch.empty(reduce_splits(D, H, H2, K) * wc, dtype=torch.float32,
+                          device=flat.device)
+    with torch.cuda.device(flat.device):
+        err = lib.l2hmc_site_reduce(flat.data_ptr(), D, H, H2, K, out.data_ptr(),
+                                    partial.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _cuda.check(err, "site_reduce")
+    LAUNCHES["trajectory_bwd_reduce"] += 1
+    return out
+
+
+def reduced_weights(out: torch.Tensor, D: int, H: int, H2: int) -> list[list[torch.Tensor]]:
+    """The reduction's flat output as [xnet, vnet] lists of w1 (D, H), w2
+    (D, H), wh (H, H2), ws, wt, wq (H2, D): the shapes of ``_extract_net``'s
+    arrays ``_PRODUCT_WEIGHTS``."""
+    shapes = [(D, H), (D, H), (H, H2), (H2, D), (H2, D), (H2, D)]
+    parts = torch.split(out, [a * b for a, b in shapes] * 2)
+    return [[p.view(s) for p, s in zip(parts[6 * k:6 * k + 6], shapes)] for k in range(2)]
+
+
+def site_factors_plain(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
+    """The factors the site VJP writes for this launch, recorded on the plain
+    VJP (``_trajectory_vjp_plain``), laid out as the kernel lays out one
+    part: (flat, K) with K = ceil(N / C) T 2 C rows a net; the rows of a
+    tile's chains past N are zeros. In HMC mode every factor is zero."""
+    D, H, H2, T = inp.dims
+    N, C = x.shape[1], _SITE_CHAINS
+    B = -(-N // C)
+    K = B * T * 2 * C
+    rec = []
+    _trajectory_vjp_plain(inp, x, v, dX, dV, dld, reverse, rec)
+    flat = torch.zeros(2 * K * _factor_row_floats(D, H, H2), dtype=torch.float32,
+                       device=x.device)
+    views = factor_views(flat, D, H, H2, K)
+    # rec: per substep i = T - 1 .. 0 (the VJP's order), its applications 4, 3, 2, 1
+    where = {4: (1, 1), 3: (0, 1), 2: (0, 0), 1: (1, 0)}  # app -> (net, a)
+    for j, factors in enumerate(rec):
+        t, app = T - 1 - j // 4, 4 - j % 4
+        net, a = where[app]
+        for name, f in zip(_FACTOR_ARRAYS, factors):
+            rows = torch.zeros((B * C, f.shape[0]), dtype=torch.float32, device=x.device)
+            rows[:N] = f.T
+            dst = views[net][name].view(B, T, 2, C, -1)
+            dst[:, t, a] = rows.view(B, C, -1)
+    return flat, K
 
 
 def _kernel_block(inp: KernelInputs, x: torch.Tensor, kernel: str) -> torch.Tensor:
@@ -882,7 +1070,8 @@ def relu_margins(inp: KernelInputs, x, v, reverse: bool) -> torch.Tensor:
     return margin
 
 
-def _stq_vjp(w: list, a, b, step: int, ds, dt, dq, gw: list, emb=None, demb=None, cd=None):
+def _stq_vjp(w: list, a, b, step: int, ds, dt, dq, gw: list, emb=None, demb=None, cd=None,
+             rec=None):
     """VJP of ``_apply_stq`` at inputs (a, b) for output cotangents
     (ds, dt, dq): adds the 13 weight cotangents (summed over chains) into
     ``gw`` and returns (da, db). With ``emb`` the cotangent of the hidden
@@ -890,7 +1079,9 @@ def _stq_vjp(w: list, a, b, step: int, ds, dt, dq, gw: list, emb=None, demb=None
     Recomputes the net's activations; relu'(0) = 0. With ``cd`` each
     product's activation cotangent is rounded, each separately, and the
     weight cotangents take the lowered activations and stay float32
-    (``ops.operands``)."""
+    (``ops.operands``). A list ``rec`` gets the product weights' factors
+    (a, b, dus, dt, duq, h, dz1, h2, dz2), each (width, N), the
+    ``_FACTOR_ARRAYS`` of the site VJP."""
     w1, w2, wh, bh, ws, bs, ls, wt, bt, wq, bq, lq, te = w
     z1 = dot(w1.T, a, cd) + dot(w2.T, b, cd) + te[:, step : step + 1]
     if emb is not None:
@@ -907,6 +1098,8 @@ def _stq_vjp(w: list, a, b, step: int, ds, dt, dq, gw: list, emb=None, demb=None
     dz2 = (dot_ct(ws, dus, cd) + dot_ct(wt, dt, cd) + dot_ct(wq, duq, cd)) * (z2 > 0)
     dz1 = dot_ct(wh, dz2, cd) * (z1 > 0)
     a, b, h, h2 = (lower(x, cd) for x in (a, b, h, h2))
+    if rec is not None:
+        rec.append((a, b, dus, dt, duq, h, dz1, h2, dz2))
     for i, g in enumerate((
         a @ dz1.T, b @ dz1.T,
         h @ dz2.T, dz2.sum(1, keepdim=True),
@@ -922,13 +1115,14 @@ def _stq_vjp(w: list, a, b, step: int, ds, dt, dq, gw: list, emb=None, demb=None
 
 
 def _step_vjp(inp: KernelInputs, reverse: bool, step: int, x, v, dxo, dvo, dld, gx, gv,
-              demb=None):
+              demb=None, rec=None):
     """VJP of ``_trajectory_step`` at (x, v) for the cotangents (dxo, dvo,
     dld) of (x', v', logdet increment), derived by hand: a recompute of the
     substep, then its four S/T/Q applications and two energy gradients in
     reverse order. Adds the nets' weight cotangents into ``gx`` (xnet) and
     ``gv`` (vnet) and, with ``inp.emb``, the embedding's into ``demb``;
-    returns (dx, dv, deps (D, N) per chain)."""
+    returns (dx, dv, deps (D, N) per chain). A list ``rec`` gets each
+    application's factors (``_stq_vjp``), in the order 4, 3, 2, 1."""
     m = inp.masks[:, step : step + 1]
     mb = 1.0 - m
     e, ge, gvjp, hmc = inp.eps, inp.grad_energy, inp.grad_vjp, inp.hmc
@@ -939,7 +1133,7 @@ def _step_vjp(inp: KernelInputs, reverse: bool, step: int, x, v, dxo, dvo, dld, 
     def stq_vjp(w, a, b, ds, dt, dq, gw):
         if hmc:
             return 0.0, 0.0
-        return _stq_vjp(w, a, b, step, ds, dt, dq, gw, inp.emb, demb, inp.cd)
+        return _stq_vjp(w, a, b, step, ds, dt, dq, gw, inp.emb, demb, inp.cd, rec)
 
     half = 0.5 * e
     if not reverse:
@@ -1063,9 +1257,10 @@ def trajectory_vjp_plain(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
     return _trajectory_vjp_plain(inp, x, v, dX, dV, dld, reverse)[:5]
 
 
-def _trajectory_vjp_plain(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
+def _trajectory_vjp_plain(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool, rec=None):
     """``trajectory_vjp_plain`` with the cotangent of ``inp.emb`` (H, N) as
-    a sixth output (None without an embedding)."""
+    a sixth output (None without an embedding); a list ``rec`` gets every
+    application's factors (``_step_vjp``), substep T - 1 first."""
     T = inp.dims[3]
     steps = list(range(T - 1, -1, -1) if reverse else range(T))
     xs, vs = [x], [v]
@@ -1080,7 +1275,7 @@ def _trajectory_vjp_plain(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
     dx, dv = dX, dV
     for i in range(T - 1, -1, -1):
         dx, dv, de_i = _step_vjp(inp, reverse, steps[i], xs[i], vs[i], dx, dv, dld, gx, gv,
-                                 demb)
+                                 demb, rec)
         de = de + de_i
     return gx, gv, de.sum(1, keepdim=True), dx, dv, demb
 
@@ -1180,10 +1375,14 @@ def trajectory_vjp(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
     CUDA tensors launch ``csrc/trajectory_bwd.cu`` (``trajectory_bwd_specs.cu``
     on sites for the rough well, the mixtures and the funnel; up to 64 wide a lane
     group per chain, each lane writing its share of the chain's cotangents
-    into an (N, P) scratch once; past it a tile of chains a block, adding
-    each substep's cotangents into the block's row of a (ceil(N / C), P)
-    scratch), then a fixed-order sum over the rows. float32 only: the
-    backward kernel has no bfloat16 form, nor has the JAX package's."""
+    into an (N, P) scratch once, then a fixed-order sum over the rows; past
+    it a tile of chains a block, writing each application's factors into a
+    K-major scratch (``factor_views``) and its per-site cotangents into a
+    compact row a block, then the reduction of ``reduce_factors`` and a
+    fixed-order sum of its parts and the rows; in parts of the chains where
+    the factors would pass ``_SITE_FACTOR_CAP``, ``site_bwd_plan``). float32
+    only: the backward kernel has no bfloat16 form, nor has the JAX
+    package's."""
     if inp.cd is not None:
         raise ValueError("trajectory_bwd kernel: float32 operands only (the JAX "
                          "package's backward kernel takes no compute dtype either)")
@@ -1212,6 +1411,8 @@ def trajectory_vjp(inp: KernelInputs, x, v, dX, dV, dld, reverse: bool):
         )
     _cuda.check(err, name)
     _count("trajectory_bwd", inp, trajectory_on_sites(inp))
+    if trajectory_on_sites(inp) and not inp.hmc:
+        LAUNCHES["trajectory_bwd_reduce"] += 1
     parts = torch.split(grads, [w.numel() for w in weights] + [D])
     g = [p.view(w.shape) for p, w in zip(parts, weights)]
     return g[:_NET_ARRAYS], g[_NET_ARRAYS:], parts[-1].view(D, 1), dx, dv

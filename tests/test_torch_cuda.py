@@ -689,6 +689,59 @@ def test_trajectory_site_geometry_matches_the_library(cuda):
                     kernel, dim, hidden)
 
 
+def test_site_bwd_plan_matches_the_library(cuda):
+    """Over a grid of widths, T and chain counts (ragged, and the 64 x 64
+    lattice at hidden 64, T = 24 and 1024 chains, whose factors run in two
+    parts) the host mirror ``site_bwd_plan`` equals the library's plan of
+    the site VJP's blocks, parts, factor rows, reduction splits and scratch
+    regions (None where the lane groups serve the widths)."""
+    for D in (50, 65, 100, 256, 1024, 4096):
+        for H in (10, 32, 64, 100, 128):
+            for T, n in ((10, 1024), (24, 1024), (5, 37), (10, 8192)):
+                host = fd.site_bwd_plan(D, H, H, T, n) if max(D, H) > 64 else None
+                assert fd.site_bwd_plan_of_library(D, H, H, T, n) == host, (D, H, T, n)
+    assert fd.site_bwd_plan(4096, 64, 64, 24, 1024)["parts"] == 2
+
+
+@pytest.mark.parametrize("D,H,H2,K", [(256, 32, 32, 20480), (50, 100, 100, 40960),
+                                      (100, 20, 20, 1000), (4096, 32, 32, 5120),
+                                      (1024, 32, 32, 24), (65, 7, 9, 40)])
+def test_site_reduce_kernel_matches_plain(cuda, D, H, H2, K):
+    """The site VJP's reduction kernel (its twelve products over K factor
+    rows a net, ragged tiles and K included) against its plain version
+    (float32 matrix products) on seeded normal factors: per product within
+    1e-5 of its largest entry, a second launch bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(K)
+    flat = torch.randn(2 * K * fd._factor_row_floats(D, H, H2), generator=g, device=cuda)
+    fd.reset_launch_counts()
+    got = fd.reduce_factors(flat, D, H, H2, K)
+    assert fd.LAUNCHES["trajectory_bwd_reduce"] == 1
+    torch.testing.assert_close(fd.reduce_factors(flat, D, H, H2, K), got, rtol=0, atol=0)
+    ref = fd.reduce_factors_plain(flat, D, H, H2, K)
+    for ga, gb in zip(fd.reduced_weights(got, D, H, H2), fd.reduced_weights(ref, D, H, H2)):
+        for a, b in zip(ga, gb):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+
+
+def test_site_vjp_factors_reduce_as_the_kernel_sums(cuda):
+    """The factors the plain VJP records at L = 16 (37 chains: a ragged
+    tile), reduced by the kernel, against the site backward kernel's weight
+    cotangents: per array within 1e-4 of its largest entry (BWD_TOL; the
+    kernel's recompute rounds apart from the plain one's)."""
+    inp, x = phi4.parity_inputs("phi4_L16", 37, cuda, seed=20)
+    x = x.contiguous()
+    D, H, H2, T = inp.dims
+    g = torch.Generator().manual_seed(61)
+    v, dX, dV = (torch.randn(x.shape, generator=g).to(cuda) for _ in range(3))
+    dld = torch.randn((1, 37), generator=g).to(cuda)
+    flat, K = fd.site_factors_plain(inp, x, v, dX, dV, dld, False)
+    got = fd.reduced_weights(fd.reduce_factors(flat, D, H, H2, K), D, H, H2)
+    gx, gv, *_ = fd.trajectory_vjp(inp, x, v, dX, dV, dld, False)
+    for mine, ref in zip(got, (gx, gv)):
+        for a, i in zip(mine, fd._PRODUCT_WEIGHTS):
+            torch.testing.assert_close(a, ref[i], rtol=0, atol=1e-4 * float(ref[i].abs().max()))
+
+
 def test_captured_fused_step_equals_eager_at_L16(cuda):
     """One fused training step at L = 16 (hidden 32, T = 10, 256 chains) on
     the site-parallel kernels, recorded as a CUDA graph after the captured

@@ -29,6 +29,7 @@ from l2hmc_tpu_torch.ops import fused_dynamics as fd
 from l2hmc_tpu_torch.ops.philox import box_muller
 from l2hmc_tpu_torch.train import ScgConfig, build_dynamics
 from l2hmc_tpu_torch.train.optim import tree_leaves, tree_unflatten
+from torch_wide_util import jax_array_cotangents, port_inputs, reduced_from_factors
 
 N, TILE = 16, 8  # chains, and the JAX kernels' tile: two tiles
 # Outputs and gradients per leaf within TOL of the leaf's largest entry:
@@ -171,6 +172,29 @@ def test_vjp_matches_jax_kernel(name, direction):
     for i, (g, r) in enumerate(zip(grads, ref)):
         assert tuple(g.shape) == np.shape(r), i
         _close(g.numpy(), r, f"leaf {i}")
+
+
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_recorded_factors_reduce_to_the_weight_cotangents(name, direction):
+    """The site VJP's factors on each spec past 64 (the rough well, easy and
+    hard; the ring at hidden 72; the funnel past its clip; the mixture),
+    recorded on the plain VJP in the kernel's K-major layout and reduced by
+    ``reduce_factors``'s plain version: w1, w2, wh, ws, wt and wq's
+    cotangents equal ``trajectory_vjp_plain``'s and those of the JAX
+    package's backward kernel in interpret mode (two tiles), per array
+    within TOL of its largest entry."""
+    jt, tt, jd, td, jp, tp, a = _setup(name)
+    jx, jv = jax_array_cotangents(jd, jt, jp, a, direction, TILE)
+    inp, x, v, dX, dV, dld = port_inputs(td, tt, tp, a)
+    reverse = direction == "backward"
+    (gx, gv), _, _ = reduced_from_factors(inp, x, v, dX, dV, dld, reverse)
+    px, pv, *_ = fd.trajectory_vjp_plain(inp, x, v, dX, dV, dld, reverse)
+    for got, plain, ref in ((gx, px, jx), (gv, pv, jv)):
+        for w, i in zip(got, fd._PRODUCT_WEIGHTS):
+            assert np.isfinite(ref[i]).all()
+            _close(w.numpy(), plain[i].numpy(), f"array {i} against the plain VJP")
+            _close(w.numpy(), ref[i], f"array {i} against JAX")
 
 
 def _zero_bit_draws(n, d):

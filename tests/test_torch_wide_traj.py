@@ -7,6 +7,7 @@ sources' constants, the refusals at the new caps, and the fused dynamics'
 row layout. Fused training on the lattice against the JAX trainer is in
 ``test_torch_wide_train.py``."""
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -26,6 +27,7 @@ from l2hmc_tpu_torch.convert import params_from_jax
 from l2hmc_tpu_torch.ops import fused_dynamics as fd
 from l2hmc_tpu_torch.train import ScgConfig, build_dynamics, train
 from l2hmc_tpu_torch.train.optim import tree_leaves, tree_unflatten
+from torch_wide_util import jax_array_cotangents, port_inputs, reduced_from_factors
 
 N, TILE = 16, 8  # chains, and the JAX kernels' tile: two tiles, so its accumulation runs
 # Outputs and gradients per leaf within TOL of the leaf's largest entry:
@@ -132,6 +134,62 @@ def test_vjp_matches_jax_kernel(name, direction):
         _close(g.numpy(), r, f"leaf {i}")
 
 
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_recorded_factors_reduce_to_the_weight_cotangents(name, direction):
+    """The site VJP's design on the CPU: the factors each S/T/Q application
+    writes (a, b, dus, dut, duq, h, dz1, h2, dz2), recorded on the plain
+    VJP in the kernel's K-major layout, reduced by ``reduce_factors``'s
+    plain version, give w1, w2, wh, ws, wt and wq's cotangents: those of
+    ``trajectory_vjp_plain`` and those of the JAX package's backward kernel
+    in interpret mode (two tiles), per array within TOL of its largest
+    entry."""
+    jt, tt, jd, td, jp, tp, a = _setup(name)
+    jx, jv = jax_array_cotangents(jd, jt, jp, a, direction, TILE)
+    inp, x, v, dX, dV, dld = port_inputs(td, tt, tp, a)
+    reverse = direction == "backward"
+    (gx, gv), _, K = reduced_from_factors(inp, x, v, dX, dV, dld, reverse)
+    D, H, H2, T = inp.dims
+    assert K == -(-N // fd._SITE_CHAINS) * T * 2 * fd._SITE_CHAINS
+    px, pv, *_ = fd.trajectory_vjp_plain(inp, x, v, dX, dV, dld, reverse)
+    for got, plain, ref in ((gx, px, jx), (gv, pv, jv)):
+        for w, i in zip(got, fd._PRODUCT_WEIGHTS):
+            assert tuple(w.shape) == tuple(plain[i].shape) == ref[i].shape, i
+            _close(w.numpy(), plain[i].numpy(), f"array {i} against the plain VJP")
+            _close(w.numpy(), ref[i], f"array {i} against JAX")
+
+
+@pytest.mark.parametrize("mode", ["ragged", "hmc"])
+def test_recorded_factors_at_a_ragged_count_and_in_hmc_mode(mode):
+    """At 13 chains (not a multiple of the tile's 4) the factor rows of the
+    last tile's three missing chains are zeros and the reduction equals the
+    plain VJP's weight cotangents; in HMC mode every factor is zero and so
+    is every reduced cotangent, as the plain VJP's."""
+    jt, tt, jd, td, jp, tp, a = _setup("phi4_L10")
+    n = 13
+    inp, x, v, dX, dV, dld = port_inputs(td, tt, tp, a, n)
+    if mode == "hmc":
+        inp = dataclasses.replace(inp, hmc=True)
+    (gx, gv), flat, K = reduced_from_factors(inp, x, v, dX, dV, dld, False)
+    D, H, H2, T = inp.dims
+    C = fd._SITE_CHAINS
+    assert K == 4 * T * 2 * C
+    px, pv, *_ = fd.trajectory_vjp_plain(inp, x, v, dX, dV, dld, False)
+    views = fd.factor_views(flat, D, H, H2, K)
+    for net in views:
+        for arr in net.values():
+            rows = arr.reshape(4, T, 2, C, -1)
+            assert not rows[3, :, :, n - 3 * C:].any()  # the missing chains
+            if mode == "hmc":
+                assert not arr.any()
+    for got, plain in ((gx, px), (gv, pv)):
+        for w, i in zip(got, fd._PRODUCT_WEIGHTS):
+            if mode == "hmc":
+                assert not w.any() and not plain[i].any()
+            else:
+                _close(w.numpy(), plain[i].numpy(), f"array {i}")
+
+
 # -- the host mirror of the geometry, the caps ---------------------------------
 
 
@@ -146,13 +204,20 @@ def test_site_constants_match_the_sources():
     width and the caps are the sources': kSiteChains, kSiteThreads,
     kSiteVjpSmemDim and kSiteVjpMaxDim (kSiteMaxDim) in
     csrc/l2hmc_sites.cuh, kSiteMaxDim and kSiteMaxHidden in
-    csrc/l2hmc_lanes.cuh."""
+    csrc/l2hmc_lanes.cuh; so are the site VJP's reduction constants and its
+    factor scratch's cap in csrc/trajectory_bwd.cu."""
     assert (fd._SITE_CHAINS, fd._SITE_THREADS) == (_constant("kSiteChains"),
                                                    _constant("kSiteThreads"))
     assert fd._SITE_VJP_SMEM_DIM == _constant("kSiteVjpSmemDim")
     assert "constexpr int kSiteVjpMaxDim = kSiteMaxDim;" in (CSRC / "l2hmc_sites.cuh").read_text()
     assert fd._MAX_DIM == _constant("kSiteMaxDim", "l2hmc_lanes.cuh")
     assert fd._MAX_HIDDEN == _constant("kSiteMaxHidden", "l2hmc_lanes.cuh")
+    # the site VJP's reduction and its factor scratch's part (trajectory_bwd.cu)
+    bwd = "trajectory_bwd.cu"
+    assert (fd._RED_TILE, fd._RED_K, fd._RED_TARGET_BLOCKS, fd._RED_MAX_SPLITS) == tuple(
+        _constant(k, bwd) for k in ("kRedTile", "kRedK", "kRedTargetBlocks", "kRedMaxSplits"))
+    assert "constexpr size_t kSiteFactorCap = size_t(1) << 30;" in (CSRC / bwd).read_text()
+    assert fd._SITE_FACTOR_CAP == 1 << 30
 
 
 # every (D, H) past 64 the trajectory kernels' caps admit, at their edges
@@ -184,21 +249,31 @@ def test_trajectory_site_geometry_at_the_protocols_shapes():
     """The widest tiles and the scratch of the training path: the backward
     kernel at dim 1024 and hidden 128 takes 200,704 bytes a block, past it
     the buffers alone; its scratch at 1024 chains of the 16 x 16 lattice
-    (hidden 32, T = 10) is ~110 MB, at the 32 x 32 ~434 MB, at the 64 x 64
-    (its parity case: hidden 64, T = 24) ~3.7 GB with the blocks'
-    intermediates, the rows a block of 4 chains."""
+    (hidden 32, T = 10) is ~264 MB, at the 32 x 32 ~965 MB, at the 64 x 64
+    (its parity case: hidden 64, T = 24) ~4.65 GB, most of it the factors
+    (K = blocks x T x 2 x 4 rows a net); the 64 x 64's ~8.2 GB of factors run
+    in two parts of 128 blocks, each part's factors within
+    ``_SITE_FACTOR_CAP``. The compact rows a block of 4 chains."""
     assert fd.trajectory_site_geometry("trajectory_bwd", 1024, 128, 128, 1)[2] == 200704
     assert fd.trajectory_site_geometry("trajectory_bwd", 4096, 128, 128, 1)[2] == 36864
     assert fd.trajectory_site_geometry("trajectory", 4096, 128, 128, 1)[2] == 217520
     with pytest.raises(ValueError, match="lane groups"):
         fd.trajectory_site_geometry("trajectory", 64, 64, 64, 8)
-    for L, mb in ((16, 110.6), (32, 433.8), (64, 3715.2)):
+    for L, mb, parts in ((16, 264.0, 1), (32, 965.2, 1), (64, 4654.9, 2)):
         inp, _ = phi4.parity_inputs(f"phi4_L{L}", 4, "cpu")
         D, H, H2, T = inp.dims
         rows = fd.trajectory_site_geometry("trajectory_bwd", D, H, H2, 1024)[3]
-        P = sum(w.numel() for w in [*inp.xnet_w, *inp.vnet_w]) + D
-        arrays = 10 * 4 * D if D > 1024 else 0
-        assert fd.bwd_scratch_floats(inp, 1024) == rows * (P + 2 * T * 4 * D + arrays)
+        plan = fd.site_bwd_plan(D, H, H2, T, 1024)
+        assert (plan["blocks"], plan["parts"]) == (rows, parts)
+        assert plan["part_blocks"] * parts == rows and plan["K"] == plan["part_blocks"] * T * 8
+        fac = plan["part_blocks"] * 2 * T * 2 * 4 * (5 * D + 2 * H + 2 * H2)  # widths of 4s
+        small = 2 * (H2 + 5 * D + H * T) + D
+        arrays = plan["part_blocks"] * 10 * 4 * D if D > 1024 else 0
+        assert plan["fac"] == fac <= fd._SITE_FACTOR_CAP
+        wc = 2 * (2 * D * H + H * H2 + 3 * H2 * D)
+        assert fd.bwd_scratch_floats(inp, 1024) == (
+            rows * small + plan["part_blocks"] * 2 * T * 4 * D + arrays + fac
+            + plan["splits"] * parts * wc)
         assert round(4 * fd.bwd_scratch_floats(inp, 1024) / 1e6, 1) == mb
 
 
