@@ -129,7 +129,10 @@ phases:
      T = 24, the shipped 64 x 64 recipe's shape), L = 8 (512; the chain
      kernel runs the lattice there at every width)
      and a dense 128-d Gaussian (203), at PHI4_FLIPS and phase 3's 1e-2 on
-     the other chains; (c) the app's
+     the other chains, each site launch's plan (a cluster of G CTAs a tile
+     of 16 chains, ``csrc/l2hmc_site_cluster.cuh``) as the library reports
+     it equal to the host's, and the card holding at least one of its
+     clusters; (c) the app's
      path: ``apps.phi4.run`` at L = 16 (m^2 = -1, lam = 0.5, 512 chains,
      hidden 32, T = 10, 150 training steps, the 1000-step kernel eval, HMC,
      a parallel-tempered eval at 8 rungs cut to PHI4_PT_STEPS), its kernel
@@ -668,6 +671,24 @@ def _same_state_losses(cfg, dyn, tgt, dev):
     steps.run(steps.draw(_gen(cfg.seed + 100), cfg.n_steps))
     hist = steps.history(cfg.n_steps)
     return list(zip(hist["fused_loss"].tolist(), hist["loss"].tolist()))
+
+
+def _site_plan_check(fd, inp, n, what):
+    """The site-parallel chain launch's plan as the library takes it on this
+    card, equal to the host mirror at the card's capacities (clusters of
+    each size it holds at once, cudaOccupancyMaxActiveClusters), and how
+    many of the plan's clusters the card holds at once, at least one; the
+    summary."""
+    D, H, H2, _ = inp.dims
+    plan = fd.site_tile(D, H, H2, n, *inp.energy_args)
+    capacity = fd.site_capacities(D, H, H2, *inp.energy_args)
+    host = fd.site_geometry(D, H, H2, n, *inp.energy_args, capacity=capacity)
+    _require(plan == host, f"{what}: site plan {plan} != the host's {host}")
+    at_once = fd.site_clusters(D, H, H2, n, *inp.energy_args)
+    _require(at_once >= 1, f"{what}: the card holds no cluster of {plan}")
+    tiles = -(-n // plan.chains)
+    return {"plan": plan._asdict(), "ctas": tiles * plan.G, "clusters_at_once": at_once,
+            "waves": -(-tiles // at_once), "capacity": capacity}
 
 
 def _chain_vs_plain(fd, inp, xc, what, max_flips):
@@ -2493,13 +2514,15 @@ def bf16_scg_phases(dev, report):
                            _ops_of(inp32))
         bounds[label] = _bf16_bounds(w, n * 1000 * Tc * 4 * _stq_products(Dc, Hc, H2c),
                                      nb - 2 * 2 * _stq_weights(Dc, Hc, H2c))
+        plan = fd.site_tile(Dc, Hc, H2c, n, *inp32.energy_args)
         site_rows[label] = {"dim": Dc, "hidden": Hc, "T": Tc, "n_chains": n,
-                            "l2_weight_bytes_f32": phi4_l2_weight_bytes(
-                                Dc, Hc, H2c, Tc, n, 1000, fd.site_tile(Dc, Hc, H2c)[0])}
+                            "plan": plan._asdict(),
+                            "l2_weight_bytes_f32": phi4_l2_weight_bytes(Dc, Hc, H2c, Tc, n,
+                                                                        1000, plan)}
     ptxas = _cuda.build_info.get("ptxas", "")
     ptx = {k: [l for l in _ptxas_of(ptxas, entry) if "bfloat16" in l]
            for k, entry in (("trajectory", "17trajectory_kernel"), ("chain", "12chain_kernel"),
-                            ("site_chain", "17site_chain_kernel"))}
+                            ("site_chain", SITE_CHAIN_ENTRY))}
     out["kernel_times"] = {"ms": times, "bounds": bounds, "plain_ms": plain, "sites": site_rows,
                            "ptxas": ptx}
     print(f"# bf16 SCG kernel times ({time.perf_counter() - t_phase:.1f} s): "
@@ -2896,10 +2919,10 @@ def _suite_phases(dev, report, witness_proc, ring_cfg, t_all):
              lambda: fd.chain_plain(inp, x, 2, plain_steps, collect_trace=True), 1,
              warmup=False)}
     bound = chain_bound(D, H, H2, T, n, steps, False, inp.block().numel(), True, _ops_of(inp))
-    chains_a_block, threads_a_block, smem = fd.site_tile(D, H, H2)
-    l2 = phi4_l2_weight_bytes(D, H, H2, T, n, steps, chains_a_block)
+    plan = fd.site_tile(D, H, H2, n, *inp.energy_args)
+    l2 = phi4_l2_weight_bytes(D, H, H2, T, n, steps, plan)
     times["icg"] = {"case": "icg", "n_chains": n, "ms": t, "bound_ms": {"chain": bound},
-                    "site_tile": [chains_a_block, threads_a_block, smem],
+                    "plan": plan._asdict(),
                     "l2_weight_bytes": l2, "l2_weight_bytes_per_s": l2 / (t["chain"] * 1e-3)}
     rows_out.append({
         "name": "chain[gauss]", "route": "cuda", "source": src + "chain.cu",
@@ -2909,8 +2932,7 @@ def _suite_phases(dev, report, witness_proc, ring_cfg, t_all):
         "ms": t["chain"], "plain_ms": t[f"chain_plain_{plain_steps}"], "bound_ms": bound[0],
         "bound_by": bound[1], "library_ms": None, "row": "3i",
         "shape": (f"icg D={D} H={H} T={T} eps_dim, {n} chains x {steps} MH steps, traced, "
-                  f"site-parallel ({chains_a_block} chains a block of {threads_a_block} "
-                  f"threads, {smem} bytes of shared memory), {l2:.4g} L2 weight bytes "
+                  f"site-parallel, {site_plan_text(plan, n)}, {l2:.4g} L2 weight bytes "
                   f"reckoned; plain_ms over {plain_steps} MH steps (the kernel over "
                   f"{plain_steps}: {t[f'chain_{plain_steps}']:.4f} ms)")})
     report["suite_kernel_times"] = times
@@ -2973,14 +2995,56 @@ PHI4_SEEDS_L64 = 2
 PHI4_RECIPE_STEPS = 100
 
 
-def phi4_l2_weight_bytes(D, H, H2, T, N, K, chains_per_block):
+def phi4_l2_weight_bytes(D, H, H2, T, N, K, plan):
     """Weight bytes one site-parallel chain launch reads from the L2,
-    reckoned for the report: one block a tile of ``chains_per_block``
-    chains, and each block reads, per MH step, both nets' first-layer and
-    head weights (one load serving the tile's chains), the second layer once
-    per chain, and the biases and scales, in each of the 4 T net
-    applications. The energy spec's constants (a dense Gaussian's precision
+    reckoned for the report, for its plan (``fd.site_tile``: a cluster of
+    ``plan.G`` CTAs a tile of ``plan.chains`` chains, one load serving the
+    tile's chains): each cluster reads a net's staged parts (the first
+    layer's rows, or the heads' columns and per-site arrays: ``plan.staged``)
+    of both nets once a launch, and the parts it streams once per tile in
+    each of an MH step's 4 T net applications; every CTA reads the second
+    layer, its biases and the time embedding (wh, bh, te) in each
+    application. The energy spec's constants (a dense Gaussian's precision
     matrix) are not counted."""
+    from l2hmc_tpu_torch.ops import fused_dynamics as fd
+
+    tiles = -(-N // plan.chains)
+    rows = 2 * D * H  # a net's first layer, over the cluster's ranges
+    heads = 3 * H2 * D + 5 * D  # its heads and per-site arrays
+    staged = ((rows if plan.staged & fd.STAGE_ROWS else 0)
+              + (heads if plan.staged & fd.STAGE_HEADS else 0))
+    streamed = rows + heads - staged
+    shared = plan.G * (H * H2 + H2 + H)  # a net's, read by every CTA
+    apps = K * 4 * T
+    return tiles * (2 * staged + apps * (streamed + shared)) * 4
+
+
+def site_plan_text(plan, n):
+    """A site-parallel chain launch's plan as the rows' shapes name it."""
+    tiles = -(-n // plan.chains)
+    cluster = f"clusters of {plan.G} CTAs" if plan.G > 1 else "one CTA a tile"
+    return (f"{plan.chains} chains a tile on {cluster} of {plan.threads} "
+            f"threads ({tiles} x {plan.G} = {tiles * plan.G} CTAs, {plan.chunk} sites a CTA, "
+            f"{plan.smem} bytes of shared memory a CTA, weights "
+            f"{STAGED_TEXT[plan.staged]})")
+
+
+# a site plan's staged parts (fd.STAGE_ROWS | fd.STAGE_HEADS) as the shapes name them
+STAGED_TEXT = {0: "streamed from the L2", 1: "first layer staged, heads streamed",
+               2: "heads staged, first layer streamed", 3: "staged"}
+
+
+# the cluster chain kernel's entry functions in ptxas's report
+SITE_CHAIN_ENTRY = "25site_cluster_chain_kernel"
+
+
+def block_l2_weight_bytes(D, H, H2, T, N, K, chains_per_block):
+    """Weight bytes one launch of a site-parallel trajectory kernel (a
+    block a tile of ``chains_per_block`` chains) reads from the L2,
+    reckoned for the report: each block reads, per trajectory, both nets'
+    first-layer and head weights (one load serving the tile's chains), the
+    second layer once per chain, and the biases and scales, in each of the
+    4 T net applications."""
     per_app = 2 * D * H + 3 * H2 * D + chains_per_block * H * H2 + 5 * D + H2 + H
     return -(-N // chains_per_block) * K * 4 * T * per_app * 4
 
@@ -3119,20 +3183,14 @@ def phi4_phases(dev, report):
             "site-parallel" if fd.chain_on_sites(inp) else
             f"{_cuda.library('chain').l2hmc_chain_lanes(D, H, H2)} lanes"))
         if fd.chain_on_sites(inp):
-            geom = fd.site_tile(D, H, H2)
-            _require(geom == fd.site_geometry(D, H, H2),
-                     f"phi4 chain {name}: site geometry {geom} != {fd.site_geometry(D, H, H2)}")
-            chain_cmp[name]["chains_threads_smem_bytes_a_block"] = geom
+            chain_cmp[name].update(_site_plan_check(fd, inp, n, f"phi4 chain {name}"))
         _require(0.0 < chain_cmp[name]["accept"] < 1.0, f"phi4 chain {name}: hollow acceptance")
-    ptx = _ptxas_of(_cuda.build_info.get("ptxas", ""), "site_chain_kernel")
+    ptx = _ptxas_of(_cuda.build_info.get("ptxas", ""), SITE_CHAIN_ENTRY)
     out["chain_vs_plain"] = chain_cmp
     out["site_chain_ptxas"] = ptx
     print(f"# phi4 chain kernel vs plain ({time.perf_counter() - t_phase:.1f} s): "
           + json.dumps(chain_cmp), flush=True)
-    site_chains, site_threads, _ = fd.site_tile(1024, 32, 32)
-    print("# phi4 site-parallel chain kernel: " + json.dumps(
-        {"ptxas": ptx, "chains_a_block": site_chains, "threads_a_block": site_threads}),
-          flush=True)
+    print("# phi4 site-parallel chain kernel: " + json.dumps({"ptxas": ptx}), flush=True)
 
     # (c) the app's path through apps.phi4.run; launch counts per run
     def scores(trace):
@@ -3299,12 +3357,12 @@ def phi4_phases(dev, report):
         bound = chain_bound(Dc, Hc, H2c, Tc, n, k, False, inp.block().numel(), True,
                             _ops_of(inp))
         site = fd.chain_on_sites(inp)
-        chains_a_block = fd.site_tile(Dc, Hc, H2c)[0]
-        l2 = (phi4_l2_weight_bytes(Dc, Hc, H2c, Tc, n, k, chains_a_block) if site
-              else None)
+        plan = fd.site_tile(Dc, Hc, H2c, n, *inp.energy_args) if site else None
+        l2 = phi4_l2_weight_bytes(Dc, Hc, H2c, Tc, n, k, plan) if site else None
         chain_rows[label] = {"case": case, "dim": Dc, "hidden": Hc, "T": Tc, "n_chains": n,
-                             "steps": k,
-                             "site": site, "chains_a_block": chains_a_block, "ms": ms,
+                             "steps": k, "site": site,
+                             "plan": plan._asdict() if site else None,
+                             "plan_text": site_plan_text(plan, n) if site else None, "ms": ms,
                              f"ms_{plain_steps}": ms20, f"plain_ms_{plain_steps}": plain,
                              "bound_ms": bound, "l2_weight_bytes": l2,
                              "l2_weight_bytes_per_s": None if l2 is None else l2 / (ms * 1e-3)}
@@ -3342,8 +3400,8 @@ def phi4_phases(dev, report):
             continue
         shape = (f"{c['case']} D={c['dim']} H={c['hidden']} T={c['T']}, {c['n_chains']} chains "
                  f"x {steps} MH steps, traced, "
-                 + (f"site-parallel ({c['chains_a_block']} chains a block of {site_threads} "
-                    f"threads), {c['l2_weight_bytes']:.4g} L2 weight bytes reckoned"
+                 + (f"site-parallel, {c['plan_text']}, {c['l2_weight_bytes']:.4g} L2 weight "
+                    f"bytes reckoned"
                     if c["site"] else "32 lanes a chain (WideLanes)")
                  + f"; plain_ms over {plain_steps} MH steps (the kernel over {plain_steps}: "
                    f"{c[f'ms_{plain_steps}']:.4f} ms)")
@@ -3419,13 +3477,13 @@ WIDE_SHORT_RUNS = (("L32", 20), ("icg", 10), ("L64", 4))
 def wide_l2_bytes(D, H, H2, T, N, kernel):
     """Bytes a site-parallel launch of ``kernel`` reads and writes through
     the L2, reckoned for the report: the weights of its 4 T net applications
-    a block (``phi4_l2_weight_bytes``, one trajectory), for the backward
+    a block (``block_l2_weight_bytes``, one trajectory), for the backward
     kernel three times (the forward sweep, each substep's recompute, its
     VJP), its factor writes (each application's a, b, dus, dut, duq, h,
     dz1, h2 and dz2 for the tile's 4 chains, once, 4 bytes each) and its
     compact rows' read-modify-writes (each application: the per-site
     arrays and eps, bh and te's column, 8 bytes each)."""
-    w = phi4_l2_weight_bytes(D, H, H2, T, N, 1, 4)
+    w = block_l2_weight_bytes(D, H, H2, T, N, 1, 4)
     if kernel == "trajectory":
         return w
     apps = -(-N // 4) * T * 4
@@ -4036,14 +4094,13 @@ def wide_spec_phases(dev, report):
         kind, nc = inp.energy_args
         geom = {k: fd.trajectory_site_tile(k, D, H, H2, kind, nc)
                 for k in ("trajectory", "trajectory_bwd")}
-        geom["chain"] = fd.site_tile(D, H, H2, kind, nc)
         _require(fd.trajectory_on_sites(inp) and fd.chain_on_sites(inp)
-                 and geom["chain"] == fd.site_geometry(D, H, H2, kind, nc)
                  and all(geom[k] == fd.trajectory_site_geometry(k, D, H, H2, n, kind, nc)[:3]
                          for k in ("trajectory", "trajectory_bwd")),
                  f"{name}: site geometry {geom}")
         case = {"dim": D, "hidden": H, "T": T, "n_chains": n,
                 "chains_threads_smem_bytes_a_block": geom,
+                "chain": _site_plan_check(fd, inp, n, f"chain on sites {name}"),
                 "prelude_floats_a_chain": fd.site_prelude_floats(kind, nc, D)}
         bcase = {"scratch_bytes": 4 * fd.bwd_scratch_floats(inp, n)}
         for reverse in (False, True):
@@ -4216,6 +4273,12 @@ def wide_spec_phases(dev, report):
         times[name] = {"ms": t, "bound_ms": bounds}
         shape = (f"{name} D={D} H={H} T={T}, {n} chains, site-parallel (4 chains a block of "
                  f"256 threads, {traj[name]['prelude_floats_a_chain']} prelude floats a chain)")
+        plan = fd.site_tile(D, H, H2, n, *inp.energy_args)
+        l2 = phi4_l2_weight_bytes(D, H, H2, T, n, steps, plan)
+        times[name]["chain_plan"] = plan._asdict()
+        times[name]["chain_l2_weight_bytes"] = l2
+        chain_shape = (f"{name} D={D} H={H} T={T}, {n} chains, site-parallel, "
+                       f"{site_plan_text(plan, n)}, {l2:.4g} L2 weight bytes reckoned")
         errs = {"trajectory": max(max(traj[name][w]["max_abs_err_x_v"],
                                       traj[name][w]["max_abs_err_logdet"])
                                   for w in ("forward", "backward")),
@@ -4236,11 +4299,11 @@ def wide_spec_phases(dev, report):
                 "launches": launch_of[name][f"{kernel}:sites"], "max_abs_err": errs[kernel],
                 "ms": t[kernel], "plain_ms": plain, "bound_ms": bounds[kernel][0],
                 "bound_by": bounds[kernel][1], "library_ms": None, "row": f"{num}{label}",
-                "shape": f"{shape}, {what}"})
+                "shape": f"{chain_shape if kernel == 'chain' else shape}, {what}"})
     ptxas = _cuda.build_info.get("ptxas", "")
     ptx = {k: _ptxas_of(ptxas, entry) for k, entry in (
         ("trajectory", "16site_traj_kernel"), ("trajectory_bwd", "20site_traj_bwd_kernel"),
-        ("chain", "17site_chain_kernel"))}
+        ("chain", SITE_CHAIN_ENTRY))}
     out["kernel_times"] = {"times": times, "ptxas": ptx}
     print(f"# spec sites: kernel times ({time.perf_counter() - t_phase:.1f} s): "
           + json.dumps(out["kernel_times"]), flush=True)

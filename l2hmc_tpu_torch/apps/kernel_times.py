@@ -18,7 +18,9 @@ ending ``_bf16``; null for a tree without them); and the chain kernel's site-par
 shapes (3e-3g: the phi^4 lattice at L = 8, 16, 32, 1000 traced steps; 3h:
 L = 64 at the A_control shape and at the shipped recipe's, 1000 traced
 steps; 3i: icg at hidden 100, 2000 traced steps; a tree whose caps refuse
-a row gives null); the trajectory and chain kernels with bfloat16 operands
+a row gives null), each beside the launch's geometry as the tree's library
+reports it (``*_geometry``: the cluster plan, or a block's chains, threads
+and shared memory); the trajectory and chain kernels with bfloat16 operands
 at rows 1, 3, 3f and 3h's shapes (keys ending ``_bf16``; null for a tree
 without them); the trajectory and backward kernels past 64 wide, on sites,
 through their wrappers (rows 1f/2f: the lattice at L = 16, 1024 chains;
@@ -208,6 +210,19 @@ def vae_times(dev) -> dict:
     return out
 
 
+def _site_geometry(fd, inp, n) -> dict:
+    """The chain kernel's site-parallel launch at ``inp`` and ``n`` chains
+    as the timed tree's library reports it: its plan (chains a tile, CTAs a
+    cluster, threads, shared memory a CTA, staged weights, ...), or a tree
+    without clusters' chains, threads and shared memory a block."""
+    D, H, H2, _ = inp.dims
+    try:
+        return fd.site_tile(D, H, H2, n, *inp.energy_args)._asdict()
+    except TypeError:  # a tree whose chain kernel runs a block a tile
+        return dict(zip(("chains", "threads", "smem"), fd.site_tile(D, H, H2,
+                                                                   *inp.energy_args)))
+
+
 def site_times(dev) -> dict:
     import dataclasses
 
@@ -249,6 +264,7 @@ def site_times(dev) -> dict:
             out[key] = None
             continue
         out[key] = _cuda_ms(lambda: fd.chain(inp, x, 2, steps, True), 1, warmup=False)
+        out[f"{key}_geometry"] = _site_geometry(fd, inp, x.shape[1])
         if label in ("3f", "3h"):
             ib = dataclasses.replace(inp, cd=torch.bfloat16)
             out[f"{key}_bf16"] = (_cuda_ms(lambda: fd.chain(ib, x, 2, steps, True), 1)
@@ -447,6 +463,7 @@ def spec_site_times(dev) -> dict:
                     (keys[1], lambda: fd.trajectory_vjp(inp, x, v, dX, dV, dld, False), 5),
                     (keys[2], lambda: fd.chain(inp, x, 2, 2000, True), 1)):
                 out[key] = _cuda_ms(fn, reps)
+            out[f"{keys[2]}_geometry"] = _site_geometry(fd, inp, n)
         except (AttributeError, KeyError, ValueError):  # no such case, or refused
             out.update({k: None for k in keys if k not in out})
         torch.cuda.empty_cache()

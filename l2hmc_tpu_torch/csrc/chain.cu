@@ -26,10 +26,10 @@
 // the trajectory kernels 14-25% slower (a warp sync before every shuffle).
 // Blocks of kLaneThreads threads, four chains. Past 64 wide (up to 4096,
 // the phi^4 lattice's 64 x 64) or past hidden 64 (up to 128) a lane group
-// cannot hold the state and the block cannot hold the weights:
-// l2hmc_sites.cuh runs those widths, a tile of chains a block with the
-// threads over the sites, and the phi^4 lattice at every width
-// (site_chain). The state (x, the proposal,
+// cannot hold the state and the block cannot hold the weights: those widths,
+// and the phi^4 lattice at every width (site_chain), run on
+// l2hmc_site_cluster.cuh, a cluster of CTAs a tile of 16 chains with the
+// sites split across its CTAs. The state (x, the proposal,
 // v) is replicated in every lane, and every lane draws the same Philox
 // words and forms h0, h1, the log-det sum and the accept on its own copy in
 // one order, so the whole group decides alike with no shuffle. Lane 0
@@ -56,6 +56,7 @@
 // site-parallel configuration alike, in a translation unit of its own with
 // its own entry point, l2hmc_chain_bf16.
 #include "l2hmc_lanes.cuh"
+#include "l2hmc_site_cluster.cuh"
 #include "l2hmc_sites.cuh"
 #include "philox.cuh"
 
@@ -174,8 +175,8 @@ static int chain_entry(const float* params, Dims d, int kind, int hmc,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (site_chain(d, kind)) {
     return with_energy(d, kind, [&](auto e) {
-      return launch_site_chain<decltype(e), TW>(params, d, hmc, x, xo, acc,
-                                                trace, scratch, N, K, key, s);
+      return launch_cluster_chain<decltype(e), TW>(params, d, hmc, x, xo, acc,
+                                                   trace, scratch, N, K, key, s);
     });
   }
   return dispatch<ScgChainLanes>(d, kind, [&](auto c, auto e) {
@@ -193,10 +194,10 @@ static int chain_entry(const float* params, Dims d, int kind, int hmc,
 // Plain C entry points (loaded with ctypes). Device pointers to float32:
 // params (the packed block, with nc floats of the energy spec's constants;
 // kind as in l2hmc_trajectory), x and xo as (D, N), acc as (N,), trace as
-// (K, D, N) or null, scratch as (ceil(N / C) C, D) with C the chains a
-// block of l2hmc_chain_site_chains (the site-parallel configuration's
-// accepted states; null elsewhere). Returns a cudaError_t as int; 0 means
-// accepted.
+// (K, D, N) or null, scratch as l2hmc_chain_site_plan's scratch floats (the
+// site-parallel configuration's accepted states where its plan keeps them
+// out of shared memory; null elsewhere). Returns a cudaError_t as int; 0
+// means accepted.
 extern "C" int l2hmc_chain(const float* params, int D, int H, int H2, int T,
                            int kind, int nc, int hmc, const float* x,
                            float* xo, float* acc, float* trace, float* scratch,
@@ -221,25 +222,53 @@ extern "C" int l2hmc_chain_lanes(int D, int H, int H2) {
   }
 }
 
-// The site-parallel configuration's geometry at these widths, as
-// l2hmc_chain launches it: chains a block, threads a block, bytes of
-// dynamic shared memory a block (on the energy spec kind with nc floats of
-// constants); 0 where the widths are past its caps.
 static bool site_widths(int D, int H, int H2) {
   using namespace l2hmc;
-  return D > 0 && D <= kSiteMaxDim && H <= kSiteMaxHidden && H2 <= kSiteMaxHidden;
+  return D > 0 && D <= kSiteMaxDim && H > 0 && H <= kSiteMaxHidden && H2 > 0 &&
+         H2 <= kSiteMaxHidden;
 }
-extern "C" int l2hmc_chain_site_chains(int D, int H, int H2) {
-  return site_widths(D, H, H2) ? l2hmc::kSiteChains : 0;
-}
-extern "C" int l2hmc_chain_site_threads(int D, int H, int H2) {
-  return site_widths(D, H, H2) ? l2hmc::kSiteThreads : 0;
-}
-extern "C" int l2hmc_chain_site_smem_bytes(int D, int H, int H2, int kind, int nc) {
+
+// The site-parallel configuration's plan at these widths and N chains on the
+// energy spec kind with nc floats of constants, as l2hmc_chain launches it on
+// this card, into out[0..9): chains a tile (16, 8 or 4), CTAs a cluster (G), threads a
+// CTA, bytes of dynamic shared memory a CTA, whether the nets' slices are
+// staged there, whether the accepted states lie there, sites a range,
+// floats of scratch the launch needs, and how many of its clusters the card
+// holds at once. cudaErrorInvalidValue past the caps or for constants that
+// fit no spec; another CUDA error if the card's queries fail.
+extern "C" int l2hmc_chain_site_plan(int D, int H, int H2, int kind, int nc, int N, int* out) {
   using namespace l2hmc;
-  if (!site_widths(D, H, H2)) return 0;
+  if (!site_widths(D, H, H2) || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Dims d{D, H, H2, 1, nc};
-  return site_smem_floats(D, site_hm(d), site_pre_floats(d, kind)) *
-         static_cast<int>(sizeof(float));
+  ClPlan p;
+  int clusters = 0;
+  const int e = with_energy(d, kind, [&](auto en) {
+    return cluster_chain_plan<decltype(en)>(d, N, &p, &clusters);
+  });
+  if (e != 0) return e;
+  const int tiles = (N + p.chains - 1) / p.chains;
+  out[0] = p.chains;
+  out[1] = p.G;
+  out[2] = kClThreads;
+  out[3] = p.smem_floats * static_cast<int>(sizeof(float));
+  out[4] = p.staged;
+  out[5] = p.x_smem;
+  out[6] = p.chunk;
+  out[7] = p.x_smem ? 0 : tiles * p.G * p.chunk * p.chains;
+  out[8] = clusters;
+  return 0;
+}
+
+// How many clusters of G = 1 .. 8 CTAs the card holds at once for that
+// launch's kernel, each with its candidate's shared memory, into
+// out[0..9) (out[G]; 0 where no candidate has G ranks or its state does
+// not fit). A CUDA error code, 0 on success.
+extern "C" int l2hmc_chain_site_capacities(int D, int H, int H2, int kind, int nc, int* out) {
+  using namespace l2hmc;
+  if (!site_widths(D, H, H2)) return static_cast<int>(cudaErrorInvalidValue);
+  const Dims d{D, H, H2, 1, nc};
+  return with_energy(d, kind, [&](auto en) {
+    return cluster_chain_capacities<decltype(en)>(d, out);
+  });
 }
 #endif

@@ -1,6 +1,6 @@
 // The chain kernel (chain.cu) with bfloat16 operands in the S/T/Q nets'
 // products: TW = __nv_bfloat16 on the lane groups (every spec but Phi4) and
-// on the site-parallel configuration (every spec; l2hmc_sites.cuh).
+// on the site-parallel configuration (every spec; l2hmc_site_cluster.cuh).
 //
 // Replaces the Pallas kernel _make_chain_kernel with cd = bfloat16
 // (l2hmc_tpu/ops/fused_dynamics.py:1103, _dot_in :151 through _apply_stq
@@ -16,7 +16,7 @@
 #include "chain.cu"
 
 // Plain C entry point, as l2hmc_chain, with bfloat16 operands (the
-// site-parallel geometry is chain.cu's l2hmc_chain_site_*).
+// site-parallel plan is chain.cu's l2hmc_chain_site_plan).
 extern "C" int l2hmc_chain_bf16(const float* params, int D, int H, int H2,
                                 int T, int kind, int nc, int hmc,
                                 const float* x, float* xo, float* acc,

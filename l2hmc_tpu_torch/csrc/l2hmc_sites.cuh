@@ -1,26 +1,20 @@
-// The site-parallel configuration of the L2HMC kernels, for states or S/T/Q
-// nets wider than a lane group holds: D <= kSiteMaxDim (4096, the 64 x 64
-// phi^4 lattice) and hidden widths H, H2 <= kSiteMaxHidden (128, the suite's
-// ill-conditioned Gaussian at hidden 100), past WideLanes' D, H, H2 <= 64,
-// for every energy spec (Gauss, RoughWell, Gmm, Funnel, Phi4). The chain
-// kernel (chain.cu) runs the phi^4 lattice here at every width
-// (site_chain); the trajectory kernel (trajectory.cu) and its backward
-// kernel (trajectory_bwd.cu) run here past 64. All three run the same
-// substep (site_traj_step, below).
+// The site-parallel configuration of the trajectory kernels, for states or
+// S/T/Q nets wider than a lane group holds: D <= kSiteMaxDim (4096, the
+// 64 x 64 phi^4 lattice) and hidden widths H, H2 <= kSiteMaxHidden (128, the
+// suite's ill-conditioned Gaussian at hidden 100), past WideLanes' D, H, H2
+// <= 64, for every energy spec (Gauss, RoughWell, Gmm, Funnel, Phi4). The
+// trajectory kernel (trajectory.cu) and its backward kernel
+// (trajectory_bwd.cu) run here past 64, on the same substep
+// (site_traj_step, below). The chain kernel's site-parallel configuration
+// (chain.cu, where site_chain below says so) runs on thread-block clusters
+// instead: l2hmc_site_cluster.cuh.
 //
-// Replaces, with chain.cu, the Pallas kernel _make_chain_kernel /
-// FusedChainSampler (l2hmc_tpu/ops/fused_dynamics.py:1103, pallas_call at
-// :1350) at the phi^4 eval's widths (D = 256, 1024 and 4096) and at hidden
-// widths past 64, on every spec (RoughWellEnergy :422, GmmEnergy :446,
-// FunnelEnergy :501 and the rest); with trajectory.cu and trajectory_bwd.cu,
-// _make_kernel / FusedDynamics (:645, pallas_call at :718) and _make_bwd_kernel /
-// DifferentiableFusedDynamics (:801, pallas_call at :1024) at the same
-// widths, whose (D, tile) blocks in VMEM take any width. At dim >= 2048 the
-// JAX sampler builds the chain kernel with
-// loop_traj (fused_chain_sampler :1391), the trajectory as a fori_loop over
-// T (_trajectory :212-249) instead of T unrolled copies, which overflowed
-// the TPU's scoped VMEM. This configuration is its counterpart: its
-// trajectory loop runs T at run time at every width, so no switch is needed.
+// Replaces, with trajectory.cu and trajectory_bwd.cu, the Pallas kernels
+// _make_kernel / FusedDynamics (l2hmc_tpu/ops/fused_dynamics.py:645,
+// pallas_call at :718) and _make_bwd_kernel / DifferentiableFusedDynamics
+// (:801, pallas_call at :1024) at these widths, on every spec
+// (RoughWellEnergy :422, GmmEnergy :446, FunnelEnergy :501 and the rest),
+// whose (D, tile) blocks in VMEM take any width.
 //
 // Why not the lane groups. They replicate the D-wide state and its
 // trajectory's temporaries in every lane (WideLanes already spills its
@@ -29,12 +23,12 @@
 // D = 4096, H = 64 ~10.6 MB, past the 227 KB a block may use.
 //
 // Design. A block of kSiteThreads threads runs a tile of kSiteChains (4)
-// chains for all K MH steps (a trajectory kernel: for its T substeps). The
-// proposal x', the momentum and the
-// gradient (or net input) of each chain lie in shared memory, and the
-// threads stride over its sites: the stencil reads its neighbours there.
-// The weights are read from global memory through the L2 (and L1) at every
-// use: the block is not staged. A net application is
+// chains for its T substeps. The proposal x', the momentum and the gradient
+// (or net input) of each chain lie in shared memory, and the threads stride
+// over its sites: the stencil reads its neighbours there (192 KB at
+// D = 4096, 212.4 KB with the buffers of hidden 128). The weights are read
+// from global memory through the L2 (and L1) at every use: the block is not
+// staged. A net application is
 //   - the first layer, a fixed-order block reduction over the D sites:
 //     lanes over the hidden units (j = lane + 32 u, u < HM / 32), warps over
 //     the sites (i = warp, warp + 8, ...); each lane sums its sites in index
@@ -48,31 +42,10 @@
 //     stored).
 // HM, the hidden units the buffers hold, is a template parameter: 64 (two
 // first-layer units a lane) or 128 (four). So is TW, the products' operand
-// type (float, or __nv_bfloat16 in chain_bf16.cu): the weights arrive
+// type (float, or __nv_bfloat16 in trajectory_bf16.cu): the weights arrive
 // rounded in the block, the first layer rounds its inputs as it reads them
 // and the hidden layers are stored rounded (rnd<TW>, as in
 // l2hmc_lanes.cuh); the sums and everything else stay float32.
-//
-// The widest tile. Four arrays of 4 chains at D = 4096 are 256 KB, past
-// shared memory. One chain a block would fit, but a weight load would then
-// serve one chain, and the L2 weight reads already set this kernel's time
-// (at D = 256 and 1024 it runs 20-35x its bound, latency-bound on them), so
-// a tile keeps 4 chains. Of the two shapes that keep it, a cluster of two
-// blocks a tile (half the sites each, the first layer's sums and the
-// stencil's rows at the split exchanged through distributed shared memory)
-// or one block a tile with some arrays in global memory, this is the
-// second, with the array that the trajectory never reads moved out: the
-// accepted state x is read at an MH step's start (copied into x') and
-// written at its end (the accept), never inside the trajectory, so it lies
-// in a global scratch the wrapper allocates ((blocks x C, D) floats, 16 KB a
-// chain, L2-resident: 4 MB at 256 chains of D = 4096). x', v and g stay in
-// shared memory, so every substep runs out of it as at D <= 1024: 192 KB
-// at D = 4096, 212.4 KB with the buffers of hidden 128, within the 227 KB a
-// block may use. The cluster form would halve each block's weight reads and
-// fill twice the SMs at 256 chains, at the cost of a cluster barrier in
-// every first layer and every gradient; it is later work, with TMA-staged
-// or bf16 wgmma weights over a chain tile. The trajectory kernel has no
-// accepted state: its x', v and g are the same three arrays.
 //
 // The energy, the kinetic energy and the log-det are per-thread partial
 // sums, reduced by a warp tree (lane 0's order) and then over warps in
@@ -96,14 +69,8 @@
 // index differ, so the chains of a tile, each with its own direction, run
 // the same sequence of phases and branch only inside a chain's update.
 //
-// Random numbers as in the lane kernels: Philox4x32-10, counter (global
-// chain, MH step, slot, 0), slot 1 + j the normals 2j and 2j + 1 (2048
-// slots at D = 4096); direction and accept are selects; the uniform is
-// unsigned (philox.cuh). A tile's chains past N run as copies of the last
-// chain, on scratch of their own, and write nothing.
-//
 // Bound on the card: operations, and the weights' bytes from the L2. Per
-// MH step a tile reads each net's first-layer and head weights 2 T times
+// trajectory a tile reads each net's first-layer and head weights 2 T times
 // (~180 KB an application at D = 256, H = 32; ~5.3 MB at D = 4096,
 // H = 64); chip_smoke.py reckons those bytes.
 #pragma once
@@ -234,8 +201,8 @@ __device__ inline void site_prelude(const Block& B, Dims d, const float* x,
 }
 
 // The state arrays a net application reads and writes ((C, D) each, in
-// shared memory): the chain kernel and the trajectory kernel update x', v and
-// g in place; the VJP's recompute keeps each substep's intermediates apart.
+// shared memory): the trajectory kernel updates x', v and g in place; the
+// VJP's recompute keeps each substep's intermediates apart.
 struct SiteIO {
   const float* x;  // x' as the application reads it
   float* xo;       // where an xnet application's x update goes
@@ -429,8 +396,8 @@ __device__ inline void site_grad_vjp(const Block& B, Dims d, const float* x, con
 }
 
 // One augmented leapfrog substep in place on (x', v) in s for the tile's
-// chains, each at its own direction and step (the chain kernel's chains
-// draw theirs; the trajectory kernels give a launch one). On entry s.g holds
+// chains, each at its own direction and step (the trajectory kernels give a
+// launch one). On entry s.g holds
 // grad E(x'), on return that of the new x'. A substep's four applications
 // run vnet, xnet, xnet, vnet in both directions; the gradient at its end is
 // the next substep's first, so it is computed once. ld gets the log-det
@@ -453,146 +420,10 @@ __device__ inline void site_traj_step(const Block& B, Dims d, bool hmc,
   site_heads<4, HM>(B, B.vnet, d, hmc, rev, step, s.h2, io, ld);
 }
 
-// This thread's partial sums of E(x') and of v . v for each chain into
-// part[c], part[C + c], and ld into part[2C + c]; a spec with a prelude puts
-// each chain's whole energy in thread 0's part. Every thread calls it; it
-// synchronises where the spec has a prelude.
-template <class En, int HM>
-__device__ inline void site_hamiltonian_parts(const Block& B, Dims d,
-                                              const SiteSmem<HM>& s,
-                                              const float (&ld)[kSiteChains],
-                                              float (&part)[3 * kSiteChains]) {
-  constexpr int C = kSiteChains;
-  site_prelude<En>(B, d, s.xp, nullptr, scratch_of(s));
-  const int P = site_pre_floats(d, En::kKind);
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float en = 0.f, kin = 0.f;
-    for (int i = threadIdx.x; i < d.D; i += kSiteThreads) {
-      const float vi = s.v[c * d.D + i];
-      if constexpr (!En::kPrelude) en += En::energy_at(B.c, d, s.xp + c * d.D, i);
-      kin = fmaf(vi, vi, kin);
-    }
-    if constexpr (En::kPrelude)
-      en = threadIdx.x == 0 ? En::chain_energy(d, s.pre + c * P) : 0.f;
-    part[c] = en;
-    part[C + c] = kin;
-    part[2 * C + c] = ld[c];
-  }
-}
-
-// xs: the accepted states, (gridDim.x C, D) floats of global scratch.
-template <class En, int HM, class TW>
-__global__ void __launch_bounds__(kSiteThreads) site_chain_kernel(
-    const float* __restrict__ params, Dims d, int hmc,
-    const float* __restrict__ xin, float* __restrict__ xo,
-    float* __restrict__ acc_out, float* __restrict__ trace,
-    float* __restrict__ xs, int N, int K, uint2 key) {
-  constexpr int C = kSiteChains;
-  extern __shared__ float smem[];
-  const Block B = block_at(params, d);
-  const SiteSmem<HM> s = site_smem<HM>(smem, d.D);
-  float* const x = xs + static_cast<size_t>(blockIdx.x) * C * d.D;  // (C, D)
-  const size_t sN = static_cast<size_t>(N);
-  int n[C];
-  bool live[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int chain = blockIdx.x * C + c;
-    live[c] = chain < N;
-    n[c] = live[c] ? chain : N - 1;  // past N: a copy of the last chain
-  }
-  // device memory holds (D, N): the tile's chains are adjacent there, so
-  // the threads take (site, chain) pairs chain-fastest
-  for (int p = threadIdx.x; p < C * d.D; p += kSiteThreads) {
-    const int c = p % C, i = p / C;
-    x[c * d.D + i] = xin[i * sN + n[c]];
-  }
-  float accepted[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) accepted[c] = 0.f;
-  __syncthreads();
-  const int pairs = (d.D + 1) / 2;
-
-  for (int k = 0; k < K; ++k) {
-    bool rev[C];
-    float u_acc[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const uint4 r0 = philox4x32_10(
-          make_uint4(static_cast<uint32_t>(n[c]), static_cast<uint32_t>(k), 0u, 0u),
-          key);
-      rev[c] = !(uniform24(r0.x) < 0.5f);
-      u_acc[c] = uniform24(r0.y);
-      float* v = s.v + c * d.D;
-      for (int j = threadIdx.x; j < pairs; j += kSiteThreads) {
-        const uint4 r = philox4x32_10(
-            make_uint4(static_cast<uint32_t>(n[c]), static_cast<uint32_t>(k),
-                       static_cast<uint32_t>(1 + j), 0u),
-            key);
-        v[2 * j] = box_muller(r.x, r.y);
-        if (2 * j + 1 < d.D) v[2 * j + 1] = box_muller(r.z, r.w);
-      }
-      for (int i = threadIdx.x; i < d.D; i += kSiteThreads)
-        s.xp[c * d.D + i] = x[c * d.D + i];
-    }
-    __syncthreads();
-
-    // H(x, v) of each chain, on x' = x
-    float part[3 * C], ld[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) ld[c] = 0.f;
-    site_hamiltonian_parts<En>(B, d, s, ld, part);
-    block_sums(part, s.sred, s.tot);
-    float h0[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) h0[c] = s.tot[c] + 0.5f * s.tot[C + c];
-
-    site_grad<En>(B, d, s.xp, s.g, scratch_of(s));
-    for (int t = 0; t < d.T; ++t) {
-      int step[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) step[c] = rev[c] ? d.T - 1 - t : t;
-      site_traj_step<En, HM, TW>(B, d, hmc != 0, rev, step, s, ld);
-    }
-
-    // H(x', v') and the log-det, then the accept: the same in every thread
-    site_hamiltonian_parts<En>(B, d, s, ld, part);
-    block_sums(part, s.sred, s.tot);
-    bool acc[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float h1 = s.tot[c] + 0.5f * s.tot[C + c];
-      // exp(min(a, 0)) with NaN kept NaN, then the NaN guard maps it to 0
-      const float a = h0[c] - h1 + s.tot[2 * C + c];
-      float px = expf(a > 0.f ? 0.f : a);
-      if (!isfinite(px)) px = 0.f;
-      acc[c] = px - u_acc[c] >= 0.f;
-      if (acc[c]) accepted[c] += 1.f;
-    }
-    for (int p = threadIdx.x; p < C * d.D; p += kSiteThreads) {
-      const int c = p % C, i = p / C, o = c * d.D + i;
-      if (acc[c]) x[o] = s.xp[o];
-      if (trace != nullptr && live[c])
-        trace[(static_cast<size_t>(k) * d.D + i) * sN + n[c]] = x[o];
-    }
-    __syncthreads();
-  }
-  for (int p = threadIdx.x; p < C * d.D; p += kSiteThreads) {
-    const int c = p % C, i = p / C;
-    if (live[c]) xo[i * sN + n[c]] = x[c * d.D + i];
-  }
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (live[c]) acc_out[n[c]] = accepted[c] * (1.0f / static_cast<float>(K));
-  }
-}
-
 // -- the trajectory kernels on sites ------------------------------------------
 //
-// The trajectory kernel (trajectory.cu) past 64 wide runs the chain kernel's
-// substep (site_traj_step) on a tile, the whole launch in one direction, in
+// The trajectory kernel (trajectory.cu) past 64 wide runs the substep
+// (site_traj_step) on a tile, the whole launch in one direction, in
 // the same shared memory; its backward kernel (trajectory_bwd.cu) runs the
 // hand-derived VJP of one substep below (site_substep_vjp), the counterpart
 // of lane_traj_step_vjp (l2hmc_lanes.cuh) and of the plain _step_vjp
@@ -609,7 +440,7 @@ __global__ void __launch_bounds__(kSiteThreads) site_chain_kernel(
 // scratch of the block's own, read and written through the L1 and the L2
 // by the same phases (every phase is bracketed by barriers, which order a
 // block's global accesses as its shared ones); kSiteVjpMaxDim (4096) is the
-// chain kernel's cap.
+// trajectory kernel's cap.
 //
 // Weight cotangents. Each product weight's cotangent is a sum, over the
 // chains and the net's applications, of an outer product of two factors:
@@ -1106,35 +937,6 @@ __device__ inline void site_substep_vjp(const Block& B, Dims d, bool hmc, bool r
 inline bool site_chain(Dims d, int kind) {
   const int p = pick_lanes(d);
   return p == 3 || (p == 2 && kind == Phi4::kKind);
-}
-
-template <class En, int HM, class TW>
-static int launch_site_chain_hm(const float* params, Dims d, int hmc,
-                                const float* x, float* xo, float* acc,
-                                float* trace, float* xs, int N, int K,
-                                uint2 key, cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(site_smem_floats(d.D, HM, site_pre_floats(d, En::kKind))) *
-      sizeof(float);
-  cudaError_t e = allow_smem(site_chain_kernel<En, HM, TW>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (N + kSiteChains - 1) / kSiteChains;
-  site_chain_kernel<En, HM, TW><<<blocks, kSiteThreads, smem, stream>>>(
-      params, d, hmc, x, xo, acc, trace, xs, N, K, key);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class En, class TW>
-static int launch_site_chain(const float* params, Dims d, int hmc,
-                             const float* x, float* xo, float* acc,
-                             float* trace, float* xs, int N, int K, uint2 key,
-                             cudaStream_t stream) {
-  if (xs == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (site_hm(d) == WideLanes::HM)
-    return launch_site_chain_hm<En, WideLanes::HM, TW>(params, d, hmc, x, xo, acc,
-                                                   trace, xs, N, K, key, stream);
-  return launch_site_chain_hm<En, kSiteMaxHidden, TW>(params, d, hmc, x, xo, acc,
-                                                  trace, xs, N, K, key, stream);
 }
 
 }  // namespace l2hmc

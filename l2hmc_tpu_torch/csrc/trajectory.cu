@@ -33,13 +33,12 @@
 //
 // Past 64 wide (states up to 4096, the 64 x 64 phi^4 lattice, or hidden
 // widths up to 128) a lane group cannot hold the state nor a block the
-// weights: site_traj_kernel runs those widths on the chain kernel's
-// site-parallel configuration (l2hmc_sites.cuh), a tile of 4 chains a block
-// of 256 threads, x', v and g in shared memory (the chain kernel's budget,
-// 212.4 KB at D = 4096 and hidden 128), the weights read through the L2,
-// the launch's one direction in every chain, and the log-det reduced by
-// fixed-order warp trees. Every spec runs there, as in the chain kernel
-// (Funnel's and Gmm's gradients after their per-chain prelude).
+// weights: site_traj_kernel runs those widths on the site-parallel
+// configuration (l2hmc_sites.cuh), a tile of 4 chains a block of 256
+// threads, x', v and g in shared memory (212.4 KB at D = 4096 and hidden
+// 128), the weights read through the L2, the launch's one direction in every
+// chain, and the log-det reduced by fixed-order warp trees. Every spec runs
+// there (Funnel's and Gmm's gradients after their per-chain prelude).
 //
 // Operands: TW, float here; trajectory_bf16.cu compiles this file again for
 // TW = __nv_bfloat16 (the JAX kernel's cd = bfloat16) in a translation unit

@@ -57,9 +57,9 @@ SIGNATURES = {
     "chain": {
         "l2hmc_chain": [_P, *([_I] * 7), _P, _P, _P, _P, _P, _I, _I, _U64, _P],
         "l2hmc_chain_lanes": [_I, _I, _I],
-        "l2hmc_chain_site_chains": [_I, _I, _I],
-        "l2hmc_chain_site_threads": [_I, _I, _I],
-        "l2hmc_chain_site_smem_bytes": [_I] * 5,  # D, H, H2, energy kind, constants
+        # D, H, H2, energy kind, constants, N, out[9]
+        "l2hmc_chain_site_plan": [*([_I] * 6), _P],
+        "l2hmc_chain_site_capacities": [*([_I] * 5), _P],  # D, H, H2, kind, constants, out[9]
     },
     "chain_bf16": {
         "l2hmc_chain_bf16": [_P, *([_I] * 7), _P, _P, _P, _P, _P, _I, _I, _U64, _P],

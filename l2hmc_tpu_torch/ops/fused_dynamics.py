@@ -75,7 +75,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -108,8 +108,16 @@ _LANE_WIDTH = 64
 _SITE_VJP_SMEM_DIM = 1024
 _MAX_DIM, _MAX_HIDDEN = 4096, 128
 _MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
-# the site-parallel configuration's tile: chains and threads a block
+# the site-parallel trajectory kernels' tile: chains and threads a block
 _SITE_CHAINS, _SITE_THREADS = 4, 256
+# the chain kernel's site-parallel configuration on clusters
+# (csrc/l2hmc_site_cluster.cuh): the widest tile's chains, threads a CTA,
+# the CTAs a launch aims at and the widest cluster (kClChains, kClThreads,
+# kClTargetCtas, kClMaxG)
+_CL_CHAINS, _CL_THREADS, _CL_TARGET_CTAS, _CL_MAX_G = 16, 256, 132, 8
+# bytes of static shared memory its kernel takes, which the dynamic shared
+# memory a CTA may use leaves out (kClStaticSmem)
+_CL_STATIC_SMEM = 224
 # the site VJP's factor scratch a part, in floats (kSiteFactorCap), and its
 # reduction's output tile, rows of K a stage, blocks aimed at and most splits
 # of K (kRedTile, kRedK, kRedTargetBlocks, kRedMaxSplits in
@@ -670,33 +678,186 @@ def site_prelude_floats(kind: int, nc: int, dim: int) -> int:
     return 2 if kind == FunnelEnergy.KIND else 0
 
 
-def site_geometry(dim: int, hidden: int, hidden2: int, kind: int = QuadraticGaussianEnergy.KIND,
-                  nc: int = 0) -> tuple[int, int, int]:
-    """(chains, threads, bytes of shared memory) a block of the chain
-    kernel's site-parallel configuration takes at these widths on the energy
-    spec ``kind`` with ``nc`` floats of constants: a host mirror of
-    ``site_smem_floats`` in csrc/l2hmc_sites.cuh. Its buffers hold 64 hidden
-    units, or 128 where a width passes 64; x', v and g of the tile's chains
-    and the spec's prelude lie in shared memory, the accepted states in the
-    wrapper's scratch. Raises past the caps."""
+class SitePlan(NamedTuple):
+    """The chain kernel's site-parallel launch (``cl_plan`` in
+    csrc/l2hmc_site_cluster.cuh): chains a tile, CTAs a cluster, threads a
+    CTA, bytes of dynamic shared memory a CTA, the parts of both nets'
+    slices staged there (STAGE_ROWS | STAGE_HEADS), whether the accepted
+    states lie there, sites a CTA's range, and floats of scratch the launch
+    needs for the accepted states."""
+    chains: int
+    G: int
+    threads: int
+    smem: int
+    staged: int
+    x_in_smem: bool
+    chunk: int
+    scratch: int
+
+
+def _cl_unit(dim: int, kind: int) -> int:
+    """Sites a CTA's range is a multiple of: whole lattice rows for phi^4
+    (two rows where L is odd), else 2, so that a pair of normals never
+    straddles two ranges (``cl_unit``)."""
+    if kind != Phi4Energy.KIND:
+        return 2
+    L = math.isqrt(dim)
+    if L * L < dim:
+        L += 1
+    return L if L % 2 == 0 else 2 * L
+
+
+def _cl_chunk(dim: int, G: int, unit: int) -> int:
+    per = -(-dim // G)
+    return -(-per // unit) * unit
+
+
+# the parts of both nets' slices a launch stages in shared memory
+# (kStageRows, kStageHeads): the first layer's rows; the heads' columns and
+# the per-site arrays
+STAGE_ROWS, STAGE_HEADS = 1, 2
+
+
+def cl_smem_floats(dim: int, hidden: int, hidden2: int, pre: int, chains: int, chunk: int,
+                   x_in_smem: bool, staged: int) -> int:
+    """Floats of shared memory a CTA of the chain kernel's cluster form
+    takes with a tile of ``chains`` chains (``cl_smem_floats``): x', v, g
+    (and the accepted x) as (chunk, chains); the first layer's warp partials
+    and its two partial rows; the two hidden layers; the sums' warp
+    partials, two cluster rows and totals; the chains' uniforms, accepts and
+    directions; ``pre`` prelude floats a chain; and both nets' staged parts
+    (``staged``: STAGE_ROWS, the rows of w1 and w2; STAGE_HEADS, the columns
+    of ws, wt, wq and five per-site arrays)."""
+    C, W, C16 = chains, _CL_THREADS // 32, _CL_CHAINS
+    f = (4 if x_in_smem else 3) * chunk * C
+    f += W * C * hidden + 2 * C * hidden + hidden * C + hidden2 * C
+    f += W * 3 * 4 + 2 * 3 * C16 + 3 * C16 + 3 * C16 + C16 * pre
+    rows = 2 * chunk * hidden if staged & STAGE_ROWS else 0
+    heads = 3 * hidden2 * chunk + 5 * chunk if staged & STAGE_HEADS else 0
+    return f + 2 * (rows + heads)
+
+
+def _cl_candidate(dim, hidden, hidden2, pre, chains, G_raw, unit):
+    """The launch at ``chains`` a tile and a cluster of G_raw CTAs
+    (``cl_candidate``) as (G, chunk, staged, x_in_smem, floats), and whether
+    its state fits a CTA."""
+    cap = (_MAX_SMEM - _CL_STATIC_SMEM) // 4
+    chunk = _cl_chunk(dim, G_raw, unit)
+
+    def floats(x_in_smem, staged):
+        return cl_smem_floats(dim, hidden, hidden2, pre, chains, chunk, x_in_smem, staged)
+
+    staged = next((k for k in (STAGE_ROWS | STAGE_HEADS, STAGE_HEADS, STAGE_ROWS)
+                   if floats(False, k) <= cap), 0)
+    x_in_smem = floats(True, staged) <= cap
+    return (-(-dim // chunk), chunk, staged, x_in_smem, floats(x_in_smem, staged)), \
+        floats(False, 0) <= cap
+
+
+def site_geometry(dim: int, hidden: int, hidden2: int, n_chains: int,
+                  kind: int = QuadraticGaussianEnergy.KIND, nc: int = 0,
+                  capacity: Optional[dict] = None) -> SitePlan:
+    """The chain kernel's site-parallel launch at these widths and
+    ``n_chains`` chains on the energy spec ``kind`` with ``nc`` floats of
+    constants: a host mirror of ``cl_plan`` in csrc/l2hmc_site_cluster.cuh.
+    ``capacity`` maps G to the clusters of G CTAs the card holds at once
+    (``site_capacities``; None: the ideal 132 // G). Where a tile width
+    (16, 8, 4 chains) and a G up to 8 run the tiles in one wave with both
+    nets' slices staged beside the state, the one with the most CTAs (of
+    equals the smallest G, then the widest tile); else the Gaussian and the
+    mixtures, which read the whole state, one CTA a tile of the widest width
+    whose tiles are at least 3/4 of the CTAs the card holds, or the
+    narrowest that fits; else tiles of 16 chains on clusters of the G up to
+    8 whose ranges all hold sites and whose state fits, the fewest waves x
+    sites a CTA (the smallest such G); where nothing fits (past the caps
+    only), G = 8, which the library refuses. Each launch stages the parts of
+    both nets' slices that fit beside the state (both, else the heads', the
+    larger, else the first layer's rows) and keeps the accepted states in shared
+    memory where they fit beside that, else in the wrapper's scratch.
+    Raises past the caps."""
     reason = _caps_refusal("chain", dim, max(hidden, hidden2))
     if reason is not None:
         raise ValueError(reason)
-    hm = _LANE_WIDTH if max(hidden, hidden2) <= _LANE_WIDTH else _MAX_HIDDEN
-    C, W = _SITE_CHAINS, _SITE_THREADS // 32
-    floats = (3 * C * dim + W * C * hm + 2 * C * hm + W * 3 * C + 3 * C
-              + C * site_prelude_floats(kind, nc, dim))
-    return C, _SITE_THREADS, 4 * floats
+    if n_chains <= 0:
+        raise ValueError(f"chain kernel needs chains, not {n_chains}")
+    pre = site_prelude_floats(kind, nc, dim)
+    unit = _cl_unit(dim, kind)
+    whole = kind in (QuadraticGaussianEnergy.KIND, GmmEnergy.KIND)
+
+    def held(G):
+        return capacity[G] if capacity is not None else _CL_TARGET_CTAS // G
+
+    def plan(C, G):
+        cand, fits = _cl_candidate(dim, hidden, hidden2, pre, C, G, unit)
+        return (C, *cand), fits
+
+    best, best_ctas = None, 0
+    for G in range(1, (1 if whole else _CL_MAX_G) + 1):
+        for C in (16, 8, 4):
+            p, fits = plan(C, G)
+            tiles = -(-n_chains // C)
+            if (p[1] == G and fits and p[3] == STAGE_ROWS | STAGE_HEADS and tiles <= held(G)
+                    and tiles * G > best_ctas):
+                best, best_ctas = p, tiles * G
+    if best is None and whole:
+        best = next((p for p, fits in (plan(C, 1) for C in (16, 8, 4))
+                     if fits and 4 * -(-n_chains // p[0]) >= 3 * held(1)), None)
+        if best is None:
+            best = next((p for p, fits in (plan(C, 1) for C in (4, 8, 16)) if fits), None)
+    elif best is None:
+        tiles, best_cost = -(-n_chains // _CL_CHAINS), None
+        for G in range(1, _CL_MAX_G + 1):
+            p, fits = plan(_CL_CHAINS, G)
+            if p[1] != G or not fits or held(G) < 1:
+                continue
+            cost = -(-tiles // held(G)) * p[2]
+            if best_cost is None or cost < best_cost:
+                best, best_cost = p, cost
+    if best is None:  # nothing fits: the widest cluster, which the library refuses
+        best = plan(_CL_CHAINS, _CL_MAX_G)[0]
+    C, G, chunk, staged, x_in_smem, floats = best
+    tiles = -(-n_chains // C)
+    return SitePlan(C, G, _CL_THREADS, 4 * floats, staged, x_in_smem, chunk,
+                    0 if x_in_smem else tiles * G * chunk * C)
 
 
-def site_tile(dim: int, hidden: int, hidden2: int, kind: int = QuadraticGaussianEnergy.KIND,
-              nc: int = 0) -> tuple[int, int, int]:
-    """``site_geometry`` as the built library reports it (chains, threads,
-    bytes of shared memory a block; zeros past the caps)."""
-    lib = _cuda.library("chain")
-    return (lib.l2hmc_chain_site_chains(dim, hidden, hidden2),
-            lib.l2hmc_chain_site_threads(dim, hidden, hidden2),
-            lib.l2hmc_chain_site_smem_bytes(dim, hidden, hidden2, kind, nc))
+def _site_plan_out(dim, hidden, hidden2, n_chains, kind, nc):
+    out = (ctypes.c_int * 9)()
+    err = _cuda.library("chain").l2hmc_chain_site_plan(dim, hidden, hidden2, kind, nc, n_chains,
+                                                       out)
+    if err != 0:
+        raise ValueError(f"chain kernel: no site plan for dim {dim}, hidden {hidden}/{hidden2}, "
+                         f"{n_chains} chains (CUDA error {err})")
+    return out
+
+
+def site_tile(dim: int, hidden: int, hidden2: int, n_chains: int,
+              kind: int = QuadraticGaussianEnergy.KIND, nc: int = 0) -> SitePlan:
+    """``site_geometry`` as the built library's launch takes it on this card
+    (``l2hmc_chain_site_plan``, at the card's ``site_capacities``); raises
+    past the caps."""
+    out = _site_plan_out(dim, hidden, hidden2, n_chains, kind, nc)
+    return SitePlan(out[0], out[1], out[2], out[3], out[4], bool(out[5]), out[6], out[7])
+
+
+def site_clusters(dim: int, hidden: int, hidden2: int, n_chains: int,
+                  kind: int = QuadraticGaussianEnergy.KIND, nc: int = 0) -> int:
+    """How many of ``site_tile``'s clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters`` for the launch the chain kernel
+    makes)."""
+    return _site_plan_out(dim, hidden, hidden2, n_chains, kind, nc)[8]
+
+
+def site_capacities(dim: int, hidden: int, hidden2: int,
+                    kind: int = QuadraticGaussianEnergy.KIND, nc: int = 0) -> dict:
+    """{G: clusters of G CTAs the card holds at once} for G = 1 .. 8, each
+    at the shared memory of the chain kernel's launch at G (0 where no
+    launch has G ranks or its state does not fit): what ``site_geometry``
+    takes as ``capacity`` to mirror the library's plan on this card."""
+    out = (ctypes.c_int * 9)()
+    err = _cuda.library("chain").l2hmc_chain_site_capacities(dim, hidden, hidden2, kind, nc, out)
+    _cuda.check(err, "chain site capacities")
+    return {G: out[G] for G in range(1, _CL_MAX_G + 1)}
 
 
 def trajectory_on_sites(inp: KernelInputs) -> bool:
@@ -715,7 +876,7 @@ def trajectory_site_geometry(kernel: str, dim: int, hidden: int, hidden2: int, n
     ``kind`` with ``nc`` floats of constants: a host mirror of
     ``site_smem_floats`` and ``site_vjp_smem_floats`` in
     csrc/l2hmc_sites.cuh. The trajectory kernel keeps x', v and g of its tile
-    in shared memory, as the chain kernel does, and no scratch; the backward
+    and the buffers in shared memory, and no scratch; the backward
     kernel keeps ten (C, D) arrays there up to dim 1024 (past it in its
     scratch) and the four net applications' hidden layers, and a compact row
     of per-site, bh, te and eps cotangents a block in the wrapper's scratch
@@ -728,10 +889,12 @@ def trajectory_site_geometry(kernel: str, dim: int, hidden: int, hidden2: int, n
     if max(dim, hidden, hidden2) <= _LANE_WIDTH:
         raise ValueError(f"{kernel} kernel runs dim {dim}, hidden {max(hidden, hidden2)} on "
                          f"its lane groups, not on sites")
-    if kernel == "trajectory":
-        return (*site_geometry(dim, hidden, hidden2, kind, nc), 0)
     hm = _LANE_WIDTH if max(hidden, hidden2) <= _LANE_WIDTH else _MAX_HIDDEN
     C, W = _SITE_CHAINS, _SITE_THREADS // 32
+    if kernel == "trajectory":
+        floats = (3 * C * dim + W * C * hm + 2 * C * hm + W * 3 * C + 3 * C
+                  + C * site_prelude_floats(kind, nc, dim))
+        return C, _SITE_THREADS, 4 * floats, 0
     arrays = 10 * C * dim if dim <= _SITE_VJP_SMEM_DIM else 0
     pre = C * site_prelude_floats(kind, nc, dim)
     return C, _SITE_THREADS, 4 * (arrays + W * C * hm + 10 * C * hm + pre), -(-n_chains // C)
@@ -1422,7 +1585,9 @@ def chain(inp: KernelInputs, x, seed: int, n_mh_steps: int, collect_trace: bool 
     """K MH steps on (D, N) float32 state; returns (x (D, N), acceptance
     (1, N), trace (K, D, N) or None). CPU tensors take the plain version;
     CUDA tensors launch ``csrc/chain.cu``, or its bfloat16 instantiation
-    (``csrc/chain_bf16.cu``) where ``inp.cd`` is bfloat16."""
+    (``csrc/chain_bf16.cu``) where ``inp.cd`` is bfloat16; on the
+    site-parallel configuration at the plan the library's rule picks on this
+    card (``site_tile``)."""
     _check_state(inp, x)
     if n_mh_steps <= 0:
         raise ValueError("n_mh_steps must be positive")
@@ -1431,7 +1596,6 @@ def chain(inp: KernelInputs, x, seed: int, n_mh_steps: int, collect_trace: bool 
     block = _kernel_block(inp, x, "chain")
     D, H, H2, T = inp.dims
     N = x.shape[1]
-    lib = _cuda.library("chain")
     name = _lib_name("chain", inp)
     entry = getattr(_cuda.library(name), f"l2hmc_{name}")
     xo = torch.empty_like(x)
@@ -1440,12 +1604,14 @@ def chain(inp: KernelInputs, x, seed: int, n_mh_steps: int, collect_trace: bool 
         torch.empty((n_mh_steps, D, N), dtype=torch.float32, device=x.device)
         if collect_trace else None
     )
+    sites = chain_on_sites(inp)
     scratch = None
-    if chain_on_sites(inp):
-        # the site-parallel tiles' accepted states, a tile's chains past N
-        # included
-        c = lib.l2hmc_chain_site_chains(D, H, H2)
-        scratch = torch.empty(-(-N // c) * c * D, dtype=torch.float32, device=x.device)
+    if sites:
+        # the accepted states of the site-parallel tiles, where the plan keeps
+        # them out of shared memory
+        floats = site_tile(D, H, H2, N, *inp.energy_args).scratch
+        if floats:
+            scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = entry(
             block.data_ptr(), D, H, H2, T, *inp.energy_args, int(inp.hmc), x.data_ptr(),
@@ -1456,7 +1622,7 @@ def chain(inp: KernelInputs, x, seed: int, n_mh_steps: int, collect_trace: bool 
             torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, name)
-    _count("chain", inp, scratch is not None)
+    _count("chain", inp, sites)
     return xo, acc, trace
 
 

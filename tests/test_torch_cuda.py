@@ -416,6 +416,85 @@ def test_phi4_chain_kernel_matches_plain_on_same_bits(cuda, case, n):
     assert 0.0 < float(accp.mean()) < 1.0
 
 
+# The cluster chain kernel (csrc/l2hmc_site_cluster.cuh) at each cluster
+# size its plan takes, by chain count at L = 16 (from one CTA a tile at
+# 2048 chains to eight at 37), at ranges that do not divide the sites (the
+# funnel and the rough well at D = 100), a partial tile (203 chains), HMC
+# mode, and on the lattice at L = 64 (weights streamed).
+CLUSTER_CASES = [("phi4_L16", 2048), ("phi4_L16", 1024), ("phi4_L16", 512), ("phi4_L16", 203),
+                 ("phi4_L16", 37), ("phi4_L8", 512), ("phi4_L32", 256), ("phi4_L64", 203),
+                 ("funnel_D100", 512), ("funnel_D100", 203), ("rough_well_D100", 203),
+                 ("phi4_L16_hmc", 203)]
+
+
+@pytest.mark.parametrize("case,n", CLUSTER_CASES)
+def test_cluster_chain_kernel_matches_plain_at_its_plans(cuda, case, n):
+    """The cluster chain kernel against its plain version on the same Philox
+    bits, 20 traced MH steps, at the plan the library takes on this card
+    (its G recorded, every G of 1-8 the cases reach): at most 5 flipped
+    decisions of 20 a chain's worth (chip_smoke's phase 3 bar, 0.2% at the
+    protocols' counts), 1e-2 on the other chains, the trace's end the state,
+    the acceptance the trace's, and a second launch equal bit for bit."""
+    mod = phi4 if case in phi4.PARITY_CASES else suite
+    inp, x = mod.parity_inputs(case, n, cuda, seed=44)
+    D, H, H2, _ = inp.dims
+    plan = fd.site_tile(D, H, H2, n, *inp.energy_args)
+    assert plan == fd.site_geometry(D, H, H2, n, *inp.energy_args,
+                                    capacity=fd.site_capacities(D, H, H2, *inp.energy_args))
+    assert 1 <= plan.G <= 8 and fd.site_clusters(D, H, H2, n, *inp.energy_args) >= 1
+    before = fd.LAUNCHES["chain:sites"]
+    xk, acck, trk = fd.chain(inp, x, seed=6, n_mh_steps=20, collect_trace=True)
+    assert fd.LAUNCHES["chain:sites"] == before + 1
+    for a, b in zip((xk, acck, trk), fd.chain(inp, x, seed=6, n_mh_steps=20, collect_trace=True)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    _, accp, trp = fd.chain_plain(inp, x, seed=6, n_mh_steps=20, collect_trace=True)
+    torch.testing.assert_close(trk[-1], xk, rtol=0, atol=0)
+    dec = _accepts(trk, x)
+    torch.testing.assert_close(acck, dec.float().mean(dim=0, keepdim=True), rtol=0, atol=1e-6)
+    flipped = dec != _accepts(trp, x)
+    clean = ~flipped.any(dim=0)
+    assert int(flipped.sum()) <= max(5, 0.002 * flipped.numel())
+    torch.testing.assert_close(trk[..., clean], trp[..., clean], rtol=0, atol=1e-2)
+    assert 0.0 < float(accp.mean()) < 1.0
+
+
+def test_cluster_plans_reach_every_size(cuda):
+    """The chain counts of ``CLUSTER_CASES`` at L = 16 take one CTA a tile
+    at 2048 chains and more at fewer chains, and the plans at the cases
+    span G = 1, 2 and at least one size past 2."""
+    gs = set()
+    for case, n in CLUSTER_CASES:
+        mod = phi4 if case in phi4.PARITY_CASES else suite
+        inp, _ = mod.parity_inputs(case, 16, "cpu")
+        D, H, H2, _ = inp.dims
+        gs.add(fd.site_tile(D, H, H2, n, *inp.energy_args).G)
+    assert {1, 2} <= gs and max(gs) > 2, gs
+
+
+def test_cluster_chain_refusal_raises(cuda, monkeypatch):
+    """No fallback: where the library refuses a launch on a CUDA tensor (a
+    cluster the card cannot hold returns cudaErrorInvalidConfiguration),
+    ``fd.chain`` raises, counts no launch and runs no plain version."""
+    inp, x = phi4.parity_inputs("phi4_L16", 64, cuda, seed=44)
+    lib = _cuda.library("chain")
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def l2hmc_chain(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+    real = _cuda.library
+    monkeypatch.setattr(_cuda, "library", lambda name: Refusing() if name == "chain" else real(name))
+    monkeypatch.setattr(fd, "chain_plain", lambda *a, **k: pytest.fail("fell back to plain"))
+    before = dict(fd.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        fd.chain(inp, x, seed=6, n_mh_steps=2)
+    assert fd.LAUNCHES == before
+
+
 def test_kernels_refuse_past_their_caps(cuda):
     """The trajectory kernels and the chain kernel take states up to 4096
     wide and hidden widths up to 128, every energy spec alike: past them each
@@ -456,18 +535,26 @@ def test_chain_on_sites_and_site_geometry_match_the_library(cuda):
     """Over a grid of widths: the host's ``chain_on_sites`` picks the
     site-parallel configuration exactly where the library's ``pick_lanes``
     gives no lane group (``l2hmc_chain_lanes`` 0), and the host mirror
-    ``site_geometry`` equals the library's chains, threads and shared memory
-    a block, zeros past the caps."""
+    ``site_geometry`` at this card's capacities (``site_capacities``) equals
+    the library's plan (chains a tile, G, threads, shared memory a CTA,
+    staging, the accepted states' place, sites a range, scratch) at 203 and
+    2048 chains; both raise past the caps."""
     gauss = targets.ill_conditioned_gaussian
     for dim in (2, 10, 50, 64, 65, 128, 1024, 4096, 4097):
         for hidden in (10, 32, 64, 65, 100, 128, 129):
             h2 = hidden
+            nc = dim * dim + dim
             try:
-                host = fd.site_geometry(dim, hidden, h2)
-            except ValueError:
-                host = (0, 0, 0)
-            assert fd.site_tile(dim, hidden, h2) == host, (dim, hidden)
-            if host == (0, 0, 0) or dim > 1024:
+                fd.site_geometry(dim, hidden, h2, 203, 0, nc)
+            except ValueError:  # past the caps: the library refuses too
+                with pytest.raises(ValueError):
+                    fd.site_tile(dim, hidden, h2, 203, 0, nc)
+                continue
+            cap = fd.site_capacities(dim, hidden, h2, 0, nc)
+            for n in (203, 2048):
+                assert fd.site_tile(dim, hidden, h2, n, 0, nc) == fd.site_geometry(
+                    dim, hidden, h2, n, 0, nc, capacity=cap), (dim, hidden, n)
+            if dim > 1024:
                 continue  # past the caps; a dense Gaussian past 1024 is not built here
             tgt = targets.scg_gaussian() if dim == 2 else gauss(dim)
             dyn, _ = build_dynamics(ScgConfig(dim=dim, hidden=hidden, T=2), tgt)
@@ -653,17 +740,16 @@ def test_site_trajectory_at_L64(cuda):
     (fd.GmmEnergy.KIND, lambda d: 4 * (d + d * d + 1))])
 def test_site_geometry_with_a_prelude_matches_the_library(cuda, kind, nc_of):
     """With an energy spec's prelude (the funnel's 2 floats a chain, a
-    K-component mixture's 2K + 2) the host mirrors ``site_geometry`` and
-    ``trajectory_site_geometry`` equal each library's shared memory a block
-    (zeros where the lane groups serve the widths or past the caps)."""
+    K-component mixture's 2K + 2) the host mirrors ``site_geometry`` (at this
+    card's capacities, 512 chains) and ``trajectory_site_geometry`` equal
+    each library's plan and shared memory a block (zeros where the lane
+    groups serve the widths or past the caps)."""
     for dim in (2, 50, 65, 100, 1024, 4096):
         for hidden in (10, 64, 100, 128):
             nc = nc_of(dim)
-            try:
-                host = fd.site_geometry(dim, hidden, hidden, kind, nc)
-            except ValueError:
-                host = (0, 0, 0)
-            assert fd.site_tile(dim, hidden, hidden, kind, nc) == host, (dim, hidden)
+            cap = fd.site_capacities(dim, hidden, hidden, kind, nc)
+            assert fd.site_tile(dim, hidden, hidden, 512, kind, nc) == fd.site_geometry(
+                dim, hidden, hidden, 512, kind, nc, capacity=cap), (dim, hidden)
             for kernel in ("trajectory", "trajectory_bwd"):
                 try:
                     host = fd.trajectory_site_geometry(kernel, dim, hidden, hidden, 8, kind,

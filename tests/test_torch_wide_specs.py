@@ -281,22 +281,24 @@ def _spec_inputs(kind, dim):
 @pytest.mark.parametrize("dim,hidden", [(2, 100), (80, 20), (100, 128), (1024, 128),
                                         (4096, 128)])
 def test_site_geometry_holds_the_prelude(kind, dim, hidden):
-    """The host mirrors of the three kernels' shared memory a block add the
-    spec's prelude, C (2K + 2) floats for a K-component mixture and 2 C for
-    the funnel (C = 4 chains a block), none for the rough well, to the
-    Gaussian's; every block still fits the 232,448 bytes it may use, the
-    widest (dim 4096, hidden 128) included."""
+    """The host mirrors of the three kernels' shared memory add the spec's
+    prelude, C (2K + 2) floats for a K-component mixture and 2 C for the
+    funnel, none for the rough well: to the Gaussian's at C = 4 chains a
+    block for the trajectory kernels, and 16 P floats to the chain kernel's
+    cluster plan of the same tile and ranges; every block and CTA
+    still fits the 232,448 bytes it may use, the widest (dim 4096, hidden
+    128) included."""
     kind, nc = _spec_inputs(kind, dim)
     pre = {fd.RoughWellEnergy.KIND: 0, fd.GmmEnergy.KIND: 6, fd.FunnelEnergy.KIND: 2}[kind]
     assert fd.site_prelude_floats(kind, nc, dim) == pre
-    base = fd.site_geometry(dim, hidden, hidden)
-    chain = fd.site_geometry(dim, hidden, hidden, kind, nc)
-    assert chain == (4, 256, base[2] + 4 * 4 * pre) and chain[2] <= fd._MAX_SMEM
+    chain = fd.site_geometry(dim, hidden, hidden, 512, kind, nc)
+    assert chain.threads == 256 and chain.smem <= fd._MAX_SMEM
+    assert chain.smem == 4 * (fd.cl_smem_floats(dim, hidden, hidden, 0, chain.chains, chain.chunk,
+                                                chain.x_in_smem, chain.staged) + 16 * pre)
     for kernel in ("trajectory", "trajectory_bwd"):
         g0 = fd.trajectory_site_geometry(kernel, dim, hidden, hidden, 8)
         g = fd.trajectory_site_geometry(kernel, dim, hidden, hidden, 8, kind, nc)
         assert g == (4, 256, g0[2] + 4 * 4 * pre, g0[3]) and g[2] <= fd._MAX_SMEM
-    assert fd.trajectory_site_geometry("trajectory", dim, hidden, hidden, 8, kind, nc)[:3] == chain
 
 
 def test_site_prelude_floats_match_the_sources():

@@ -228,15 +228,15 @@ WIDTHS = [(d, h) for d in (50, 65, 100, 256, 1024, 4096) for h in (8, 32, 72, 12
 @pytest.mark.parametrize("dim,hidden", WIDTHS)
 def test_trajectory_site_geometry_fits_shared_memory(dim, hidden):
     """The host mirror of the site-parallel trajectory kernels: 4 chains a
-    block of 256 threads; the forward kernel's shared memory the chain
-    kernel's (x', v, g and the buffers), no scratch; the backward kernel's
+    block of 256 threads; the forward kernel's shared memory x', v, g and
+    the buffers, no scratch; the backward kernel's
     ten (C, D) arrays (up to dim 1024; past it they lie in its scratch) and
     the buffers (the partial sums, the four applications' hidden layers,
     dz1, dz2), a row of cotangents a block; both within the 232,448 bytes a
     block may use."""
     hm = 64 if hidden <= 64 else 128
     fwd = fd.trajectory_site_geometry("trajectory", dim, hidden, hidden, 1024)
-    assert fwd == (4, 256, fd.site_geometry(dim, hidden, hidden)[2], 0)
+    assert (fwd[0], fwd[1], fwd[3]) == (4, 256, 0)
     assert fwd[2] == 4 * (3 * 4 * dim + 8 * 4 * hm + 2 * 4 * hm + 8 * 3 * 4 + 3 * 4)
     assert fwd[2] <= fd._MAX_SMEM
     bwd = fd.trajectory_site_geometry("trajectory_bwd", dim, hidden, hidden, 1023)
